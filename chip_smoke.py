@@ -8,17 +8,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    without CUDA;
 2. build the CUDA kernels from ``safepy_tpu_torch/csrc`` into ``build/``;
 3. hold each kernel bitwise against its plain torch version on the card at
-   the shapes of the main path, and time both (CUDA events, median);
-4. the main path: the Example_1-shaped workflow of ``bench.py`` (3,971-node
-   kNN geometric network, one quantitative attribute, 1,000-permutation
-   null) through ``SAFE(device="cuda").run_pipeline``. Checks that the banded
-   plan was taken, that every kernel launched, that the neighborhoods equal
-   scipy Dijkstra's, and that the counts are consistent; times the warm run,
-   the steady runs and the APSP and null phases, and profiles one steady
-   run for the device's busy time and its largest kernels;
+   the shapes of its path, and time both (CUDA events, median): the
+   banded-window kernels at the Example_1 shapes, the skew kernels at the
+   49,920-node band shape (block 128, bt 12, W 3,200) and at bt 2;
+4. the Example_1 path: the Example_1-shaped workflow of ``bench.py``
+   (3,971-node kNN geometric network, one quantitative attribute,
+   1,000-permutation null) through ``SAFE(device="cuda").run_pipeline``.
+   Checks that the banded plan was taken, that every kernel launched, that
+   the neighborhoods equal scipy Dijkstra's, and that the counts are
+   consistent; times the warm run, the steady runs and the APSP and null
+   phases, and profiles one steady run for the device's busy time and its
+   largest kernels;
 5. the same network with ``apsp_mode="full"`` (dense FW): the same
-   neighborhoods;
-6. print a JSON line of the kernels, then the card, then the result line.
+   neighborhoods; and with ``apsp_mode="band"`` (band storage) and the same
+   seed: the same neighborhoods, scores within 1e-5 and counts within
+   near-tie flips;
+6. the band-storage path: ``bench.py``'s band-scale network (49,920 nodes,
+   kNN k = 9, radius for ~125-node neighborhoods) with one normal attribute
+   through ``run_pipeline`` with ``apsp_mode="auto"``. Checks that band
+   storage was taken, the launch counts (one of each kernel a FW round),
+   512 seeded indicator rows against scipy Dijkstra and the counts; times
+   the warm and steady runs, the FW-front and null-tail phases, reports
+   the peak device memory and profiles one steady run. Then the
+   non-symmetric band FW (``relax_skew``) on the same initial band must
+   give the same indicator;
+7. print a JSON line of the kernels, then the card, then the result line.
 
 Imports torch, numpy, scipy and the port only; needs one card, nvcc and
 nvidia-smi.
@@ -34,20 +48,25 @@ import time
 import numpy as np
 import torch
 from scipy.sparse import coo_matrix
-from scipy.sparse.csgraph import shortest_path
+from scipy.sparse.csgraph import dijkstra, shortest_path
 from scipy.spatial import cKDTree
 from torch.profiler import ProfilerActivity, profile
 
 from safepy_tpu_torch import SAFE, native
+from safepy_tpu_torch import pipeline as pipe
 from safepy_tpu_torch.io.graph_arrays import edge_lengths
+from safepy_tpu_torch.ops import apsp_bandstore as bst
 from safepy_tpu_torch.ops import apsp_cuda as K
 from safepy_tpu_torch.ops.apsp_banded import apsp_banded_unpermuted
 from safepy_tpu_torch.ops.neighborhoods import inclusive_radius
-from safepy_tpu_torch.ops.permutation import prepare_valid, scan_counts
+from safepy_tpu_torch.ops.permutation import (default_batch_size,
+                                              prepare_valid, scan_counts)
 
 N_NODES, KNN, N_EDGES = 3971, 16, 28202   # bench.py:23-24,60
 SEED_GRAPH, SEED_ATTR, SEED_NULL = 0, 1, 1885  # bench.py:65,145,152
+BAND_NODES, BAND_KNN, SEED_BAND_ATTR = 49920, 9, 2  # bench.py:326,343-344
 N_PERM = 1000
+N_SOURCES, SEED_SOURCES = 512, 3  # Dijkstra rows checked at band scale
 BLOCK = 128
 SRC = "safepy_tpu_torch/csrc/minplus.cu"
 
@@ -55,7 +74,8 @@ SRC = "safepy_tpu_torch/csrc/minplus.cu"
 def build_network(n=N_NODES, k=KNN, edge_budget=N_EDGES, seed=SEED_GRAPH):
     """bench.py:60 ``build_network`` in numpy/scipy: uniform coordinates in
     [-1, 1]^2, k-nearest-neighbour edges taken node by node up to the edge
-    budget, Euclidean edge lengths. Returns (coords, edges, lengths, weights)."""
+    budget (None: all of them), Euclidean edge lengths. Returns (coords,
+    edges, lengths, weights)."""
     rng = np.random.default_rng(seed)
     coords = rng.uniform(-1, 1, (n, 2))
     _, nn = cKDTree(coords).query(coords, k=k)
@@ -63,9 +83,9 @@ def build_network(n=N_NODES, k=KNN, edge_budget=N_EDGES, seed=SEED_GRAPH):
     for i in range(n):
         for j in nn[i, 1:]:
             edges.add((min(i, int(j)), max(i, int(j))))
-            if len(edges) >= edge_budget:
+            if edge_budget and len(edges) >= edge_budget:
                 break
-        if len(edges) >= edge_budget:
+        if edge_budget and len(edges) >= edge_budget:
             break
     edges = np.array(sorted(edges), dtype=np.int64)
     weights = np.ones(len(edges))
@@ -77,6 +97,14 @@ def build_attribute(n=N_NODES, seed=SEED_ATTR):
     rng = np.random.default_rng(seed)
     vals = rng.normal(size=(n, 1))
     vals[rng.random(n) < 0.33, 0] = np.nan
+    return vals
+
+
+def build_band_attribute(n=BAND_NODES, seed=SEED_BAND_ATTR):
+    """bench.py:457-458: one normal attribute with 30% NaN."""
+    rng = np.random.default_rng(seed)
+    vals = rng.normal(size=(n, 1))
+    vals[rng.random(n) < 0.3, 0] = np.nan
     return vals
 
 
@@ -225,6 +253,45 @@ def check_kernels(device, window=1024, npad=4096, band_tiles=6):
     return out
 
 
+def check_skew_kernels(device, cases=((12, "slice"), (2, "small"))):
+    """Phase 3, band storage: relax_skew_sym and relax_skew against their
+    plain versions on a +inf-laced symmetric window inside a band, at the
+    49,920-node band shape (bt 12, W 3,200) and at bt 2."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    b = BLOCK
+    out = {}
+    for name, kernel, plain, symbol in (
+            ("relax_skew_sym", K.relax_skew_sym, K.relax_skew_sym_plain,
+             "relax_skew_sym_kernel"),
+            ("relax_skew", K.relax_skew, K.relax_skew_plain,
+             "relax_skew_kernel")):
+        shapes, errs = {}, []
+        for bt, tag in cases:
+            w = (2 * bt + 1) * b
+            s = inf_laced(gen, (w + 2 * b, w), device)
+            win = s[b:b + w]
+            win.copy_(torch.minimum(win, win.T))
+            p = inf_laced(gen, (b, w), device)
+            q = bst.skew_pivot_column(win, bt, b)
+            got, want = s.clone(), s.clone()
+            kernel(got[b:b + w], q, p, bt)
+            plain(want[b:b + w], q, p, bt)
+            errs.append(max_abs_err(got, want))
+            gw, ww = got[b:b + w], want[b:b + w]
+            # relaxing again with the same operands is idempotent
+            shapes[f"{tag}_ms"] = time_ms(lambda: kernel(gw, q, p, bt), device)
+            shapes[f"{tag}_plain_ms"] = time_ms(lambda: plain(ww, q, p, bt),
+                                                device, inner=2)
+            shapes[f"{tag}_device_ms"] = device_ms(
+                lambda: kernel(gw, q, p, bt), symbol)
+            shapes[f"{tag}_shape"] = [w, w, bt]
+            errs.append(max_abs_err(got, want))
+        out[name] = dict(err=max(errs), ms=shapes["slice_ms"],
+                         plain_ms=shapes["slice_plain_ms"],
+                         device_ms=shapes["slice_device_ms"], shapes=shapes)
+    return out
+
+
 def dijkstra_indicator(coords, edges, lengths, radius):
     n = len(coords)
     a = coo_matrix((lengths, tuple(edges.T)), shape=(n, n))
@@ -257,7 +324,8 @@ def run_slice(device, net, vals, num_permutations=N_PERM, steady=3):
     launches = dict(K.LAUNCHES)
     if sf.apsp_engine_used != "banded-window":
         raise AssertionError(f"banded plan not taken: {sf.apsp_engine_used}")
-    expected = {"close_diag": nb, "relax_panel": 2 * nb, "relax_window_sym": nb}
+    expected = {"close_diag": nb, "relax_panel": 2 * nb, "relax_window_sym": nb,
+                "relax_skew_sym": 0, "relax_skew": 0}
     if device.type == "cuda" and launches != expected:
         raise AssertionError(f"kernel launches {launches}, expected {expected}")
     steady_s = [timed_run(sf) for _ in range(steady)]
@@ -289,8 +357,30 @@ def run_slice(device, net, vals, num_permutations=N_PERM, steady=3):
     if not np.array_equal(full.neighborhoods, nbr):
         raise AssertionError("dense and banded neighborhoods differ")
 
+    # the band-storage engine on the same network and seed
+    band = session("band")
+    K.reset_launches()
+    band_s = timed_run(band)
+    band_launches = dict(K.LAUNCHES)
+    if band.apsp_engine_used != "band-storage":
+        raise AssertionError(f"band storage not taken: {band.apsp_engine_used}")
+    if device.type == "cuda" and band_launches["relax_skew_sym"] != nb:
+        raise AssertionError(f"band launches {band_launches}")
+    if not np.array_equal(band.neighborhoods, nbr):
+        raise AssertionError("band-storage and banded neighborhoods differ")
+    if not np.allclose(band.ns, sf.ns, rtol=1e-5, atol=1e-5):
+        raise AssertionError("band-storage scores differ from banded beyond "
+                             "1e-5")
+    delta = int(np.abs(band.counts_neg - sf.counts_neg).sum()
+                + np.abs(band.counts_pos - sf.counts_pos).sum())
+    if delta > 1e-5 * sf.ns.size * num_permutations:
+        raise AssertionError(f"band-storage counts differ by {delta}")
+    band_steady_s = min(timed_run(band) for _ in range(steady))
+
     return dict(
         launches=launches, dense_launches=dense_launches,
+        band_run_s=band_s, band_steady_s=band_steady_s,
+        band_launches=band_launches, band_count_delta=delta,
         window=sf.window_used, warm_s=warm_s, steady_s=steady_s,
         steady_min_s=min(steady_s), dense_run_s=full_s, **phases,
         mean_neighborhood=float(nbr.sum(axis=1).mean()),
@@ -331,6 +421,138 @@ def phase_times(sf, device, num_permutations, reps=3):
                                         batch_size=num_permutations,
                                         generator=gen)),
         valid_rows=int(valid.numel()))
+
+
+def run_band_slice(device, num_permutations=N_PERM, steady=3):
+    """Phase 6: the band-storage path at 49,920 nodes through the facade."""
+    net = build_network(n=BAND_NODES, k=BAND_KNN, edge_budget=None)
+    coords, edges, lengths, _ = net
+    n = len(coords)
+    sf = SAFE(device=device, verbose=False)
+    sf.keep_node_distances = False
+    sf.random_seed = SEED_NULL
+    sf.neighborhood_radius = float(np.sqrt(125.0 / (np.pi * n)))
+    sf.load_network(network_file=net)
+    sf.load_attributes(attribute_file=build_band_attribute(n))
+
+    def timed_run():
+        sync(device)
+        t0 = time.perf_counter()
+        sf.run_pipeline(num_permutations=num_permutations)
+        sync(device)
+        return time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launches()
+    warm_s = timed_run()
+    launches = dict(K.LAUNCHES)
+    if sf.apsp_engine_used != "band-storage":
+        raise AssertionError(f"band storage not taken: {sf.apsp_engine_used}")
+    nb = -(-n // BLOCK)
+    expected = {"close_diag": nb, "relax_panel": nb, "relax_window_sym": 0,
+                "relax_skew_sym": nb, "relax_skew": 0}
+    if device.type == "cuda" and launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected {expected}")
+    steady_s = [timed_run() for _ in range(steady)]
+    peak_bytes = torch.cuda.max_memory_allocated(device)
+    if sf.node_distances is not None:
+        raise AssertionError("keep_node_distances=False kept the distances")
+
+    # indicator rows of seeded sources against scipy Dijkstra (no dense
+    # oracle fits at this size)
+    nr = sf.neighborhood_radius * (coords[:, 0].max() - coords[:, 0].min())
+    r = float(inclusive_radius(nr))
+    a = coo_matrix((lengths, tuple(edges.T)), shape=(n, n)).tocsr()
+    src = np.random.default_rng(SEED_SOURCES).choice(n, N_SOURCES,
+                                                     replace=False)
+    d = dijkstra(a.maximum(a.T), directed=False, indices=src, limit=r)
+    nbr = sf.neighborhoods_sparse()
+    got = nbr[src].toarray() != 0
+    if not np.array_equal(got, d <= r):
+        raise AssertionError(f"indicator rows differ from scipy Dijkstra at "
+                             f"{int((got != (d <= r)).sum())} pairs")
+    finite = np.isfinite(sf.ns)
+    both = sf.counts_neg + sf.counts_pos
+    if not (both[finite] >= num_permutations).all():
+        raise AssertionError("counts_neg + counts_pos < P where ns is finite")
+    if sf.ns.shape != (n, 1) or not finite.all():
+        raise AssertionError(f"sum scores must be finite, of shape {(n, 1)}")
+
+    band_m = sf._neighborhoods_dev
+    out = dict(launches=launches, warm_s=warm_s, steady_s=steady_s,
+               steady_min_s=min(steady_s), peak_gb=peak_bytes / 1e9,
+               band=band_m.band, bt=band_m.bt,
+               width=(2 * band_m.bt + 1) * BLOCK,
+               mean_neighborhood=float(nbr.sum() / n),
+               enriched=int(sf.nes_binary.sum()), nodes=n,
+               edges=len(edges), session=sf)
+    out.update(band_phase_times(sf, device, num_permutations))
+
+    # the non-symmetric band FW on the same initial band: same indicator
+    plan = next(p for p in sf._bandstore_cache.values() if p is not None)
+    s = bst.band_init_from_edges(plan["u"], plan["v"], plan["w"], n=n,
+                                 band=plan["band"])
+    K.reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    bst.apsp_band_fw(s, bt=band_m.bt, symmetric=False)
+    sync(device)
+    out["classic_fw_s"] = time.perf_counter() - t0
+    out["classic_launches"] = dict(K.LAUNCHES)
+    if (device.type == "cuda"
+            and out["classic_launches"]["relax_skew"] != nb):
+        raise AssertionError(f"relax_skew launches {out['classic_launches']}")
+    if not torch.equal(bst.band_threshold(s, inclusive_radius(nr)),
+                       band_m.data):
+        raise AssertionError("classic and symmetric band FW indicators differ")
+    return out
+
+
+def band_phase_times(sf, device, num_permutations, reps=3):
+    """Min-of-reps host seconds of the band FW front (init, FW, threshold,
+    stats) and of the null tail (scores, compaction, counts, un-permute) at
+    the run's own inputs, as ``SAFE._run_pipeline_bandstore`` feeds them."""
+    coords, edges, lengths, _ = sf._graph_arrays
+    n = len(coords)
+    nr = sf.neighborhood_radius * (coords[:, 0].max() - coords[:, 0].min())
+    plan = sf._band_storage_plan(coords, edges, lengths, n, nr)
+    radius = inclusive_radius(nr)
+    band = plan["band"]
+    bt = band // BLOCK + 1
+    vals_perm = np.asarray(sf.node2attribute, np.float32)[
+        np.argsort(plan["rank"])]
+    valid_perm = np.isfinite(vals_perm).any(axis=1)
+    starts, w_c = bst.compaction_plan(valid_perm, n=n, bt=bt)
+    V, A = int(valid_perm.sum()), vals_perm.shape[1]
+    tail_args = [torch.as_tensor(x, device=device) for x in (
+        vals_perm, vals_perm[valid_perm], valid_perm, starts)]
+
+    def front():
+        return pipe.band_neighborhoods(plan["u"], plan["v"], plan["w"],
+                                       radius, n=n, band=band,
+                                       keep_distances=False)
+
+    def tail():
+        gen = torch.Generator(device=device).manual_seed(SEED_NULL)
+        return pipe._band_perm_tail(
+            s_ind, *tail_args, plan["rank_dev"], gen, bt=bt, block=BLOCK,
+            score_type="sum", num_permutations=num_permutations,
+            batch_size=default_batch_size(V, A, num_permutations), w_c=w_c,
+            precision="highest")
+
+    def best(fn):
+        out = []
+        for _ in range(reps):
+            sync(device)
+            t0 = time.perf_counter()
+            fn()
+            sync(device)
+            out.append(time.perf_counter() - t0)
+        return min(out)
+
+    s_ind = front()[1]
+    return dict(front_s=best(front), tail_s=best(tail), w_c=w_c,
+                valid_rows=V)
 
 
 def profile_steady(sf, top=8):
@@ -376,12 +598,13 @@ def main():
 
     # phase 3: kernels against their plain versions
     kernels = check_kernels(device)
+    kernels.update(check_skew_kernels(device))
     for name, k in kernels.items():
         print(f"kernel {name}: bitwise equal to plain; per call {k['ms']:.4f} "
               f"ms, device {k.get('device_ms')} ms (plain {k['plain_ms']:.4f} "
               f"ms) {k['shapes']}", flush=True)
 
-    # phases 4 and 5: the main path, banded then dense
+    # phases 4 and 5: the Example_1 path, banded, then dense and band storage
     net = build_network()
     vals = build_attribute()
     s = run_slice(device, net, vals)
@@ -393,18 +616,53 @@ def main():
           f"{s['mean_neighborhood']:.2f}, enriched {s['enriched']}", flush=True)
     print(f"dense: apsp_mode='full' run {s['dense_run_s']:.4f} s, launches "
           f"{s['dense_launches']}, neighborhoods equal to banded", flush=True)
+    print(f"band cross-check: apsp_mode='band' first run {s['band_run_s']:.4f}"
+          f" s, steady min {s['band_steady_s']:.4f} s, launches "
+          f"{s['band_launches']}, neighborhoods equal to banded, "
+          f"scores within 1e-5, sum |delta counts| {s['band_count_delta']}",
+          flush=True)
     prof = profile_steady(s["session"])
     print(f"profile: one steady run, wall {prof['wall_ms']:.3f} ms with the "
           f"profiler on, device busy {prof['busy_ms']:.3f} ms, idle share "
           f"{prof['idle_share']:.3f}; largest (name, launches, device ms): "
           f"{prof['top']}", flush=True)
 
-    # phase 6: the report
+    # phase 6: the band-storage path at 49,920 nodes
+    t0 = time.perf_counter()
+    bs = run_band_slice(device)
+    print(f"band slice: {bs['nodes']} nodes, {bs['edges']} edges, band "
+          f"{bs['band']}, bt {bs['bt']}, W {bs['width']}, w_c {bs['w_c']}; "
+          f"launches {bs['launches']}; warm {bs['warm_s']:.4f} s, steady "
+          f"{bs['steady_s']} (min {bs['steady_min_s']:.4f} s); FW front "
+          f"{bs['front_s']:.4f} s, null tail {bs['tail_s']:.4f} s "
+          f"({bs['valid_rows']} valid rows x {N_PERM} permutations); mean "
+          f"neighborhood {bs['mean_neighborhood']:.2f}, enriched "
+          f"{bs['enriched']}; peak device memory {bs['peak_gb']:.3f} GB; "
+          f"{N_SOURCES} indicator rows equal to scipy Dijkstra", flush=True)
+    print(f"band classic FW: relax_skew path {bs['classic_fw_s']:.4f} s, "
+          f"launches {bs['classic_launches']}, indicator equal to the "
+          f"symmetric run's", flush=True)
+    bprof = profile_steady(bs["session"])
+    print(f"band profile: one steady run, wall {bprof['wall_ms']:.3f} ms with "
+          f"the profiler on, device busy {bprof['busy_ms']:.3f} ms, idle share "
+          f"{bprof['idle_share']:.3f}; largest (name, launches, device ms): "
+          f"{bprof['top']}; phase 6 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # phase 7: the report; launches from the run of each kernel's path
     replaces = {"relax_panel": "safepy_tpu/ops/apsp_pallas.py:95",
                 "relax_window_sym": "safepy_tpu/ops/apsp_pallas.py:193",
-                "close_diag": "safepy_tpu/ops/apsp_pallas.py:258"}
+                "close_diag": "safepy_tpu/ops/apsp_pallas.py:258",
+                "relax_skew_sym": "safepy_tpu/ops/apsp_bandstore.py:324",
+                "relax_skew": "safepy_tpu/ops/apsp_bandstore.py:281"}
+    launches = dict(s["launches"], relax_skew_sym=bs["launches"][
+        "relax_skew_sym"], relax_skew=bs["classic_launches"]["relax_skew"])
     report = [{"name": name, "route": "cuda", "source": SRC,
-               "replaces": replaces[name], "launches": s["launches"][name],
+               "replaces": replaces[name], "launches": launches[name],
+               "launches_by_path": {
+                   "example1_banded": s["launches"][name],
+                   "band_49920": bs["launches"][name],
+                   "band_49920_classic": bs["classic_launches"][name]},
                "max_abs_err": k["err"], "ms": k["ms"],
                "plain_ms": k["plain_ms"], "device_ms": k.get("device_ms")}
               for name, k in kernels.items()]

@@ -12,6 +12,13 @@
 //                       each into its lower twin, here in place on the matrix.
 //   close_diag       <- _close_diag :258, the in-tile closure of the pivot
 //                       tile (a jnp fori_loop in the JAX package, not Pallas).
+// and in safepy_tpu/ops/apsp_bandstore.py (phase 3 of the band-storage FW):
+//   relax_skew_sym   <- _relax_skew_sym_pallas :324 (pass A + pass B): relax
+//                       the upper wedge of the skewed (W, W) pivot window and
+//                       write each off-diagonal tile's transpose into its
+//                       lower mirror, in place on the band.
+//   relax_skew       <- _relax_skew_pallas :281: relax every in-band tile of
+//                       the skewed window, no mirror.
 //
 // What bounds them on the H100: a min-plus product has no tensor-core route.
 // Every candidate a[i,k] + b[k,j] costs one FP32 add and one FP32 min on the
@@ -65,6 +72,26 @@ __device__ __forceinline__ void store_acc(float* out, int64_t ldo,
 #pragma unroll
     for (int q = 0; q < MICRO; ++q)
       out[(int64_t)(ty + 16 * r) * ldo + tx + 16 * q] = acc[r][q];
+}
+
+// Write the transpose of a thread block's 64x64 accumulator at dst (leading
+// dimension ld): stage it in shared memory, then store rows of the transpose
+// so that consecutive threads write consecutive addresses.
+__device__ __forceinline__ void store_transposed(float* dst, int64_t ld,
+                                                 const float acc[MICRO][MICRO],
+                                                 float (*t)[TILE + 1]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int r = 0; r < MICRO; ++r)
+#pragma unroll
+    for (int c = 0; c < MICRO; ++c) t[ty + 16 * r][tx + 16 * c] = acc[r][c];
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < (TILE * TILE) / TPB; ++e) {
+    const int idx = threadIdx.x + e * TPB;
+    const int i = idx / TILE, jj = idx % TILE;
+    dst[(int64_t)i * ld + jj] = t[jj][i];
+  }
 }
 
 // acc = min(acc, A (x) B) for one 64x64 tile: A points at the tile's first
@@ -147,21 +174,63 @@ relax_window_sym_kernel(const float* q, const float* p, float* d, int64_t ld,
   minplus_tile(q + r0 * block, block, p + c0, w, block, acc, s);
   store_acc(win + r0 * ld + c0, ld, acc);
   if (tj == ti) return;
+  store_transposed(win + c0 * ld + r0, ld, acc, t);
+}
 
-  // mirror: stage the tile in shared memory, then write rows of the
-  // transpose so that consecutive threads store consecutive addresses
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int r = 0; r < MICRO; ++r)
-#pragma unroll
-    for (int c = 0; c < MICRO; ++c) t[ty + 16 * r][tx + 16 * c] = acc[r][c];
-  __syncthreads();
-#pragma unroll
-  for (int e = 0; e < (TILE * TILE) / TPB; ++e) {
-    const int idx = threadIdx.x + e * TPB;
-    const int i = idx / TILE, jj = idx % TILE;
-    win[(c0 + i) * ld + r0 + jj] = t[jj][i];
-  }
+// Phase 3 of the band-storage round, in place on the (w, w) skewed window
+// (w = (2 bt + 1) block, row stride ld). Window tile (o, j) is relaxed
+// against q tile o (the snapshot of window tile (o, 2 bt - o), the pivot
+// column) and pivot-row tile o + j - bt of p (b x w, row stride ldp).
+//
+// Symmetric form, grid (2 bt + 1, bt + 1, subs^2): block (o, jj, z) owns
+// 64x64 sub-tile z of the upper tile (o, bt + jj), computed where
+// o + jj <= 2 bt, and for jj >= 1 writes its transpose into the lower mirror
+// (o + jj, bt - jj). Upper tiles are read only by their own block and
+// mirrors are lower tiles, so no block reads what another writes; q and p
+// are separate buffers. Every other tile keeps its value.
+__global__ void __launch_bounds__(TPB)
+relax_skew_sym_kernel(const float* q, const float* p, int64_t ldp, float* win,
+                      int64_t ld, int bt, int block) {
+  __shared__ TileSmem s;
+  __shared__ float t[TILE][TILE + 1];
+  const int o = blockIdx.x, jj = blockIdx.y;
+  if (o + jj > 2 * bt) return;  // pivot-row tile beyond the slab
+  const int subs = block / TILE;
+  const int si = blockIdx.z / subs, sj = blockIdx.z % subs;
+  const int64_t r0 = (int64_t)o * block + si * TILE;
+  const int64_t c0 = (int64_t)(bt + jj) * block + sj * TILE;
+  const int64_t pc = (int64_t)(o + jj) * block + sj * TILE;
+
+  float acc[MICRO][MICRO];
+  load_acc(win + r0 * ld + c0, ld, acc);
+  minplus_tile(q + r0 * block, block, p + pc, ldp, block, acc, s);
+  store_acc(win + r0 * ld + c0, ld, acc);
+  if (jj == 0) return;
+  const int64_t mr0 = (int64_t)(o + jj) * block + sj * TILE;
+  const int64_t mc0 = (int64_t)(bt - jj) * block + si * TILE;
+  store_transposed(win + mr0 * ld + mc0, ld, acc, t);
+}
+
+// Non-symmetric form, grid (2 bt + 1, 2 bt + 1, subs^2): block (o, j, z)
+// relaxes sub-tile z of tile (o, j) where |o + j - 2 bt| <= bt (the
+// pivot-row tile lies in the slab); every other tile keeps its value.
+__global__ void __launch_bounds__(TPB)
+relax_skew_kernel(const float* q, const float* p, int64_t ldp, float* win,
+                  int64_t ld, int bt, int block) {
+  __shared__ TileSmem s;
+  const int o = blockIdx.x, j = blockIdx.y;
+  const int off = o + j - 2 * bt;
+  if (off > bt || off < -bt) return;
+  const int subs = block / TILE;
+  const int si = blockIdx.z / subs, sj = blockIdx.z % subs;
+  const int64_t r0 = (int64_t)o * block + si * TILE;
+  const int64_t c0 = (int64_t)j * block + sj * TILE;
+  const int64_t pc = (int64_t)(off + bt) * block + sj * TILE;
+
+  float acc[MICRO][MICRO];
+  load_acc(win + r0 * ld + c0, ld, acc);
+  minplus_tile(q + r0 * block, block, p + pc, ldp, block, acc, s);
+  store_acc(win + r0 * ld + c0, ld, acc);
 }
 
 // In-tile Floyd-Warshall closure of one (B, B) tile, one block of 8 B
@@ -227,6 +296,25 @@ int safepy_relax_window_sym(const float* q, const float* p, float* d,
   const dim3 grid(nbw, reach + 1, subs * subs);
   relax_window_sym_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(
       q, p, d, ld, lo, w, block);
+  return (int)cudaGetLastError();
+}
+
+int safepy_relax_skew_sym(const float* q, const float* p, int64_t ldp,
+                          float* win, int64_t ld, int bt, int block,
+                          void* stream) {
+  const int subs = block / TILE;
+  const dim3 grid(2 * bt + 1, bt + 1, subs * subs);
+  relax_skew_sym_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(
+      q, p, ldp, win, ld, bt, block);
+  return (int)cudaGetLastError();
+}
+
+int safepy_relax_skew(const float* q, const float* p, int64_t ldp, float* win,
+                      int64_t ld, int bt, int block, void* stream) {
+  const int subs = block / TILE;
+  const dim3 grid(2 * bt + 1, 2 * bt + 1, subs * subs);
+  relax_skew_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(q, p, ldp, win, ld,
+                                                            bt, block);
   return (int)cudaGetLastError();
 }
 

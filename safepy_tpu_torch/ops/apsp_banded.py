@@ -8,10 +8,10 @@ only needs the (2B + block)-wide window around its pivot block. Entries of
 pairs within the radius come out exact, all others are upper bounds, so
 thresholding at the radius is exact everywhere.
 
-The host certificate (:func:`banded_order`, :func:`window_width` and their
-helpers) is numpy and scipy, copied from the JAX package; the rounds run on
-the kernels of :mod:`.apsp_cuda`. ``graph_banded_order`` (the landmark
-certificate of band storage) comes with band storage, ROADMAP A7.
+The host certificates (:func:`banded_order`, :func:`window_width` and their
+helpers, and :func:`graph_banded_order`, the landmark certificate that band
+storage also uses) are numpy and scipy, copied from the JAX package; the
+rounds run on the kernels of :mod:`.apsp_cuda`.
 """
 
 from __future__ import annotations
@@ -105,6 +105,50 @@ def banded_order(coords: np.ndarray, radius: float,
         if best is None or width < best[1]:
             best = (order, width)
     return best
+
+
+def graph_banded_order(n: int, edges: np.ndarray, weights: np.ndarray,
+                       radius: float):
+    """(order, half-width B) certified without coordinates, for any metric
+    (``:146``).
+
+    With ``ds`` the shortest-path distance from a fixed source,
+    d(u, v) <= r implies |ds(u) - ds(v)| <= r, so ordering the nodes by
+    (component, ds) bounds the rank separation of every within-radius pair,
+    and of every node on a within-radius path, by the most nodes in any
+    closed ds-window of width r. The source is peripheral per component
+    (double sweep).
+    """
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components, dijkstra
+
+    edges = np.asarray(edges)
+    if len(edges) == 0:
+        return np.arange(n), max(1, n - 1)
+    w = np.asarray(weights, np.float64)
+    u2 = np.concatenate([edges[:, 0], edges[:, 1]])
+    v2 = np.concatenate([edges[:, 1], edges[:, 0]])
+    g = coo_matrix((np.concatenate([w, w]), (u2, v2)), shape=(n, n)).tocsr()
+
+    ncomp, labels = connected_components(g, directed=False)
+    # one seed per component -> distances to the nearest seed; the
+    # per-component argmax of that sweep is a peripheral node
+    seeds = np.unique(labels, return_index=True)[1]
+    d0 = dijkstra(g, indices=seeds, min_only=True)
+    d0 = np.where(np.isfinite(d0), d0, 0.0)
+    by_comp = np.lexsort((d0, labels))
+    far = by_comp[np.searchsorted(labels[by_comp], np.arange(ncomp),
+                                  side="right") - 1]
+    ds = dijkstra(g, indices=far, min_only=True)
+    ds = np.where(np.isfinite(ds), ds, 0.0)
+
+    order = np.lexsort((ds, labels))
+    # shift each component's ds range into a disjoint block so that one
+    # two-pointer count covers them all
+    span = float(ds.max()) + float(radius) + 1.0
+    keys = labels[order] * (2.0 * span) + ds[order]
+    band = window_halfwidth(keys, float(radius))
+    return order, band
 
 
 def window_width(n: int, band: int, block: int = 128) -> int:

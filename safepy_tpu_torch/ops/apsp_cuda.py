@@ -11,6 +11,14 @@ Pallas kernels. Three wrappers, each beside its plain torch version:
   * :func:`close_diag` -- closure of the pivot tile; replaces ``_close_diag``
     :258.
 
+and two for phase 3 of the band-storage round
+(``safepy_tpu/ops/apsp_bandstore.py``, driven by ``ops.apsp_bandstore``):
+
+  * :func:`relax_skew_sym` -- the skewed window's upper wedge plus mirror, in
+    place; replaces ``_relax_skew_sym_pallas`` :324;
+  * :func:`relax_skew` -- every in-band tile of the skewed window, in place;
+    replaces ``_relax_skew_pallas`` :281.
+
 A wrapper takes the plain version only for CPU tensors. A CUDA tensor goes
 through the kernel (``csrc/minplus.cu``, built by :mod:`safepy_tpu_torch.native`)
 or raises. Each kernel launch adds one to :data:`LAUNCHES`.
@@ -32,7 +40,8 @@ import torch
 from safepy_tpu_torch.ops.apsp import _apsp_torch, min_plus_relax, pad_distances
 
 # Kernel launches since the last reset_launches(), by wrapper name.
-LAUNCHES = {"relax_panel": 0, "relax_window_sym": 0, "close_diag": 0}
+LAUNCHES = {"relax_panel": 0, "relax_window_sym": 0, "close_diag": 0,
+            "relax_skew_sym": 0, "relax_skew": 0}
 
 
 def reset_launches() -> None:
@@ -171,6 +180,125 @@ def close_diag(tile: torch.Tensor) -> torch.Tensor:
                   _stream(tile))
     LAUNCHES["close_diag"] += 1
     return out
+
+
+# ------------------------------------------------- relax_skew_sym, relax_skew
+
+def _skew_tiles(x: torch.Tensor, block: int) -> torch.Tensor:
+    """(W, W) window -> (nt, nt, block, block) view of its tiles."""
+    nt = x.shape[0] // block
+    return x.view(nt, block, nt, block).permute(0, 2, 1, 3)
+
+
+def _skew_relaxed(win, q, p, bt: int) -> torch.Tensor:
+    """Every tile (o, j) of the window as ``min(C, Q[o] (x) P[o + j - bt])``,
+    with P inf-extended by bt tiles on each side (``p_ext``,
+    ``apsp_bandstore.py:468``). A new (nt, nt, block, block) tensor."""
+    block = q.shape[1]
+    nt = 2 * bt + 1
+    inf = torch.full((block, bt * block), float("inf"), dtype=p.dtype,
+                     device=p.device)
+    p_ext = torch.cat([inf, p, inf], dim=1)
+    # window row o reads the pivot-row slab p_ext[:, o*b : o*b + W]
+    slabs = p_ext.unfold(1, nt * block, block).permute(1, 0, 2)  # (nt, b, W)
+    qo = q.view(nt, block, block)
+    acc = win.view(nt, block, nt * block).clone()
+    for k in range(block):
+        torch.minimum(acc, qo[:, :, k:k + 1] + slabs[:, k:k + 1, :], out=acc)
+    return _skew_tiles(acc.view(nt * block, nt * block), block)
+
+
+def _skew_grid(bt: int, device):
+    o = torch.arange(2 * bt + 1, device=device)
+    return o[:, None], o[None, :]
+
+
+def relax_skew_sym_plain(win: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
+                         bt: int) -> None:
+    """Plain version of :func:`relax_skew_sym`, also in place on ``win``.
+
+    Follows the two Pallas passes tile by tile: pass A relaxes the upper
+    tiles (o, j >= bt) with o + j <= 3 bt and passes the others through;
+    pass B sets each lower tile (o, j < bt) with o + j >= bt to the transpose
+    of its relaxed mirror (o + j - bt, 2 bt - j) and passes the others
+    through."""
+    block = q.shape[1]
+    relaxed = _skew_relaxed(win, q, p, bt)
+    tiles = _skew_tiles(win, block)
+    o, j = _skew_grid(bt, win.device)
+    upper = (j >= bt) & (o + j <= 3 * bt)
+    lower = (j < bt) & (o + j >= bt)
+    mirror = relaxed[(o + j - bt).clamp(0, 2 * bt), (2 * bt - j).expand_as(o + j)]
+    out = torch.where(upper[..., None, None], relaxed, tiles)
+    out = torch.where(lower[..., None, None], mirror.transpose(-1, -2), out)
+    tiles.copy_(out)
+
+
+def relax_skew_plain(win: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
+                     bt: int) -> None:
+    """Plain version of :func:`relax_skew`, also in place on ``win``: tiles
+    with ``|o + j - 2 bt| <= bt`` relaxed, the others passed through."""
+    block = q.shape[1]
+    relaxed = _skew_relaxed(win, q, p, bt)
+    tiles = _skew_tiles(win, block)
+    o, j = _skew_grid(bt, win.device)
+    in_band = (o + j - 2 * bt).abs() <= bt
+    tiles.copy_(torch.where(in_band[..., None, None], relaxed, tiles))
+
+
+def _check_skew(win, q, p, bt):
+    block = q.shape[1]
+    w = (2 * bt + 1) * block
+    if (tuple(win.shape) != (w, w) or tuple(q.shape) != (w, block)
+            or tuple(p.shape) != (block, w) or bt < 0):
+        raise ValueError(f"bad skewed window: win {tuple(win.shape)}, "
+                         f"q {tuple(q.shape)}, p {tuple(p.shape)}, bt={bt}")
+    if not _use_kernel(win, q, p):
+        return False
+    if block not in (64, 128) or not q.is_contiguous():
+        raise ValueError("skew kernels need block 64 or 128 and a contiguous "
+                         f"q, got block={block}")
+    return True
+
+
+def _launch_skew(name, win, q, p, bt):
+    from safepy_tpu_torch import native
+
+    native.launch(name, _ptr(q), _ptr(p), p.stride(0), _ptr(win),
+                  win.stride(0), bt, q.shape[1], _stream(win))
+    LAUNCHES[name] += 1
+
+
+def relax_skew_sym(win: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
+                   bt: int) -> None:
+    """Phase 3 of a band-storage round, symmetric form, in place on the
+    (W, W) skewed window ``win`` (W = (2 bt + 1) block; any row stride).
+
+    In window tiles (o, j), C = win[o, j], Q = q[o] and P = the pivot-row
+    tile o + j - bt of p. q: (W, block), the window's tiles (o, 2 bt - o)
+    (the pivot column) snapshotted before the call; p: (block, W), the
+    relaxed pivot row. Both are separate from ``win``: the launch rewrites
+    tiles that the in-window Q tiles and the pivot row occupy. Each upper
+    tile (o, bt + jj), o + jj <= 2 bt, becomes ``min(C, Q (x) P)`` and, for
+    jj >= 1, its transpose goes into tile (o + jj, bt - jj); every other tile
+    keeps its value (``apsp_bandstore._relax_skew_sym_pallas``).
+    """
+    if _check_skew(win, q, p, bt):
+        _launch_skew("relax_skew_sym", win, q, p, bt)
+    else:
+        relax_skew_sym_plain(win, q, p, bt)
+
+
+def relax_skew(win: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
+               bt: int) -> None:
+    """Non-symmetric phase 3 of a band-storage round, in place: every tile
+    (o, j) with ``|o + j - 2 bt| <= bt`` becomes ``min(C, Q (x) P)`` (same
+    operands as :func:`relax_skew_sym`); the others keep their values
+    (``apsp_bandstore._relax_skew_pallas``)."""
+    if _check_skew(win, q, p, bt):
+        _launch_skew("relax_skew", win, q, p, bt)
+    else:
+        relax_skew_plain(win, q, p, bt)
 
 
 # ------------------------------------------------------------------- rounds

@@ -1,14 +1,22 @@
 """The quantitative pipeline: graph arrays in, null counts out.
 
 Port of ``safepy_tpu/pipeline.py``: APSP -> radius threshold -> observed
-scores -> permutation null. The JAX package compiles this into one program;
-here it is eager torch, and the tensors stay on the device of ``d0``.
+scores -> permutation null, over dense or banded-window distances
+(:func:`fused_permutation_pipeline`) or over band storage
+(:func:`fused_permutation_pipeline_band`). The JAX package compiles each into
+one program; here it is eager torch, and the tensors stay on the device of
+the inputs.
 """
 
 from __future__ import annotations
 
+import torch
+
+from safepy_tpu_torch.ops import apsp_bandstore as bst
 from safepy_tpu_torch.ops.apsp_banded import apsp_banded_unpermuted
 from safepy_tpu_torch.ops.apsp_cuda import apsp_blocked_fw
+from safepy_tpu_torch.ops.enrich_band import (band_score, scan_counts_band,
+                                              valid_frame_map)
 from safepy_tpu_torch.ops.neighborhoods import threshold_and_stats
 from safepy_tpu_torch.ops.permutation import prepare_valid, scan_counts
 from safepy_tpu_torch.ops.score import compute_neighborhood_score
@@ -53,3 +61,90 @@ def fused_permutation_pipeline(d0, vals, valid_rows, generator, radius, *,
         num_permutations=num_permutations, batch_size=batch_size,
         generator=generator, perm_idx=perm_idx, precision=precision)
     return dist, nbr, obs, counts_neg, counts_pos, mean, std
+
+
+# ---------------------------------------------------------------------------
+# Band-storage pipeline: O(N W) memory end to end
+# ---------------------------------------------------------------------------
+
+def _band_front(u, v, w, radius, *, n: int, band: int, block: int = 128,
+                keep_distances: bool = True):
+    """Init -> band FW -> indicator and stats (``pipeline.py:233``, FW only).
+
+    Returns (dist_band, s_ind, mean, std, bt) in the permuted frame. The FW
+    runs in place on the one f32 band. With ``keep_distances`` its entries
+    beyond the radius (upper bounds, which the reference's Dijkstra cutoff
+    never yields) are set to +inf in place and it is returned; without, it is
+    dropped as soon as the int8 indicator exists and ``dist_band`` is None.
+    """
+    bt = band // block + 1
+    s = bst.band_init_from_edges(u, v, w, n=n, band=band, block=block)
+    bst.apsp_band_fw(s, bt=bt, block=block)
+    s_ind = bst.band_threshold(s, radius)
+    _, mean, std = bst.band_row_stats(s_ind, n=n, bt=bt, block=block)
+    if not keep_distances:
+        return None, s_ind, mean, std, bt
+    s.masked_fill_(s_ind == 0, float("inf"))
+    return s, s_ind, mean, std, bt
+
+
+def band_neighborhoods(u, v, w, radius, *, n: int, band: int,
+                       block: int = 128, keep_distances: bool = True):
+    """Band-storage neighborhoods alone (``pipeline.py:301``): (dist_band,
+    s_ind, mean, std) in the permuted frame."""
+    return _band_front(u, v, w, radius, n=n, band=band, block=block,
+                       keep_distances=keep_distances)[:4]
+
+
+def _band_perm_tail(s_ind, vals, vals_valid, valid, starts, rank, generator,
+                    *, bt: int, block: int, score_type: str,
+                    num_permutations: int, batch_size: int, w_c: int,
+                    precision: str, perm_idx=None):
+    """Observed scores + compaction + permutation counts over a banded
+    indicator, the (n, A) outputs un-permuted to the original frame by
+    ``rank`` (``pipeline.py:369``)."""
+    obs = band_score(s_ind, vals, bt=bt, block=block, score_type=score_type,
+                     precision=precision)
+    compact = bst.apply_compaction(s_ind, valid, w_c, bt=bt, block=block)
+    mask_valid = torch.isfinite(vals_valid).to(torch.float32)
+    vv = torch.where(mask_valid > 0, vals_valid.to(torch.float32),
+                     torch.zeros_like(mask_valid))
+    counts_neg, counts_pos = scan_counts_band(
+        compact, starts, vv, mask_valid, obs, valid_frame_map(valid, rank),
+        score_type=score_type, num_permutations=num_permutations,
+        batch_size=batch_size, bt=bt, block=block, precision=precision,
+        generator=generator, perm_idx=perm_idx)
+    return obs[rank], counts_neg[rank], counts_pos[rank]
+
+
+def fused_permutation_pipeline_band(u, v, w, vals, vals_valid, valid, starts,
+                                    rank, generator, radius, *, n: int,
+                                    band: int, block: int = 128,
+                                    score_type: str = "sum",
+                                    num_permutations: int = 1000,
+                                    batch_size: int = 1000, w_c: int,
+                                    precision: str = "highest",
+                                    keep_distances: bool = True,
+                                    perm_idx=None):
+    """Band-storage APSP + threshold + scores + permutation null
+    (``pipeline.py:394``, FW engine).
+
+    Row inputs are in the permuted (banded-order) frame and on one device:
+    u/v/w the edge arrays, ``vals`` the (n, A) attributes with NaNs,
+    ``vals_valid`` its (V, A) valid rows, ``valid`` the (n,) bool validity,
+    ``starts``/``w_c`` from ``ops.apsp_bandstore.compaction_plan``. ``rank``
+    maps original node i to its permuted position; ``generator`` or
+    ``perm_idx`` (P, V, over the valid rows in original order) draw the
+    null. Returns (dist_band or None, s_ind, obs, counts_neg, counts_pos,
+    mean, std): the (n, A) matrices in the original frame, the bands in the
+    permuted one.
+    """
+    dist_band, s_ind, mean, std, bt = _band_front(
+        u, v, w, radius, n=n, band=band, block=block,
+        keep_distances=keep_distances)
+    obs, counts_neg, counts_pos = _band_perm_tail(
+        s_ind, vals, vals_valid, valid, starts, rank, generator, bt=bt,
+        block=block, score_type=score_type,
+        num_permutations=num_permutations, batch_size=batch_size, w_c=w_c,
+        precision=precision, perm_idx=perm_idx)
+    return dist_band, s_ind, obs, counts_neg, counts_pos, mean, std

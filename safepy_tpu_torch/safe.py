@@ -1,11 +1,14 @@
 """The SAFE facade of the port: the quantitative ``run_pipeline`` path.
 
-Port of the ``safepy_tpu/safe.py`` facade for one workflow: load a geometric
-network and a quantitative attribute matrix, then ``run_pipeline`` computes
-shortest-path neighborhoods (the certified banded-window Floyd-Warshall when
-the geometry allows it, the dense one otherwise), observed neighborhood
-scores and a two-sided permutation null, and sets ``ns``, ``pvalues_neg``,
-``pvalues_pos``, ``nes`` and ``nes_binary`` as the JAX facade does.
+Port of the ``safepy_tpu/safe.py`` facade for one workflow: load a network
+and a quantitative attribute matrix, then ``run_pipeline`` computes
+shortest-path neighborhoods, observed neighborhood scores and a two-sided
+permutation null, and sets ``ns``, ``pvalues_neg``, ``pvalues_pos``, ``nes``
+and ``nes_binary`` as the JAX facade does. The neighborhood engine is chosen
+in the JAX facade's order (``safe.py:1702-1712``): band storage
+(O(N W) memory, ``apsp_mode='band'`` or ``'auto'`` at
+``band_storage_min_nodes`` and above when the band beats dense storage),
+then the certified banded window, then the dense Floyd-Warshall.
 
 Everything else the JAX facade offers raises ``NotImplementedError`` naming
 the ROADMAP item that brings it; nothing quietly takes another path.
@@ -28,7 +31,9 @@ import torch
 from safepy_tpu_torch import pipeline as _pipe
 from safepy_tpu_torch.io.graph_arrays import graph_to_arrays
 from safepy_tpu_torch.ops import apsp_banded as _banded
+from safepy_tpu_torch.ops import apsp_bandstore as _bst
 from safepy_tpu_torch.ops import neighborhoods as _nbr
+from safepy_tpu_torch.ops.apsp_bandstore import BandedMatrix
 from safepy_tpu_torch.ops.permutation import default_batch_size
 
 
@@ -48,10 +53,21 @@ class SAFE:
                                "on the host")
         self.verbose = verbose
 
-        # 'auto' = banded-window FW when the geometric certificate holds,
-        # 'full' = always the dense FW; 'band' (band storage) is not ported
+        # 'auto' = band storage at band_storage_min_nodes and above (when
+        # the band is at most half the dense bytes), else the banded window
+        # when the geometric certificate holds, else the dense FW; 'full' =
+        # always the dense FW; 'band' = always band storage
         self.apsp_mode = "auto"
         self.band_storage_min_nodes = 16384
+        # False drops the f32 distance band of a band-storage run as soon as
+        # its indicator exists (node_distances is then None for the run)
+        self.keep_node_distances = True
+        # options of the JAX band engine that are not ported (ROADMAP A7):
+        # the sparse Bellman-Ford relax ('bf') and the bit-packed indicator
+        # (True, or 'auto' once the int8 band reaches band_bits_min_bytes)
+        self.band_relax = "auto"
+        self.band_indicator_bits = "auto"
+        self.band_bits_min_bytes = 4 * 10 ** 9
         self.node_key_attribute = "label_orf"
         self.attribute_sign = "both"
         self.node_distance_metric = "shortpath_weighted_layout"
@@ -71,6 +87,7 @@ class SAFE:
         self._node_keys = None
         self._d0_cache = {}
         self._banded_cache = {}
+        self._bandstore_cache = {}
 
         self.attributes = None
         self.node2attribute = None
@@ -155,6 +172,7 @@ class SAFE:
             self._graph_arrays = graph_to_arrays(network_file)
         self._d0_cache = {}
         self._banded_cache = {}
+        self._bandstore_cache = {}
 
     # ------------------------------------------------------------ attributes
 
@@ -198,21 +216,47 @@ class SAFE:
         return self._n2a_dev
 
     # --------------------------------------------- lazy views of device results
+    # A band-storage run holds BandedMatrix results: their dense views are
+    # guarded (BandedMatrix.DENSE_MAX_BYTES); the *_sparse views are O(nnz).
 
     @property
     def neighborhoods(self):
         if self._neighborhoods_np is None and self._neighborhoods_dev is not None:
-            self._neighborhoods_np = (self._neighborhoods_dev.to(torch.int8)
-                                      .cpu().numpy().astype(int))
+            dev = self._neighborhoods_dev
+            if isinstance(dev, BandedMatrix):
+                self._neighborhoods_np = dev.to_dense().astype(int)
+            else:
+                self._neighborhoods_np = (dev.to(torch.int8).cpu().numpy()
+                                          .astype(int))
         return self._neighborhoods_np
+
+    def neighborhoods_sparse(self):
+        """scipy CSR of the neighborhood indicator (``safe.py:564``)."""
+        dev = self._neighborhoods_dev
+        if isinstance(dev, BandedMatrix):
+            return dev.to_sparse()
+        from scipy.sparse import csr_matrix
+        return csr_matrix(np.asarray(self.neighborhoods))
 
     @property
     def node_distances(self):
         if (self._node_distances_np is None
                 and self._node_distances_dev is not None):
-            self._node_distances_np = (self._node_distances_dev.cpu().numpy()
-                                       .astype(np.float64))
+            dev = self._node_distances_dev
+            if isinstance(dev, BandedMatrix):
+                self._node_distances_np = dev.to_dense().astype(np.float64)
+            else:
+                self._node_distances_np = dev.cpu().numpy().astype(np.float64)
         return self._node_distances_np
+
+    def node_distances_sparse(self):
+        """scipy CSR of the within-radius distances (``safe.py:588``)."""
+        dev = self._node_distances_dev
+        if isinstance(dev, BandedMatrix):
+            return dev.to_sparse()
+        from scipy.sparse import csr_matrix
+        d = np.asarray(self.node_distances)
+        return csr_matrix(np.where(np.isfinite(d), d, 0.0))
 
     # ------------------------------------------------------------ APSP plans
 
@@ -249,7 +293,66 @@ class SAFE:
         self._banded_cache[key] = plan
         return plan
 
-    def _refuse_unported(self, num_nodes, num_edges):
+    def _band_storage_plan(self, coords, edges, weights, num_nodes, nr):
+        """Band-storage plan or None (``safe.py:762``).
+
+        Taken with ``apsp_mode='band'``, or with ``'auto'`` at
+        ``band_storage_min_nodes`` and above when the band is at most half
+        the dense bytes. Two certificates, in order: the geometric one (edge
+        lengths ARE the Euclidean endpoint distances, ``banded_order``) and
+        the landmark one (any metric, ``graph_banded_order``). Returns
+        dict(u, v, w (device edge arrays in banded order), rank, rank_dev,
+        band). Cached per radius, mode and metric."""
+        forced = self.apsp_mode == "band"
+        if not forced and (self.apsp_mode != "auto"
+                           or num_nodes < int(self.band_storage_min_nodes)):
+            return None
+        if (self.node_distance_metric not in ("shortpath_weighted_layout",
+                                              "shortpath")
+                or weights is None or len(edges) == 0):
+            return None
+        # forced flag in the key: a cached 'auto' rejection (None) must not
+        # shadow a later apsp_mode='band' run
+        key = (float(np.float32(nr)), forced, self.node_distance_metric)
+        if key in self._bandstore_cache:
+            return self._bandstore_cache[key]
+
+        plan = None
+        order = None
+        if (self.node_distance_metric == "shortpath_weighted_layout"
+                and coords is not None):
+            euclid = np.hypot(coords[edges[:, 0], 0] - coords[edges[:, 1], 0],
+                              coords[edges[:, 0], 1] - coords[edges[:, 1], 1])
+            if np.allclose(weights, euclid, rtol=1e-7, atol=1e-12):
+                order, band = _banded.banded_order(coords, nr * (1 + 1e-5))
+        if order is None:
+            order, band = _banded.graph_banded_order(num_nodes, edges,
+                                                     weights, nr * (1 + 1e-5))
+        # the band must beat dense storage (unless forced)
+        if forced or (_bst.band_nbytes(num_nodes, band)
+                      <= 0.5 * 4 * num_nodes * num_nodes):
+            rank = np.empty(num_nodes, dtype=np.int64)
+            rank[order] = np.arange(num_nodes)
+            permuted = rank[edges]
+            dev = self.device
+            plan = dict(
+                u=torch.as_tensor(permuted[:, 0], device=dev),
+                v=torch.as_tensor(permuted[:, 1], device=dev),
+                w=torch.as_tensor(np.asarray(weights, np.float32), device=dev),
+                rank=rank, rank_dev=torch.as_tensor(rank, device=dev),
+                band=int(band))
+        self._bandstore_cache[key] = plan
+        return plan
+
+    def _band_bits_selected(self, num_nodes, band):
+        """Would the JAX facade bit-pack the indicator band
+        (``safe.py:990``)?"""
+        if self.band_indicator_bits == "auto":
+            return (_bst.band_nbytes(num_nodes, band, itemsize=1)
+                    >= float(self.band_bits_min_bytes))
+        return bool(self.band_indicator_bits)
+
+    def _refuse_unported(self):
         if self.mesh is not None:
             raise _not_ported("multi-device execution (mesh)", "A10")
         if self.multiple_testing:
@@ -257,13 +360,14 @@ class SAFE:
         if self.background == "network":
             raise _not_ported("background='network' (stage methods)", "A4")
         if self.node_distance_metric == "euclidean":
-            raise _not_ported("the euclidean node distance metric", "A4")
-        band_storage = self.apsp_mode == "band" or (
-            self.apsp_mode == "auto" and num_edges > 0
-            and num_nodes >= int(self.band_storage_min_nodes))
-        if band_storage:
-            raise _not_ported("band storage (apsp_mode='band', or 'auto' at "
-                              "band_storage_min_nodes and above)", "A7")
+            raise _not_ported("the euclidean node distance metric, dense or "
+                              "band", "A4 (its band form: A7)")
+        if self.band_relax == "bf":
+            raise _not_ported("band_relax='bf' (the sparse Bellman-Ford band "
+                              "relax, apsp_band_bf)", "A7 remainder")
+        if self.band_indicator_bits != "auto" and self.band_indicator_bits:
+            raise _not_ported("bit-packed indicator bands "
+                              "(band_indicator_bits=True)", "A7 remainder")
         v = self.node2attribute
         num_other = int(np.count_nonzero(np.isfinite(v) & (v != 0) & (v != 1)))
         if (self.enrichment_type == "hypergeometric"
@@ -296,7 +400,7 @@ class SAFE:
 
         num_nodes = self._num_nodes
         coords, edges, lengths, edge_weights = self._graph_arrays
-        self._refuse_unported(num_nodes, len(edges))
+        self._refuse_unported()
         if self.node_distance_metric == "shortpath_weighted_layout":
             x = coords[:, 0]
             nr = self.neighborhood_radius * (np.max(x) - np.min(x))
@@ -309,6 +413,9 @@ class SAFE:
             nr = self.neighborhood_radius
             weights = edge_weights
 
+        bs_plan = self._band_storage_plan(coords, edges, weights, num_nodes, nr)
+        if bs_plan is not None:
+            return self._run_pipeline_bandstore(bs_plan, nr, perm_idx)
         plan = self._banded_plan(coords, edges, weights, num_nodes, nr)
         if plan is not None:
             d0, inv_rank, window = plan
@@ -328,13 +435,7 @@ class SAFE:
         V, A = len(valid_rows), n2a.shape[1]
         valid_dev = (None if V == n2a.shape[0]  # every row valid: no gather
                      else torch.as_tensor(valid_rows, device=self.device))
-        generator = None
-        if perm_idx is None:
-            seed = self.random_seed
-            if seed is None:
-                seed = int(np.random.default_rng().integers(2 ** 31 - 1))
-            generator = torch.Generator(device=self.device).manual_seed(
-                int(seed))
+        generator = self._generator(perm_idx)
         batch = default_batch_size(V, A, int(self.num_permutations))
         (dist, nbr, obs, counts_neg, counts_pos, mean, std) = \
             _pipe.fused_permutation_pipeline(
@@ -344,12 +445,27 @@ class SAFE:
                 batch_size=batch, precision=self.matmul_precision,
                 mesh=self.mesh, window=window, inv_rank=inv_rank,
                 perm_idx=perm_idx)
-        obs = obs.cpu().numpy()
-        self.ns = obs
+        self._store_results(obs, counts_neg, counts_pos, nbr, dist, mean, std)
+
+    def _generator(self, perm_idx):
+        """The null's torch.Generator from ``random_seed`` (a fresh seed
+        when None), or None when explicit permutations are given."""
+        if perm_idx is not None:
+            return None
+        seed = self.random_seed
+        if seed is None:
+            seed = int(np.random.default_rng().integers(2 ** 31 - 1))
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def _store_results(self, obs, counts_neg, counts_pos, nbr, dist, mean,
+                       std):
+        """Scores, counts and p-values to the host; the neighborhoods and
+        distances stay where the run left them (dense tensors or bands)."""
+        self.ns = obs.cpu().numpy()
         self.counts_neg = counts_neg.cpu().numpy()
         self.counts_pos = counts_pos.cpu().numpy()
-        self._finalize_randomization(self.counts_neg, self.counts_pos, obs)
-
+        self._finalize_randomization(self.counts_neg, self.counts_pos,
+                                     self.ns)
         self._neighborhoods_dev = nbr
         self._neighborhoods_np = None
         self._node_distances_dev = dist
@@ -360,6 +476,51 @@ class SAFE:
             logging.info("Number of nodes per neighborhood (mean +/- std): "
                          "%.2f +/- %.2f" % (float(mean), float(std)))
         self._update_binary_enrichment()
+
+    def _run_pipeline_bandstore(self, plan, nr, perm_idx):
+        """run_pipeline over the band-storage engine, quantitative branch
+        (``safe.py:2048-2145``): every matrix is O(N W); the neighborhoods
+        and distances become :class:`BandedMatrix` results."""
+        num_nodes = self._num_nodes
+        band, rank = plan["band"], plan["rank"]
+        if self._band_bits_selected(num_nodes, band):
+            raise _not_ported(
+                "bit-packed indicator bands (band_indicator_bits='auto' at "
+                "band_bits_min_bytes and above)", "A7 remainder")
+        # drop the previous run's bands before building new ones
+        # (_release_device_results, safe.py:1392)
+        self._neighborhoods_dev = self._node_distances_dev = None
+        self._neighborhoods_np = self._node_distances_np = None
+        order = np.argsort(rank)  # permuted position -> original node
+        bt = band // 128 + 1
+        n2a = self.node2attribute
+        vals_perm = np.asarray(n2a, np.float32)[order]
+        valid_perm = np.any(~np.isnan(vals_perm), axis=1)
+        V, A = int(valid_perm.sum()), n2a.shape[1]
+        starts, w_c = _bst.compaction_plan(valid_perm, n=num_nodes, bt=bt)
+        batch = default_batch_size(V, A, int(self.num_permutations))
+        dev = self.device
+        (dist_band, s_ind, obs, counts_neg, counts_pos, mean, std) = \
+            _pipe.fused_permutation_pipeline_band(
+                plan["u"], plan["v"], plan["w"],
+                torch.as_tensor(vals_perm, device=dev),
+                torch.as_tensor(vals_perm[valid_perm], device=dev),
+                torch.as_tensor(valid_perm, device=dev),
+                torch.as_tensor(starts, device=dev), plan["rank_dev"],
+                self._generator(perm_idx), _nbr.inclusive_radius(nr),
+                n=num_nodes, band=band,
+                score_type=self.neighborhood_score_type,
+                num_permutations=int(self.num_permutations),
+                batch_size=batch, w_c=w_c, precision=self.matmul_precision,
+                keep_distances=bool(self.keep_node_distances),
+                perm_idx=perm_idx)
+        self.apsp_engine_used, self.window_used = "band-storage", None
+        self._store_results(
+            obs, counts_neg, counts_pos,
+            BandedMatrix(s_ind, rank, num_nodes, band, fill=0.0),
+            None if dist_band is None
+            else BandedMatrix(dist_band, rank, num_nodes, band, fill=np.inf),
+            mean, std)
 
     def _finalize_randomization(self, counts_neg, counts_pos, obs):
         """counts -> p-values -> NES on the host in f64 (``safe.py:1511``):

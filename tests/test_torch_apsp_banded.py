@@ -22,6 +22,17 @@ from safepy_tpu_torch.ops import neighborhoods as tnb
 from safepy_tpu_torch.ops.apsp import pad_distances
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions are loops of small torch ops; under the test
+    runner's parallel workers, torch's per-process intra-op thread pools
+    oversubscribe the cores and run them many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _geometric_graph(n, k, seed):
     """tests/test_apsp_banded.py:15: kNN graph, Euclidean edge lengths."""
     rng = np.random.default_rng(seed)

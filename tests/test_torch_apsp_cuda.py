@@ -20,6 +20,18 @@ from safepy_tpu.ops.neighborhoods import dense_initial_distances
 from safepy_tpu_torch.ops import apsp_cuda as K
 from safepy_tpu_torch.ops.apsp import _apsp_torch, apsp, pad_distances
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions are loops of small torch ops; under the test
+    runner's parallel workers, torch's per-process intra-op thread pools
+    oversubscribe the cores and run them many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BLOCK = 32
 
 
@@ -139,7 +151,8 @@ def test_cpu_wrappers_count_no_launches_and_check_inputs():
     K.close_diag(a)
     K.relax_window_sym(a, a, a.clone(), 0, BLOCK, 1)
     assert K.LAUNCHES == {"relax_panel": 0, "relax_window_sym": 0,
-                          "close_diag": 0}
+                          "close_diag": 0, "relax_skew_sym": 0,
+                          "relax_skew": 0}
     with pytest.raises(TypeError):
         K.relax_panel(a.double(), a.double(), a.double())
     with pytest.raises(ValueError, match="shape"):

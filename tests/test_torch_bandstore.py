@@ -1,0 +1,294 @@
+"""The port's band storage (safepy_tpu_torch/ops/apsp_bandstore.py) against
+the JAX package's (safepy_tpu/ops/apsp_bandstore.py), on the same seeded
+numpy inputs.
+
+On the CPU the kernel wrappers run their plain torch versions; the JAX skew
+kernels run in Pallas interpret mode, as tests/test_apsp_bandstore.py runs
+them. Storage, initialization, the skew kernels, the FW and the compaction
+are compared bitwise (each min-plus candidate is one f32 rounding and min is
+exact); banded scores within 1e-5 (the matmul sums associate differently);
+the fused counts exactly, on dyadic values whose f32 sums are exact in any
+order.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+from scipy.sparse import coo_matrix
+from scipy.sparse.csgraph import shortest_path
+from scipy.spatial import cKDTree
+
+from safepy_tpu.ops import apsp_bandstore as jbs
+from safepy_tpu.ops.apsp_banded import banded_order
+from safepy_tpu.ops.neighborhoods import inclusive_radius
+from safepy_tpu_torch.ops import apsp_bandstore as bs
+from safepy_tpu_torch.ops import apsp_cuda as K
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions are loops of small torch ops; under the test
+    runner's parallel workers, torch's per-process intra-op thread pools
+    oversubscribe the cores and run them many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _t(x):
+    return torch.as_tensor(np.ascontiguousarray(x))
+
+
+def _inf_laced(rng, shape, inf_share=0.3):
+    x = rng.uniform(0, 1, shape).astype(np.float32)
+    x[rng.random(shape) < inf_share] = np.inf
+    return x
+
+
+def _geometric(n, k, seed, radius_frac=0.1, long_edges=0):
+    """kNN geometric graph in banded order: (edges, lengths, nr, rank,
+    band); optional random long edges exercise the out-of-band drop."""
+    rng = np.random.default_rng(seed)
+    coords = rng.uniform(-1, 1, (n, 2))
+    _, nn = cKDTree(coords).query(coords, k=k)
+    pairs = {(min(i, int(j)), max(i, int(j)))
+             for i in range(n) for j in nn[i, 1:]}
+    for _ in range(long_edges):
+        a, b = rng.integers(0, n, 2)
+        if a != b:
+            pairs.add((min(a, b), max(a, b)))
+    edges = np.array(sorted(pairs))
+    w = np.hypot(*(coords[edges[:, 0]] - coords[edges[:, 1]]).T)
+    nr = radius_frac * (coords[:, 0].max() - coords[:, 0].min())
+    order, band = banded_order(coords, nr * (1 + 1e-5))
+    rank = np.empty(n, np.int64)
+    rank[order] = np.arange(n)
+    return edges, w, nr, rank, band
+
+
+def _init_both(n, edges, w, rank, band, block):
+    pe = rank[edges]
+    want = jbs.band_init_from_edges(jnp.asarray(pe[:, 0], jnp.int32),
+                                    jnp.asarray(pe[:, 1], jnp.int32),
+                                    jnp.asarray(w, jnp.float32),
+                                    n=n, band=band, block=block)
+    got = bs.band_init_from_edges(_t(pe[:, 0]), _t(pe[:, 1]),
+                                  _t(w.astype(np.float32)), n=n, band=band,
+                                  block=block)
+    return got, want
+
+
+@pytest.mark.parametrize("n,band,block", [(150, 40, 64), (300, 70, 32),
+                                          (97, 200, 32)])
+def test_storage_geometry_matches_jax(n, band, block):
+    assert bs.band_params(n, band, block) == jbs.band_params(n, band, block)
+    assert bs.band_nbytes(n, band, block, 1) == jbs.band_nbytes(n, band,
+                                                                block, 1)
+    rng = np.random.default_rng(n)
+    dense = _inf_laced(rng, (n, n))
+    s = bs.pack_band(dense, band, block)
+    np.testing.assert_array_equal(s.numpy(),
+                                  np.asarray(jbs.pack_band(dense, band, block)))
+    for fill in (np.inf, 0.0):
+        np.testing.assert_array_equal(
+            bs.unpack_band(s, n, band, block, fill=fill),
+            jbs.unpack_band(np.asarray(s), n, band, block, fill=fill))
+
+
+@pytest.mark.parametrize("seed,long_edges", [(0, 0), (3, 25)])
+def test_band_init_and_banded_matrix_match_jax(seed, long_edges):
+    n, block = 300, 32
+    edges, w, nr, rank, band = _geometric(n, 6, seed, long_edges=long_edges)
+    got, want = _init_both(n, edges, w, rank, band, block)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for data, fill in ((got, np.inf), (bs.band_threshold(got, 0.05), 0.0)):
+        ours = bs.BandedMatrix(data, rank, n, band, block, fill=fill)
+        theirs = jbs.BandedMatrix(np.asarray(data), rank, n, band, block,
+                                  fill=fill)
+        np.testing.assert_array_equal(ours.to_dense(), theirs.to_dense())
+        a, b = ours.to_sparse(), theirs.to_sparse()
+        assert (a != b).nnz == 0 and a.nnz == b.nnz > n // 2
+        assert ours.to_host().data.device.type == "cpu"
+    big = bs.BandedMatrix(got, rank, 30_000, band)
+    with pytest.raises(MemoryError, match="disabled at band-storage scale"):
+        big.to_dense()
+
+
+def _skew_case(bt, block, seed):
+    rng = np.random.default_rng(seed)
+    w = (2 * bt + 1) * block
+    win = _inf_laced(rng, (w, w))
+    win = np.minimum(win, win.T)
+    p = _inf_laced(rng, (block, w))
+    p_ext = np.pad(p, ((0, 0), (bt * block, bt * block)),
+                   constant_values=np.inf)
+    return win, p, p_ext
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("bt", [1, 3])
+def test_skew_kernels_match_pallas(symmetric, bt):
+    """The plain versions against the Pallas kernels on +inf-laced windows:
+    Q is the window's own pivot column, snapshotted as the facade does."""
+    block = 32
+    win, p, p_ext = _skew_case(bt, block, 10 * bt + symmetric)
+    fn = jbs._relax_skew_sym_pallas if symmetric else jbs._relax_skew_pallas
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(fn(jnp.asarray(win), jnp.asarray(p_ext), bt=bt,
+                             block=block))
+    got = _t(win.copy())
+    q = bs.skew_pivot_column(got, bt, block)
+    (K.relax_skew_sym if symmetric else K.relax_skew)(got, q, _t(p), bt)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not np.array_equal(want, win)  # the relax changed something
+
+
+def test_skew_wrappers_check_inputs_and_count_no_cpu_launches():
+    bt, block = 1, 32
+    win, p, _ = _skew_case(bt, block, 0)
+    win = _t(win)
+    q = bs.skew_pivot_column(win, bt, block)
+    K.reset_launches()
+    K.relax_skew_sym(win, q, _t(p), bt)
+    K.relax_skew(win, q, _t(p), bt)
+    assert set(K.LAUNCHES.values()) == {0}
+    with pytest.raises(ValueError, match="bad skewed window"):
+        K.relax_skew_sym(win, q, _t(p), 2)
+    with pytest.raises(ValueError, match="bad skewed window"):
+        K.relax_skew(win[:64, :64], q, _t(p), bt)
+    with pytest.raises(ValueError, match="no min-plus kernel"):
+        K.relax_skew(win.to("meta"), q.to("meta"), _t(p).to("meta"), bt)
+
+
+@pytest.mark.parametrize("n,block,seed,radius_frac", [(384, 64, 1, 0.1),
+                                                      (420, 32, 2, 0.18)])
+def test_band_fw_symmetric_matches_pallas(n, block, seed, radius_frac):
+    edges, w, nr, rank, band = _geometric(n, 6, seed, radius_frac)
+    got, s0 = _init_both(n, edges, w, rank, band, block)
+    bt = band // block + 1
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jbs.apsp_band_fw(s0, bt=bt, block=block,
+                                           use_pallas=True, symmetric=True))
+    out = bs.apsp_band_fw(got, bt=bt, block=block, symmetric=True)
+    assert out is got  # in place
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _oracle(n, edges, w):
+    a = coo_matrix((w, tuple(edges.T)), shape=(n, n))
+    return shortest_path(a.maximum(a.T), method="D", directed=False)
+
+
+@pytest.mark.parametrize("seed,long_edges", [(0, 0), (3, 25)])
+def test_band_fw_classic_matches_jnp_and_dijkstra(seed, long_edges):
+    """symmetric=False bitwise against the JAX jnp FW; both forms give the
+    scipy Dijkstra indicator, and the population stats of its row sizes."""
+    n, block = 600, 64
+    edges, w, nr, rank, band = _geometric(n, 7, seed, long_edges=long_edges)
+    got, s0 = _init_both(n, edges, w, rank, band, block)
+    bt = band // block + 1
+    want = np.asarray(jbs.apsp_band_fw(s0, bt=bt, block=block,
+                                       use_pallas=False))
+    sym = got.clone()
+    bs.apsp_band_fw(got, bt=bt, block=block, symmetric=False)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    r = inclusive_radius(nr)
+    ref = _oracle(n, edges, w) <= float(r)
+    bs.apsp_band_fw(sym, bt=bt, block=block)
+    for s in (got, sym):
+        s_ind = bs.band_threshold(s, r)
+        dense = bs.unpack_band(s_ind, n, band, block, fill=0)
+        np.testing.assert_array_equal(dense[rank][:, rank].astype(bool), ref)
+    sizes, mean, std = bs.band_row_stats(s_ind, n=n, bt=bt, block=block)
+    jsizes, jmean, jstd = jbs.band_row_stats(jnp.asarray(s_ind.numpy()),
+                                             n=n, bt=bt, block=block)
+    np.testing.assert_array_equal(sizes.numpy(), np.asarray(jsizes))
+    np.testing.assert_allclose([float(mean), float(std)],
+                               [float(jmean), float(jstd)], rtol=1e-6)
+    np.testing.assert_allclose(float(std), ref.sum(1).std(), rtol=1e-6)
+
+
+def _thresholded(n, block, seed):
+    edges, w, nr, rank, band = _geometric(n, 6, seed)
+    s, _ = _init_both(n, edges, w, rank, band, block)
+    bt = band // block + 1
+    bs.apsp_band_fw(s, bt=bt, block=block)
+    return bs.band_threshold(s, inclusive_radius(nr)), bt
+
+
+def test_band_matmul_and_batch_match_jax():
+    n, block, a_dim, c_dim = 500, 64, 3, 4
+    s_ind, bt = _thresholded(n, block, 4)
+    rng = np.random.default_rng(0)
+    npad = -(-n // block) * block
+    x = np.zeros((npad, a_dim), np.float32)
+    x[:n] = rng.normal(size=(n, a_dim))
+    j_ind = jnp.asarray(s_ind.numpy())
+    np.testing.assert_allclose(
+        bs.band_matmul(s_ind, _t(x), bt=bt, block=block).numpy(),
+        np.asarray(jbs.band_matmul(j_ind, jnp.asarray(x), bt=bt, block=block)),
+        rtol=1e-5, atol=1e-5)
+
+    valid = rng.random(n) < 0.7
+    compact, starts, w_c = bs.compact_band_columns(s_ind, valid, bt=bt,
+                                                   block=block)
+    v = int(valid.sum())
+    xb = np.zeros((c_dim, v + w_c, a_dim), np.float32)
+    xb[:, :v] = rng.normal(size=(c_dim, v, a_dim))
+    got = bs.band_matmul_batch(compact, _t(xb), starts, bt=bt, block=block)
+    want = jbs.band_matmul_batch(jnp.asarray(compact.numpy()), jnp.asarray(xb),
+                                 jnp.asarray(starts.numpy(), jnp.int32),
+                                 bt=bt, block=block)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("seed,valid_share", [(5, 0.7), (6, 1.0)])
+def test_compaction_matches_jax(seed, valid_share):
+    n, block = 500, 64
+    s_ind, bt = _thresholded(n, block, seed)
+    valid = np.random.default_rng(seed).random(n) < valid_share
+    starts, w_c = bs.compaction_plan(valid, n=n, bt=bt, block=block)
+    jstarts, jw_c = jbs.compaction_plan(valid, n=n, bt=bt, block=block)
+    np.testing.assert_array_equal(starts, jstarts)
+    assert w_c == jw_c
+    got = bs.apply_compaction(s_ind, valid, w_c, bt=bt, block=block)
+    want = jbs.apply_compaction(jnp.asarray(s_ind.numpy()), valid, w_c, bt=bt,
+                                block=block)
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_band_count_batch_exact_against_jax():
+    """Same permuted operands (vals[perm_idx], padded), same obs, same live
+    mask: exact counts, ties included (dyadic values, exact sums)."""
+    n, block, a_dim, c_dim = 500, 64, 2, 12
+    s_ind, bt = _thresholded(n, block, 7)
+    rng = np.random.default_rng(3)
+    valid = rng.random(n) < 0.75
+    compact, starts, w_c = bs.compact_band_columns(s_ind, valid, bt=bt,
+                                                   block=block)
+    v = int(valid.sum())
+    vals = (rng.integers(-8, 9, (v, a_dim)) / 4).astype(np.float32)
+    perm_idx = np.stack([rng.permutation(v) for _ in range(c_dim)])
+    xb = np.zeros((c_dim, v + w_c, a_dim), np.float32)
+    xb[:, :v] = vals[perm_idx]
+    npad = -(-n // block) * block
+    obs = (rng.integers(-8, 9, (npad, a_dim)) / 4).astype(np.float32)
+    live = np.arange(c_dim) < c_dim - 3  # a last, partial chunk
+    got = bs.band_count_batch(compact, _t(xb), starts, _t(obs), _t(live),
+                              bt=bt, block=block)
+    want = jbs.band_count_batch(jnp.asarray(compact.numpy()), jnp.asarray(xb),
+                                jnp.asarray(starts.numpy(), jnp.int32),
+                                jnp.asarray(obs), jnp.asarray(live), bt=bt,
+                                block=block)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+    assert int(got[0].sum()) > 0 and int(got[1].sum()) > 0
+    all_live = bs.band_count_batch(compact, _t(xb), starts, _t(obs), bt=bt,
+                                   block=block)
+    assert (all_live[0] >= got[0]).all() and (all_live[1] >= got[1]).all()

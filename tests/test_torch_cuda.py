@@ -57,6 +57,31 @@ def test_kernels_match_plain(dev, block, w, band_tiles):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("block,bt", [(128, 2), (128, 5), (64, 3)])
+def test_skew_kernels_match_plain(dev, symmetric, block, bt):
+    """The skewed window lies inside a band with rows above and below it,
+    as in the band rounds; rows outside it must stay untouched."""
+    from safepy_tpu_torch.ops.apsp_bandstore import skew_pivot_column
+
+    gen = torch.Generator(device=dev).manual_seed(block + bt + symmetric)
+    w = (2 * bt + 1) * block
+    s = _inf_laced(gen, dev, w + 2 * block, w)
+    win = s[block:block + w]
+    win.copy_(torch.minimum(win, win.T))
+    p = _inf_laced(gen, dev, block, w)
+    q = skew_pivot_column(win, bt, block)
+    got, want = s.clone(), s.clone()
+    kernel = K.relax_skew_sym if symmetric else K.relax_skew
+    plain = K.relax_skew_sym_plain if symmetric else K.relax_skew_plain
+    K.reset_launches()
+    kernel(got[block:block + w], q, p, bt)
+    plain(want[block:block + w], q, p, bt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and not torch.equal(got, s)
+    assert K.LAUNCHES["relax_skew_sym" if symmetric else "relax_skew"] == 1
+
+
 def _network(n=700, k=8, seed=3):
     from scipy.spatial import cKDTree
 
@@ -99,6 +124,52 @@ def test_cuda_session_matches_cpu_session(dev, mode):
     np.testing.assert_array_equal(gpu.ns, cpu.ns)
     np.testing.assert_array_equal(gpu.counts_neg, cpu.counts_neg)
     np.testing.assert_array_equal(gpu.counts_pos, cpu.counts_pos)
+
+
+def test_cuda_band_session_matches_cpu_band_session(dev):
+    """apsp_mode='band' on the card and on the host, same arrays and
+    permutations: identical band distances, neighborhoods and counts; the
+    classic (non-symmetric) FW gives the same indicator."""
+    from safepy_tpu_torch.ops import apsp_bandstore as bs
+    from safepy_tpu_torch.ops.neighborhoods import inclusive_radius
+
+    net = _network(n=900)
+    rng = np.random.default_rng(1)
+    vals = rng.integers(-3, 4, (900, 1)).astype(float)
+    vals[rng.random(900) < 0.3] = np.nan
+    valid = np.flatnonzero(np.isfinite(vals).any(axis=1))
+    perm_idx = np.stack([rng.permutation(len(valid)) for _ in range(100)])
+
+    runs = []
+    for device in ("cpu", dev):
+        sf = SAFE(device=device, verbose=False)
+        sf.apsp_mode = "band"
+        sf.load_network(network_file=net)
+        sf.load_attributes(attribute_file=vals)
+        K.reset_launches()
+        sf.run_pipeline(perm_idx=perm_idx)
+        runs.append((sf, dict(K.LAUNCHES)))
+    (cpu, _), (gpu, launches) = runs
+    assert gpu.apsp_engine_used == cpu.apsp_engine_used == "band-storage"
+    nb = -(-900 // 128)
+    assert launches == {"close_diag": nb, "relax_panel": nb,
+                        "relax_skew_sym": nb, "relax_window_sym": 0,
+                        "relax_skew": 0}
+    assert torch.equal(gpu._node_distances_dev.data.cpu(),
+                       cpu._node_distances_dev.data)
+    np.testing.assert_array_equal(gpu.neighborhoods, cpu.neighborhoods)
+    np.testing.assert_array_equal(gpu.ns, cpu.ns)
+    np.testing.assert_array_equal(gpu.counts_neg, cpu.counts_neg)
+    np.testing.assert_array_equal(gpu.counts_pos, cpu.counts_pos)
+    plan = next(p for p in gpu._bandstore_cache.values() if p)
+    s = bs.band_init_from_edges(plan["u"], plan["v"], plan["w"], n=900,
+                                band=plan["band"])
+    K.reset_launches()
+    bs.apsp_band_fw(s, bt=plan["band"] // 128 + 1, symmetric=False)
+    assert K.LAUNCHES["relax_skew"] == nb
+    x = net[0][:, 0]
+    r = inclusive_radius(gpu.neighborhood_radius * (x.max() - x.min()))
+    assert torch.equal(bs.band_threshold(s, r), gpu._neighborhoods_dev.data)
 
 
 def test_wrappers_refuse_rather_than_fall_back(dev):

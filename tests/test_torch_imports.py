@@ -17,7 +17,9 @@ def test_import_is_light_and_builds_nothing():
     build = os.path.join(REPO, "build")
     before = sorted(os.listdir(build)) if os.path.isdir(build) else None
     code = ("import sys, safepy_tpu_torch, safepy_tpu_torch.safe, "
-            "safepy_tpu_torch.state, safepy_tpu_torch.pipeline\n"
+            "safepy_tpu_torch.state, safepy_tpu_torch.pipeline, "
+            "safepy_tpu_torch.ops.apsp_bandstore, "
+            "safepy_tpu_torch.ops.enrich_band\n"
             "bad = [m for m in ('jax', 'triton', 'networkx', 'pandas', "
             "'safepy_tpu') if m in sys.modules]\n"
             "assert not bad, bad\n")

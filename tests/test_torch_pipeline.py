@@ -12,6 +12,7 @@ import networkx as nx
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 import jax.numpy as jnp
 from scipy.spatial import cKDTree
 
@@ -21,6 +22,18 @@ from safepy_tpu.ops import permutation as jperm
 from safepy_tpu_torch import SAFE
 from safepy_tpu_torch.io.graph_arrays import edge_lengths, graph_to_arrays
 from safepy_tpu_torch.state import from_numpy_state
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions are loops of small torch ops; under the test
+    runner's parallel workers, torch's per-process intra-op thread pools
+    oversubscribe the cores and run them many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 N_NODES, N_PERM, SEED = 420, 1000, 7
 
@@ -173,8 +186,9 @@ def _small_port_session():
 
 @pytest.mark.parametrize("setting,value,item", [
     ("multiple_testing", True, "A4"), ("background", "network", "A4"),
-    ("node_distance_metric", "euclidean", "A4"), ("apsp_mode", "band", "A7"),
-    ("band_storage_min_nodes", 50, "A7"), ("mesh", object(), "A10"),
+    ("node_distance_metric", "euclidean", "A4"),
+    ("band_relax", "bf", "A7"), ("band_indicator_bits", True, "A7"),
+    ("mesh", object(), "A10"),
     ("enrichment_type", "hypergeometric", "A5")])
 def test_unported_paths_raise(setting, value, item):
     sf = _small_port_session()

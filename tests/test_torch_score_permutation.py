@@ -16,6 +16,17 @@ from safepy_tpu_torch.ops import permutation as tperm
 from safepy_tpu_torch.ops import score as tscore
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions are loops of small torch ops; under the test
+    runner's parallel workers, torch's per-process intra-op thread pools
+    oversubscribe the cores and run them many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(seed, n=120, a=3, integer=False, nan_share=0.3):
     rng = np.random.default_rng(seed)
     nbr = (rng.random((n, n)) < 0.15).astype(np.float32)
