@@ -10,7 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. hold each kernel bitwise against its plain torch version on the card at
    the shapes of its path, and time both (CUDA events, median): the
    banded-window kernels at the Example_1 shapes, the skew kernels at the
-   49,920-node band shape (block 128, bt 12, W 3,200) and at bt 2;
+   49,920-node band shape (block 128, bt 12, W 3,200) and at bt 2, the
+   classic relax over the dense 4,096 matrix and the 1,024 window, and one
+   4096 x 4096 x 4096 min-plus product;
 4. the Example_1 path: the Example_1-shaped workflow of ``bench.py``
    (3,971-node kNN geometric network, one quantitative attribute,
    1,000-permutation null) through ``SAFE(device="cuda").run_pipeline``.
@@ -32,7 +34,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    the peak device memory and profiles one steady run. Then the
    non-symmetric band FW (``relax_skew``) on the same initial band must
    give the same indicator;
-7. print a JSON line of the kernels, then the card, then the result line.
+7. the op-level path (``safepy_tpu_torch.ops``) at the Example_1 width:
+   ``ops.apsp(d0)`` with the JAX defaults (classic FW, ``relax_full``),
+   bitwise equal to ``symmetric=True``; the classic banded FW
+   (``relax_full`` with a band), bitwise equal to the symmetric one;
+   ``method="pallas_squaring"`` (``minplus_product``), within 1e-6 of the
+   FW; a directed 16-NN matrix through the classic dense and banded FW
+   against scipy's directed Dijkstra, and how many pairs the mirror-halved
+   FW would get wrong there; the flagship step of
+   ``__graft_entry__.entry()`` (APSP, threshold, scores, 1,000-permutation
+   null). Launch counts per path and min-of-3 times;
+8. print a JSON line of the kernels, then the card, then the result line.
 
 Imports torch, numpy, scipy and the port only; needs one card, nvcc and
 nvidia-smi.
@@ -52,13 +64,18 @@ from scipy.sparse.csgraph import dijkstra, shortest_path
 from scipy.spatial import cKDTree
 from torch.profiler import ProfilerActivity, profile
 
-from safepy_tpu_torch import SAFE, native
+from safepy_tpu_torch import SAFE, native, ops
 from safepy_tpu_torch import pipeline as pipe
 from safepy_tpu_torch.io.graph_arrays import edge_lengths
 from safepy_tpu_torch.ops import apsp_bandstore as bst
 from safepy_tpu_torch.ops import apsp_cuda as K
-from safepy_tpu_torch.ops.apsp_banded import apsp_banded_unpermuted
-from safepy_tpu_torch.ops.neighborhoods import inclusive_radius
+from safepy_tpu_torch.ops.apsp import pad_distances
+from safepy_tpu_torch.ops.apsp_banded import (apsp_banded_fw,
+                                              apsp_banded_unpermuted,
+                                              banded_order, window_width)
+from safepy_tpu_torch.ops.neighborhoods import (_initial_distances,
+                                                dense_initial_distances,
+                                                inclusive_radius)
 from safepy_tpu_torch.ops.permutation import (default_batch_size,
                                               prepare_valid, scan_counts)
 
@@ -292,6 +309,223 @@ def check_skew_kernels(device, cases=((12, "slice"), (2, "small"))):
     return out
 
 
+def check_full_kernels(device, window=1024, npad=4096, band_tiles=6):
+    """Phase 3, op-level path: relax_full over the dense 4096 matrix (k 128)
+    and banded on the 1,024 window (band_tiles 6) inside it, in place; one
+    4096 x 4096 x 4096 minplus_product, whose plain version (a 4,096-step
+    loop) is timed once."""
+    gen = torch.Generator(device=device).manual_seed(13)
+    b = BLOCK
+    out = {}
+    d = inf_laced(gen, (npad, npad), device)
+    lo = npad // 2 - window // 2
+    for name, lo_, w, bt in (("relax_full", 0, npad, None),
+                             ("relax_full_banded", lo, window, band_tiles)):
+        q = inf_laced(gen, (w, b), device)
+        p = inf_laced(gen, (b, w), device)
+        got, want = d.clone(), d.clone()
+        gw, ww = got[lo_:lo_ + w, lo_:lo_ + w], want[lo_:lo_ + w, lo_:lo_ + w]
+        K.relax_full(q, p, gw, bt)
+        K.relax_full_plain(q, p, ww, bt)
+        errs = [max_abs_err(got, want)]
+        # relaxing again with the same panels is idempotent: same bits
+        ms = time_ms(lambda: K.relax_full(q, p, gw, bt), device)
+        plain_ms = time_ms(lambda: K.relax_full_plain(q, p, ww, bt), device,
+                           inner=2)
+        dev_ms = device_ms(lambda: K.relax_full(q, p, gw, bt),
+                           "relax_full_kernel")
+        errs.append(max_abs_err(got, want))
+        out[name] = dict(err=max(errs), ms=ms, plain_ms=plain_ms,
+                         device_ms=dev_ms, shapes={"window": [w, w, b],
+                                                   "band_tiles": bt})
+    a = inf_laced(gen, (npad, npad), device)
+    bm = inf_laced(gen, (npad, npad), device)
+    got = K.minplus_product(a, bm)
+    sync(device)
+    t0 = time.perf_counter()
+    want = K.minplus_product_plain(a, bm)
+    sync(device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max_abs_err(got, want)
+    del want
+    out["minplus_product"] = dict(
+        err=err, plain_ms=plain_ms,
+        ms=time_ms(lambda: K.minplus_product(a, bm), device, inner=3,
+                   warmup=1, reps=3),
+        device_ms=device_ms(lambda: K.minplus_product(a, bm),
+                            "minplus_product_kernel", calls=3),
+        shapes={"mkn": [npad, npad, npad], "plain": "one call"})
+    return out
+
+
+def directed_knn(coords, k=KNN):
+    """Dense f32 matrix of the arcs i -> each of i's k nearest neighbours,
+    of Euclidean length, not mirrored (duplicates min-reduced), and the
+    scipy CSR matrix of the same arcs."""
+    n = len(coords)
+    _, nn = cKDTree(coords).query(coords, k=k + 1)
+    u = np.repeat(np.arange(n), k)
+    v = nn[:, 1:].ravel()
+    d = np.full((n, n), np.inf, np.float32)
+    np.fill_diagonal(d, 0.0)
+    np.minimum.at(d, (u, v), np.hypot(*(coords[u] - coords[v]).T)
+                  .astype(np.float32))
+    off = np.isfinite(d) & ~np.eye(n, dtype=bool)
+    iu, iv = np.nonzero(off)
+    return d, coo_matrix((d[iu, iv].astype(np.float64), (iu, iv)),
+                         shape=(n, n)).tocsr()
+
+
+def run_ops_path(device, net, vals, num_permutations=N_PERM, steady=3):
+    """Phase 7: the op-level path (``ops.apsp`` with the JAX defaults, the
+    squaring, the classic banded FW, the flagship step of
+    ``__graft_entry__.entry()``) at the Example_1 width, on the undirected
+    network and on a directed 16-NN matrix of the same coordinates."""
+    coords, edges, lengths, _ = net
+    n = len(coords)
+    nb = -(-n // BLOCK)
+    npad = nb * BLOCK
+    nr = 0.1 * (coords[:, 0].max() - coords[:, 0].min())  # SAFE's default
+    r = float(inclusive_radius(nr))
+    out = {}
+
+    def launched(fn):
+        K.reset_launches()
+        res = fn()
+        sync(device)
+        return res, dict(K.LAUNCHES)
+
+    def best(fn):
+        times = []
+        for _ in range(steady):
+            sync(device)
+            t0 = time.perf_counter()
+            fn()
+            sync(device)
+            times.append(time.perf_counter() - t0)
+        return min(times)
+
+    # undirected: the classic FW (B5) == the mirror-halved one (B7)
+    d0 = torch.as_tensor(dense_initial_distances(n, edges, lengths),
+                         device=device)
+    classic, out["fw_launches"] = launched(lambda: ops.apsp(d0))
+    check_launches(device, out["fw_launches"], close_diag=nb,
+                   relax_panel=2 * nb, relax_full=nb)
+    if not torch.equal(classic, ops.apsp(d0, symmetric=True)):
+        raise AssertionError("classic and symmetric FW differ")
+    oracle = dijkstra_indicator(coords, edges, lengths, r)
+    if not np.array_equal((classic <= r).cpu().numpy(), oracle):
+        raise AssertionError("classic FW indicator differs from Dijkstra's")
+
+    # the classic banded window (B6) == the symmetric one (B7), in the
+    # geometric banded order
+    order, band = banded_order(coords, nr * (1 + 1e-5))
+    window = out["window"] = window_width(n, band)
+    rank = np.empty(n, dtype=np.int64)
+    rank[order] = np.arange(n)
+    rank_dev = torch.as_tensor(rank, device=device)
+    pe = torch.as_tensor(rank[edges], device=device)
+    init = _initial_distances(pe[:, 0], pe[:, 1],
+                              torch.as_tensor(lengths, device=device),
+                              num_nodes=n, size=npad)
+    banded, out["banded_launches"] = launched(
+        lambda: apsp_banded_fw(init.clone(), window=window, symmetric=False))
+    check_launches(device, out["banded_launches"], close_diag=nb,
+                   relax_panel=2 * nb, relax_full_banded=nb)
+    if not torch.equal(banded, apsp_banded_fw(init.clone(), window=window)):
+        raise AssertionError("classic and symmetric banded FW differ")
+
+    # squaring (B1): the same neighborhoods, distances within 1e-6
+    sq, out["sq_launches"] = launched(
+        lambda: ops.apsp(d0, method="pallas_squaring"))
+    check_launches(device, out["sq_launches"],
+                   minplus_product=int(np.ceil(np.log2(n))))
+    if not np.array_equal((sq <= r).cpu().numpy(), oracle):
+        raise AssertionError("squaring indicator differs from Dijkstra's")
+    fin = torch.isfinite(classic)
+    if not torch.equal(fin, torch.isfinite(sq)):
+        raise AssertionError("squaring and FW reach different pairs")
+    pos = fin & (classic > 0)
+    out["sq_rel"] = float(((sq - classic).abs()[pos] / classic[pos]).max())
+    if out["sq_rel"] > 1e-6:
+        raise AssertionError(f"squaring differs from FW by {out['sq_rel']}")
+    del sq
+
+    # directed: classic dense and banded against scipy's directed Dijkstra
+    dd, arcs = directed_knn(coords)
+    dd_dev = torch.as_tensor(dd, device=device)
+    want = dijkstra(arcs, directed=True, limit=r) <= r
+    dfw, out["dir_launches"] = launched(lambda: ops.apsp(dd_dev))
+    check_launches(device, out["dir_launches"], close_diag=nb,
+                   relax_panel=2 * nb, relax_full=nb)
+    if not np.array_equal((dfw <= r).cpu().numpy(), want):
+        raise AssertionError("directed FW indicator differs from Dijkstra's")
+    db = pad_distances(torch.as_tensor(dd[np.ix_(order, order)],
+                                       device=device), BLOCK)
+    db, out["dir_banded_launches"] = launched(
+        lambda: apsp_banded_fw(db, window=window, symmetric=False))
+    check_launches(device, out["dir_banded_launches"], close_diag=nb,
+                   relax_panel=2 * nb, relax_full_banded=nb)
+    db = db[:n, :n].index_select(0, rank_dev).index_select(1, rank_dev)
+    if not np.array_equal((db <= r).cpu().numpy(), want):
+        raise AssertionError("directed banded indicator differs from "
+                             "Dijkstra's")
+    wrong = ops.apsp(dd_dev, symmetric=True)
+    out["sym_wrong"] = int((wrong != dfw).sum())
+    out["sym_shorter"] = int((wrong < dfw).sum())
+    out["sym_wrong_within_r"] = int(((wrong <= r) != (dfw <= r)).sum())
+    out["dir_asymmetric"] = int((dfw != dfw.T).sum())
+    del wrong, dfw, db, dd_dev
+
+    out["fw_s"] = best(lambda: ops.apsp(d0))
+    out["sym_s"] = best(lambda: ops.apsp(d0, symmetric=True))
+    out["sq_s"] = best(lambda: ops.apsp(d0, method="pallas_squaring"))
+    out["banded_s"] = best(lambda: apsp_banded_fw(init.clone(), window=window,
+                                                  symmetric=False))
+    out["banded_sym_s"] = best(lambda: apsp_banded_fw(init.clone(),
+                                                      window=window))
+
+    # the flagship step (__graft_entry__.py:43-51) at this width
+    vals_t = torch.as_tensor(vals, dtype=torch.float32, device=device)
+    valid = torch.as_tensor(np.flatnonzero(np.isfinite(vals).any(axis=1)),
+                            device=device)
+    batch = default_batch_size(int(valid.numel()), vals.shape[1],
+                               num_permutations)
+
+    def step():
+        dist = ops.apsp(d0)
+        nbr = (dist <= r).to(torch.float32)
+        obs = ops.compute_neighborhood_score(nbr, vals_t, "sum")
+        nbr_valid, v, m = prepare_valid(nbr, vals_t, valid)
+        gen = torch.Generator(device=device).manual_seed(SEED_NULL)
+        cn, cp = scan_counts(nbr_valid, v, m, obs, score_type="sum",
+                             num_permutations=num_permutations,
+                             batch_size=batch, generator=gen)
+        return nbr, obs, cn, cp
+
+    (nbr, obs, cn, cp), out["step_launches"] = launched(step)
+    check_launches(device, out["step_launches"], close_diag=nb,
+                   relax_panel=2 * nb, relax_full=nb)
+    if not np.array_equal(nbr.cpu().numpy().astype(bool), oracle):
+        raise AssertionError("flagship neighborhoods differ from Dijkstra's")
+    if tuple(obs.shape) != vals.shape or not torch.isfinite(obs).all():
+        raise AssertionError(f"flagship scores must be finite, {vals.shape}")
+    if not ((cn + cp) >= num_permutations).all():
+        raise AssertionError("flagship counts_neg + counts_pos < P")
+    out["step_s"] = best(step)
+    out["step_rows"] = int(valid.numel())
+    return out
+
+
+def check_launches(device, launches, **counts):
+    """On the card, raise unless each kernel launched ``counts[name]``
+    times and every other kernel not at all (on the CPU nothing launches)."""
+    want = {name: 0 for name in K.LAUNCHES}
+    want.update(counts)
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"kernel launches {launches}, expected {want}")
+
+
 def dijkstra_indicator(coords, edges, lengths, radius):
     n = len(coords)
     a = coo_matrix((lengths, tuple(edges.T)), shape=(n, n))
@@ -324,10 +558,8 @@ def run_slice(device, net, vals, num_permutations=N_PERM, steady=3):
     launches = dict(K.LAUNCHES)
     if sf.apsp_engine_used != "banded-window":
         raise AssertionError(f"banded plan not taken: {sf.apsp_engine_used}")
-    expected = {"close_diag": nb, "relax_panel": 2 * nb, "relax_window_sym": nb,
-                "relax_skew_sym": 0, "relax_skew": 0}
-    if device.type == "cuda" and launches != expected:
-        raise AssertionError(f"kernel launches {launches}, expected {expected}")
+    check_launches(device, launches, close_diag=nb, relax_panel=2 * nb,
+                   relax_window_sym=nb)
     steady_s = [timed_run(sf) for _ in range(steady)]
 
     nr = sf.neighborhood_radius * (coords[:, 0].max() - coords[:, 0].min())
@@ -449,10 +681,8 @@ def run_band_slice(device, num_permutations=N_PERM, steady=3):
     if sf.apsp_engine_used != "band-storage":
         raise AssertionError(f"band storage not taken: {sf.apsp_engine_used}")
     nb = -(-n // BLOCK)
-    expected = {"close_diag": nb, "relax_panel": nb, "relax_window_sym": 0,
-                "relax_skew_sym": nb, "relax_skew": 0}
-    if device.type == "cuda" and launches != expected:
-        raise AssertionError(f"kernel launches {launches}, expected {expected}")
+    check_launches(device, launches, close_diag=nb, relax_panel=nb,
+                   relax_skew_sym=nb)
     steady_s = [timed_run() for _ in range(steady)]
     peak_bytes = torch.cuda.max_memory_allocated(device)
     if sf.node_distances is not None:
@@ -599,6 +829,7 @@ def main():
     # phase 3: kernels against their plain versions
     kernels = check_kernels(device)
     kernels.update(check_skew_kernels(device))
+    kernels.update(check_full_kernels(device))
     for name, k in kernels.items():
         print(f"kernel {name}: bitwise equal to plain; per call {k['ms']:.4f} "
               f"ms, device {k.get('device_ms')} ms (plain {k['plain_ms']:.4f} "
@@ -649,20 +880,60 @@ def main():
           f"{bprof['top']}; phase 6 took {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # phase 7: the report; launches from the run of each kernel's path
+    # phase 7: the op-level path at the Example_1 width
+    t0 = time.perf_counter()
+    o = run_ops_path(device, net, vals)
+    print(f"ops classic FW: apsp(d0) with the JAX defaults, launches "
+          f"{o['fw_launches']}; bitwise equal to apsp(d0, symmetric=True); "
+          f"indicator equal to scipy Dijkstra's; min of 3 {o['fw_s']:.4f} s "
+          f"(symmetric {o['sym_s']:.4f} s)", flush=True)
+    print(f"ops classic banded FW: window {o['window']}, "
+          f"launches {o['banded_launches']}; bitwise equal to the symmetric "
+          f"banded FW; min of 3 {o['banded_s']:.4f} s (symmetric "
+          f"{o['banded_sym_s']:.4f} s)", flush=True)
+    print(f"ops squaring: apsp(d0, method='pallas_squaring'), launches "
+          f"{o['sq_launches']}; indicator equal to scipy Dijkstra's; max "
+          f"relative difference to the FW {o['sq_rel']:.3e}; min of 3 "
+          f"{o['sq_s']:.4f} s", flush=True)
+    print(f"ops directed 16-NN: classic FW launches {o['dir_launches']}, "
+          f"classic banded launches {o['dir_banded_launches']}; both "
+          f"indicators equal to scipy's directed Dijkstra; "
+          f"{o['dir_asymmetric']} asymmetric entries; "
+          f"apsp(d0, symmetric=True) would get "
+          f"{o['sym_wrong']} of {N_NODES ** 2} distances wrong "
+          f"({o['sym_shorter']} shorter than the shortest path, "
+          f"{o['sym_wrong_within_r']} indicator entries)", flush=True)
+    print(f"ops flagship step: apsp + threshold + scores + {N_PERM}-"
+          f"permutation null over {o['step_rows']} valid rows, launches "
+          f"{o['step_launches']}; neighborhoods equal to scipy Dijkstra's; "
+          f"min of 3 {o['step_s']:.4f} s; phase 7 took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # phase 8: the report; launches from the run of each kernel's path
     replaces = {"relax_panel": "safepy_tpu/ops/apsp_pallas.py:95",
                 "relax_window_sym": "safepy_tpu/ops/apsp_pallas.py:193",
                 "close_diag": "safepy_tpu/ops/apsp_pallas.py:258",
                 "relax_skew_sym": "safepy_tpu/ops/apsp_bandstore.py:324",
-                "relax_skew": "safepy_tpu/ops/apsp_bandstore.py:281"}
+                "relax_skew": "safepy_tpu/ops/apsp_bandstore.py:281",
+                "relax_full": "safepy_tpu/ops/apsp_pallas.py:144",
+                "relax_full_banded": "safepy_tpu/ops/apsp_pallas.py:161",
+                "minplus_product": "safepy_tpu/ops/apsp_pallas.py:62"}
     launches = dict(s["launches"], relax_skew_sym=bs["launches"][
-        "relax_skew_sym"], relax_skew=bs["classic_launches"]["relax_skew"])
+        "relax_skew_sym"], relax_skew=bs["classic_launches"]["relax_skew"],
+        relax_full=o["fw_launches"]["relax_full"],
+        relax_full_banded=o["banded_launches"]["relax_full_banded"],
+        minplus_product=o["sq_launches"]["minplus_product"])
+    paths = {"example1_banded": s["launches"], "band_49920": bs["launches"],
+             "band_49920_classic": bs["classic_launches"],
+             "ops_fw": o["fw_launches"], "ops_banded": o["banded_launches"],
+             "ops_squaring": o["sq_launches"],
+             "ops_directed_fw": o["dir_launches"],
+             "ops_directed_banded": o["dir_banded_launches"],
+             "ops_flagship_step": o["step_launches"]}
     report = [{"name": name, "route": "cuda", "source": SRC,
                "replaces": replaces[name], "launches": launches[name],
-               "launches_by_path": {
-                   "example1_banded": s["launches"][name],
-                   "band_49920": bs["launches"][name],
-                   "band_49920_classic": bs["classic_launches"][name]},
+               "launches_by_path": {path: counts[name]
+                                    for path, counts in paths.items()},
                "max_abs_err": k["err"], "ms": k["ms"],
                "plain_ms": k["plain_ms"], "device_ms": k.get("device_ms")}
               for name, k in kernels.items()]

@@ -12,6 +12,24 @@
 //                       each into its lower twin, here in place on the matrix.
 //   close_diag       <- _close_diag :258, the in-tile closure of the pivot
 //                       tile (a jnp fori_loop in the JAX package, not Pallas).
+//   relax_full       <- _relax_full :144 and _relax_full_banded :161: the
+//                       classic phase 3, D = min(D, Q (x) P) in place over a
+//                       whole (possibly rectangular) matrix or window, each
+//                       64x64 tile by its own block against Q and P, which
+//                       are separate buffers; with a tile band, blocks beyond
+//                       it return at entry and their tiles keep their values.
+//                       Bound by the FP32 add+min instruction rate: each D
+//                       tile is read and written once per 64 x 64 x K
+//                       candidates.
+//   minplus_product  <- min_plus_pallas :62 (_minplus_kernel :46): out =
+//                       A (x) B into a new buffer, the accumulators started
+//                       at +inf in registers; the Pallas (i, j, k) grid's
+//                       sequential k axis becomes the loop inside the block,
+//                       and the wrapper pads the ragged edges with +inf.
+//                       Bound by the FP32 add+min instruction rate, more so
+//                       than the relax kernels: K is the whole matrix width
+//                       (4,096 at the Example_1 shape), so the output store
+//                       is negligible.
 // and in safepy_tpu/ops/apsp_bandstore.py (phase 3 of the band-storage FW):
 //   relax_skew_sym   <- _relax_skew_sym_pallas :324 (pass A + pass B): relax
 //                       the upper wedge of the skewed (W, W) pivot window and
@@ -233,6 +251,46 @@ relax_skew_kernel(const float* q, const float* p, int64_t ldp, float* win,
   store_acc(win + r0 * ld + c0, ld, acc);
 }
 
+// Classic phase 3, in place: D = min(D, Q (x) P) over an (m, n) D with row
+// stride ldd; grid (n / 64, m / 64). Q is (m, k), P is (k, n), both apart
+// from D, so each block reads and writes only its own D tile and in place is
+// safe. With band_tiles >= 0 the band is counted in k-wide block-tiles (the
+// FW block): a block whose tile (row0 / k, col0 / k) lies further than
+// band_tiles from the diagonal returns at once, uniformly, and its tile keeps
+// its value.
+__global__ void __launch_bounds__(TPB)
+relax_full_kernel(const float* q, int64_t ldq, const float* p, int64_t ldp,
+                  float* d, int64_t ldd, int k, int band_tiles) {
+  __shared__ TileSmem s;
+  const int64_t row0 = (int64_t)blockIdx.y * TILE;
+  const int64_t col0 = (int64_t)blockIdx.x * TILE;
+  if (band_tiles >= 0) {
+    const int64_t off = row0 / k - col0 / k;
+    if (off > band_tiles || off < -band_tiles) return;
+  }
+  float acc[MICRO][MICRO];
+  load_acc(d + row0 * ldd + col0, ldd, acc);
+  minplus_tile(q + row0 * ldq, ldq, p + col0, ldp, k, acc, s);
+  store_acc(d + row0 * ldd + col0, ldd, acc);
+}
+
+// out = A (x) B into a new (m, n) buffer; grid (n / 64, m / 64), k a
+// multiple of 32. Reads no C: the accumulators start at +inf.
+__global__ void __launch_bounds__(TPB)
+minplus_product_kernel(const float* a, int64_t lda, const float* b,
+                       int64_t ldb, float* out, int64_t ldo, int k) {
+  __shared__ TileSmem s;
+  const int64_t row0 = (int64_t)blockIdx.y * TILE;
+  const int64_t col0 = (int64_t)blockIdx.x * TILE;
+  float acc[MICRO][MICRO];
+#pragma unroll
+  for (int r = 0; r < MICRO; ++r)
+#pragma unroll
+    for (int c = 0; c < MICRO; ++c) acc[r][c] = __int_as_float(0x7f800000);
+  minplus_tile(a + row0 * lda, lda, b + col0, ldb, k, acc, s);
+  store_acc(out + row0 * ldo + col0, ldo, acc);
+}
+
 // In-tile Floyd-Warshall closure of one (B, B) tile, one block of 8 B
 // threads. Thread (g, j) keeps column j of rows g, g + 8, ... in registers.
 // Step k snapshots row k and column k into shared memory before anyone
@@ -275,7 +333,8 @@ close_diag_kernel(const float* tile, int64_t ldt, float* out) {
 
 // C entry points. Each launches on the given stream, allocates nothing and
 // returns cudaGetLastError() (0 = launched). Shapes are checked by the
-// Python wrappers: m, n, w multiples of 64; k multiple of 32; block 64 or 128.
+// Python wrappers: m, n, w multiples of 64; k multiple of 32 (of 64 for a
+// banded relax_full); block 64 or 128.
 extern "C" {
 
 int safepy_relax_panel(const float* a, int64_t lda, const float* b,
@@ -315,6 +374,24 @@ int safepy_relax_skew(const float* q, const float* p, int64_t ldp, float* win,
   const dim3 grid(2 * bt + 1, 2 * bt + 1, subs * subs);
   relax_skew_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(q, p, ldp, win, ld,
                                                             bt, block);
+  return (int)cudaGetLastError();
+}
+
+int safepy_relax_full(const float* q, int64_t ldq, const float* p,
+                      int64_t ldp, float* d, int64_t ldd, int m, int n, int k,
+                      int band_tiles, void* stream) {
+  const dim3 grid(n / TILE, m / TILE);
+  relax_full_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(
+      q, ldq, p, ldp, d, ldd, k, band_tiles);
+  return (int)cudaGetLastError();
+}
+
+int safepy_minplus_product(const float* a, int64_t lda, const float* b,
+                           int64_t ldb, float* out, int64_t ldo, int m, int n,
+                           int k, void* stream) {
+  const dim3 grid(n / TILE, m / TILE);
+  minplus_product_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(
+      a, lda, b, ldb, out, ldo, k);
   return (int)cudaGetLastError();
 }
 

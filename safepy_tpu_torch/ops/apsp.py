@@ -4,15 +4,19 @@ Port of ``safepy_tpu/ops/apsp.py``. The graph is a dense (N, N) distance
 matrix (inf off-edge, 0 diagonal, edge length on-edge); unreachable pairs stay
 ``+inf`` and the diagonal stays 0, so every node lies in its own neighborhood.
 
-:func:`apsp` runs the blocked Floyd-Warshall of :mod:`.apsp_cuda` (method
-``"fw"``: the hand-written CUDA kernels for CUDA tensors, their plain torch
-versions for CPU tensors) or the textbook one-k-per-step loop (``"torch"``),
-which is the small-size oracle. The repeated-squaring method of the JAX
-package (``"pallas_squaring"``) is not ported yet: its kernel,
-``min_plus_pallas``, is still to be ported (ROADMAP Queue B).
+  * :func:`apsp` -- the public entry, with the JAX package's signature and
+    defaults: the blocked Floyd-Warshall of :mod:`.apsp_cuda` (``"auto"``,
+    ``"pallas_fw"``; the hand-written CUDA kernels for CUDA tensors, their
+    plain torch versions for CPU tensors), repeated min-plus squaring
+    (``"pallas_squaring"``), or the textbook one-k-per-step loop (``"jax"``),
+    which is the small-size oracle. ``"fw"`` and ``"torch"`` are aliases of
+    ``"pallas_fw"`` and ``"jax"``.
+  * :func:`min_plus_product` -- one min-plus matrix product.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -58,25 +62,61 @@ def min_plus_relax(c: torch.Tensor, a: torch.Tensor,
     return acc
 
 
+def _min_plus_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (x) b from an all-+inf accumulator (``_min_plus_jax`` :78), in the
+    input dtype: the plain version of the min-plus product kernel."""
+    init = torch.full((a.shape[0], b.shape[1]), float("inf"), dtype=a.dtype,
+                      device=a.device)
+    return min_plus_relax(init, a, b)
+
+
+def min_plus_product(a: torch.Tensor, b: torch.Tensor, *,
+                     method: str = "auto", block: int = 128) -> torch.Tensor:
+    """(a (x) b)[i, j] = min_k a[i, k] + b[k, j] (``apsp.py:90``).
+
+    method: ``"auto"`` or ``"pallas"`` (f32 through the min-plus product
+    kernel: the CUDA kernel for CUDA tensors, its plain version for CPU
+    tensors), or ``"jax"`` / ``"torch"`` (the plain k-loop in the input
+    dtype). ``block`` is the JAX tile size, kept for the signature: the CUDA
+    kernel pads the ragged edges to its own 64-wide tiles itself.
+    """
+    if method in ("auto", "pallas"):
+        from safepy_tpu_torch.ops.apsp_cuda import minplus_product
+        return minplus_product(a.to(torch.float32), b.to(torch.float32))
+    if method in ("jax", "torch"):
+        return _min_plus_torch(a, b)
+    raise ValueError(f"unknown min_plus_product method: {method!r}")
+
+
 def apsp(dist: torch.Tensor, *, method: str = "auto", block: int = 128,
-         symmetric: bool = True) -> torch.Tensor:
+         max_hops: int | None = None, symmetric: bool = False
+         ) -> torch.Tensor:
     """All-pairs shortest-path distances of a dense initialized matrix
     (``apsp.py:100``).
 
-    method: ``"auto"`` or ``"fw"`` (blocked Floyd-Warshall), or ``"torch"``
-    (textbook loop). ``symmetric`` must be True for ``"fw"``: the caller
-    guarantees an undirected graph (the non-symmetric round needs
-    ``_relax_full``, still to be ported).
-    Returns (N, N) f32 distances (the input's dtype for ``"torch"``).
+    method: ``"auto"`` or ``"pallas_fw"`` (alias ``"fw"``: blocked
+    Floyd-Warshall), ``"pallas_squaring"`` (``ceil(log2(max_hops))``
+    min-plus squarings of the padded matrix; ``max_hops`` defaults to N,
+    always safe), or ``"jax"`` (alias ``"torch"``: the textbook loop).
+    ``symmetric``: the caller guarantees a symmetric ``dist`` (undirected
+    graph); the blocked FW then relaxes only each round's upper triangle and
+    mirrors it, bitwise equal to the classic round on such inputs. On a
+    directed matrix it is wrong, which is why it is off by default.
+    Returns (N, N) distances, inf where unreachable: f32, or the input's
+    dtype for ``"jax"``.
     """
-    if method == "torch":
+    n = dist.shape[0]
+    if method in ("jax", "torch"):
         return _apsp_torch(dist)
-    if method in ("auto", "fw"):
+    if method in ("auto", "pallas_fw", "fw"):
         from safepy_tpu_torch.ops.apsp_cuda import apsp_blocked_fw
         return apsp_blocked_fw(dist, block=block, symmetric=symmetric)
     if method == "pallas_squaring":
-        raise NotImplementedError(
-            "apsp(method='pallas_squaring') needs the min-plus product kernel "
-            "(apsp_pallas.min_plus_pallas), still to be ported: ROADMAP "
-            "Queue B")
+        from safepy_tpu_torch.ops.apsp_cuda import minplus_product
+        hops = int(max_hops) if max_hops is not None else n
+        n_sq = max(1, math.ceil(math.log2(max(2, hops))))
+        d = pad_distances(dist.to(torch.float32), block)
+        for _ in range(n_sq):
+            d = minplus_product(d, d)
+        return d[:n, :n]
     raise ValueError(f"unknown apsp method: {method!r}")

@@ -165,14 +165,14 @@ def apsp_banded_fw(dist: torch.Tensor, *, window: int, block: int = 128,
     (``:211``), IN PLACE on ``dist``, which is returned.
 
     ``dist`` must be float32, in the banded order and padded to a block
-    multiple (diagonal 0, inf elsewhere), and symmetric. Updating it in place
-    saves the (npad, npad) copy a functional round would make. Entries are
-    exact for pairs within the certified radius, upper bounds elsewhere.
+    multiple (diagonal 0, inf elsewhere). Updating it in place saves the
+    (npad, npad) copy a functional round would make. Entries are exact for
+    pairs within the certified radius, upper bounds elsewhere.
+    ``symmetric`` (the default) promises a symmetric ``dist`` (undirected
+    graph) and relaxes each window's upper tiles plus mirror; ``False`` is
+    the classic round (``relax_full`` with a tile band), which directed
+    matrices need.
     """
-    if not symmetric:
-        raise NotImplementedError(
-            "apsp_banded_fw(symmetric=False) needs the _relax_full_banded "
-            "kernel, still to be ported: ROADMAP Queue B")
     npad = dist.shape[0]
     nb = npad // block
     w = window
@@ -183,7 +183,7 @@ def apsp_banded_fw(dist: torch.Tensor, *, window: int, block: int = 128,
     for kb in range(nb):
         start = kb * block
         lo = min(max(start - half, 0), npad - w)
-        fw_round(dist, start, lo, w, block, band_tiles)
+        fw_round(dist, start, lo, w, block, band_tiles, symmetric=symmetric)
     return dist
 
 

@@ -11,6 +11,15 @@ Pallas kernels. Three wrappers, each beside its plain torch version:
   * :func:`close_diag` -- closure of the pivot tile; replaces ``_close_diag``
     :258.
 
+two for the classic (non-symmetric) rounds and the product of the op-level
+surface (``ops.apsp``):
+
+  * :func:`relax_full` -- ``min(D, Q (x) P)`` over a whole (m, n) matrix or
+    window, in place; replaces ``_relax_full`` :144 and, with a tile band,
+    ``_relax_full_banded`` :161;
+  * :func:`minplus_product` -- ``A (x) B`` into a new tensor; replaces
+    ``min_plus_pallas`` :62;
+
 and two for phase 3 of the band-storage round
 (``safepy_tpu/ops/apsp_bandstore.py``, driven by ``ops.apsp_bandstore``):
 
@@ -37,11 +46,14 @@ import ctypes
 
 import torch
 
-from safepy_tpu_torch.ops.apsp import _apsp_torch, min_plus_relax, pad_distances
+from safepy_tpu_torch.ops.apsp import (_apsp_torch, _min_plus_torch,
+                                       min_plus_relax, pad_distances)
 
-# Kernel launches since the last reset_launches(), by wrapper name.
+# Kernel launches since the last reset_launches(), by wrapper name;
+# relax_full counts its whole-matrix and its banded launches apart.
 LAUNCHES = {"relax_panel": 0, "relax_window_sym": 0, "close_diag": 0,
-            "relax_skew_sym": 0, "relax_skew": 0}
+            "relax_skew_sym": 0, "relax_skew": 0, "relax_full": 0,
+            "relax_full_banded": 0, "minplus_product": 0}
 
 
 def reset_launches() -> None:
@@ -301,41 +313,144 @@ def relax_skew(win: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
         relax_skew_plain(win, q, p, bt)
 
 
+# ---------------------------------------------------------------- relax_full
+
+def relax_full_plain(q: torch.Tensor, p: torch.Tensor, d: torch.Tensor,
+                     band_tiles: int | None = None) -> None:
+    """Plain version of :func:`relax_full`, also in place on ``d``."""
+    relaxed = min_plus_relax(d, q, p)
+    if band_tiles is not None:
+        block = q.shape[1]
+        rows = torch.arange(d.shape[0], device=d.device) // block
+        cols = torch.arange(d.shape[1], device=d.device) // block
+        in_band = (rows[:, None] - cols[None, :]).abs() <= band_tiles
+        relaxed = torch.where(in_band, relaxed, d)
+    d.copy_(relaxed)
+
+
+def relax_full(q: torch.Tensor, p: torch.Tensor, d: torch.Tensor,
+               band_tiles: int | None = None) -> None:
+    """``D = min(D, Q (x) P)``, in place on the (m, n) ``d`` (any row
+    stride, so a window ``dist[lo:lo+w, lo:lo+w]`` works).
+
+    q: (m, block), p: (block, n), both separate from ``d``: each CUDA block
+    reads and writes only its own tile of ``d``. With ``band_tiles``, every
+    block-tile (i, j) with ``|i - j| > band_tiles`` keeps its value
+    (``apsp_pallas._relax_full_banded`` :161); without, every tile is
+    relaxed (``_relax_full`` :144). On CUDA, m and n must be multiples of
+    64, block of 32 (of 64 with a band).
+    """
+    m, block = q.shape
+    if p.shape[0] != block or tuple(d.shape) != (m, p.shape[1]):
+        raise ValueError(f"shape mismatch: d {tuple(d.shape)}, "
+                         f"q {tuple(q.shape)}, p {tuple(p.shape)}")
+    if band_tiles is not None and band_tiles < 0:
+        raise ValueError(f"band_tiles must be >= 0, got {band_tiles}")
+    if (q.untyped_storage().data_ptr() == d.untyped_storage().data_ptr()
+            or p.untyped_storage().data_ptr() == d.untyped_storage().data_ptr()):
+        raise ValueError("relax_full needs q and p in buffers apart from d")
+    if not _use_kernel(q, p, d):
+        relax_full_plain(q, p, d, band_tiles)
+        return
+    n = p.shape[1]
+    if m % 64 or n % 64 or block % (32 if band_tiles is None else 64):
+        raise ValueError(f"relax_full kernel needs m, n % 64 == 0 and block "
+                         f"% 32 == 0 (% 64 with a band), got m={m} n={n} "
+                         f"block={block}")
+    from safepy_tpu_torch import native
+
+    # -1: no band; a band beyond every tile is clamped to fit a C int
+    bt = -1 if band_tiles is None else min(band_tiles, max(m, n) // block)
+    native.launch("relax_full", _ptr(q), q.stride(0), _ptr(p), p.stride(0),
+                  _ptr(d), d.stride(0), m, n, block, bt, _stream(d))
+    LAUNCHES["relax_full" if band_tiles is None else "relax_full_banded"] += 1
+
+
+# ----------------------------------------------------------- minplus_product
+
+minplus_product_plain = _min_plus_torch  # plain version of minplus_product
+
+
+def _pad_inf(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """``x`` padded with +inf to (rows, cols) (``apsp_pallas._pad_to`` :54);
+    ``x`` itself when it has that shape."""
+    if tuple(x.shape) == (rows, cols):
+        return x
+    out = torch.full((rows, cols), float("inf"), dtype=x.dtype,
+                     device=x.device)
+    out[:x.shape[0], :x.shape[1]] = x
+    return out
+
+
+def minplus_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``A (x) B`` into a new (m, n) f32 tensor (``apsp_pallas.min_plus_pallas``
+    :62). a: (m, k), b: (k, n), any shapes: on CUDA the ragged edges are
+    padded with +inf to the kernel's multiples (64 for m and n, 32 for k),
+    which changes no minimum, and the result is sliced back."""
+    m, k = a.shape
+    if b.shape[0] != k:
+        raise ValueError(f"shape mismatch: a {tuple(a.shape)}, "
+                         f"b {tuple(b.shape)}")
+    if not _use_kernel(a, b):
+        return minplus_product_plain(a, b)
+    n = b.shape[1]
+    if m == 0 or n == 0:
+        return torch.empty((m, n), dtype=torch.float32, device=a.device)
+    mp, np_, kp = (-(-x // t) * t for x, t in ((m, 64), (n, 64), (k, 32)))
+    ap = _pad_inf(a, mp, kp)
+    bp = _pad_inf(b, kp, np_)
+    from safepy_tpu_torch import native
+
+    out = torch.empty((mp, np_), dtype=torch.float32, device=a.device)
+    native.launch("minplus_product", _ptr(ap), ap.stride(0), _ptr(bp),
+                  bp.stride(0), _ptr(out), out.stride(0), mp, np_, kp,
+                  _stream(out))
+    LAUNCHES["minplus_product"] += 1
+    return out if (mp, np_) == (m, n) else out[:m, :n].contiguous()
+
+
 # ------------------------------------------------------------------- rounds
 
 def fw_round(d: torch.Tensor, start: int, lo: int, w: int, block: int,
-             band_tiles: int) -> None:
+             band_tiles: int | None = None, *, symmetric: bool) -> None:
     """One blocked Floyd-Warshall round with pivot rows [start, start+block),
     in place on the window ``d[lo:lo+w, lo:lo+w]``
-    (``apsp_banded.py:260-274``, ``apsp_pallas.py:288-296``)."""
+    (``apsp_banded.py:260-274``, ``apsp_pallas.py:288-296``).
+
+    Q and P are the pivot column and row panels, relaxed against the closed
+    diagonal into new tensors before phase 3. Phase 3 relaxes the window's
+    tiles within ``band_tiles`` of the diagonal (all of them for None):
+    symmetric, the upper ones mirrored into the lower
+    (:func:`relax_window_sym`, for undirected graphs); classic, each tile
+    against its own Q and P (:func:`relax_full`)."""
     diag = close_diag(d[start:start + block, start:start + block])
     p = d[start:start + block, lo:lo + w]
     p = relax_panel(p, diag, p)
     q = d[lo:lo + w, start:start + block]
     q = relax_panel(q, q, diag)
-    relax_window_sym(q, p, d, lo, w, band_tiles)
+    if symmetric:
+        relax_window_sym(q, p, d, lo, w,
+                         w // block if band_tiles is None else band_tiles)
+    else:
+        relax_full(q, p, d[lo:lo + w, lo:lo + w], band_tiles)
 
 
 def apsp_blocked_fw(dist: torch.Tensor, *, block: int = 128,
-                    symmetric: bool = True) -> torch.Tensor:
+                    symmetric: bool = False) -> torch.Tensor:
     """All-pairs shortest paths by panel-blocked Floyd-Warshall
-    (``apsp_pallas.apsp_blocked_fw`` :270), symmetric form only.
+    (``apsp_pallas.apsp_blocked_fw`` :270).
 
-    The caller guarantees a symmetric ``dist`` (undirected graph). Phase 3 is
-    :func:`relax_window_sym` over the whole padded matrix with the band
-    covering every tile, as ``apsp_pallas.py:285`` does. Returns a new (N, N)
-    f32 tensor; ``dist`` is not modified.
+    Phase 3 runs over the whole padded matrix: :func:`relax_full`, or with
+    ``symmetric=True`` (the caller guarantees a symmetric ``dist``, an
+    undirected graph) :func:`relax_window_sym` with the band covering every
+    tile, as ``apsp_pallas.py:285`` does; bitwise equal on such inputs.
+    Returns a new (N, N) f32 tensor; ``dist`` is not modified.
     """
-    if not symmetric:
-        raise NotImplementedError(
-            "apsp_blocked_fw(symmetric=False) needs the _relax_full kernel, "
-            "still to be ported: ROADMAP Queue B")
     n = dist.shape[0]
     d = pad_distances(dist.to(torch.float32), block)
     if d.data_ptr() == dist.data_ptr():
         d = d.clone()  # the rounds update d in place
     npad = d.shape[0]
-    nb = npad // block
-    for kb in range(nb):
-        fw_round(d, kb * block, 0, npad, block, nb)
+    for kb in range(npad // block):
+        fw_round(d, kb * block, 0, npad, block, symmetric=symmetric)
     return d[:n, :n]

@@ -11,6 +11,17 @@ import numpy as np
 import torch
 
 
+def euclidean_distance_matrix(coords: torch.Tensor) -> torch.Tensor:
+    """Dense pairwise Euclidean distances of (N, 2) coordinates (``:27``),
+    in their dtype, with an exact zero diagonal despite the cancellation of
+    ``|x|^2 + |y|^2 - 2 x.y``."""
+    sq = (coords * coords).sum(dim=1)
+    d2 = sq[:, None] + sq[None, :] - 2.0 * coords @ coords.T
+    d = torch.sqrt(torch.clamp(d2, min=0.0))
+    eye = torch.eye(coords.shape[0], dtype=d.dtype, device=d.device)
+    return d * (1.0 - eye)
+
+
 def neighborhoods_from_distances(dist: torch.Tensor, radius,
                                  *, strict: bool) -> torch.Tensor:
     """f32 indicator: ``dist < r`` (strict) or ``dist <= r`` (``:39``)."""

@@ -18,7 +18,8 @@ from safepy_tpu.ops import apsp_pallas as jp
 from safepy_tpu.ops.apsp import _apsp_jax, pad_distances as jax_pad
 from safepy_tpu.ops.neighborhoods import dense_initial_distances
 from safepy_tpu_torch.ops import apsp_cuda as K
-from safepy_tpu_torch.ops.apsp import _apsp_torch, apsp, pad_distances
+from safepy_tpu_torch.ops.apsp import (_apsp_torch, apsp, min_plus_product,
+                                       pad_distances)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -135,12 +136,19 @@ def test_apsp_entry_points():
     np.testing.assert_array_equal(
         pad_distances(_t(d0), 64).numpy(),
         np.asarray(jax_pad(jnp.asarray(d0), 64)))
-    with pytest.raises(NotImplementedError, match="min_plus_pallas"):
-        apsp(_t(d0), method="pallas_squaring")
-    with pytest.raises(NotImplementedError, match="_relax_full"):
-        K.apsp_blocked_fw(_t(d0), block=BLOCK, symmetric=False)
+    # the squaring and the classic FW, once refused, now run: all methods
+    # give the textbook distances to f32 association
+    for method in ("pallas_squaring", "pallas_fw", "fw"):
+        np.testing.assert_allclose(
+            apsp(_t(d0), method=method, block=BLOCK).numpy(), want, rtol=1e-6)
+    np.testing.assert_array_equal(
+        K.apsp_blocked_fw(_t(d0), block=BLOCK, symmetric=False).numpy(),
+        K.apsp_blocked_fw(_t(d0), block=BLOCK, symmetric=True).numpy())
+    np.testing.assert_array_equal(apsp(_t(d0), method="jax").numpy(), want)
     with pytest.raises(ValueError):
         apsp(_t(d0), method="bogus")
+    with pytest.raises(ValueError):
+        min_plus_product(_t(d0), _t(d0), method="bogus")
 
 
 def test_cpu_wrappers_count_no_launches_and_check_inputs():
@@ -150,9 +158,13 @@ def test_cpu_wrappers_count_no_launches_and_check_inputs():
     K.relax_panel(a, a, a)
     K.close_diag(a)
     K.relax_window_sym(a, a, a.clone(), 0, BLOCK, 1)
+    K.relax_full(a, a.clone(), a.clone())
+    K.relax_full(a, a.clone(), a.clone(), 0)
+    K.minplus_product(a, a)
     assert K.LAUNCHES == {"relax_panel": 0, "relax_window_sym": 0,
                           "close_diag": 0, "relax_skew_sym": 0,
-                          "relax_skew": 0}
+                          "relax_skew": 0, "relax_full": 0,
+                          "relax_full_banded": 0, "minplus_product": 0}
     with pytest.raises(TypeError):
         K.relax_panel(a.double(), a.double(), a.double())
     with pytest.raises(ValueError, match="shape"):
@@ -161,3 +173,16 @@ def test_cpu_wrappers_count_no_launches_and_check_inputs():
         K.close_diag(torch.empty((BLOCK, BLOCK), device="meta"))
     with pytest.raises(ValueError, match="bad window"):
         K.relax_window_sym(a, a, a.clone(), 16, BLOCK, 1)
+    with pytest.raises(ValueError, match="shape"):
+        K.relax_full(a, a[:16], a.clone())
+    with pytest.raises(ValueError, match="band_tiles"):
+        K.relax_full(a, a.clone(), a.clone(), -1)
+    with pytest.raises(ValueError, match="apart from d"):
+        d = a.clone()
+        K.relax_full(d[:, :BLOCK], a.clone(), d)  # q is a view into d
+    with pytest.raises(TypeError):
+        K.relax_full(a.double(), a.double(), a.double())
+    with pytest.raises(ValueError, match="shape"):
+        K.minplus_product(a, a[:16])
+    with pytest.raises(TypeError):
+        K.minplus_product(a.double(), a.double())

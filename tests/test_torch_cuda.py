@@ -82,6 +82,74 @@ def test_skew_kernels_match_plain(dev, symmetric, block, bt):
     assert K.LAUNCHES["relax_skew_sym" if symmetric else "relax_skew"] == 1
 
 
+@pytest.mark.parametrize("m,n,block,band_tiles", [
+    (768, 768, 128, None), (384, 1152, 128, None), (320, 192, 32, None),
+    (1024, 1024, 128, 2), (448, 448, 64, 3)])
+def test_relax_full_matches_plain(dev, m, n, block, band_tiles):
+    """In place on a window at (block, block) of a larger matrix, rectangular
+    and banded; everything outside the window stays untouched."""
+    gen = torch.Generator(device=dev).manual_seed(m + n + block)
+    q, p = _inf_laced(gen, dev, m, block), _inf_laced(gen, dev, block, n)
+    d = _inf_laced(gen, dev, m + 2 * block, n + 2 * block)
+    got, want = d.clone(), d.clone()
+    K.reset_launches()
+    K.relax_full(q, p, got[block:block + m, block:block + n], band_tiles)
+    K.relax_full_plain(q, p, want[block:block + m, block:block + n],
+                       band_tiles)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and not torch.equal(got, d)
+    key = "relax_full" if band_tiles is None else "relax_full_banded"
+    assert K.LAUNCHES[key] == 1 and sum(K.LAUNCHES.values()) == 1
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 128, 320), (100, 130, 70),
+                                   (1, 5, 3), (700, 257, 129)])
+def test_minplus_product_matches_plain(dev, m, k, n):
+    """Ragged shapes go through the wrapper's +inf padding."""
+    gen = torch.Generator(device=dev).manual_seed(m * k + n)
+    a, b = _inf_laced(gen, dev, m, k), _inf_laced(gen, dev, k, n)
+    K.reset_launches()
+    got = K.minplus_product(a, b)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and got.is_contiguous()
+    assert torch.equal(got, K.minplus_product_plain(a, b))
+    assert K.LAUNCHES["minplus_product"] == 1
+
+
+def test_op_level_apsp_on_the_card(dev):
+    """The op-level entry points on a directed matrix: the classic FW, the
+    squaring and the banded classic FW against the plain versions on the
+    host, and the launch counts of each path."""
+    from safepy_tpu_torch import ops
+    from safepy_tpu_torch.ops.apsp_banded import apsp_banded_fw
+
+    rng = np.random.default_rng(5)
+    n = 300
+    d0 = np.full((n, n), np.inf, np.float32)
+    arcs = rng.random((n, n)) < 0.03
+    d0[arcs] = rng.uniform(0.1, 2.0, int(arcs.sum()))
+    np.fill_diagonal(d0, 0.0)
+    host, card = torch.as_tensor(d0), torch.as_tensor(d0, device=dev)
+    nb = -(-n // 128)
+    K.reset_launches()
+    got = ops.apsp(card)
+    assert K.LAUNCHES["relax_full"] == nb and K.LAUNCHES["relax_window_sym"] == 0
+    assert torch.equal(got.cpu(), ops.apsp(host))
+    K.reset_launches()
+    got = ops.apsp(card, method="pallas_squaring")
+    assert K.LAUNCHES["minplus_product"] == 9  # ceil(log2(300))
+    assert torch.equal(got.cpu(), ops.apsp(host, method="pallas_squaring"))
+    # a banded window over a padded matrix: 384 = 3 tiles, window 256
+    pad = torch.full((384, 384), float("inf"))
+    pad.diagonal().zero_()
+    pad[:n, :n] = host
+    want = apsp_banded_fw(pad.clone(), window=256, symmetric=False)
+    K.reset_launches()
+    got = apsp_banded_fw(pad.to(dev), window=256, symmetric=False)
+    assert K.LAUNCHES["relax_full_banded"] == 3
+    assert torch.equal(got.cpu(), want)
+
+
 def _network(n=700, k=8, seed=3):
     from scipy.spatial import cKDTree
 
@@ -154,7 +222,8 @@ def test_cuda_band_session_matches_cpu_band_session(dev):
     nb = -(-900 // 128)
     assert launches == {"close_diag": nb, "relax_panel": nb,
                         "relax_skew_sym": nb, "relax_window_sym": 0,
-                        "relax_skew": 0}
+                        "relax_skew": 0, "relax_full": 0,
+                        "relax_full_banded": 0, "minplus_product": 0}
     assert torch.equal(gpu._node_distances_dev.data.cpu(),
                        cpu._node_distances_dev.data)
     np.testing.assert_array_equal(gpu.neighborhoods, cpu.neighborhoods)
@@ -183,3 +252,12 @@ def test_wrappers_refuse_rather_than_fall_back(dev):
     with pytest.raises(ValueError, match="unit column stride"):
         y = torch.zeros((128, 256), device=dev)
         K.relax_panel(y.T[:128], y[:, :128], y.T[:128])
+    with pytest.raises(ValueError, match="% 64"):
+        K.relax_full(x[:, :64].clone(), x[:64].clone(), x)
+    with pytest.raises(ValueError, match="apart from d"):
+        K.relax_full(x[:64, :64], x[:64, :64].clone(), x[:64, :64])
+    with pytest.raises(ValueError, match="% 64 with a band"):
+        y = torch.zeros((128, 128), device=dev)
+        K.relax_full(y[:, :32], y[:32].clone(), y.clone(), 1)
+    with pytest.raises(TypeError):
+        K.minplus_product(x.double(), x.double())

@@ -19,7 +19,9 @@ def test_import_is_light_and_builds_nothing():
     code = ("import sys, safepy_tpu_torch, safepy_tpu_torch.safe, "
             "safepy_tpu_torch.state, safepy_tpu_torch.pipeline, "
             "safepy_tpu_torch.ops.apsp_bandstore, "
-            "safepy_tpu_torch.ops.enrich_band\n"
+            "safepy_tpu_torch.ops.enrich_band, safepy_tpu_torch.ops.fdr\n"
+            "from safepy_tpu_torch import ops\n"
+            "assert callable(ops.apsp) and callable(ops.min_plus_product)\n"
             "bad = [m for m in ('jax', 'triton', 'networkx', 'pandas', "
             "'safepy_tpu') if m in sys.modules]\n"
             "assert not bad, bad\n")
