@@ -11,8 +11,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    the shapes of its path, and time both (CUDA events, median): the
    banded-window kernels at the Example_1 shapes, the skew kernels at the
    49,920-node band shape (block 128, bt 12, W 3,200) and at bt 2, the
-   classic relax over the dense 4,096 matrix and the 1,024 window, and one
-   4096 x 4096 x 4096 min-plus product;
+   classic relax over the dense 4,096 matrix and the 1,024 window, one
+   4096 x 4096 x 4096 min-plus product, and the sharded window row
+   (``relax_band_row``, 128 x 3,200 and 128 x 640); each beside its bound;
 4. the Example_1 path: the Example_1-shaped workflow of ``bench.py``
    (3,971-node kNN geometric network, one quantitative attribute,
    1,000-permutation null) through ``SAFE(device="cuda").run_pipeline``.
@@ -44,21 +45,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    FW would get wrong there; the flagship step of
    ``__graft_entry__.entry()`` (APSP, threshold, scores, 1,000-permutation
    null). Launch counts per path and min-of-3 times;
-8. print a JSON line of the kernels, then the card, then the result line.
+8. the row-sharded band engine (``parallel.band_sharded``) on phase 6's
+   network and attribute: at world 1 over NCCL in this process,
+   ``SAFE(mesh=make_mesh({"data": 1})).run_pipeline`` with launch counts
+   (one ``close_diag`` and one ``relax_panel`` a round, 2 bt + 1
+   ``relax_band_row``), the indicator band bitwise and the counts exactly
+   equal to phase 6's and the scores within 1e-5, timed and profiled, and
+   the sharded FW alone; then world 2 over gloo, two processes on the same
+   card (``torch.multiprocessing.spawn``), each running the sharded FW and
+   the facade run, whose band and indicator must equal world 1's bitwise;
+9. print a JSON line of the kernels (times, bounds, launches), then the
+   card, then the result line.
 
 Imports torch, numpy, scipy and the port only; needs one card, nvcc and
-nvidia-smi.
+nvidia-smi. Phase 8 starts two processes and joins them.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 from scipy.sparse import coo_matrix
 from scipy.sparse.csgraph import dijkstra, shortest_path
 from scipy.spatial import cKDTree
@@ -78,6 +95,8 @@ from safepy_tpu_torch.ops.neighborhoods import (_initial_distances,
                                                 inclusive_radius)
 from safepy_tpu_torch.ops.permutation import (default_batch_size,
                                               prepare_valid, scan_counts)
+from safepy_tpu_torch.parallel import band_sharded as bsh
+from safepy_tpu_torch.parallel import make_mesh
 
 N_NODES, KNN, N_EDGES = 3971, 16, 28202   # bench.py:23-24,60
 SEED_GRAPH, SEED_ATTR, SEED_NULL = 0, 1, 1885  # bench.py:65,145,152
@@ -198,6 +217,37 @@ def max_abs_err(got, want) -> float:
     return float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
 
 
+# The least time the card could take for a kernel's work: the larger of its
+# bytes (each input read once, each output written once) over the HBM rate
+# and its min-plus candidates over the FP32 add+min issue rate. A candidate
+# is one FP32 add and one FP32 min, two instructions on the CUDA cores,
+# which issue 33.5 T instructions/s (the 67 TFLOP/s FP32 peak of NVIDIA's
+# H100 SXM data sheet counts an FMA as two operations): 16.7 T candidates/s.
+# That the min issues at the add's rate is an assumption, not measured.
+HBM_BYTES_PER_S = 3.35e12
+CANDIDATES_PER_S = 16.7e12
+F32 = 4
+
+
+def bound(candidates, nbytes):
+    """(bound_ms, bound_by) of ``candidates`` min-plus candidates that must
+    move ``nbytes``."""
+    ops_ms = candidates / CANDIDATES_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def relax_work(m, n, k, tiles_in=None, tiles_out=None, tile=BLOCK):
+    """(candidates, bytes) of relaxing an (m, n) output against (m, k) and
+    (k, n) operands; a tiled kernel that reads ``tiles_in`` and writes
+    ``tiles_out`` (tile x tile) tiles of C counts only those."""
+    if tiles_in is None:
+        return m * n * k, (m * k + k * n + 2 * m * n) * F32
+    return (tiles_in * tile * tile * k,
+            (m * k + k * n + (tiles_in + tiles_out) * tile * tile) * F32)
+
+
 def check_kernels(device, window=1024, npad=4096, band_tiles=6):
     """Phase 3: each kernel against its plain version at the main path's
     shapes (block 128, window 1024 inside a 4096 matrix, dense 4096)."""
@@ -212,7 +262,7 @@ def check_kernels(device, window=1024, npad=4096, band_tiles=6):
     out["close_diag"] = dict(
         err=err, ms=time_ms(lambda: K.close_diag(tile), device),
         plain_ms=time_ms(lambda: K.close_diag_plain(tile), device, inner=2),
-        shapes={"tile": [b, b]})
+        work=(b ** 3, 2 * b * b * F32), shapes={"tile": [b, b]})
     if device.type == "cuda":
         out["close_diag"]["device_ms"] = device_ms(
             lambda: K.close_diag(tile), "close_diag_kernel")
@@ -229,8 +279,10 @@ def check_kernels(device, window=1024, npad=4096, band_tiles=6):
                          inner=2)
     cols_plain = time_ms(lambda: K.relax_panel_plain(q, q, diag), device,
                          inner=2)
+    rows, cols = relax_work(b, window, b), relax_work(window, b, b)
     out["relax_panel"] = dict(
         err=max(errs), ms=rows_ms + cols_ms, plain_ms=rows_plain + cols_plain,
+        work=(rows[0] + cols[0], rows[1] + cols[1]),
         shapes={"rows_128x1024_ms": rows_ms, "rows_plain_ms": rows_plain,
                 "cols_1024x128_ms": cols_ms, "cols_plain_ms": cols_plain})
     if device.type == "cuda":
@@ -263,8 +315,12 @@ def check_kernels(device, window=1024, npad=4096, band_tiles=6):
                 lambda: K.relax_window_sym(qw, pw, got, lo_, w_, bt),
                 "relax_window_sym_kernel")
         errs.append(max_abs_err(got, want))
+    nbw = window // b
+    upper = sum(min(band_tiles, nbw - 1 - i) + 1 for i in range(nbw))
     out["relax_window_sym"] = dict(err=max(errs), ms=shapes["window_ms"],
                                    plain_ms=shapes["window_plain_ms"],
+                                   work=relax_work(window, window, b, upper,
+                                                   2 * upper - nbw),
                                    device_ms=shapes.get("window_device_ms"),
                                    shapes=shapes)
     return out
@@ -303,10 +359,51 @@ def check_skew_kernels(device, cases=((12, "slice"), (2, "small"))):
                 lambda: kernel(gw, q, p, bt), symbol)
             shapes[f"{tag}_shape"] = [w, w, bt]
             errs.append(max_abs_err(got, want))
+        bt = cases[0][0]
+        w = (2 * bt + 1) * b
+        if name == "relax_skew_sym":  # upper wedge; its jj >= 1 tiles mirrored
+            tiles = sum(2 * bt + 1 - jj for jj in range(bt + 1))
+            written = 2 * tiles - (2 * bt + 1)
+        else:  # every tile whose pivot-row tile lies in the slab
+            tiles = written = sum(abs(o + j - 2 * bt) <= bt
+                                  for o in range(2 * bt + 1)
+                                  for j in range(2 * bt + 1))
         out[name] = dict(err=max(errs), ms=shapes["slice_ms"],
                          plain_ms=shapes["slice_plain_ms"],
-                         device_ms=shapes["slice_device_ms"], shapes=shapes)
+                         device_ms=shapes["slice_device_ms"],
+                         work=relax_work(w, w, b, tiles, written),
+                         shapes=shapes)
     return out
+
+
+def check_band_row_kernel(device, cases=((12, "slice"), (2, "small"))):
+    """Phase 3, row-sharded band FW: relax_band_row (B3) against its plain
+    version on one +inf-laced window row, Q a tile of C and P a slice of an
+    inf-extended pivot row, at the 49,920-node band shape (block 128, bt 12,
+    W 3,200) and at bt 2 (W 640)."""
+    gen = torch.Generator(device=device).manual_seed(17)
+    b = BLOCK
+    shapes, errs = {}, []
+    for bt, tag in cases:
+        w = (2 * bt + 1) * b
+        c = inf_laced(gen, (b, w), device)
+        p_ext = inf_laced(gen, (b, w + 2 * bt * b), device)
+        q, p = c[:, (2 * bt - 1) * b:2 * bt * b], p_ext[:, b:b + w]
+        errs.append(max_abs_err(K.relax_band_row(q, p, c),
+                                K.relax_band_row_plain(c, q, p)))
+        shapes[f"{tag}_ms"] = time_ms(lambda: K.relax_band_row(q, p, c),
+                                      device)
+        shapes[f"{tag}_plain_ms"] = time_ms(
+            lambda: K.relax_band_row_plain(c, q, p), device, inner=2)
+        shapes[f"{tag}_device_ms"] = device_ms(
+            lambda: K.relax_band_row(q, p, c), "relax_band_row_kernel")
+        shapes[f"{tag}_shape"] = [b, w, b]
+    w = (2 * cases[0][0] + 1) * b
+    return {"relax_band_row": dict(
+        err=max(errs), ms=shapes["slice_ms"],
+        plain_ms=shapes["slice_plain_ms"],
+        device_ms=shapes["slice_device_ms"], work=relax_work(b, w, b),
+        shapes=shapes)}
 
 
 def check_full_kernels(device, window=1024, npad=4096, band_tiles=6):
@@ -335,9 +432,13 @@ def check_full_kernels(device, window=1024, npad=4096, band_tiles=6):
         dev_ms = device_ms(lambda: K.relax_full(q, p, gw, bt),
                            "relax_full_kernel")
         errs.append(max_abs_err(got, want))
+        nt = w // b
+        tiles = nt * nt if bt is None else sum(
+            abs(i - j) <= bt for i in range(nt) for j in range(nt))
         out[name] = dict(err=max(errs), ms=ms, plain_ms=plain_ms,
-                         device_ms=dev_ms, shapes={"window": [w, w, b],
-                                                   "band_tiles": bt})
+                         device_ms=dev_ms,
+                         work=relax_work(w, w, b, tiles, tiles),
+                         shapes={"window": [w, w, b], "band_tiles": bt})
     a = inf_laced(gen, (npad, npad), device)
     bm = inf_laced(gen, (npad, npad), device)
     got = K.minplus_product(a, bm)
@@ -354,6 +455,7 @@ def check_full_kernels(device, window=1024, npad=4096, band_tiles=6):
                    warmup=1, reps=3),
         device_ms=device_ms(lambda: K.minplus_product(a, bm),
                             "minplus_product_kernel", calls=3),
+        work=(npad ** 3, 3 * npad * npad * F32),
         shapes={"mkn": [npad, npad, npad], "plain": "one call"})
     return out
 
@@ -785,6 +887,214 @@ def band_phase_times(sf, device, num_permutations, reps=3):
                 valid_rows=V)
 
 
+def _band_session(device, ref, mesh=None):
+    """A session with the settings, network and attribute of ``ref`` (the
+    phase-6 session), on ``mesh`` when given."""
+    sf = SAFE(device=device, verbose=False)
+    for name in ("apsp_mode", "keep_node_distances", "random_seed",
+                 "neighborhood_radius"):
+        setattr(sf, name, getattr(ref, name))
+    sf.mesh = mesh
+    sf.load_network(network_file=ref._graph_arrays)
+    sf.load_attributes(attribute_file=ref.node2attribute)
+    return sf
+
+
+def _ghosted_init(sf, world):
+    """The initial band of ``sf``'s band plan in the sharded global frame
+    (g_pad block-rows for ``world`` ranks; the pad rows +inf)."""
+    coords, edges, lengths, _ = sf._graph_arrays
+    n = len(coords)
+    nr = sf.neighborhood_radius * (coords[:, 0].max() - coords[:, 0].min())
+    plan = sf._band_storage_plan(coords, edges, lengths, n, nr)
+    s = bst.band_init_from_edges(plan["u"], plan["v"], plan["w"], n=n,
+                                 band=plan["band"])
+    *_, g_pad, _ = bsh.sharded_band_geometry(n, plan["band"], world)
+    out = torch.full((g_pad * BLOCK, s.shape[1]), float("inf"),
+                     device=s.device)
+    out[:s.shape[0]] = s
+    return out, n, plan["band"], s.shape[0]
+
+
+def band_digest(t) -> str:
+    return hashlib.blake2b(t.cpu().numpy().tobytes(), digest_size=16).hexdigest()
+
+
+def run_sharded_world1(device, ref, steady=3):
+    """Phase 8, world 1: the phase-6 network and attribute through
+    ``SAFE(mesh=<one-rank 'data' mesh over NCCL>).run_pipeline``, the
+    row-sharded band engine. Checks the launches (each round: one
+    ``close_diag``, one ``relax_panel``, 2 bt + 1 ``relax_band_row``), the
+    indicator band bitwise and the counts exactly against phase 6's, the
+    scores within 1e-5; times the warm and steady runs and the sharded FW
+    alone, reports the peak memory and profiles one steady run."""
+    rdv = native.BUILD_DIR / "chip_smoke_world1_rendezvous"
+    native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    rdv.unlink(missing_ok=True)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"file://{rdv}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh({"data": 1}, device_type=device.type)
+        return _sharded_world1(device, ref, mesh, steady)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_world1(device, ref, mesh, steady):
+    sf = _band_session(device, ref, mesh)
+
+    def timed_run():
+        sync(device)
+        t0 = time.perf_counter()
+        sf.run_pipeline(num_permutations=N_PERM)
+        sync(device)
+        return time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launches()
+    warm_s = timed_run()
+    launches = dict(K.LAUNCHES)
+    if (sf.apsp_engine_used, sf._band_relax_used) != ("band-storage", "fw"):
+        raise AssertionError(f"sharded band engine not taken: "
+                             f"{sf.apsp_engine_used}, {sf._band_relax_used}")
+    band_m = sf._neighborhoods_dev
+    nb, bt = -(-band_m.n // BLOCK), band_m.bt
+    check_launches(device, launches, close_diag=nb, relax_panel=nb,
+                   relax_band_row=nb * (2 * bt + 1))
+    steady_s = [timed_run() for _ in range(steady)]
+    peak_bytes = torch.cuda.max_memory_allocated(device)
+    if not torch.equal(band_m.data, ref._neighborhoods_dev.data):
+        raise AssertionError("sharded indicator band differs from phase 6's")
+    if not np.allclose(sf.ns, ref.ns, rtol=1e-5, atol=1e-5):
+        raise AssertionError("sharded scores differ from phase 6's beyond "
+                             "1e-5")
+    if not (np.array_equal(sf.counts_neg, ref.counts_neg)
+            and np.array_equal(sf.counts_pos, ref.counts_pos)):
+        raise AssertionError("sharded counts differ from phase 6's")
+
+    s0, n, band, rows = _ghosted_init(sf, 1)
+    fw_s = []
+    for _ in range(steady):
+        s = s0.clone()
+        sync(device)
+        t0 = time.perf_counter()
+        bsh.apsp_band_fw_sharded(s, mesh=mesh, n=n, band=band)
+        sync(device)
+        fw_s.append(time.perf_counter() - t0)
+    out = dict(launches=launches, warm_s=warm_s, steady_s=steady_s,
+               steady_min_s=min(steady_s), peak_gb=peak_bytes / 1e9,
+               fw_s=min(fw_s), fw_band=band_digest(s[:rows]),
+               ind_digest=band_digest(band_m.data), bt=bt, nb=nb,
+               ns=sf.ns, counts_neg=sf.counts_neg,
+               counts_pos=sf.counts_pos)
+    out["profile"] = profile_steady(sf)
+    return out
+
+
+def _gloo_rank(rank, world, case_dir, device_type):
+    """One rank of phase 8's world 2: gloo over CUDA tensors, every rank on
+    card 0. The sharded FW on the phase-6 initial band, then the facade run;
+    the results go to ``case_dir``."""
+    device = torch.device(device_type, 0)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{case_dir}/rendezvous", rank=rank,
+        world_size=world)
+    try:
+        mesh = make_mesh({"data": world}, device_type=device.type)
+        d = np.load(os.path.join(case_dir, "inputs.npz"))
+        ref = SimpleNamespace(
+            apsp_mode=str(d["apsp_mode"]), keep_node_distances=False,
+            random_seed=SEED_NULL, neighborhood_radius=float(d["radius"]),
+            _graph_arrays=tuple(d[k] for k in ("coords", "edges", "lengths",
+                                               "weights")),
+            node2attribute=d["vals"])
+        sf = _band_session(device, ref, mesh)
+        s, n, band, rows = _ghosted_init(sf, world)
+        K.reset_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        bsh.apsp_band_fw_sharded(s, mesh=mesh, n=n, band=band)
+        sync(device)
+        fw_s = time.perf_counter() - t0
+        fw_launches = dict(K.LAUNCHES)
+        fw_band = band_digest(s[:rows])
+        del s
+        K.reset_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        sf.run_pipeline(num_permutations=int(d["num_permutations"]))
+        sync(device)
+        run_s = time.perf_counter() - t0
+        np.savez(os.path.join(case_dir, f"rank{rank}.npz"), fw_s=fw_s,
+                 fw_band=fw_band, run_s=run_s,
+                 ind_digest=band_digest(sf._neighborhoods_dev.data),
+                 ns=sf.ns, counts_neg=sf.counts_neg,
+                 counts_pos=sf.counts_pos,
+                 fw_launches=json.dumps(fw_launches),
+                 run_launches=json.dumps(dict(K.LAUNCHES)))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_sharded_world2(device, ref, w1, world=2):
+    """Phase 8, world 2: two processes on the one card, gloo over CUDA
+    tensors (NCCL refuses two ranks on one GPU), through
+    ``torch.multiprocessing.spawn``; a rank's exception makes ``spawn``
+    raise. Each rank runs the sharded FW on the phase-6 initial band and
+    then the facade run; the assembled band and indicator must equal world
+    1's bitwise, the scores within 1e-5, the counts within near-tie flips
+    (the rows are contracted in other groups)."""
+    case_dir = native.BUILD_DIR / "chip_smoke_gloo"
+    shutil.rmtree(case_dir, ignore_errors=True)
+    case_dir.mkdir(parents=True)
+    coords, edges, lengths, weights = ref._graph_arrays
+    np.savez(case_dir / "inputs.npz", coords=coords, edges=edges,
+             lengths=lengths, weights=weights, vals=ref.node2attribute,
+             radius=ref.neighborhood_radius, apsp_mode=ref.apsp_mode,
+             num_permutations=ref.num_permutations)
+    t0 = time.perf_counter()
+    mp.spawn(_gloo_rank, args=(world, str(case_dir), device.type),
+             nprocs=world, join=True)
+    wall_s = time.perf_counter() - t0
+    ranks = [dict(np.load(case_dir / f"rank{r}.npz")) for r in range(world)]
+    nb, bt = w1["nb"], w1["bt"]
+    fw_launches = [json.loads(str(r["fw_launches"])) for r in ranks]
+    run_launches = [json.loads(str(r["run_launches"])) for r in ranks]
+    for launches in (fw_launches, run_launches):
+        total = {k: sum(x[k] for x in launches) for k in launches[0]}
+        if device.type == "cuda" and (total["close_diag"] != world * nb
+                or total["relax_panel"] != world * nb
+                or total["relax_band_row"] != nb * (2 * bt + 1)):
+            raise AssertionError(f"world-{world} launches {launches}")
+    delta = 0
+    for r in ranks:
+        if str(r["fw_band"]) != w1["fw_band"]:
+            raise AssertionError(f"world-{world} FW band differs from world "
+                                 "1's")
+        if str(r["ind_digest"]) != w1["ind_digest"]:
+            raise AssertionError(f"world-{world} indicator differs from "
+                                 "world 1's")
+        if not np.allclose(r["ns"], w1["ns"], rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"world-{world} scores differ beyond 1e-5")
+        delta = max(delta, int(np.abs(r["counts_neg"] - w1["counts_neg"]).sum()
+                               + np.abs(r["counts_pos"] - w1["counts_pos"])
+                               .sum()))
+    if delta > 1e-5 * w1["ns"].size * ref.num_permutations:
+        raise AssertionError(f"world-{world} counts differ by {delta}")
+    if any(not np.array_equal(r["counts_neg"], ranks[0]["counts_neg"])
+           for r in ranks):
+        raise AssertionError("the ranks' counts differ")
+    return dict(wall_s=wall_s, fw_s=[float(r["fw_s"]) for r in ranks],
+                run_s=[float(r["run_s"]) for r in ranks],
+                fw_launches=fw_launches, run_launches=run_launches,
+                count_delta=delta)
+
+
 def profile_steady(sf, top=8):
     """Device busy time and idle share of one steady run, and its largest
     kernels, from torch.profiler (CUPTI)."""
@@ -806,6 +1116,7 @@ def profile_steady(sf, top=8):
 
 
 def main():
+    started = time.perf_counter()
     # phase 1: the card
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -830,10 +1141,14 @@ def main():
     kernels = check_kernels(device)
     kernels.update(check_skew_kernels(device))
     kernels.update(check_full_kernels(device))
+    kernels.update(check_band_row_kernel(device))
     for name, k in kernels.items():
+        k["bound_ms"], k["bound_by"] = bound(*k["work"])
         print(f"kernel {name}: bitwise equal to plain; per call {k['ms']:.4f} "
               f"ms, device {k.get('device_ms')} ms (plain {k['plain_ms']:.4f} "
-              f"ms) {k['shapes']}", flush=True)
+              f"ms; bound {k['bound_ms']:.4f} ms by {k['bound_by']}: "
+              f"{k['work'][0]} candidates, {k['work'][1]} bytes) "
+              f"{k['shapes']}", flush=True)
 
     # phases 4 and 5: the Example_1 path, banded, then dense and band storage
     net = build_network()
@@ -909,7 +1224,31 @@ def main():
           f"min of 3 {o['step_s']:.4f} s; phase 7 took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    # phase 8: the report; launches from the run of each kernel's path
+    # phase 8: the row-sharded band engine on the phase-6 slice, world 1
+    # over NCCL in this process, then world 2 over gloo on the same card
+    t0 = time.perf_counter()
+    w1 = run_sharded_world1(device, bs["session"])
+    p1 = w1["profile"]
+    print(f"sharded band world 1 (NCCL): launches {w1['launches']}; warm "
+          f"{w1['warm_s']:.4f} s, steady {w1['steady_s']} (min "
+          f"{w1['steady_min_s']:.4f} s); sharded FW alone {w1['fw_s']:.4f} s "
+          f"(phase 6's FW front {bs['front_s']:.4f} s); peak device memory "
+          f"{w1['peak_gb']:.3f} GB; indicator band bitwise and counts exactly "
+          f"equal to phase 6's, scores within 1e-5", flush=True)
+    print(f"sharded band profile: one steady run, wall {p1['wall_ms']:.3f} "
+          f"ms with the profiler on, device busy {p1['busy_ms']:.3f} ms, idle "
+          f"share {p1['idle_share']:.3f}; largest (name, launches, device "
+          f"ms): {p1['top']}", flush=True)
+    w2 = run_sharded_world2(device, bs["session"], w1)
+    print(f"sharded band world 2 (gloo, two processes on one card): spawn "
+          f"wall {w2['wall_s']:.2f} s; per rank sharded FW {w2['fw_s']} s, "
+          f"facade run {w2['run_s']} s; FW launches {w2['fw_launches']}; run "
+          f"launches {w2['run_launches']}; FW band and indicator bitwise "
+          f"equal to world 1's, scores within 1e-5, sum |delta counts| "
+          f"{w2['count_delta']}; phase 8 took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # phase 9: the report; launches from the run of each kernel's path
     replaces = {"relax_panel": "safepy_tpu/ops/apsp_pallas.py:95",
                 "relax_window_sym": "safepy_tpu/ops/apsp_pallas.py:193",
                 "close_diag": "safepy_tpu/ops/apsp_pallas.py:258",
@@ -917,28 +1256,38 @@ def main():
                 "relax_skew": "safepy_tpu/ops/apsp_bandstore.py:281",
                 "relax_full": "safepy_tpu/ops/apsp_pallas.py:144",
                 "relax_full_banded": "safepy_tpu/ops/apsp_pallas.py:161",
-                "minplus_product": "safepy_tpu/ops/apsp_pallas.py:62"}
+                "minplus_product": "safepy_tpu/ops/apsp_pallas.py:62",
+                "relax_band_row": "safepy_tpu/ops/apsp_pallas.py:111"}
     launches = dict(s["launches"], relax_skew_sym=bs["launches"][
         "relax_skew_sym"], relax_skew=bs["classic_launches"]["relax_skew"],
         relax_full=o["fw_launches"]["relax_full"],
         relax_full_banded=o["banded_launches"]["relax_full_banded"],
-        minplus_product=o["sq_launches"]["minplus_product"])
+        minplus_product=o["sq_launches"]["minplus_product"],
+        relax_band_row=w1["launches"]["relax_band_row"])
     paths = {"example1_banded": s["launches"], "band_49920": bs["launches"],
              "band_49920_classic": bs["classic_launches"],
              "ops_fw": o["fw_launches"], "ops_banded": o["banded_launches"],
              "ops_squaring": o["sq_launches"],
              "ops_directed_fw": o["dir_launches"],
              "ops_directed_banded": o["dir_banded_launches"],
-             "ops_flagship_step": o["step_launches"]}
+             "ops_flagship_step": o["step_launches"],
+             "sharded_band_world1": w1["launches"],
+             **{f"sharded_band_world2_rank{r}": x
+                for r, x in enumerate(w2["run_launches"])}}
     report = [{"name": name, "route": "cuda", "source": SRC,
                "replaces": replaces[name], "launches": launches[name],
                "launches_by_path": {path: counts[name]
                                     for path, counts in paths.items()},
                "max_abs_err": k["err"], "ms": k["ms"],
-               "plain_ms": k["plain_ms"], "device_ms": k.get("device_ms")}
+               "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+               "bound_by": k["bound_by"],
+               # no PyTorch call computes a min-plus product
+               "library_ms": None, "device_ms": k.get("device_ms")}
               for name, k in kernels.items()]
     report[[r["name"] for r in report].index("relax_panel")][
         "also_replaces"] = "safepy_tpu/ops/apsp_pallas.py:128"
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,14 @@
 //                       min(C, A (x) B) with one 128-wide operand: the pivot row
 //                       panel against the closed diagonal, or the pivot column
 //                       panel against it.
+//   relax_band_row   <- _relax_panel :111: min(C, Q (x) P) on one (block, W)
+//                       window row of the row-sharded band FW
+//                       (safepy_tpu/parallel/band_sharded.py:98,141), Q the
+//                       row's own pivot-column tile, P a slice of the
+//                       inf-extended pivot row. The relax_panel computation
+//                       under a second kernel name (one row of 2 x W / 64
+//                       CTAs a launch, 2 bt + 1 launches a round); bound like
+//                       it by the FP32 add+min issue rate.
 //   relax_window_sym <- _relax_full_banded_sym :193 (kernel_a + kernel_b):
 //                       relax the upper in-band tiles of a window and mirror
 //                       each into its lower twin, here in place on the matrix.
@@ -152,18 +160,39 @@ __device__ __forceinline__ void minplus_tile(const float* A, int64_t lda,
   }
 }
 
-// out = min(C, A (x) B); grid (n / 64, m / 64). C and out may not alias.
-__global__ void __launch_bounds__(TPB)
-relax_panel_kernel(const float* a, int64_t lda, const float* b, int64_t ldb,
-                   const float* c, int64_t ldc, float* out, int64_t ldo,
-                   int k) {
-  __shared__ TileSmem s;
+// out = min(C, A (x) B) for the 64x64 tile of this thread block; grid
+// (n / 64, m / 64). C and out may not alias.
+__device__ __forceinline__ void relax_out_tile(const float* a, int64_t lda,
+                                               const float* b, int64_t ldb,
+                                               const float* c, int64_t ldc,
+                                               float* out, int64_t ldo, int k,
+                                               TileSmem& s) {
   const int64_t row0 = (int64_t)blockIdx.y * TILE;
   const int64_t col0 = (int64_t)blockIdx.x * TILE;
   float acc[MICRO][MICRO];
   load_acc(c + row0 * ldc + col0, ldc, acc);
   minplus_tile(a + row0 * lda, lda, b + col0, ldb, k, acc, s);
   store_acc(out + row0 * ldo + col0, ldo, acc);
+}
+
+__global__ void __launch_bounds__(TPB)
+relax_panel_kernel(const float* a, int64_t lda, const float* b, int64_t ldb,
+                   const float* c, int64_t ldc, float* out, int64_t ldo,
+                   int k) {
+  __shared__ TileSmem s;
+  relax_out_tile(a, lda, b, ldb, c, ldc, out, ldo, k, s);
+}
+
+// The same computation under its own name, so that a profile tells the
+// band-sharded window rows (B3) from the pivot panels (B2/B4): out = min(C,
+// Q (x) P) for one (block, W) window row, Q its (block, block) pivot-column
+// tile and P a W-wide slice of the inf-extended pivot row.
+__global__ void __launch_bounds__(TPB)
+relax_band_row_kernel(const float* q, int64_t ldq, const float* p,
+                      int64_t ldp, const float* c, int64_t ldc, float* out,
+                      int64_t ldo, int k) {
+  __shared__ TileSmem s;
+  relax_out_tile(q, ldq, p, ldp, c, ldc, out, ldo, k, s);
 }
 
 // In place on the (w, w) window of d that starts at (lo, lo). Block
@@ -343,6 +372,15 @@ int safepy_relax_panel(const float* a, int64_t lda, const float* b,
   const dim3 grid(n / TILE, m / TILE);
   relax_panel_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(
       a, lda, b, ldb, c, ldc, out, ldo, k);
+  return (int)cudaGetLastError();
+}
+
+int safepy_relax_band_row(const float* q, int64_t ldq, const float* p,
+                          int64_t ldp, const float* c, int64_t ldc, float* out,
+                          int64_t ldo, int m, int n, int k, void* stream) {
+  const dim3 grid(n / TILE, m / TILE);
+  relax_band_row_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(
+      q, ldq, p, ldp, c, ldc, out, ldo, k);
   return (int)cudaGetLastError();
 }
 

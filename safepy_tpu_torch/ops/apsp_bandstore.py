@@ -280,40 +280,66 @@ def band_row_stats(s_ind: torch.Tensor, *, n: int, bt: int, block: int = 128):
     return sizes, sizes.mean(), sizes.std(correction=0)
 
 
-def _groups(nb: int, per_block_elems: int):
-    """Ranges of block-rows whose transient stays under ``_GROUP_ELEMS``."""
+def _block_range(s_rows, bt: int, block: int, blocks, row_block_offset: int):
+    """(lo, hi): the real block-rows a banded contraction computes.
+
+    ``s_rows`` holds ghosted block-rows ``row_block_offset`` onwards (0: the
+    whole ghosted band); ``blocks`` is the (lo, hi) range of real block-rows
+    to compute, all of them (``s_rows``' own) when None. A row shard of the
+    band passes its offset and its real range
+    (``parallel.band_sharded``)."""
+    if blocks is None:
+        return 0, s_rows.shape[0] // block - 2 * bt
+    lo, hi = blocks
+    if hi > lo and (lo + bt < row_block_offset or (
+            hi + bt - row_block_offset) * block > s_rows.shape[0]):
+        raise ValueError(f"real block-rows {blocks} are not all in rows "
+                         f"held from ghosted block-row {row_block_offset}")
+    return lo, hi
+
+
+def _groups(lo: int, hi: int, per_block_elems: int):
+    """Ranges of block-rows lo .. hi - 1 whose transient stays under
+    ``_GROUP_ELEMS``."""
     g = max(1, _GROUP_ELEMS // max(1, per_block_elems))
-    return [(i0, min(nb, i0 + g)) for i0 in range(0, nb, g)]
+    return [(i0, min(hi, i0 + g)) for i0 in range(lo, hi, g)]
 
 
-def _block_rows(s_rows, i0: int, i1: int, bt: int, block: int):
-    """(i1 - i0, block, width) f32 rows of block-rows i0 .. i1 - 1."""
+def _block_rows(s_rows, i0: int, i1: int, bt: int, block: int,
+                row_block_offset: int = 0):
+    """(i1 - i0, block, width) f32 rows of real block-rows i0 .. i1 - 1."""
     width = s_rows.shape[1]
-    return s_rows[(i0 + bt) * block:(i1 + bt) * block].view(
+    r0 = i0 + bt - row_block_offset
+    return s_rows[r0 * block:(r0 + i1 - i0) * block].view(
         i1 - i0, block, width).to(torch.float32)
 
 
 def band_matmul(s_ind, x, *, bt: int, block: int = 128,
-                precision: str = "highest") -> torch.Tensor:
+                precision: str = "highest", blocks=None,
+                row_block_offset: int = 0) -> torch.Tensor:
     """(banded indicator) @ x without densifying (``:801``).
 
     s_ind: ((nb + 2 bt) b, W); x: (npad, A) in the same permuted row frame.
     Block-row I's slab covers rows [(I - bt) b, (I + bt + 1) b) of x, so the
     product is nb (b, W) x (W, A) matmuls, run as batched matmuls over
-    groups of block-rows. Returns (npad, A) f32.
+    groups of block-rows. Returns (npad, A) f32. A row shard passes
+    ``blocks`` and ``row_block_offset`` (:func:`_block_range`) and gets the
+    ((hi - lo) b, A) rows of its real block-rows
+    (``band_sharded._band_matmul_local`` :187).
     """
     check_fp32_matmul(precision)
     width = s_ind.shape[1]
-    nb = s_ind.shape[0] // block - 2 * bt
+    lo, hi = _block_range(s_ind, bt, block, blocks, row_block_offset)
     a_dim = x.shape[1]
     xg = F.pad(x.to(torch.float32), (0, 0, bt * block, bt * block))
     slabs = xg.unfold(0, width, block)  # (nb, A, W): slab i at row i * b
-    out = torch.empty((nb * block, a_dim), dtype=torch.float32,
+    out = torch.empty(((hi - lo) * block, a_dim), dtype=torch.float32,
                       device=x.device)
-    for i0, i1 in _groups(nb, block * width):
-        prod = torch.bmm(_block_rows(s_ind, i0, i1, bt, block),
-                         slabs[i0:i1].transpose(1, 2))
-        out[i0 * block:i1 * block] = prod.reshape(-1, a_dim)
+    for i0, i1 in _groups(lo, hi, block * width):
+        prod = torch.bmm(
+            _block_rows(s_ind, i0, i1, bt, block, row_block_offset),
+            slabs[i0:i1].transpose(1, 2))
+        out[(i0 - lo) * block:(i1 - lo) * block] = prod.reshape(-1, a_dim)
     return out
 
 
@@ -327,32 +353,37 @@ def _batch_windows(x_batch, w_c: int):
 
 
 def band_matmul_batch(s_rows, x_batch, starts, *, bt: int, block: int = 128,
-                      precision: str = "highest") -> torch.Tensor:
+                      precision: str = "highest", blocks=None,
+                      row_block_offset: int = 0) -> torch.Tensor:
     """Batched banded product against per-block-row slabs at given offsets
     (``:835``).
 
     s_rows: ((nb + 2 bt) b, w_c) banded indicator, column-compacted
     (:func:`compact_band_columns`); x_batch: (C, v_pad, A) value rows;
-    starts: (nb,) slab start rows. Returns (C, npad, A).
+    starts: (nb,) slab start rows. Returns (C, npad, A); for a row shard
+    (``blocks``, ``row_block_offset``: :func:`_block_range`) the
+    (C, (hi - lo) b, A) rows of its real block-rows.
     """
     check_fp32_matmul(precision)
     w_c = s_rows.shape[1]
-    nb = s_rows.shape[0] // block - 2 * bt
+    lo, hi = _block_range(s_rows, bt, block, blocks, row_block_offset)
     c_dim, _, a_dim = x_batch.shape
     starts = torch.as_tensor(starts, dtype=torch.int64, device=x_batch.device)
     windows = _batch_windows(x_batch, w_c)
-    out = torch.empty((c_dim, nb * block, a_dim), dtype=torch.float32,
+    out = torch.empty((c_dim, (hi - lo) * block, a_dim), dtype=torch.float32,
                       device=x_batch.device)
-    for i0, i1 in _groups(nb, max(w_c, block) * c_dim * a_dim):
-        prod = torch.bmm(_block_rows(s_rows, i0, i1, bt, block),
-                         windows[starts[i0:i1]].transpose(1, 2))
-        out[:, i0 * block:i1 * block] = prod.view(
+    for i0, i1 in _groups(lo, hi, max(w_c, block) * c_dim * a_dim):
+        prod = torch.bmm(
+            _block_rows(s_rows, i0, i1, bt, block, row_block_offset),
+            windows[starts[i0:i1]].transpose(1, 2))
+        out[:, (i0 - lo) * block:(i1 - lo) * block] = prod.view(
             -1, c_dim, a_dim).transpose(0, 1)
     return out
 
 
 def band_count_batch(s_rows, x_batch, starts, obs, live=None, *, bt: int,
-                     block: int = 128, precision: str = "highest"):
+                     block: int = 128, precision: str = "highest",
+                     blocks=None, row_block_offset: int = 0):
     """Two-sided tie-inclusive counts of one permutation chunk against the
     banded (compacted) indicator (``:870``): :func:`band_matmul_batch` fused
     with the comparisons, so the (C, npad, A) chunk-score array never
@@ -360,30 +391,32 @@ def band_count_batch(s_rows, x_batch, starts, obs, live=None, *, bt: int,
 
     obs: (npad, A) observed scores (permuted frame); live: (C,) bool chunk
     liveness, or None for all live. Returns int32 (npad, A) counts_neg,
-    counts_pos of this chunk.
+    counts_pos of this chunk. A row shard (``blocks``, ``row_block_offset``:
+    :func:`_block_range`) passes and gets the ((hi - lo) b, A) rows of its
+    real block-rows.
     """
     check_fp32_matmul(precision)
     w_c = s_rows.shape[1]
-    nb = s_rows.shape[0] // block - 2 * bt
+    lo, hi = _block_range(s_rows, bt, block, blocks, row_block_offset)
     c_dim, _, a_dim = x_batch.shape
     starts = torch.as_tensor(starts, dtype=torch.int64, device=x_batch.device)
-    cn = torch.empty((nb * block, a_dim), dtype=torch.int32,
+    cn = torch.empty(((hi - lo) * block, a_dim), dtype=torch.int32,
                      device=x_batch.device)
     cp = torch.empty_like(cn)
     lv = None if live is None else live.view(1, 1, c_dim, 1)
     windows = _batch_windows(x_batch, w_c)
-    for i0, i1 in _groups(nb, max(w_c, block) * c_dim * a_dim):
-        prod = torch.bmm(_block_rows(s_rows, i0, i1, bt, block),
-                         windows[starts[i0:i1]].transpose(1, 2))
+    for i0, i1 in _groups(lo, hi, max(w_c, block) * c_dim * a_dim):
+        prod = torch.bmm(
+            _block_rows(s_rows, i0, i1, bt, block, row_block_offset),
+            windows[starts[i0:i1]].transpose(1, 2))
         prod = prod.view(i1 - i0, block, c_dim, a_dim)
-        ob = obs[i0 * block:i1 * block].view(i1 - i0, block, 1, a_dim)
+        r0, r1 = (i0 - lo) * block, (i1 - lo) * block
+        ob = obs[r0:r1].view(i1 - i0, block, 1, a_dim)
         le, ge = prod <= ob, prod >= ob
         if lv is not None:
             le, ge = le & lv, ge & lv
-        cn[i0 * block:i1 * block] = le.sum(dim=2, dtype=torch.int32).view(
-            -1, a_dim)
-        cp[i0 * block:i1 * block] = ge.sum(dim=2, dtype=torch.int32).view(
-            -1, a_dim)
+        cn[r0:r1] = le.sum(dim=2, dtype=torch.int32).view(-1, a_dim)
+        cp[r0:r1] = ge.sum(dim=2, dtype=torch.int32).view(-1, a_dim)
     return cn, cp
 
 
@@ -410,15 +443,16 @@ def compaction_plan(valid, *, n: int, bt: int, block: int = 128):
     return np.asarray(starts, np.int64), w_c
 
 
-def apply_compaction(s_ind, valid, w_c: int, *, bt: int,
-                     block: int = 128) -> torch.Tensor:
+def apply_compaction(s_ind, valid, w_c: int, *, bt: int, block: int = 128,
+                     row_block_offset: int = 0) -> torch.Tensor:
     """Device half of the compaction (``:968``): each slab's columns stably
     sorted valid-first, invalid entries zeroed, the first ``w_c`` kept.
 
     ``valid``: (n,) bool in the permuted order. The 128 rows of a block-row
     share one slab and so one validity key: one stable argsort of the
     (nbg, W) keys and one gather give JAX's per-row stable sort exactly.
-    Returns (nbg b, w_c) int8.
+    ``s_ind`` holds ghosted block-rows ``row_block_offset`` onwards (a row
+    shard, ``band_sharded.py:483``). Returns (nbg b, w_c) int8.
     """
     rows, width = s_ind.shape
     nbg = rows // block
@@ -426,8 +460,8 @@ def apply_compaction(s_ind, valid, w_c: int, *, bt: int,
     valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
     n = valid.shape[0]
     # absolute column of slab cell (Ig, c) is (Ig - 2 bt) b + c
-    cols = ((torch.arange(nbg, device=dev)[:, None] - 2 * bt) * block
-            + torch.arange(width, device=dev)[None, :])
+    cols = ((torch.arange(nbg, device=dev)[:, None] + row_block_offset
+             - 2 * bt) * block + torch.arange(width, device=dev)[None, :])
     ok = valid[cols.clamp(0, n - 1)] & (cols >= 0) & (cols < n)
     order = torch.argsort((~ok).to(torch.uint8), dim=1, stable=True)[:, :w_c]
     kept = torch.gather(ok, 1, order).to(torch.int8)

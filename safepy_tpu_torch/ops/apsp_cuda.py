@@ -20,13 +20,18 @@ surface (``ops.apsp``):
   * :func:`minplus_product` -- ``A (x) B`` into a new tensor; replaces
     ``min_plus_pallas`` :62;
 
-and two for phase 3 of the band-storage round
+two for phase 3 of the band-storage round
 (``safepy_tpu/ops/apsp_bandstore.py``, driven by ``ops.apsp_bandstore``):
 
   * :func:`relax_skew_sym` -- the skewed window's upper wedge plus mirror, in
     place; replaces ``_relax_skew_sym_pallas`` :324;
   * :func:`relax_skew` -- every in-band tile of the skewed window, in place;
-    replaces ``_relax_skew_pallas`` :281.
+    replaces ``_relax_skew_pallas`` :281;
+
+and one for the row-sharded band round (``parallel.band_sharded``):
+
+  * :func:`relax_band_row` -- ``min(C, Q (x) P)`` on one (block, W) window
+    row into a new tensor; replaces ``_relax_panel`` :111.
 
 A wrapper takes the plain version only for CPU tensors. A CUDA tensor goes
 through the kernel (``csrc/minplus.cu``, built by :mod:`safepy_tpu_torch.native`)
@@ -53,7 +58,8 @@ from safepy_tpu_torch.ops.apsp import (_apsp_torch, _min_plus_torch,
 # relax_full counts its whole-matrix and its banded launches apart.
 LAUNCHES = {"relax_panel": 0, "relax_window_sym": 0, "close_diag": 0,
             "relax_skew_sym": 0, "relax_skew": 0, "relax_full": 0,
-            "relax_full_banded": 0, "minplus_product": 0}
+            "relax_full_banded": 0, "minplus_product": 0,
+            "relax_band_row": 0}
 
 
 def reset_launches() -> None:
@@ -95,6 +101,30 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 relax_panel_plain = min_plus_relax  # plain version of relax_panel
 
 
+def _relax_into_new(name: str, c: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """``min(C, A (x) B)`` into a new tensor through kernel ``name``, or its
+    plain version for CPU tensors."""
+    m, k = a.shape
+    if b.shape[0] != k or tuple(c.shape) != (m, b.shape[1]):
+        raise ValueError(f"shape mismatch: c {tuple(c.shape)}, "
+                         f"a {tuple(a.shape)}, b {tuple(b.shape)}")
+    if not _use_kernel(c, a, b):
+        return min_plus_relax(c, a, b)
+    n = b.shape[1]
+    if m % 64 or n % 64 or k % 32:
+        raise ValueError(f"{name} kernel needs m, n % 64 == 0 and "
+                         f"k % 32 == 0, got m={m} n={n} k={k}")
+    from safepy_tpu_torch import native
+
+    out = torch.empty((m, n), dtype=torch.float32, device=c.device)
+    native.launch(name, _ptr(a), a.stride(0), _ptr(b), b.stride(0),
+                  _ptr(c), c.stride(0), _ptr(out), out.stride(0), m, n, k,
+                  _stream(c))
+    LAUNCHES[name] += 1
+    return out
+
+
 def relax_panel(c: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
     """``min(C, A (x) B)`` into a new (m, n) tensor; C is not modified.
@@ -102,24 +132,27 @@ def relax_panel(c: torch.Tensor, a: torch.Tensor,
     a: (m, k), b: (k, n), c: (m, n) float32, any row stride. On CUDA, m and n
     must be multiples of 64 and k of 32.
     """
-    m, k = a.shape
-    if b.shape[0] != k or tuple(c.shape) != (m, b.shape[1]):
-        raise ValueError(f"shape mismatch: c {tuple(c.shape)}, "
-                         f"a {tuple(a.shape)}, b {tuple(b.shape)}")
-    if not _use_kernel(c, a, b):
-        return relax_panel_plain(c, a, b)
-    n = b.shape[1]
-    if m % 64 or n % 64 or k % 32:
-        raise ValueError(f"relax_panel kernel needs m, n % 64 == 0 and "
-                         f"k % 32 == 0, got m={m} n={n} k={k}")
-    from safepy_tpu_torch import native
+    return _relax_into_new("relax_panel", c, a, b)
 
-    out = torch.empty((m, n), dtype=torch.float32, device=c.device)
-    native.launch("relax_panel", _ptr(a), a.stride(0), _ptr(b), b.stride(0),
-                  _ptr(c), c.stride(0), _ptr(out), out.stride(0), m, n, k,
-                  _stream(c))
-    LAUNCHES["relax_panel"] += 1
-    return out
+
+# ------------------------------------------------------------ relax_band_row
+
+# plain version of relax_band_row, called as relax_band_row_plain(c, q, p)
+relax_band_row_plain = min_plus_relax
+
+
+def relax_band_row(q: torch.Tensor, p: torch.Tensor,
+                   c: torch.Tensor) -> torch.Tensor:
+    """``min(C, Q (x) P)`` into a new (block, W) tensor; C is not modified
+    (``apsp_pallas._relax_panel`` :111, the argument order of the JAX call).
+
+    One window row of the row-sharded band FW
+    (``parallel.band_sharded._band_fw_rounds``): q (block, block) is the
+    row's pivot-column tile, which may be a view into ``c``; p (block, W) a
+    slice of the inf-extended pivot row; any row strides. The kernel is
+    ``relax_panel``'s, launched under its own name and counted apart.
+    """
+    return _relax_into_new("relax_band_row", c, q, p)
 
 
 # ---------------------------------------------------------- relax_window_sym

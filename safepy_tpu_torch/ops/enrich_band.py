@@ -32,27 +32,32 @@ def _pad_rows_to(x, rows: int):
 
 
 def band_score(s_ind, vals, *, bt: int, block: int = 128,
-               score_type: str = "sum", precision: str = "highest"):
+               score_type: str = "sum", precision: str = "highest",
+               blocks=None, row_block_offset: int = 0):
     """Observed neighborhood scores from the banded indicator (``:44``).
 
     vals: (n, A) attribute values with NaNs, rows in the permuted frame.
     Returns (npad, A) f32 scores (permuted frame; rows past n are padding).
+    A row shard of the band passes ``blocks`` and ``row_block_offset``
+    (``ops.apsp_bandstore._block_range``) and gets the rows of its real
+    block-rows (``band_sharded._band_score_local`` :253).
     """
-    npad = s_ind.shape[0] - 2 * bt * block
+    npad = -(-vals.shape[0] // block) * block
+    kw = dict(bt=bt, block=block, precision=precision, blocks=blocks,
+              row_block_offset=row_block_offset)
     vals = vals.to(torch.float32)
     mask = torch.isfinite(vals)
     B = _pad_rows_to(torch.where(mask, vals, torch.zeros_like(vals)), npad)
 
     if score_type == "sum":
-        return band_matmul(s_ind, B, bt=bt, block=block, precision=precision)
+        return band_matmul(s_ind, B, **kw)
     if score_type != "z-score":
         raise ValueError(f"unknown neighborhood_score_type: {score_type!r}")
 
     NB = _pad_rows_to(mask.to(torch.float32), npad)
     c = zscore_shift(B, NB)  # pad rows are (0, 0): no effect on the mean
     Bs = B - NB * c
-    out = band_matmul(s_ind, torch.cat([Bs, NB, Bs * Bs], dim=1), bt=bt,
-                      block=block, precision=precision)
+    out = band_matmul(s_ind, torch.cat([Bs, NB, Bs * Bs], dim=1), **kw)
     AB, N, EXX_sum = torch.chunk(out, 3, dim=1)
     return zscore_from_contractions(AB, N, EXX_sum, shift=c)
 
@@ -74,7 +79,8 @@ def valid_frame_map(valid: torch.Tensor, rank: torch.Tensor):
 def scan_counts_band(compact, starts, vals, mask, obs, frame_map, *,
                      score_type: str, num_permutations: int, batch_size: int,
                      bt: int, block: int = 128, precision: str = "highest",
-                     generator: torch.Generator | None = None, perm_idx=None):
+                     generator: torch.Generator | None = None, perm_idx=None,
+                     blocks=None, row_block_offset: int = 0):
     """Two-sided permutation counts against the compacted band (``:70``).
 
     compact: ((nb + 2 bt) b, w_c) valid-column-compacted indicator
@@ -88,7 +94,10 @@ def scan_counts_band(compact, starts, vals, mask, obs, frame_map, *,
 
     Sum scores go through the fused ``band_count_batch``; z-scores through
     ``band_matmul_batch`` and ``count_scan``. Returns int32 (npad, A)
-    counts_neg, counts_pos.
+    counts_neg, counts_pos. A row shard (``blocks``, ``row_block_offset``:
+    ``ops.apsp_bandstore._block_range``) passes the compacted rows it holds
+    and ``obs`` of its real block-rows and gets their counts; every shard
+    draws the same permutations (``band_sharded._scan_counts_local`` :278).
     """
     V, A = vals.shape
     dev = vals.device
@@ -103,6 +112,8 @@ def scan_counts_band(compact, starts, vals, mask, obs, frame_map, *,
         raise ValueError("scan_counts_band needs a generator or perm_idx")
     sigma, sigma_inv = frame_map
     starts = torch.as_tensor(starts, dtype=torch.int64, device=dev)
+    kw = dict(bt=bt, block=block, precision=precision, blocks=blocks,
+              row_block_offset=row_block_offset)
 
     zscore = score_type == "z-score"
     shift = None
@@ -124,7 +135,7 @@ def scan_counts_band(compact, starts, vals, mask, obs, frame_map, *,
     if zscore:
         def chunk_scores(start, count):
             out = band_matmul_batch(compact, permuted(start, count), starts,
-                                    bt=bt, block=block, precision=precision)
+                                    **kw)
             AB, Np, EXX_sum = torch.chunk(out, 3, dim=-1)
             return zscore_from_contractions(AB, Np, EXX_sum, shift=shift)
 
@@ -136,8 +147,7 @@ def scan_counts_band(compact, starts, vals, mask, obs, frame_map, *,
     for start in range(0, num_permutations, batch_size):
         count = min(batch_size, num_permutations - start)
         cn, cp = band_count_batch(compact, permuted(start, count), starts,
-                                  obs, bt=bt, block=block,
-                                  precision=precision)
+                                  obs, **kw)
         counts_neg += cn
         counts_pos += cp
     return counts_neg, counts_pos

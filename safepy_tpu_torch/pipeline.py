@@ -28,7 +28,8 @@ def _apsp_inline(d0, block, mesh=None, window=None, inv_rank=None,
     caller passes one, else the dense blocked FW on one device."""
     if mesh is not None:
         raise NotImplementedError(
-            "multi-device APSP (a mesh) is not ported: ROADMAP A10")
+            "multi-device dense APSP (apsp_sharded, apsp_sharded_2d) is not "
+            "ported: ROADMAP A10 remainder")
     if window is not None:
         return apsp_banded_unpermuted(d0, inv_rank, radius, window=window,
                                       block=block)
@@ -96,24 +97,41 @@ def band_neighborhoods(u, v, w, radius, *, n: int, band: int,
                        keep_distances=keep_distances)[:4]
 
 
-def _band_perm_tail(s_ind, vals, vals_valid, valid, starts, rank, generator,
-                    *, bt: int, block: int, score_type: str,
-                    num_permutations: int, batch_size: int, w_c: int,
-                    precision: str, perm_idx=None):
+def _band_null(s_ind, vals, vals_valid, valid, starts, rank, generator, *,
+               bt: int, block: int, score_type: str, num_permutations: int,
+               batch_size: int, w_c: int, precision: str, perm_idx=None,
+               blocks=None, row_block_offset: int = 0):
     """Observed scores + compaction + permutation counts over a banded
-    indicator, the (n, A) outputs un-permuted to the original frame by
-    ``rank`` (``pipeline.py:369``)."""
-    obs = band_score(s_ind, vals, bt=bt, block=block, score_type=score_type,
-                     precision=precision)
-    compact = bst.apply_compaction(s_ind, valid, w_c, bt=bt, block=block)
+    indicator, in the permuted frame: (npad, A) obs, counts_neg,
+    counts_pos, or for a row shard of the band (``blocks``,
+    ``row_block_offset``: ``ops.apsp_bandstore._block_range``) the rows of
+    its real block-rows."""
+    kw = dict(bt=bt, block=block, precision=precision, blocks=blocks,
+              row_block_offset=row_block_offset)
+    obs = band_score(s_ind, vals, score_type=score_type, **kw)
+    compact = bst.apply_compaction(s_ind, valid, w_c, bt=bt, block=block,
+                                   row_block_offset=row_block_offset)
     mask_valid = torch.isfinite(vals_valid).to(torch.float32)
     vv = torch.where(mask_valid > 0, vals_valid.to(torch.float32),
                      torch.zeros_like(mask_valid))
     counts_neg, counts_pos = scan_counts_band(
         compact, starts, vv, mask_valid, obs, valid_frame_map(valid, rank),
         score_type=score_type, num_permutations=num_permutations,
-        batch_size=batch_size, bt=bt, block=block, precision=precision,
-        generator=generator, perm_idx=perm_idx)
+        batch_size=batch_size, generator=generator, perm_idx=perm_idx, **kw)
+    return obs, counts_neg, counts_pos
+
+
+def _band_perm_tail(s_ind, vals, vals_valid, valid, starts, rank, generator,
+                    *, bt: int, block: int, score_type: str,
+                    num_permutations: int, batch_size: int, w_c: int,
+                    precision: str, perm_idx=None):
+    """:func:`_band_null` with the (n, A) outputs un-permuted to the
+    original frame by ``rank`` (``pipeline.py:369``)."""
+    obs, counts_neg, counts_pos = _band_null(
+        s_ind, vals, vals_valid, valid, starts, rank, generator, bt=bt,
+        block=block, score_type=score_type,
+        num_permutations=num_permutations, batch_size=batch_size, w_c=w_c,
+        precision=precision, perm_idx=perm_idx)
     return obs[rank], counts_neg[rank], counts_pos[rank]
 
 

@@ -10,6 +10,12 @@ in the JAX facade's order (``safe.py:1702-1712``): band storage
 ``band_storage_min_nodes`` and above when the band beats dense storage),
 then the certified banded window, then the dense Floyd-Warshall.
 
+With ``mesh`` set to a DeviceMesh of one ``"data"`` axis
+(``parallel.make_mesh({"data": world})``, one device per rank, every rank
+running the same calls), a run that takes band storage goes through the
+row-sharded band engine (``parallel.band_sharded``, ``safe.py:2073``) and
+every rank gets the same global results.
+
 Everything else the JAX facade offers raises ``NotImplementedError`` naming
 the ROADMAP item that brings it; nothing quietly takes another path.
 
@@ -80,6 +86,8 @@ class SAFE:
         self.enrichment_threshold = 0.05
         self.random_seed = None
         self.matmul_precision = "highest"
+        # a DeviceMesh with one "data" axis shards the band-storage engine
+        # over its ranks (the caller initializes torch.distributed)
         self.mesh = None
 
         self._graph_arrays = None
@@ -93,9 +101,11 @@ class SAFE:
         self.node2attribute = None
         self._n2a_dev = None
 
-        # which APSP engine and window the last run_pipeline took
+        # which APSP engine and window the last run_pipeline took, and the
+        # band relax of a band-storage run ("fw": the only one ported)
         self.apsp_engine_used = None
         self.window_used = None
+        self._band_relax_used = None
         self._neighborhoods_dev = None
         self._neighborhoods_np = None
         self._node_distances_dev = None
@@ -352,9 +362,16 @@ class SAFE:
                     >= float(self.band_bits_min_bytes))
         return bool(self.band_indicator_bits)
 
+    def _data_mesh(self) -> bool:
+        """Is ``mesh`` a DeviceMesh of exactly one axis, named "data"?"""
+        return (getattr(self.mesh, "mesh_dim_names", None) == ("data",)
+                and self.mesh.ndim == 1)
+
     def _refuse_unported(self):
-        if self.mesh is not None:
-            raise _not_ported("multi-device execution (mesh)", "A10")
+        if self.mesh is not None and not self._data_mesh():
+            raise _not_ported("a mesh other than one 'data' axis (the "
+                              "'perm' and 'attr' axes, 2-D meshes)",
+                              "A10 remainder")
         if self.multiple_testing:
             raise _not_ported("FDR (multiple_testing=True)", "A4")
         if self.background == "network":
@@ -416,6 +433,10 @@ class SAFE:
         bs_plan = self._band_storage_plan(coords, edges, weights, num_nodes, nr)
         if bs_plan is not None:
             return self._run_pipeline_bandstore(bs_plan, nr, perm_idx)
+        if self.mesh is not None:
+            raise _not_ported("a mesh where no band-storage plan is taken "
+                              "(the sharded dense engines apsp_sharded, "
+                              "apsp_sharded_2d)", "A10 remainder")
         plan = self._banded_plan(coords, edges, weights, num_nodes, nr)
         if plan is not None:
             d0, inv_rank, window = plan
@@ -449,12 +470,17 @@ class SAFE:
 
     def _generator(self, perm_idx):
         """The null's torch.Generator from ``random_seed`` (a fresh seed
-        when None), or None when explicit permutations are given."""
+        when None), or None when explicit permutations are given. On a mesh
+        a fresh seed is drawn by the axis' first rank and shared, so that
+        every rank draws the same permutations."""
         if perm_idx is not None:
             return None
         seed = self.random_seed
         if seed is None:
             seed = int(np.random.default_rng().integers(2 ** 31 - 1))
+            if self.mesh is not None:
+                from safepy_tpu_torch.parallel.mesh import shared_seed
+                seed = shared_seed(seed, self.mesh, "data", self.device)
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
     def _store_results(self, obs, counts_neg, counts_pos, nbr, dist, mean,
@@ -480,7 +506,10 @@ class SAFE:
     def _run_pipeline_bandstore(self, plan, nr, perm_idx):
         """run_pipeline over the band-storage engine, quantitative branch
         (``safe.py:2048-2145``): every matrix is O(N W); the neighborhoods
-        and distances become :class:`BandedMatrix` results."""
+        and distances become :class:`BandedMatrix` results. On a "data" mesh
+        the row-sharded engine runs (``safe.py:2073-2082``) and its bands,
+        assembled on every rank, lose their device-padding rows
+        (``safe.py:2122-2127``)."""
         num_nodes = self._num_nodes
         band, rank = plan["band"], plan["rank"]
         if self._band_bits_selected(num_nodes, band):
@@ -500,20 +529,32 @@ class SAFE:
         starts, w_c = _bst.compaction_plan(valid_perm, n=num_nodes, bt=bt)
         batch = default_batch_size(V, A, int(self.num_permutations))
         dev = self.device
-        (dist_band, s_ind, obs, counts_neg, counts_pos, mean, std) = \
-            _pipe.fused_permutation_pipeline_band(
-                plan["u"], plan["v"], plan["w"],
+        args = (plan["u"], plan["v"], plan["w"],
                 torch.as_tensor(vals_perm, device=dev),
                 torch.as_tensor(vals_perm[valid_perm], device=dev),
                 torch.as_tensor(valid_perm, device=dev),
                 torch.as_tensor(starts, device=dev), plan["rank_dev"],
-                self._generator(perm_idx), _nbr.inclusive_radius(nr),
-                n=num_nodes, band=band,
-                score_type=self.neighborhood_score_type,
-                num_permutations=int(self.num_permutations),
-                batch_size=batch, w_c=w_c, precision=self.matmul_precision,
-                keep_distances=bool(self.keep_node_distances),
-                perm_idx=perm_idx)
+                self._generator(perm_idx), _nbr.inclusive_radius(nr))
+        kw = dict(n=num_nodes, band=band,
+                  score_type=self.neighborhood_score_type,
+                  num_permutations=int(self.num_permutations),
+                  batch_size=batch, w_c=w_c, precision=self.matmul_precision,
+                  keep_distances=bool(self.keep_node_distances),
+                  perm_idx=perm_idx)
+        if self.mesh is None:
+            (dist_band, s_ind, obs, counts_neg, counts_pos, mean, std) = \
+                _pipe.fused_permutation_pipeline_band(*args, **kw)
+        else:
+            from safepy_tpu_torch.parallel.band_sharded import (
+                fused_permutation_pipeline_band_sharded)
+            (dist_band, s_ind, obs, counts_neg, counts_pos, mean, std) = \
+                fused_permutation_pipeline_band_sharded(*args, mesh=self.mesh,
+                                                        **kw)
+            g_rows = (-(-num_nodes // 128) + 2 * bt) * 128
+            s_ind = s_ind[:g_rows]
+            if dist_band is not None:
+                dist_band = dist_band[:g_rows]
+        self._band_relax_used = "fw"
         self.apsp_engine_used, self.window_used = "band-storage", None
         self._store_results(
             obs, counts_neg, counts_pos,

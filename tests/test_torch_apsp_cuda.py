@@ -161,10 +161,12 @@ def test_cpu_wrappers_count_no_launches_and_check_inputs():
     K.relax_full(a, a.clone(), a.clone())
     K.relax_full(a, a.clone(), a.clone(), 0)
     K.minplus_product(a, a)
+    K.relax_band_row(a, a.clone(), a)
     assert K.LAUNCHES == {"relax_panel": 0, "relax_window_sym": 0,
                           "close_diag": 0, "relax_skew_sym": 0,
                           "relax_skew": 0, "relax_full": 0,
-                          "relax_full_banded": 0, "minplus_product": 0}
+                          "relax_full_banded": 0, "minplus_product": 0,
+                          "relax_band_row": 0}
     with pytest.raises(TypeError):
         K.relax_panel(a.double(), a.double(), a.double())
     with pytest.raises(ValueError, match="shape"):
@@ -186,3 +188,5 @@ def test_cpu_wrappers_count_no_launches_and_check_inputs():
         K.minplus_product(a, a[:16])
     with pytest.raises(TypeError):
         K.minplus_product(a.double(), a.double())
+    with pytest.raises(ValueError, match="shape"):
+        K.relax_band_row(a, a[:, :16], a)

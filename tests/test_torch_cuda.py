@@ -223,7 +223,8 @@ def test_cuda_band_session_matches_cpu_band_session(dev):
     assert launches == {"close_diag": nb, "relax_panel": nb,
                         "relax_skew_sym": nb, "relax_window_sym": 0,
                         "relax_skew": 0, "relax_full": 0,
-                        "relax_full_banded": 0, "minplus_product": 0}
+                        "relax_full_banded": 0, "minplus_product": 0,
+                        "relax_band_row": 0}
     assert torch.equal(gpu._node_distances_dev.data.cpu(),
                        cpu._node_distances_dev.data)
     np.testing.assert_array_equal(gpu.neighborhoods, cpu.neighborhoods)
@@ -239,6 +240,60 @@ def test_cuda_band_session_matches_cpu_band_session(dev):
     x = net[0][:, 0]
     r = inclusive_radius(gpu.neighborhood_radius * (x.max() - x.min()))
     assert torch.equal(bs.band_threshold(s, r), gpu._neighborhoods_dev.data)
+
+
+@pytest.mark.parametrize("block,bt", [(128, 12), (128, 2), (64, 3)])
+def test_relax_band_row_matches_plain(dev, block, bt):
+    """B3 on one window row: q a tile of c, p a slice of an inf-extended
+    pivot row (a row stride wider than W), as the sharded rounds call it."""
+    gen = torch.Generator(device=dev).manual_seed(block + bt)
+    w = (2 * bt + 1) * block
+    c = _inf_laced(gen, dev, block, w)
+    p_ext = _inf_laced(gen, dev, block, w + 2 * bt * block)
+    q, p = c[:, block:2 * block], p_ext[:, block:block + w]
+    before = c.clone()
+    K.reset_launches()
+    got = K.relax_band_row(q, p, c)
+    want = K.relax_band_row_plain(c, q, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and not torch.equal(got, c)
+    assert torch.equal(c, before)
+    assert K.LAUNCHES["relax_band_row"] == 1 and sum(K.LAUNCHES.values()) == 1
+
+
+def test_sharded_band_fw_world_one_nccl(dev, tmp_path):
+    """The row-sharded band FW on a one-rank NCCL 'data' mesh: bitwise the
+    classic band FW, with 2 bt + 1 relax_band_row launches a round."""
+    import torch.distributed as dist
+    from safepy_tpu_torch.ops import apsp_bandstore as bs
+    from safepy_tpu_torch.ops.apsp_banded import banded_order
+    from safepy_tpu_torch.parallel import band_sharded as bsh
+    from safepy_tpu_torch.parallel import make_mesh
+
+    n = 900
+    coords, edges, lengths, _ = _network(n=n)
+    nr = 0.1 * (coords[:, 0].max() - coords[:, 0].min())
+    order, band = banded_order(coords, nr * (1 + 1e-5))
+    rank = np.empty(n, np.int64)
+    rank[order] = np.arange(n)
+    pe = torch.as_tensor(rank[edges], device=dev)
+    s = bs.band_init_from_edges(pe[:, 0], pe[:, 1],
+                                torch.as_tensor(lengths, device=dev), n=n,
+                                band=band)
+    bt, nb = band // 128 + 1, -(-n // 128)
+    want = bs.apsp_band_fw(s.clone(), bt=bt, symmetric=False)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh({"data": 1}, device_type="cuda")
+        K.reset_launches()
+        got = bsh.apsp_band_fw_sharded(s, mesh=mesh, n=n, band=band)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert got is s and torch.equal(got, want)
+    assert K.LAUNCHES["close_diag"] == K.LAUNCHES["relax_panel"] == nb
+    assert K.LAUNCHES["relax_band_row"] == nb * (2 * bt + 1)
 
 
 def test_wrappers_refuse_rather_than_fall_back(dev):
@@ -261,3 +316,5 @@ def test_wrappers_refuse_rather_than_fall_back(dev):
         K.relax_full(y[:, :32], y[:32].clone(), y.clone(), 1)
     with pytest.raises(TypeError):
         K.minplus_product(x.double(), x.double())
+    with pytest.raises(ValueError, match="relax_band_row kernel"):
+        K.relax_band_row(x, x, x)

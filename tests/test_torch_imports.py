@@ -19,9 +19,13 @@ def test_import_is_light_and_builds_nothing():
     code = ("import sys, safepy_tpu_torch, safepy_tpu_torch.safe, "
             "safepy_tpu_torch.state, safepy_tpu_torch.pipeline, "
             "safepy_tpu_torch.ops.apsp_bandstore, "
-            "safepy_tpu_torch.ops.enrich_band, safepy_tpu_torch.ops.fdr\n"
+            "safepy_tpu_torch.ops.enrich_band, safepy_tpu_torch.ops.fdr, "
+            "safepy_tpu_torch.parallel, "
+            "safepy_tpu_torch.parallel.band_sharded\n"
             "from safepy_tpu_torch import ops\n"
             "assert callable(ops.apsp) and callable(ops.min_plus_product)\n"
+            "from safepy_tpu_torch.parallel import make_mesh\n"
+            "assert callable(make_mesh)\n"
             "bad = [m for m in ('jax', 'triton', 'networkx', 'pandas', "
             "'safepy_tpu') if m in sys.modules]\n"
             "assert not bad, bad\n")
