@@ -12,8 +12,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    banded-window kernels at the Example_1 shapes, the skew kernels at the
    49,920-node band shape (block 128, bt 12, W 3,200) and at bt 2, the
    classic relax over the dense 4,096 matrix and the 1,024 window, one
-   4096 x 4096 x 4096 min-plus product, and the sharded window row
-   (``relax_band_row``, 128 x 3,200 and 128 x 640); each beside its bound;
+   4096 x 4096 x 4096 min-plus product, and the sharded window rows
+   (``relax_band_row``, one row of 128 x 3,200 and of 128 x 640, and
+   ``relax_band_rows``, a round's rows in one launch, whole and cut); each
+   beside its bound; ``close_diag`` also on +inf-diagonal, padding and
+   strided tiles at block 128 and 64, beside its one-SM floor;
 4. the Example_1 path: the Example_1-shaped workflow of ``bench.py``
    (3,971-node kNN geometric network, one quantitative attribute,
    1,000-permutation null) through ``SAFE(device="cuda").run_pipeline``.
@@ -48,8 +51,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. the row-sharded band engine (``parallel.band_sharded``) on phase 6's
    network and attribute: at world 1 over NCCL in this process,
    ``SAFE(mesh=make_mesh({"data": 1})).run_pipeline`` with launch counts
-   (one ``close_diag`` and one ``relax_panel`` a round, 2 bt + 1
-   ``relax_band_row``), the indicator band bitwise and the counts exactly
+   (one ``close_diag``, one ``relax_panel`` and one ``relax_band_row`` for
+   the window rows a round), the indicator band bitwise and the counts exactly
    equal to phase 6's and the scores within 1e-5, timed and profiled, and
    the sharded FW alone; then world 2 over gloo, two processes on the same
    card (``torch.multiprocessing.spawn``), each running the sharded FW and
@@ -227,6 +230,9 @@ def max_abs_err(got, want) -> float:
 HBM_BYTES_PER_S = 3.35e12
 CANDIDATES_PER_S = 16.7e12
 F32 = 4
+# close_diag's 128 steps are dependent and run on one SM: its one-SM floor is
+# 2 B^2 FP32 instructions a step over the SM's 128 FP32 lanes, at its clock
+FP32_LANES_PER_SM = 128
 
 
 def bound(candidates, nbytes):
@@ -248,6 +254,33 @@ def relax_work(m, n, k, tiles_in=None, tiles_out=None, tile=BLOCK):
             (m * k + k * n + (tiles_in + tiles_out) * tile * tile) * F32)
 
 
+def close_diag_cases(gen, blk, device):
+    """Pivot tiles close_diag meets: a zero diagonal, +inf diagonal entries,
+    all-+inf padding rows and columns, and a view at an offset into a wider
+    matrix whose row stride is no multiple of 4."""
+    def base():
+        t = inf_laced(gen, (blk, blk), device)
+        t.diagonal().zero_()
+        return t
+    inf_diag, padding, wide = base(), base(), inf_laced(
+        gen, (blk + 3, 2 * blk + 5), device)
+    inf_diag.diagonal()[::3] = float("inf")
+    padding[blk - 40:] = float("inf")
+    padding[:, blk - 40:] = float("inf")
+    view = wide[3:, 5:5 + blk]
+    view.diagonal().zero_()
+    return {"zero_diag": base(), "inf_diag": inf_diag, "inf_padding": padding,
+            "strided_view": view}
+
+
+def sm_clock_mhz() -> float:
+    """The SM's maximum clock, as nvidia-smi reports it (e.g. '1980 MHz')."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0].split()[0])
+
+
 def check_kernels(device, window=1024, npad=4096, band_tiles=6):
     """Phase 3: each kernel against its plain version at the main path's
     shapes (block 128, window 1024 inside a 4096 matrix, dense 4096)."""
@@ -255,17 +288,29 @@ def check_kernels(device, window=1024, npad=4096, band_tiles=6):
     b = BLOCK
     out = {}
 
-    # close_diag on a pivot tile with a zero diagonal
+    # close_diag on a pivot tile with a zero diagonal (the report's case),
+    # then on the other tiles the rounds meet, at block 128 and 64
     tile = inf_laced(gen, (b, b), device)
     tile.diagonal().zero_()
-    err = max_abs_err(K.close_diag(tile), K.close_diag_plain(tile))
+    errs = [max_abs_err(K.close_diag(tile), K.close_diag_plain(tile))]
+    shapes = {"tile": [b, b]}
+    for blk in (b, 64):
+        for case, t in close_diag_cases(gen, blk, device).items():
+            errs.append(max_abs_err(K.close_diag(t), K.close_diag_plain(t)))
+            if device.type == "cuda":
+                shapes[f"{case}_{blk}_device_ms"] = device_ms(
+                    lambda: K.close_diag(t), "close_diag_kernel")
     out["close_diag"] = dict(
-        err=err, ms=time_ms(lambda: K.close_diag(tile), device),
+        err=max(errs), ms=time_ms(lambda: K.close_diag(tile), device),
         plain_ms=time_ms(lambda: K.close_diag_plain(tile), device, inner=2),
-        work=(b ** 3, 2 * b * b * F32), shapes={"tile": [b, b]})
+        work=(b ** 3, 2 * b * b * F32), shapes=shapes)
     if device.type == "cuda":
         out["close_diag"]["device_ms"] = device_ms(
             lambda: K.close_diag(tile), "close_diag_kernel")
+        clock_hz = sm_clock_mhz() * 1e6
+        out["close_diag"]["bound_one_sm_ms"] = (
+            b * (2 * b * b / FP32_LANES_PER_SM) / clock_hz * 1e3)
+        shapes["sm_clock_max_mhz"] = clock_hz / 1e6
 
     # relax_panel in its two forms: rows min(P, diag (x) P), cols min(Q, Q (x) diag)
     diag = K.close_diag_plain(tile)
@@ -285,10 +330,25 @@ def check_kernels(device, window=1024, npad=4096, band_tiles=6):
         work=(rows[0] + cols[0], rows[1] + cols[1]),
         shapes={"rows_128x1024_ms": rows_ms, "rows_plain_ms": rows_plain,
                 "cols_1024x128_ms": cols_ms, "cols_plain_ms": cols_plain})
+    # the band path's pivot row (bt 12, W 3,200)
+    pb = inf_laced(gen, (b, 25 * b), device)
+    out["relax_panel"]["err"] = max(
+        out["relax_panel"]["err"],
+        max_abs_err(K.relax_panel(pb, diag, pb),
+                    K.relax_panel_plain(pb, diag, pb)))
     if device.type == "cuda":
         out["relax_panel"]["device_ms"] = device_ms(
             lambda: (K.relax_panel(p, diag, p), K.relax_panel(q, q, diag)),
             "relax_panel_kernel")
+        sh = out["relax_panel"]["shapes"]
+        sh["rows_device_ms"] = device_ms(lambda: K.relax_panel(p, diag, p),
+                                         "relax_panel_kernel")
+        sh["cols_device_ms"] = device_ms(lambda: K.relax_panel(q, q, diag),
+                                         "relax_panel_kernel")
+        sh["band_rows_128x3200_ms"] = time_ms(
+            lambda: K.relax_panel(pb, diag, pb), device)
+        sh["band_rows_128x3200_device_ms"] = device_ms(
+            lambda: K.relax_panel(pb, diag, pb), "relax_panel_kernel")
 
     # relax_window_sym: the slice's window and the dense 4096 round, in place
     d = inf_laced(gen, (npad, npad), device)
@@ -377,33 +437,65 @@ def check_skew_kernels(device, cases=((12, "slice"), (2, "small"))):
 
 
 def check_band_row_kernel(device, cases=((12, "slice"), (2, "small"))):
-    """Phase 3, row-sharded band FW: relax_band_row (B3) against its plain
-    version on one +inf-laced window row, Q a tile of C and P a slice of an
-    inf-extended pivot row, at the 49,920-node band shape (block 128, bt 12,
-    W 3,200) and at bt 2 (W 640)."""
+    """Phase 3, row-sharded band FW (B3): relax_band_row on one +inf-laced
+    window row, Q a tile of C and P a slice of an inf-extended pivot row,
+    and relax_band_rows, a round's window rows in place in one launch, the
+    whole window and windows cut at their first and last rows, each against
+    its plain version, at the 49,920-node band shape (block 128, bt 12, W
+    3,200) and at bt 2 (W 640). The report's row is the whole window of the
+    slice, the launch the sharded rounds make."""
     gen = torch.Generator(device=device).manual_seed(17)
     b = BLOCK
     shapes, errs = {}, []
     for bt, tag in cases:
-        w = (2 * bt + 1) * b
+        nt = 2 * bt + 1
+        w = nt * b
         c = inf_laced(gen, (b, w), device)
         p_ext = inf_laced(gen, (b, w + 2 * bt * b), device)
         q, p = c[:, (2 * bt - 1) * b:2 * bt * b], p_ext[:, b:b + w]
         errs.append(max_abs_err(K.relax_band_row(q, p, c),
                                 K.relax_band_row_plain(c, q, p)))
-        shapes[f"{tag}_ms"] = time_ms(lambda: K.relax_band_row(q, p, c),
-                                      device)
-        shapes[f"{tag}_plain_ms"] = time_ms(
+        shapes[f"{tag}_row_ms"] = time_ms(lambda: K.relax_band_row(q, p, c),
+                                          device)
+        shapes[f"{tag}_row_plain_ms"] = time_ms(
             lambda: K.relax_band_row_plain(c, q, p), device, inner=2)
-        shapes[f"{tag}_device_ms"] = device_ms(
+        shapes[f"{tag}_row_device_ms"] = device_ms(
             lambda: K.relax_band_row(q, p, c), "relax_band_row_kernel")
-        shapes[f"{tag}_shape"] = [b, w, b]
-    w = (2 * cases[0][0] + 1) * b
+        shapes[f"{tag}_row_shape"] = [b, w, b]
+        # the rows of a round inside a slab, with a block-row above and below
+        for lo, hi in ((0, nt), (bt // 2, nt), (0, nt - bt // 2)):
+            slab = inf_laced(gen, ((hi - lo + 2) * b, w), device)
+            got, want = slab.clone(), slab.clone()
+            K.relax_band_rows(got[b:-b], p_ext, lo, hi)
+            K.relax_band_rows_plain(want[b:-b], p_ext, lo, hi)
+            errs.append(max_abs_err(got, want))
+        rows = got[b:-b]
+        # relaxing again: new Q snapshots, the same work
+        shapes[f"{tag}_rows_ms"] = time_ms(
+            lambda: K.relax_band_rows(rows, p_ext, lo, hi), device)
+        shapes[f"{tag}_rows_plain_ms"] = time_ms(
+            lambda: K.relax_band_rows_plain(rows, p_ext, lo, hi), device,
+            inner=1, reps=3)
+        shapes[f"{tag}_rows_device_ms"] = device_ms(
+            lambda: K.relax_band_rows(rows, p_ext, lo, hi),
+            "relax_band_row_kernel")
+        shapes[f"{tag}_rows_shape"] = [hi - lo, b, w, b]
+    # the report's call: the whole window of the slice, as a sharded round
+    # at world 1 makes it
+    bt = cases[0][0]
+    nt = 2 * bt + 1
+    w = nt * b
+    p_ext = inf_laced(gen, (b, w + 2 * bt * b), device)
+    rows = inf_laced(gen, (nt * b, w), device)
+    ms = time_ms(lambda: K.relax_band_rows(rows, p_ext, 0, nt), device)
+    plain_ms = time_ms(lambda: K.relax_band_rows_plain(rows, p_ext, 0, nt),
+                       device, inner=1, reps=3)
+    dev_ms = device_ms(lambda: K.relax_band_rows(rows, p_ext, 0, nt),
+                       "relax_band_row_kernel")
     return {"relax_band_row": dict(
-        err=max(errs), ms=shapes["slice_ms"],
-        plain_ms=shapes["slice_plain_ms"],
-        device_ms=shapes["slice_device_ms"], work=relax_work(b, w, b),
-        shapes=shapes)}
+        err=max(errs), ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+        work=(nt * b * w * b, (2 * nt * b * w + b * (w + 2 * bt * b)) * F32),
+        shapes=dict(shapes, window_rows=[nt, b, w, b]))}
 
 
 def check_full_kernels(device, window=1024, npad=4096, band_tiles=6):
@@ -924,7 +1016,7 @@ def run_sharded_world1(device, ref, steady=3):
     """Phase 8, world 1: the phase-6 network and attribute through
     ``SAFE(mesh=<one-rank 'data' mesh over NCCL>).run_pipeline``, the
     row-sharded band engine. Checks the launches (each round: one
-    ``close_diag``, one ``relax_panel``, 2 bt + 1 ``relax_band_row``), the
+    ``close_diag``, one ``relax_panel``, one ``relax_band_row``), the
     indicator band bitwise and the counts exactly against phase 6's, the
     scores within 1e-5; times the warm and steady runs and the sharded FW
     alone, reports the peak memory and profiles one steady run."""
@@ -963,7 +1055,7 @@ def _sharded_world1(device, ref, mesh, steady):
     band_m = sf._neighborhoods_dev
     nb, bt = -(-band_m.n // BLOCK), band_m.bt
     check_launches(device, launches, close_diag=nb, relax_panel=nb,
-                   relax_band_row=nb * (2 * bt + 1))
+                   relax_band_row=nb)  # one launch for a round's rows
     steady_s = [timed_run() for _ in range(steady)]
     peak_bytes = torch.cuda.max_memory_allocated(device)
     if not torch.equal(band_m.data, ref._neighborhoods_dev.data):
@@ -1041,6 +1133,15 @@ def _gloo_rank(rank, world, case_dir, device_type):
         dist.destroy_process_group()
 
 
+def window_rounds(nb, bt, world):
+    """Per rank, the FW rounds in which it holds a row of the pivot window
+    (one ``relax_band_rows`` launch each), for ``world`` equal row slabs of
+    the ghosted band (``band_sharded.sharded_band_geometry``)."""
+    local_rows = -(-(nb + 2 * bt) // world)
+    return [sum(kb < (my + 1) * local_rows and kb + 2 * bt >= my * local_rows
+                for kb in range(nb)) for my in range(world)]
+
+
 def run_sharded_world2(device, ref, w1, world=2):
     """Phase 8, world 2: two processes on the one card, gloo over CUDA
     tensors (NCCL refuses two ranks on one GPU), through
@@ -1069,7 +1170,8 @@ def run_sharded_world2(device, ref, w1, world=2):
         total = {k: sum(x[k] for x in launches) for k in launches[0]}
         if device.type == "cuda" and (total["close_diag"] != world * nb
                 or total["relax_panel"] != world * nb
-                or total["relax_band_row"] != nb * (2 * bt + 1)):
+                or [x["relax_band_row"] for x in launches]
+                != window_rounds(nb, bt, world)):
             raise AssertionError(f"world-{world} launches {launches}")
     delta = 0
     for r in ranks:
@@ -1282,7 +1384,9 @@ def main():
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"],
                # no PyTorch call computes a min-plus product
-               "library_ms": None, "device_ms": k.get("device_ms")}
+               "library_ms": None, "device_ms": k.get("device_ms"),
+               **({"bound_one_sm_ms": k["bound_one_sm_ms"]}
+                  if "bound_one_sm_ms" in k else {})}
               for name, k in kernels.items()]
     report[[r["name"] for r in report].index("relax_panel")][
         "also_replaces"] = "safepy_tpu/ops/apsp_pallas.py:128"

@@ -7,14 +7,14 @@
 //                       min(C, A (x) B) with one 128-wide operand: the pivot row
 //                       panel against the closed diagonal, or the pivot column
 //                       panel against it.
-//   relax_band_row   <- _relax_panel :111: min(C, Q (x) P) on one (block, W)
-//                       window row of the row-sharded band FW
-//                       (safepy_tpu/parallel/band_sharded.py:98,141), Q the
+//   relax_band_row   <- _relax_panel :111: min(C, Q (x) P) on the (block, W)
+//                       window rows of the row-sharded band FW
+//                       (safepy_tpu/parallel/band_sharded.py:98,141), Q each
 //                       row's own pivot-column tile, P a slice of the
-//                       inf-extended pivot row. The relax_panel computation
-//                       under a second kernel name (one row of 2 x W / 64
-//                       CTAs a launch, 2 bt + 1 launches a round); bound like
-//                       it by the FP32 add+min issue rate.
+//                       inf-extended pivot row. The relax_panel tile body
+//                       under a second kernel name, with a grid dimension
+//                       over the rows: one launch a round for all of a
+//                       rank's window rows.
 //   relax_window_sym <- _relax_full_banded_sym :193 (kernel_a + kernel_b):
 //                       relax the upper in-band tiles of a window and mirror
 //                       each into its lower twin, here in place on the matrix.
@@ -57,8 +57,8 @@
 // and each thread keeps a 4x4 micro-tile of the result in registers across the
 // whole contraction. Every shared-memory value a thread loads feeds four
 // candidates, so the inner loop issues 16 adds and 16 mins per 8 shared loads.
-// Making this fast (wider micro-tiles, vectorised loads, a persistent grid,
-// CUDA graphs around the round loop) is later work.
+// The panel relax and close_diag have designs of their own for their thin
+// and dependent shapes (below, at their kernels).
 //
 // Bitwise contract: every candidate is one f32 rounding of a + b, and min is
 // exact and order-free on the non-NaN inputs Floyd-Warshall produces, so any
@@ -160,39 +160,134 @@ __device__ __forceinline__ void minplus_tile(const float* A, int64_t lda,
   }
 }
 
-// out = min(C, A (x) B) for the 64x64 tile of this thread block; grid
-// (n / 64, m / 64). C and out may not alias.
-__device__ __forceinline__ void relax_out_tile(const float* a, int64_t lda,
-                                               const float* b, int64_t ldb,
-                                               const float* c, int64_t ldc,
-                                               float* out, int64_t ldo, int k,
-                                               TileSmem& s) {
-  const int64_t row0 = (int64_t)blockIdx.y * TILE;
-  const int64_t col0 = (int64_t)blockIdx.x * TILE;
-  float acc[MICRO][MICRO];
-  load_acc(c + row0 * ldc + col0, ldc, acc);
-  minplus_tile(a + row0 * lda, lda, b + col0, ldb, k, acc, s);
-  store_acc(out + row0 * ldo + col0, ldo, acc);
+// ---------------------------------------------------------------------------
+// The panel relax (relax_panel, relax_band_row): out = min(C, A (x) B) with
+// a 128-deep contraction over a thin panel, 128 x 1,024 to 128 x 3,200.
+//
+// One 64x64 tile a CTA would give such a panel only 32-100 CTAs on 132
+// SMs. Here a CTA of 128 threads owns a 32x32 output tile, so a 128 x 1,024
+// panel gives 128 CTAs of four warps (one warp on each SM sub-partition) and
+// a 128 x 3,200 band row 400. The whole k slab of A (32 x 128, kept row-major) and B
+// (128 x 32) is copied into shared memory at once by cp.async, 16 bytes a
+// copy, and the CTA waits on it once. A thread keeps a 2 x 4 micro-tile (rows
+// ty and ty + 16, columns 4 tx .. 4 tx + 3): per four k-steps it loads two
+// float4 of A (four k of each of its rows; the row stride is padded to 132
+// floats, so the four rows a warp reads fall in different banks) and four
+// float4 of B, and issues 64 FP32 instructions. Bound by the FP32 add + min
+// issue rate. Splitting k over two or four such thread groups of a CTA, their
+// partial tiles min-reduced in shared memory, measured no faster on the
+// panels and slower on a round's batched window rows on the H100, and was
+// not kept.
+
+constexpr int PT = 32;         // panel output tile edge
+constexpr int PTPB = 128;      // threads: 8 column groups x 16 row pairs
+constexpr int PKS = 128;       // k staged at once (one slab for k <= 128)
+constexpr int PLDA = PKS + 4;  // padded row stride of the staged A
+
+struct PanelSmem {
+  float a[PT][PLDA];  // A rows, k contiguous
+  float b[PKS][PT];   // B rows
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
 }
 
-__global__ void __launch_bounds__(TPB)
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// out = min(C, A (x) B) for the 32x32 tile (blockIdx.y, blockIdx.x). A points
+// at the panel's first row (m x k, lda), B at its first column (k x n, ldb).
+// Every pointer is 16-byte aligned and every leading dimension a multiple of
+// 4 (checked by the wrappers). C may be out: each CTA reads its own C tile
+// before it writes it, and A and B must then lie apart from out.
+__device__ __forceinline__ void panel_tile(const float* a, int64_t lda,
+                                           const float* b, int64_t ldb,
+                                           const float* c, int64_t ldc,
+                                           float* out, int64_t ldo, int k,
+                                           PanelSmem& s) {
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const int64_t row0 = (int64_t)blockIdx.y * PT;
+  const int64_t col0 = (int64_t)blockIdx.x * PT;
+  a += row0 * lda;
+  b += col0;
+
+  float acc[2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float4 v = *reinterpret_cast<const float4*>(
+        c + (row0 + ty + 16 * h) * ldc + col0 + 4 * tx);
+    acc[h][0] = v.x, acc[h][1] = v.y, acc[h][2] = v.z, acc[h][3] = v.w;
+  }
+
+  for (int k0 = 0; k0 < k; k0 += PKS) {
+    const int kc = k - k0 < PKS ? k - k0 : PKS;  // a multiple of 32
+    const int ach = kc / 4;                       // 16-byte chunks of an A row
+    for (int e = threadIdx.x; e < PT * ach; e += PTPB) {
+      const int r = e / ach, ch = e % ach;
+      cp_async16(&s.a[r][4 * ch], a + (int64_t)r * lda + k0 + 4 * ch);
+    }
+    for (int e = threadIdx.x; e < kc * (PT / 4); e += PTPB) {
+      const int kk = e / (PT / 4), ch = e % (PT / 4);
+      cp_async16(&s.b[kk][4 * ch], b + (int64_t)(k0 + kk) * ldb + 4 * ch);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll 2
+    for (int kk = 0; kk < kc; kk += 4) {
+      const float4 a4[2] = {*reinterpret_cast<const float4*>(&s.a[ty][kk]),
+                            *reinterpret_cast<const float4*>(&s.a[ty + 16][kk])};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 b4 = *reinterpret_cast<const float4*>(&s.b[kk + j][4 * tx]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float av = j == 0 ? a4[h].x : j == 1 ? a4[h].y
+                         : j == 2 ? a4[h].z : a4[h].w;
+          acc[h][0] = fminf(acc[h][0], av + b4.x);
+          acc[h][1] = fminf(acc[h][1], av + b4.y);
+          acc[h][2] = fminf(acc[h][2], av + b4.z);
+          acc[h][3] = fminf(acc[h][3], av + b4.w);
+        }
+      }
+    }
+    if (k0 + PKS < k) __syncthreads();  // the next slab overwrites s
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    *reinterpret_cast<float4*>(out + (row0 + ty + 16 * h) * ldo + col0 +
+                               4 * tx) =
+        make_float4(acc[h][0], acc[h][1], acc[h][2], acc[h][3]);
+}
+
+// out = min(C, A (x) B) into a separate buffer; grid (n / 32, m / 32).
+__global__ void __launch_bounds__(PTPB)
 relax_panel_kernel(const float* a, int64_t lda, const float* b, int64_t ldb,
                    const float* c, int64_t ldc, float* out, int64_t ldo,
                    int k) {
-  __shared__ TileSmem s;
-  relax_out_tile(a, lda, b, ldb, c, ldc, out, ldo, k, s);
+  __shared__ __align__(16) PanelSmem s;
+  panel_tile(a, lda, b, ldb, c, ldc, out, ldo, k, s);
 }
 
-// The same computation under its own name, so that a profile tells the
-// band-sharded window rows (B3) from the pivot panels (B2/B4): out = min(C,
-// Q (x) P) for one (block, W) window row, Q its (block, block) pivot-column
-// tile and P a W-wide slice of the inf-extended pivot row.
-__global__ void __launch_bounds__(TPB)
-relax_band_row_kernel(const float* q, int64_t ldq, const float* p,
-                      int64_t ldp, const float* c, int64_t ldc, float* out,
-                      int64_t ldo, int k) {
-  __shared__ TileSmem s;
-  relax_out_tile(q, ldq, p, ldp, c, ldc, out, ldo, k, s);
+// The sharded band FW's window rows, under their own name so that a profile
+// tells them from the pivot panels: grid (n / 32, m / 32, rows), where z is
+// one (m, n) = (block, W) window row, relaxed as out_z = min(C_z, Q_z (x)
+// P_z). Operand X of row z starts x_rs elements after row 0's: for the rows
+// of a round, Q_z is row z's snapshotted pivot-column tile, P_z the pivot row
+// slice one block further right, and out_z = C_z (in place).
+__global__ void __launch_bounds__(PTPB)
+relax_band_row_kernel(const float* q, int64_t ldq, int64_t q_rs,
+                      const float* p, int64_t ldp, int64_t p_rs,
+                      const float* c, int64_t ldc, int64_t c_rs, float* out,
+                      int64_t ldo, int64_t o_rs, int k) {
+  __shared__ __align__(16) PanelSmem s;
+  const int64_t z = blockIdx.z;
+  panel_tile(q + z * q_rs, ldq, p + z * p_rs, ldp, c + z * c_rs, ldc,
+             out + z * o_rs, ldo, k, s);
 }
 
 // In place on the (w, w) window of d that starts at (lo, lo). Block
@@ -320,67 +415,144 @@ minplus_product_kernel(const float* a, int64_t lda, const float* b,
   store_acc(out + row0 * ldo + col0, ldo, acc);
 }
 
-// In-tile Floyd-Warshall closure of one (B, B) tile, one block of 8 B
-// threads. Thread (g, j) keeps column j of rows g, g + 8, ... in registers.
-// Step k snapshots row k and column k into shared memory before anyone
-// updates, as the jnp fori_loop reads them from the pre-step tile; the two
-// buffers alternate, so one barrier per step suffices.
-template <int B>
-__global__ void __launch_bounds__(8 * B)
-close_diag_kernel(const float* tile, int64_t ldt, float* out) {
-  constexpr int R = B / 8;
-  __shared__ float row_buf[2][B];
-  __shared__ float col_buf[2][B];
-  const int j = threadIdx.x % B;
-  const int g = threadIdx.x / B;
-  float v[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) v[r] = tile[(int64_t)(g + 8 * r) * ldt + j];
+// In-tile Floyd-Warshall closure of one (B, B) tile, one CTA of B^2 / 32
+// threads (512 at B = 128), k-sequential as the jnp fori_loop: step k sets
+// t[i][j] = min(t[i][j], t[i][k] + t[k][j]) from row k and column k as they
+// stood before the step. A blocked closure would reassociate path sums and
+// change last bits, so the B dependent steps stay, on one SM.
+//
+// What bounds it: a step is 2 B^2 FP32 instructions on the SM's 128 lanes
+// (256 cycles at B = 128), so B steps take at least 2 B^3 / 128 cycles on one
+// SM, plus a barrier and a shared-memory round trip a step. The design keeps
+// the shared-memory traffic well under the arithmetic: each thread holds an
+// 8 x 4 block of the tile in registers (rows r0 .. r0 + 7, columns c0 ..
+// c0 + 3; a warp covers 32 rows x 32 columns). After its update of step k,
+// the threads holding row k + 1 store their four values of it with one
+// float4 store, and those holding column k + 1 their eight with two, into
+// the other half of a double buffer; after the step's one barrier every
+// thread reads its values of the pre-step row and column with three float4
+// loads. On the H100, blocks of 4 x 4, 4 x 8, 8 x 8 and 16 x 4 a thread
+// measured slower at B = 128, and so did a split arrive / wait (an
+// mbarrier each warp arrives on once row and column k + 1 are out, relaxing
+// the rest of its block while the others arrive) in place of the barrier.
 
+constexpr int CRM = 8;  // rows of the tile a thread holds
+constexpr int CCN = 4;  // columns of the tile a thread holds
+constexpr int CU = CRM > CCN ? CRM : CCN;  // steps unrolled together
+
+template <int B>
+constexpr int close_threads() { return B * B / (CRM * CCN); }
+
+// Row k and column k from the threads that hold them into buffer half
+// (k & 1); KK = k % CU.
+template <int B, int KK>
+__device__ __forceinline__ void close_publish(float (&v)[CRM][CCN], int k,
+                                              int r0, int c0,
+                                              float (*row_buf)[B],
+                                              float (*col_buf)[B]) {
+  if (k / CRM == r0 / CRM) {
 #pragma unroll
-  for (int kr = 0; kr < R; ++kr) {
-    for (int ks = 0; ks < 8; ++ks) {
-      const int k = 8 * kr + ks;
-      const int buf = k & 1;
-      if (g == ks) row_buf[buf][j] = v[kr];  // this thread holds row k
-      if (j == k) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) col_buf[buf][g + 8 * r] = v[r];
-      }
-      __syncthreads();
-      const float rk = row_buf[buf][j];
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        v[r] = fminf(v[r], col_buf[buf][g + 8 * r] + rk);
-    }
+    for (int j = 0; j < CCN; j += 4)
+      *reinterpret_cast<float4*>(&row_buf[k & 1][c0 + j]) =
+          make_float4(v[KK % CRM][j], v[KK % CRM][j + 1], v[KK % CRM][j + 2],
+                      v[KK % CRM][j + 3]);
   }
+  if (k / CCN == c0 / CCN) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) out[(int64_t)(g + 8 * r) * B + j] = v[r];
+    for (int i = 0; i < CRM; i += 4)
+      *reinterpret_cast<float4*>(&col_buf[k & 1][r0 + i]) =
+          make_float4(v[i][KK % CCN], v[i + 1][KK % CCN], v[i + 2][KK % CCN],
+                      v[i + 3][KK % CCN]);
+  }
+}
+
+// Steps k .. k + CU - 1 from step KK on: relax the thread's block against
+// the published pre-step row and column, publish row and column k + 1 into
+// the other half (last read in step k - 1, before its barrier), then the
+// step's barrier.
+template <int B, int KK>
+__device__ __forceinline__ void close_steps(float (&v)[CRM][CCN], int k,
+                                            int r0, int c0,
+                                            float (*row_buf)[B],
+                                            float (*col_buf)[B]) {
+  if constexpr (KK < CU) {
+    float rv[CCN], cv[CRM];
+#pragma unroll
+    for (int j = 0; j < CCN; j += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(&row_buf[k & 1][c0 + j]);
+      rv[j] = x.x, rv[j + 1] = x.y, rv[j + 2] = x.z, rv[j + 3] = x.w;
+    }
+#pragma unroll
+    for (int i = 0; i < CRM; i += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(&col_buf[k & 1][r0 + i]);
+      cv[i] = x.x, cv[i + 1] = x.y, cv[i + 2] = x.z, cv[i + 3] = x.w;
+    }
+#pragma unroll
+    for (int i = 0; i < CRM; ++i)
+#pragma unroll
+      for (int j = 0; j < CCN; ++j) v[i][j] = fminf(v[i][j], cv[i] + rv[j]);
+    close_publish<B, (KK + 1) % CU>(v, k + 1, r0, c0, row_buf, col_buf);
+    __syncthreads();
+    close_steps<B, KK + 1>(v, k + 1, r0, c0, row_buf, col_buf);
+  }
+}
+
+template <int B>
+__global__ void __launch_bounds__(B * B / (CRM * CCN))
+close_diag_kernel(const float* tile, int64_t ldt, float* out) {
+  __shared__ __align__(16) float row_buf[2][B];
+  __shared__ __align__(16) float col_buf[2][B];
+  // a warp: 4 x 8 threads, 4 CRM rows x 8 CCN columns of the tile
+  constexpr int WC = B / (8 * CCN);  // warps across a row
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int r0 = 4 * CRM * (warp / WC) + CRM * (lane / 8);
+  const int c0 = 8 * CCN * (warp % WC) + CCN * (lane % 8);
+  float v[CRM][CCN];
+#pragma unroll
+  for (int i = 0; i < CRM; ++i)
+#pragma unroll
+    for (int j = 0; j < CCN; ++j)
+      v[i][j] = tile[(int64_t)(r0 + i) * ldt + c0 + j];
+
+  close_publish<B, 0>(v, 0, r0, c0, row_buf, col_buf);
+  __syncthreads();
+  for (int k = 0; k < B; k += CU)
+    close_steps<B, 0>(v, k, r0, c0, row_buf, col_buf);
+#pragma unroll
+  for (int i = 0; i < CRM; ++i)
+#pragma unroll
+    for (int j = 0; j < CCN; j += 4)
+      *reinterpret_cast<float4*>(out + (int64_t)(r0 + i) * B + c0 + j) =
+          make_float4(v[i][j], v[i][j + 1], v[i][j + 2], v[i][j + 3]);
 }
 
 }  // namespace
 
 // C entry points. Each launches on the given stream, allocates nothing and
 // returns cudaGetLastError() (0 = launched). Shapes are checked by the
-// Python wrappers: m, n, w multiples of 64; k multiple of 32 (of 64 for a
-// banded relax_full); block 64 or 128.
+// Python wrappers: m, n, w multiples of 64 (of 32 for the panel relax); k
+// multiple of 32 (of 64 for a banded relax_full); block 64 or 128; for the
+// panel relax, 16-byte aligned operands with leading dimensions that are
+// multiples of 4.
 extern "C" {
 
 int safepy_relax_panel(const float* a, int64_t lda, const float* b,
                        int64_t ldb, const float* c, int64_t ldc, float* out,
                        int64_t ldo, int m, int n, int k, void* stream) {
-  const dim3 grid(n / TILE, m / TILE);
-  relax_panel_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(
+  const dim3 grid(n / PT, m / PT);
+  relax_panel_kernel<<<grid, PTPB, 0, (cudaStream_t)stream>>>(
       a, lda, b, ldb, c, ldc, out, ldo, k);
   return (int)cudaGetLastError();
 }
 
-int safepy_relax_band_row(const float* q, int64_t ldq, const float* p,
-                          int64_t ldp, const float* c, int64_t ldc, float* out,
-                          int64_t ldo, int m, int n, int k, void* stream) {
-  const dim3 grid(n / TILE, m / TILE);
-  relax_band_row_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(
-      q, ldq, p, ldp, c, ldc, out, ldo, k);
+int safepy_relax_band_rows(const float* q, int64_t ldq, int64_t q_rs,
+                           const float* p, int64_t ldp, int64_t p_rs,
+                           const float* c, int64_t ldc, int64_t c_rs,
+                           float* out, int64_t ldo, int64_t o_rs, int rows,
+                           int m, int n, int k, void* stream) {
+  const dim3 grid(n / PT, m / PT, rows);
+  relax_band_row_kernel<<<grid, PTPB, 0, (cudaStream_t)stream>>>(
+      q, ldq, q_rs, p, ldp, p_rs, c, ldc, c_rs, out, ldo, o_rs, k);
   return (int)cudaGetLastError();
 }
 
@@ -436,11 +608,11 @@ int safepy_minplus_product(const float* a, int64_t lda, const float* b,
 int safepy_close_diag(const float* tile, int64_t ldt, float* out, int block,
                       void* stream) {
   if (block == 128) {
-    close_diag_kernel<128><<<1, 8 * 128, 0, (cudaStream_t)stream>>>(tile, ldt,
-                                                                     out);
+    close_diag_kernel<128><<<1, close_threads<128>(), 0,
+                             (cudaStream_t)stream>>>(tile, ldt, out);
   } else if (block == 64) {
-    close_diag_kernel<64><<<1, 8 * 64, 0, (cudaStream_t)stream>>>(tile, ldt,
-                                                                   out);
+    close_diag_kernel<64><<<1, close_threads<64>(), 0,
+                            (cudaStream_t)stream>>>(tile, ldt, out);
   } else {
     return (int)cudaErrorInvalidValue;
   }

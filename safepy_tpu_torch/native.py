@@ -33,8 +33,8 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "safepy_relax_panel": (_P, _I64, _P, _I64, _P, _I64, _P, _I64,
                            _I, _I, _I, _P),
-    "safepy_relax_band_row": (_P, _I64, _P, _I64, _P, _I64, _P, _I64,
-                              _I, _I, _I, _P),
+    "safepy_relax_band_rows": (_P, _I64, _I64, _P, _I64, _I64, _P, _I64,
+                               _I64, _P, _I64, _I64, _I, _I, _I, _I, _P),
     "safepy_relax_window_sym": (_P, _P, _P, _I64, _I64, _I, _I, _I, _P),
     "safepy_close_diag": (_P, _I64, _P, _I, _P),
     "safepy_relax_skew_sym": (_P, _P, _I64, _P, _I64, _I, _I, _P),

@@ -30,8 +30,9 @@ two for phase 3 of the band-storage round
 
 and one for the row-sharded band round (``parallel.band_sharded``):
 
-  * :func:`relax_band_row` -- ``min(C, Q (x) P)`` on one (block, W) window
-    row into a new tensor; replaces ``_relax_panel`` :111.
+  * :func:`relax_band_rows` -- ``min(C, Q (x) P)`` on each of a round's
+    (block, W) window rows, in place, in one launch; :func:`relax_band_row`
+    is its one-row form into a new tensor. Replaces ``_relax_panel`` :111.
 
 A wrapper takes the plain version only for CPU tensors. A CUDA tensor goes
 through the kernel (``csrc/minplus.cu``, built by :mod:`safepy_tpu_torch.native`)
@@ -101,38 +102,49 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 relax_panel_plain = min_plus_relax  # plain version of relax_panel
 
 
-def _relax_into_new(name: str, c: torch.Tensor, a: torch.Tensor,
-                    b: torch.Tensor) -> torch.Tensor:
-    """``min(C, A (x) B)`` into a new tensor through kernel ``name``, or its
-    plain version for CPU tensors."""
+def _check_panel(name: str, c: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor) -> bool:
+    """Shapes of ``min(C, A (x) B)``; False for CPU tensors (plain version),
+    True for CUDA tensors the panel kernel takes; raise otherwise."""
     m, k = a.shape
     if b.shape[0] != k or tuple(c.shape) != (m, b.shape[1]):
         raise ValueError(f"shape mismatch: c {tuple(c.shape)}, "
                          f"a {tuple(a.shape)}, b {tuple(b.shape)}")
     if not _use_kernel(c, a, b):
-        return min_plus_relax(c, a, b)
+        return False
     n = b.shape[1]
-    if m % 64 or n % 64 or k % 32:
-        raise ValueError(f"{name} kernel needs m, n % 64 == 0 and "
-                         f"k % 32 == 0, got m={m} n={n} k={k}")
-    from safepy_tpu_torch import native
-
-    out = torch.empty((m, n), dtype=torch.float32, device=c.device)
-    native.launch(name, _ptr(a), a.stride(0), _ptr(b), b.stride(0),
-                  _ptr(c), c.stride(0), _ptr(out), out.stride(0), m, n, k,
-                  _stream(c))
-    LAUNCHES[name] += 1
-    return out
+    if m % 32 or n % 32 or k % 32:
+        raise ValueError(f"{name} kernel needs m, n, k % 32 == 0, got m={m} "
+                         f"n={n} k={k}")
+    # the kernel copies and loads 16 bytes at a time
+    for t in (c, a, b):
+        if t.data_ptr() % 16 or t.stride(0) % 4:
+            raise ValueError(f"{name} kernel needs 16-byte aligned operands "
+                             f"with row strides % 4 == 0, got stride "
+                             f"{t.stride(0)} at offset {t.data_ptr() % 16}")
+    return True
 
 
 def relax_panel(c: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
     """``min(C, A (x) B)`` into a new (m, n) tensor; C is not modified.
 
-    a: (m, k), b: (k, n), c: (m, n) float32, any row stride. On CUDA, m and n
-    must be multiples of 64 and k of 32.
+    a: (m, k), b: (k, n), c: (m, n) float32, any row stride. On CUDA, m, n
+    and k must be multiples of 32, and each operand 16-byte aligned with a
+    row stride that is a multiple of 4.
     """
-    return _relax_into_new("relax_panel", c, a, b)
+    if not _check_panel("relax_panel", c, a, b):
+        return min_plus_relax(c, a, b)
+    from safepy_tpu_torch import native
+
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=c.device)
+    native.launch("relax_panel", _ptr(a), a.stride(0), _ptr(b), b.stride(0),
+                  _ptr(c), c.stride(0), _ptr(out), out.stride(0), m, n, k,
+                  _stream(c))
+    LAUNCHES["relax_panel"] += 1
+    return out
 
 
 # ------------------------------------------------------------ relax_band_row
@@ -141,18 +153,90 @@ def relax_panel(c: torch.Tensor, a: torch.Tensor,
 relax_band_row_plain = min_plus_relax
 
 
+def _launch_band_rows(q, q_rs, p, p_rs, c, c_rs, out, o_rs, rows):
+    from safepy_tpu_torch import native
+
+    m, k = q.shape[-2:]
+    native.launch("relax_band_rows", _ptr(q), q.stride(-2), q_rs, _ptr(p),
+                  p.stride(0), p_rs, _ptr(c), c.stride(0), c_rs, _ptr(out),
+                  out.stride(0), o_rs, rows, m, p.shape[1], k, _stream(c))
+    LAUNCHES["relax_band_row"] += 1
+
+
 def relax_band_row(q: torch.Tensor, p: torch.Tensor,
                    c: torch.Tensor) -> torch.Tensor:
     """``min(C, Q (x) P)`` into a new (block, W) tensor; C is not modified
     (``apsp_pallas._relax_panel`` :111, the argument order of the JAX call).
 
-    One window row of the row-sharded band FW
-    (``parallel.band_sharded._band_fw_rounds``): q (block, block) is the
+    One window row of the row-sharded band FW: q (block, block) is the
     row's pivot-column tile, which may be a view into ``c``; p (block, W) a
-    slice of the inf-extended pivot row; any row strides. The kernel is
-    ``relax_panel``'s, launched under its own name and counted apart.
+    slice of the inf-extended pivot row; any row strides (aligned as for
+    :func:`relax_panel`). The one-row launch of :func:`relax_band_rows`'s
+    kernel.
     """
-    return _relax_into_new("relax_band_row", c, q, p)
+    if not _check_panel("relax_band_row", c, q, p):
+        return relax_band_row_plain(c, q, p)
+    out = torch.empty(tuple(c.shape), dtype=torch.float32, device=c.device)
+    _launch_band_rows(q, 0, p, 0, c, 0, out, 0, 1)
+    return out
+
+
+def _band_rows_geometry(rows: torch.Tensor, p_ext: torch.Tensor, o_lo: int,
+                        o_hi: int):
+    """(block, W, nt) of a round's window rows o_lo .. o_hi - 1; raise
+    unless ``rows`` holds them and ``p_ext`` is their inf-extended pivot
+    row."""
+    block = p_ext.shape[0]
+    width = rows.shape[1]
+    nt = width // block
+    if (width % block or nt % 2 == 0 or rows.shape[0] != (o_hi - o_lo) * block
+            or not 0 <= o_lo < o_hi <= nt
+            or p_ext.shape[1] != width + (nt - 1) * block):
+        raise ValueError(f"bad window rows: rows {tuple(rows.shape)}, p_ext "
+                         f"{tuple(p_ext.shape)}, o_lo={o_lo}, o_hi={o_hi}")
+    return block, width, nt
+
+
+def relax_band_rows_plain(rows: torch.Tensor, p_ext: torch.Tensor, o_lo: int,
+                          o_hi: int) -> None:
+    """Plain version of :func:`relax_band_rows`, also in place: each row
+    through ``min_plus_relax`` (:func:`relax_band_row_plain`)."""
+    block, width, nt = _band_rows_geometry(rows, p_ext, o_lo, o_hi)
+    for z, o in enumerate(range(o_lo, o_hi)):
+        c = rows[z * block:(z + 1) * block]
+        q = c[:, (nt - 1 - o) * block:(nt - o) * block]
+        c.copy_(relax_band_row_plain(c, q,
+                                     p_ext[:, o * block:o * block + width]))
+
+
+def relax_band_rows(rows: torch.Tensor, p_ext: torch.Tensor, o_lo: int,
+                    o_hi: int) -> None:
+    """Window rows o_lo .. o_hi - 1 of a sharded band round, in place, in
+    one launch (``apsp_pallas._relax_panel`` :111 on each row).
+
+    rows: the ((o_hi - o_lo) block, W) block-rows of the slab that hold
+    window rows o_lo .. o_hi - 1, W = (2 bt + 1) block, any row stride;
+    p_ext: (block, W + 2 bt block), the relaxed pivot row inf-extended by bt
+    tiles on each side, apart from ``rows``. Window row o becomes ``min(C,
+    Q (x) P)`` with C the row, Q its tile (o, 2 bt - o) as it stood before
+    the call and P = ``p_ext[:, o block : o block + W]``. The Q tiles are
+    snapshotted in one gather, so a row's Q is read before it is rewritten,
+    as when the rows are relaxed one by one.
+    """
+    block, width, nt = _band_rows_geometry(rows, p_ext, o_lo, o_hi)
+    if not _use_kernel(rows, p_ext):
+        relax_band_rows_plain(rows, p_ext, o_lo, o_hi)
+        return
+    nr = o_hi - o_lo
+    z = torch.arange(nr, device=rows.device)
+    # (nr, block, block): tile (z, nt - 1 - o_lo - z) of the rows, contiguous
+    qs = rows.unflatten(0, (nr, block)).unflatten(2, (nt, block))[
+        z, :, nt - 1 - o_lo - z, :]
+    p = p_ext[:, o_lo * block:o_lo * block + width]  # row o_lo's P
+    _check_panel("relax_band_row", rows[:block], qs[0], p)  # or raise
+    _launch_band_rows(qs, block * block, p, block, rows,
+                      block * rows.stride(0), rows, block * rows.stride(0),
+                      nr)
 
 
 # ---------------------------------------------------------- relax_window_sym

@@ -18,8 +18,9 @@ Per pivot round kb (:func:`_band_fw_rounds`, ``band_sharded.py:91``):
      slab against it (``relax_panel``); the owner writes it back;
   3. each rank with rows in the pivot window [Kg - bt, Kg + bt] relaxes each
      of them, ``min(C, Q (x) P)`` with Q the row's own pivot-column tile and
-     P a W-wide slice of the inf-extended pivot row (``relax_band_row``, the
-     B3 kernel). Per-rank work is O((N / ndev) W^2).
+     P a W-wide slice of the inf-extended pivot row, all in one launch
+     (``relax_band_rows``, the B3 kernel). Per-rank work is
+     O((N / ndev) W^2).
 
 The downstream contractions run on each rank's real block-rows against
 replicated (n, A) operands (the row-shard forms of ``ops.apsp_bandstore``'s
@@ -48,7 +49,7 @@ import torch
 import torch.distributed as dist
 
 from safepy_tpu_torch.ops import apsp_bandstore as bst
-from safepy_tpu_torch.ops.apsp_cuda import (close_diag, relax_band_row,
+from safepy_tpu_torch.ops.apsp_cuda import (close_diag, relax_band_rows,
                                             relax_panel)
 from safepy_tpu_torch.parallel.mesh import mesh_axis
 from safepy_tpu_torch.pipeline import _band_null
@@ -113,10 +114,10 @@ def _band_fw_rounds(slab: torch.Tensor, my: int, group, *, nb: int, bt: int,
 
     Every rank runs every round and makes its one ``all_reduce``; a rank
     with no row in the pivot window skips only the window relax (the JAX
-    ``lax.cond``). Rows are relaxed in window order o = 0 .. 2 bt, each into
-    a new tensor copied back, so a row's Q tile is read before it is
-    rewritten; the pivot row is relaxed again against its closed diagonal,
-    as in the JAX rounds."""
+    ``lax.cond``). The rank's window rows are relaxed in place by one
+    ``relax_band_rows`` call, which reads every row's Q tile before it
+    rewrites any; the pivot row is relaxed again against its closed
+    diagonal, as in the JAX rounds."""
     width = slab.shape[1]
     lrows = local_rows * block
     c0 = bt * block
@@ -141,17 +142,15 @@ def _band_fw_rounds(slab: torch.Tensor, my: int, group, *, nb: int, bt: int,
         if my == owner:
             slab[start:start + block] = p
 
-        if kg + bt < my * local_rows or kg - bt >= (my + 1) * local_rows:
+        # window rows o_lo .. o_hi - 1 are this rank's, contiguous in its slab
+        o_lo = max(my * local_rows - (kg - bt), 0)
+        o_hi = min((my + 1) * local_rows - (kg - bt), 2 * bt + 1)
+        if o_lo >= o_hi:
             continue  # no row of the window is this rank's
         p_ext[:, c0:c0 + width] = p
-        for o in range(2 * bt + 1):
-            li = (kg - bt + o) * block - my * lrows
-            if not 0 <= li < lrows:
-                continue
-            c = slab[li:li + block]
-            q = c[:, (2 * bt - o) * block:(2 * bt - o + 1) * block]
-            c.copy_(relax_band_row(q, p_ext[:, o * block:o * block + width],
-                                   c))
+        li = (kg - bt + o_lo) * block - my * lrows
+        relax_band_rows(slab[li:li + (o_hi - o_lo) * block], p_ext, o_lo,
+                        o_hi)
     return slab
 
 

@@ -100,6 +100,28 @@ def test_close_diag_matches_jnp(symmetric):
     np.testing.assert_array_equal(K.close_diag(_t(tile)).numpy(), want)
 
 
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("case", ["zero_diag", "inf_diag", "inf_padding"])
+def test_close_diag_plain_matches_jnp_edge_tiles(block, case):
+    """close_diag's plain version against jnp ``_close_diag`` at the CUDA
+    kernel's blocks, on the tiles the rounds meet: a zero diagonal, +inf
+    diagonal entries, and all-+inf padding rows and columns."""
+    rng = np.random.default_rng(block + len(case))
+    tile = _inf_laced(rng, (block, block), inf_share=0.9)
+    np.fill_diagonal(tile, 0.0)
+    if case == "inf_diag":
+        tile[np.diag_indices(block)] = np.where(rng.random(block) < 0.3,
+                                                np.inf, 0.0)
+    elif case == "inf_padding":
+        tile[block - 24:] = np.inf
+        tile[:, block - 24:] = np.inf
+    want = np.asarray(jp._close_diag(jnp.asarray(tile), block))
+    got = K.close_diag_plain(_t(tile)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(K.close_diag(_t(tile)).numpy(), want)
+    assert (want < tile).any()  # the closure found shorter paths
+
+
 def _random_graph(n, p, seed):
     rng = np.random.default_rng(seed)
     iu = np.triu_indices(n, 1)
@@ -162,6 +184,7 @@ def test_cpu_wrappers_count_no_launches_and_check_inputs():
     K.relax_full(a, a.clone(), a.clone(), 0)
     K.minplus_product(a, a)
     K.relax_band_row(a, a.clone(), a)
+    K.relax_band_rows(torch.cat([a] * 3, 1), torch.cat([a] * 5, 1), 0, 1)
     assert K.LAUNCHES == {"relax_panel": 0, "relax_window_sym": 0,
                           "close_diag": 0, "relax_skew_sym": 0,
                           "relax_skew": 0, "relax_full": 0,
@@ -190,3 +213,5 @@ def test_cpu_wrappers_count_no_launches_and_check_inputs():
         K.minplus_product(a.double(), a.double())
     with pytest.raises(ValueError, match="shape"):
         K.relax_band_row(a, a[:, :16], a)
+    with pytest.raises(ValueError, match="bad window rows"):
+        K.relax_band_rows(torch.cat([a] * 3, 1), torch.cat([a] * 5, 1), 1, 3)

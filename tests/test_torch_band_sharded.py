@@ -301,6 +301,42 @@ def test_relax_band_row_plain_matches_pallas(width_tiles):
     assert not np.array_equal(want, c) and K.LAUNCHES["relax_band_row"] == 0
 
 
+@pytest.mark.parametrize("o_lo,o_hi", [(0, 5), (2, 5), (0, 3), (1, 4)])
+def test_relax_band_rows_plain_matches_rows_and_pallas(o_lo, o_hi):
+    """B3 batched: a round's window rows o_lo .. o_hi - 1 at bt 2 (the whole
+    window, and a shard's window cut at its first or last rows, or both), in
+    place, against relax_band_row_plain and ``apsp_pallas._relax_panel`` in
+    interpret mode on each row, Q tile (o, 2 bt - o) as it stood before."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+    from safepy_tpu.ops import apsp_pallas as jp
+
+    bt, b = 2, BLOCK
+    nt = 2 * bt + 1
+    w = nt * b
+    rng = np.random.default_rng(o_lo * 10 + o_hi)
+    slab = rng.uniform(0, 1, ((o_hi - o_lo + 2) * b, w)).astype(np.float32)
+    slab[rng.random(slab.shape) < 0.3] = np.inf
+    p_ext = rng.uniform(0, 1, (b, w + 2 * bt * b)).astype(np.float32)
+    p_ext[rng.random(p_ext.shape) < 0.3] = np.inf
+    want = slab.copy()
+    for z, o in enumerate(range(o_lo, o_hi), start=1):
+        c = slab[z * b:(z + 1) * b]
+        q = c[:, (2 * bt - o) * b:(2 * bt - o + 1) * b]
+        p = p_ext[:, o * b:o * b + w]
+        with pltpu.force_tpu_interpret_mode():
+            want[z * b:(z + 1) * b] = np.asarray(jp._relax_panel(
+                jnp.asarray(q), jnp.asarray(p), jnp.asarray(c), block=b))
+        np.testing.assert_array_equal(
+            K.relax_band_row_plain(_t(c), _t(q), _t(p)).numpy(),
+            want[z * b:(z + 1) * b])
+    got = _t(slab.copy())
+    K.reset_launches()
+    K.relax_band_rows(got[b:-b], _t(p_ext), o_lo, o_hi)
+    np.testing.assert_array_equal(got.numpy(), want)  # the rows around kept
+    assert not np.array_equal(want, slab) and K.LAUNCHES["relax_band_row"] == 0
+
+
 # ------------------------------------------------------------ the sharded FW
 
 @pytest.mark.parametrize("world", [1, 2, 4])

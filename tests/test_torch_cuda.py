@@ -261,6 +261,72 @@ def test_relax_band_row_matches_plain(dev, block, bt):
     assert K.LAUNCHES["relax_band_row"] == 1 and sum(K.LAUNCHES.values()) == 1
 
 
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("case", ["zero_diag", "inf_diag", "inf_padding",
+                                  "strided_view"])
+def test_close_diag_cases_match_plain(dev, block, case):
+    """close_diag on the tiles the rounds meet: a zero diagonal, +inf
+    diagonal entries, all-+inf padding rows and columns, and a view into a
+    wider matrix at an offset (the pivot tile of a band row)."""
+    gen = torch.Generator(device=dev).manual_seed(block + len(case))
+    tile = _inf_laced(gen, dev, block, block)
+    tile.diagonal().zero_()
+    if case == "inf_diag":
+        tile.diagonal()[::3] = float("inf")
+    elif case == "inf_padding":
+        tile[block - 40:] = float("inf")
+        tile[:, block - 40:] = float("inf")
+    elif case == "strided_view":
+        wide = _inf_laced(gen, dev, block + 5, 3 * block + 7)
+        wide[3:3 + block, block + 1:2 * block + 1] = tile
+        tile = wide[3:3 + block, block + 1:2 * block + 1]
+    K.reset_launches()
+    got = K.close_diag(tile)
+    torch.cuda.synchronize()
+    want = K.close_diag_plain(tile)
+    assert torch.equal(got, want) and not torch.equal(got, tile)
+    assert got.is_contiguous() and K.LAUNCHES["close_diag"] == 1
+
+
+@pytest.mark.parametrize("k", [32, 64, 128])
+def test_relax_panel_k_and_strides_match_plain(dev, k):
+    """relax_panel at k 32, 64 and 128 in both forms, every operand a view
+    with a row stride wider than its width."""
+    gen = torch.Generator(device=dev).manual_seed(k)
+    big = _inf_laced(gen, dev, 1024 + k, 1024 + 2 * k)
+    diag = big[:k, 4:4 + k]
+    p = big[k:2 * k, 2 * k:2 * k + 640]          # rows form: (k, 640)
+    q = big[k:k + 576, k + 8:2 * k + 8]         # cols form: (576, k)
+    K.reset_launches()
+    rows = K.relax_panel(p, diag, p)
+    cols = K.relax_panel(q, q, diag)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, K.relax_panel_plain(p, diag, p))
+    assert torch.equal(cols, K.relax_panel_plain(q, q, diag))
+    assert not torch.equal(rows, p) and not torch.equal(cols, q)
+    assert K.LAUNCHES["relax_panel"] == 2
+
+
+@pytest.mark.parametrize("bt,o_lo,o_hi", [(2, 0, 5), (2, 1, 4), (12, 0, 25),
+                                          (12, 9, 25), (12, 0, 7)])
+def test_relax_band_rows_match_plain(dev, bt, o_lo, o_hi):
+    """B3 batched, in place on a round's window rows inside a larger slab:
+    full windows and windows cut at the first or last rows, at bt 2 and 12
+    (the 49,920-node slice); the rows around stay untouched; one launch."""
+    b = 128
+    w = (2 * bt + 1) * b
+    gen = torch.Generator(device=dev).manual_seed(bt * 100 + o_lo + o_hi)
+    slab = _inf_laced(gen, dev, (o_hi - o_lo + 2) * b, w)
+    p_ext = _inf_laced(gen, dev, b, w + 2 * bt * b)
+    got, want = slab.clone(), slab.clone()
+    K.reset_launches()
+    K.relax_band_rows(got[b:-b], p_ext, o_lo, o_hi)
+    torch.cuda.synchronize()
+    K.relax_band_rows_plain(want[b:-b], p_ext, o_lo, o_hi)
+    assert torch.equal(got, want) and not torch.equal(got, slab)
+    assert K.LAUNCHES["relax_band_row"] == 1 and sum(K.LAUNCHES.values()) == 1
+
+
 def test_sharded_band_fw_world_one_nccl(dev, tmp_path):
     """The row-sharded band FW on a one-rank NCCL 'data' mesh: bitwise the
     classic band FW, with 2 bt + 1 relax_band_row launches a round."""
@@ -293,12 +359,12 @@ def test_sharded_band_fw_world_one_nccl(dev, tmp_path):
         dist.destroy_process_group()
     assert got is s and torch.equal(got, want)
     assert K.LAUNCHES["close_diag"] == K.LAUNCHES["relax_panel"] == nb
-    assert K.LAUNCHES["relax_band_row"] == nb * (2 * bt + 1)
+    assert K.LAUNCHES["relax_band_row"] == nb  # a round's rows in one launch
 
 
 def test_wrappers_refuse_rather_than_fall_back(dev):
     x = torch.zeros((100, 100), device=dev)
-    with pytest.raises(ValueError, match="% 64"):
+    with pytest.raises(ValueError, match="% 32"):
         K.relax_panel(x, x, x)
     with pytest.raises(TypeError):
         K.close_diag(torch.zeros((128, 128), device=dev, dtype=torch.float64))
@@ -318,3 +384,6 @@ def test_wrappers_refuse_rather_than_fall_back(dev):
         K.minplus_product(x.double(), x.double())
     with pytest.raises(ValueError, match="relax_band_row kernel"):
         K.relax_band_row(x, x, x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        y = torch.zeros((128, 260), device=dev)
+        K.relax_panel(y[:, 1:129], y[:, 1:129], y[:, 1:129])
