@@ -10,13 +10,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. hold each kernel bitwise against its plain torch version on the card at
    the shapes of its path, and time both (CUDA events, median): the
    banded-window kernels at the Example_1 shapes, the skew kernels at the
-   49,920-node band shape (block 128, bt 12, W 3,200) and at bt 2, the
+   49,920-node band shape (block 128, bt 12, W 3,200) and at bt 0-2, at
+   block 64 (bt 0-3 and 12), and as views into bands wider than W, the
    classic relax over the dense 4,096 matrix and the 1,024 window, one
    4096 x 4096 x 4096 min-plus product, and the sharded window rows
    (``relax_band_row``, one row of 128 x 3,200 and of 128 x 640, and
    ``relax_band_rows``, a round's rows in one launch, whole and cut); each
    beside its bound; ``close_diag`` also on +inf-diagonal, padding and
-   strided tiles at block 128 and 64, beside its one-SM floor;
+   strided tiles at block 128 and 64, beside its one-SM floor; then a
+   register-only probe measures the card's FP32 add + min rate, and each
+   min-plus kernel's rate is printed as a share of it and of the nominal
+   rate the bounds assume;
 4. the Example_1 path: the Example_1-shaped workflow of ``bench.py``
    (3,971-node kNN geometric network, one quantitative attribute,
    1,000-permutation null) through ``SAFE(device="cuda").run_pipeline``.
@@ -226,7 +230,9 @@ def max_abs_err(got, want) -> float:
 # is one FP32 add and one FP32 min, two instructions on the CUDA cores,
 # which issue 33.5 T instructions/s (the 67 TFLOP/s FP32 peak of NVIDIA's
 # H100 SXM data sheet counts an FMA as two operations): 16.7 T candidates/s.
-# That the min issues at the add's rate is an assumption, not measured.
+# The min issues at half the add's rate, 64 lanes a clock an SM, which is
+# the same 16.7 T/s at 132 SMs and 1.98 GHz; addmin_rate measures the rate
+# reached (phase 3).
 HBM_BYTES_PER_S = 3.35e12
 CANDIDATES_PER_S = 16.7e12
 F32 = 4
@@ -242,6 +248,27 @@ def bound(candidates, nbytes):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
+
+
+PROBE_CHAINS = 32  # chains a thread of csrc/minplus.cu addmin_probe_kernel
+
+
+def addmin_rate(device, iters=4096, per_sm=4):
+    """Phase 3: the card's FP32 add + min rate in candidates/s, from the
+    register-only probe kernel (one add and one min a candidate, as in the
+    min-plus kernels, and no memory access), ``per_sm`` CTAs of 256 threads
+    for every SM, timed with CUDA events (median of 5 runs of 5 launches).
+    Returns (rate, details)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = sms * per_sm
+    out = torch.empty(blocks * 256, device=device)
+    ms = time_ms(lambda: native.launch("addmin_probe", K._ptr(out), 0.5, iters,
+                                       blocks, K._stream(out)),
+                 device, inner=5)
+    if not torch.isfinite(out).all():
+        raise AssertionError("add+min probe wrote non-finite values")
+    rate = blocks * 256 * PROBE_CHAINS * iters / (ms * 1e-3)
+    return rate, dict(sms=sms, ctas=blocks, iters=iters, ms=ms)
 
 
 def relax_work(m, n, k, tiles_in=None, tiles_out=None, tile=BLOCK):
@@ -386,12 +413,25 @@ def check_kernels(device, window=1024, npad=4096, band_tiles=6):
     return out
 
 
-def check_skew_kernels(device, cases=((12, "slice"), (2, "small"))):
+# (tag, bt, block, extra columns of the band beyond W): the window of a
+# relax_skew case is a view at column extra // 5 of such a band, so its row
+# stride exceeds W where extra > 0. The first case is the report's shape.
+# At block 128, bt 12 lists enough tiles for the kernels to take whole
+# tiles a CTA; the smaller bt and block 64 take 64x64 sub-tiles.
+SKEW_CASES = (("slice", 12, BLOCK, 0), ("small", 2, BLOCK, 0),
+              ("bt0", 0, BLOCK, 0), ("bt1", 1, BLOCK, 0),
+              ("slice_strided", 12, BLOCK, 40), ("bt0_block64", 0, 64, 0),
+              ("bt1_block64", 1, 64, 0), ("bt3_block64", 3, 64, 0),
+              ("bt12_block64", 12, 64, 0), ("bt2_block64_strided", 2, 64, 40))
+
+
+def check_skew_kernels(device, cases=SKEW_CASES, timed=("slice", "small")):
     """Phase 3, band storage: relax_skew_sym and relax_skew against their
-    plain versions on a +inf-laced symmetric window inside a band, at the
-    49,920-node band shape (bt 12, W 3,200) and at bt 2."""
+    plain versions on a +inf-laced symmetric window inside a band (rows
+    above and below it, wider rows where the case says), at the 49,920-node
+    band shape (bt 12, W 3,200) and at bt 0, 1 and 2 at block 128, at bt 0,
+    1, 2, 3 and 12 at block 64; the ``timed`` cases also timed."""
     gen = torch.Generator(device=device).manual_seed(11)
-    b = BLOCK
     out = {}
     for name, kernel, plain, symbol in (
             ("relax_skew_sym", K.relax_skew_sym, K.relax_skew_sym_plain,
@@ -399,27 +439,30 @@ def check_skew_kernels(device, cases=((12, "slice"), (2, "small"))):
             ("relax_skew", K.relax_skew, K.relax_skew_plain,
              "relax_skew_kernel")):
         shapes, errs = {}, []
-        for bt, tag in cases:
+        for tag, bt, b, extra in cases:
             w = (2 * bt + 1) * b
-            s = inf_laced(gen, (w + 2 * b, w), device)
-            win = s[b:b + w]
+            c0 = extra // 5
+            s = inf_laced(gen, (w + 2 * b, w + extra), device)
+            win = s[b:b + w, c0:c0 + w]
             win.copy_(torch.minimum(win, win.T))
             p = inf_laced(gen, (b, w), device)
             q = bst.skew_pivot_column(win, bt, b)
             got, want = s.clone(), s.clone()
-            kernel(got[b:b + w], q, p, bt)
-            plain(want[b:b + w], q, p, bt)
+            gw, ww = got[b:b + w, c0:c0 + w], want[b:b + w, c0:c0 + w]
+            kernel(gw, q, p, bt)
+            plain(ww, q, p, bt)
             errs.append(max_abs_err(got, want))
-            gw, ww = got[b:b + w], want[b:b + w]
+            shapes[f"{tag}_shape"] = [w, w, bt, b, s.stride(0)]
+            if tag not in timed:
+                continue
             # relaxing again with the same operands is idempotent
             shapes[f"{tag}_ms"] = time_ms(lambda: kernel(gw, q, p, bt), device)
             shapes[f"{tag}_plain_ms"] = time_ms(lambda: plain(ww, q, p, bt),
                                                 device, inner=2)
             shapes[f"{tag}_device_ms"] = device_ms(
                 lambda: kernel(gw, q, p, bt), symbol)
-            shapes[f"{tag}_shape"] = [w, w, bt]
             errs.append(max_abs_err(got, want))
-        bt = cases[0][0]
+        tag, bt, b, _ = cases[0]
         w = (2 * bt + 1) * b
         if name == "relax_skew_sym":  # upper wedge; its jj >= 1 tiles mirrored
             tiles = sum(2 * bt + 1 - jj for jj in range(bt + 1))
@@ -428,10 +471,10 @@ def check_skew_kernels(device, cases=((12, "slice"), (2, "small"))):
             tiles = written = sum(abs(o + j - 2 * bt) <= bt
                                   for o in range(2 * bt + 1)
                                   for j in range(2 * bt + 1))
-        out[name] = dict(err=max(errs), ms=shapes["slice_ms"],
-                         plain_ms=shapes["slice_plain_ms"],
-                         device_ms=shapes["slice_device_ms"],
-                         work=relax_work(w, w, b, tiles, written),
+        out[name] = dict(err=max(errs), ms=shapes[f"{tag}_ms"],
+                         plain_ms=shapes[f"{tag}_plain_ms"],
+                         device_ms=shapes[f"{tag}_device_ms"],
+                         work=relax_work(w, w, b, tiles, written, tile=b),
                          shapes=shapes)
     return out
 
@@ -1251,6 +1294,21 @@ def main():
               f"ms; bound {k['bound_ms']:.4f} ms by {k['bound_by']}: "
               f"{k['work'][0]} candidates, {k['work'][1]} bytes) "
               f"{k['shapes']}", flush=True)
+    # the bounds' candidate rate against the card's measured one;
+    # close_diag runs on one SM, so no share of the card's rate fits it
+    rate, probe = addmin_rate(device)
+    shares = {}
+    for name, k in kernels.items():
+        if name != "close_diag" and k.get("device_ms"):
+            r = k["work"][0] / (k["device_ms"] * 1e-3)
+            shares[name] = dict(rate_t_per_s=r / 1e12,
+                                of_nominal=r / CANDIDATES_PER_S,
+                                of_measured=r / rate)
+    print(f"add+min probe: {rate / 1e12:.4f} T candidates/s measured "
+          f"({rate / CANDIDATES_PER_S:.4f} of the nominal "
+          f"{CANDIDATES_PER_S / 1e12:.1f} T/s; {probe}); each min-plus "
+          f"kernel's candidates over its device time, and that rate's share "
+          f"of the nominal and of the measured rate: {shares}", flush=True)
 
     # phases 4 and 5: the Example_1 path, banded, then dense and band storage
     net = build_network()

@@ -44,21 +44,28 @@
 //                       write each off-diagonal tile's transpose into its
 //                       lower mirror, in place on the band.
 //   relax_skew       <- _relax_skew_pallas :281: relax every in-band tile of
-//                       the skewed window, no mirror.
+//                       the skewed window, no mirror. Both run over a list
+//                       of live tiles: a whole 128x128 tile a CTA where the
+//                       list is long, 64x64 sub-tiles where it is short
+//                       (design at the kernels).
 //
 // What bounds them on the H100: a min-plus product has no tensor-core route.
 // Every candidate a[i,k] + b[k,j] costs one FP32 add and one FP32 min on the
 // CUDA cores, so the kernels are bound by FP32 add+min issue, not by memory:
 // a 64x64 output tile reads 2 * 64 * K operands and does 64 * 64 * K
-// candidates, 32 candidates per operand loaded from device memory.
+// candidates, 32 candidates per operand loaded from device memory. The min
+// issues at half the add's rate (16 lanes a clock in each SM quarter), so
+// one candidate a clock on every lane pair, 64 an SM (16.7 T/s on 132 SMs
+// at 1.98 GHz), is the ceiling; addmin_probe_kernel below measures the
+// rate reached.
 //
 // What the design does about it: each block of 256 threads owns a 64x64
 // output tile, stages 32-deep chunks of A (transposed) and B in shared memory,
 // and each thread keeps a 4x4 micro-tile of the result in registers across the
 // whole contraction. Every shared-memory value a thread loads feeds four
 // candidates, so the inner loop issues 16 adds and 16 mins per 8 shared loads.
-// The panel relax and close_diag have designs of their own for their thin
-// and dependent shapes (below, at their kernels).
+// The panel relax, the skewed-window relax and close_diag have designs of
+// their own (below, at their kernels).
 //
 // Bitwise contract: every candidate is one f32 rounding of a + b, and min is
 // exact and order-free on the non-NaN inputs Floyd-Warshall produces, so any
@@ -319,60 +326,328 @@ relax_window_sym_kernel(const float* q, const float* p, float* d, int64_t ld,
   store_transposed(win + c0 * ld + r0, ld, acc, t);
 }
 
-// Phase 3 of the band-storage round, in place on the (w, w) skewed window
-// (w = (2 bt + 1) block, row stride ld). Window tile (o, j) is relaxed
-// against q tile o (the snapshot of window tile (o, 2 bt - o), the pivot
-// column) and pivot-row tile o + j - bt of p (b x w, row stride ldp).
+// ---------------------------------------------------------------------------
+// Phase 3 of the band-storage round (relax_skew_sym, relax_skew), in place on
+// the (w, w) skewed window (w = (2 bt + 1) B for block B, row stride ld).
+// Window tile (o, j) becomes min(C, Q_o (x) P_{o + j - bt}): Q_o is q's tile
+// o (the snapshot of window tile (o, 2 bt - o), the pivot column; q is
+// (w, B) and contiguous), P_t the pivot-row tile t of p (B x w, row stride
+// ldp). The tiles to relax are listed in ``tiles`` as int4 (o, j, mo, mj):
+// the tile and, where mo >= 0, the lower tile (mo, mj) that receives its
+// transpose (the symmetric form's mirror). The wrapper builds the list once
+// per (bt, form), so the grid holds live tiles only: 247 at bt 12
+// symmetric (the upper wedge), 469 non-symmetric. At B = 128 each CTA owns
+// one whole tile when the list holds at least half as many tiles as the
+// card has SMs. A shorter list (small bt: 35 tiles at bt 4) would leave
+// most SMs idle, so it is relaxed in 64x64 sub-tiles, four CTAs a tile, on
+// the minplus_tile body, as B = 64 always is (a whole 64x64 tile a CTA of
+// 64 threads measured slower there at bt 3, mixed at bt 12). Only listed
+// tiles are read, no listed tile is a mirror, and q and p lie apart from
+// the window, so no CTA reads what another writes; every other tile keeps
+// its value.
 //
-// Symmetric form, grid (2 bt + 1, bt + 1, subs^2): block (o, jj, z) owns
-// 64x64 sub-tile z of the upper tile (o, bt + jj), computed where
-// o + jj <= 2 bt, and for jj >= 1 writes its transpose into the lower mirror
-// (o + jj, bt - jj). Upper tiles are read only by their own block and
-// mirrors are lower tiles, so no block reads what another writes; q and p
-// are separate buffers. Every other tile keeps its value.
-__global__ void __launch_bounds__(TPB)
-relax_skew_sym_kernel(const float* q, const float* p, int64_t ldp, float* win,
-                      int64_t ld, int bt, int block) {
-  __shared__ TileSmem s;
-  __shared__ float t[TILE][TILE + 1];
-  const int o = blockIdx.x, jj = blockIdx.y;
-  if (o + jj > 2 * bt) return;  // pivot-row tile beyond the slab
-  const int subs = block / TILE;
-  const int si = blockIdx.z / subs, sj = blockIdx.z % subs;
-  const int64_t r0 = (int64_t)o * block + si * TILE;
-  const int64_t c0 = (int64_t)(bt + jj) * block + sj * TILE;
-  const int64_t pc = (int64_t)(o + jj) * block + sj * TILE;
+// What bounds them: the FP32 min, which the H100 issues at half the FP32
+// add's rate (16 lanes a clock in each SM quarter), one a candidate: B^3
+// mins a tile for 2 B^2 floats of C in and out (bt 12: 518 M candidates,
+// 31 us at 16.7 T/s, against 15 us of bytes). The design keeps the issue
+// slots on the arithmetic and overlaps the operand copies with it:
+//   - a CTA of (B / 8)^2 threads (256 at B = 128), each with an 8 x 8
+//     block of the tile in registers (rows ty*4 + {0..3} and B/2 + ty*4 +
+//     {0..3}, columns likewise from tx): 64 candidates a k-step for four
+//     float4 shared loads (two of Q, k-major, two of P);
+//   - k in slabs of 16, double buffered: slab s + 1 is copied by cp.async
+//     (Q 4 bytes at a time, transposed into the k-major slab; P 16 bytes
+//     at a time) while slab s is relaxed. No CTA-wide barrier in the loop:
+//     a "full" mbarrier per buffer completes when every thread's copies
+//     have landed, an "empty" one when every thread is done with the slab,
+//     so warps drift up to a slab apart;
+//   - the accumulators start at +inf and C comes in during the loop: each
+//     slab loads 8 / (B / 16) of the thread's rows of C (two float4 a row)
+//     at its start and folds them in at its end, so the C read overlaps
+//     the arithmetic (min is exact and order-free: the same bits as
+//     starting from C). The tile goes back with float4 stores; the mirror
+//     is written straight from the registers, a thread's 8 x 8 block as 8
+//     rows of two float4 each, with no shared staging and no barrier.
+// The Q copy's mapping (8 threads on 8 consecutive k of one row, 4 rows a
+// warp) reads one 32-byte sector a row and, with the slab's rows padded to
+// B + 4 floats, stores to 32 different banks. Measured on the H100 at bt
+// 12 and not kept: two CTA-wide barriers a slab in place of the mbarriers
+// (slower), C loaded whole at entry (slower; faster at block 64, a shape
+// the band slice does not run), three buffers (no faster), C staged in
+// shared memory by cp.async (slower: register spills), slabs of 8 or 32
+// and one CTA an SM (no faster).
 
-  float acc[MICRO][MICRO];
-  load_acc(win + r0 * ld + c0, ld, acc);
-  minplus_tile(q + r0 * block, block, p + pc, ldp, block, acc, s);
-  store_acc(win + r0 * ld + c0, ld, acc);
-  if (jj == 0) return;
-  const int64_t mr0 = (int64_t)(o + jj) * block + sj * TILE;
-  const int64_t mc0 = (int64_t)(bt - jj) * block + si * TILE;
-  store_transposed(win + mr0 * ld + mc0, ld, acc, t);
+constexpr int SKS = 16;  // k staged per slab
+
+template <int B>
+struct SkewSmem {
+  float a[2][SKS][B + 4];  // Q slabs, k-major
+  float b[2][SKS][B];      // P slabs, row-major
+  uint64_t full[2];        // mbarriers: every thread's copies of the slab landed
+  uint64_t empty[2];       // mbarriers: every thread done with the slab
+};
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
 }
 
-// Non-symmetric form, grid (2 bt + 1, 2 bt + 1, subs^2): block (o, j, z)
-// relaxes sub-tile z of tile (o, j) where |o + j - 2 bt| <= bt (the
-// pivot-row tile lies in the slab); every other tile keeps its value.
-__global__ void __launch_bounds__(TPB)
-relax_skew_kernel(const float* q, const float* p, int64_t ldp, float* win,
-                  int64_t ld, int bt, int block) {
-  __shared__ TileSmem s;
-  const int o = blockIdx.x, j = blockIdx.y;
-  const int off = o + j - 2 * bt;
-  if (off > bt || off < -bt) return;
-  const int subs = block / TILE;
-  const int si = blockIdx.z / subs, sj = blockIdx.z % subs;
-  const int64_t r0 = (int64_t)o * block + si * TILE;
-  const int64_t c0 = (int64_t)j * block + sj * TILE;
-  const int64_t pc = (int64_t)(off + bt) * block + sj * TILE;
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
 
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 state;\n mbarrier.arrive.shared::cta.b64 state, [%0];\n}"
+      ::"r"(smem_u32(bar)) : "memory");
+}
+
+// arrive on bar once this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+               ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n .reg .pred done;\n WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT;\n}" ::"r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// Copy k rows k0 .. k0 + SKS - 1 of the tile's Q (B x B, row stride B) and
+// P (row stride ldp) into buffer ``buf``, asynchronously.
+template <int B>
+__device__ __forceinline__ void skew_stage(SkewSmem<B>& s, int buf,
+                                           const float* qt, const float* pt,
+                                           int64_t ldp, int k0) {
+  constexpr int NT = (B / 8) * (B / 8);
+#pragma unroll
+  for (int i = 0; i < B * SKS / NT; ++i) {
+    const int e = threadIdx.x + i * NT;
+    const int g = e / 8, r = g % B, kk = (g / B) * 8 + e % 8;
+    cp_async4(&s.a[buf][kk][r], qt + (int64_t)r * B + k0 + kk);
+  }
+#pragma unroll
+  for (int i = 0; i < SKS * (B / 4) / NT; ++i) {
+    const int e = threadIdx.x + i * NT;
+    const int kk = e / (B / 4), ch = e % (B / 4);
+    cp_async16(&s.b[buf][kk][4 * ch], pt + (int64_t)(k0 + kk) * ldp + 4 * ch);
+  }
+}
+
+template <int B>
+__device__ __forceinline__ void skew_tile(const int4 t, const float* q,
+                                          const float* p, int64_t ldp,
+                                          float* win, int64_t ld, int bt,
+                                          SkewSmem<B>& s) {
+  constexpr int TN = B / 8, H = B / 2, NS = B / SKS, NT = TN * TN;
+  const int tx = threadIdx.x % TN, ty = threadIdx.x / TN;
+  const float* qt = q + (int64_t)t.x * B * B;
+  const float* pt = p + (int64_t)(t.x + t.y - bt) * B;
+  float* c = win + (int64_t)t.x * B * ld + (int64_t)t.y * B;
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&s.full[b], NT);
+      mbar_init(&s.empty[b], NT);
+    }
+  }
+  __syncthreads();
+  skew_stage<B>(s, 0, qt, pt, ldp, 0);
+  mbar_arrive_copies(&s.full[0]);
+
+  // C is folded in a few rows a slab (see above)
+  constexpr int CR = 8 / NS;  // rows of C folded a slab: 1 at B 128, 2 at 64
+  static_assert(CR * NS == 8, "every row of C folded in exactly once");
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = __int_as_float(0x7f800000);
+
+#pragma unroll 1
+  for (int st = 0; st < NS; ++st) {
+    const int buf = st & 1;
+    float4 cv[CR][2];
+#pragma unroll
+    for (int h = 0; h < CR; ++h) {
+      const int i = st * CR + h;
+      const float* row = c + (int64_t)((i / 4) * H + ty * 4 + i % 4) * ld;
+      cv[h][0] = *reinterpret_cast<const float4*>(row + tx * 4);
+      cv[h][1] = *reinterpret_cast<const float4*>(row + H + tx * 4);
+    }
+    if (st + 1 < NS) {
+      // slab st + 1 goes where slab st - 1 was: wait until every thread
+      // is done with that one, then copy
+      if (st >= 1) mbar_wait(&s.empty[buf ^ 1], ((st - 1) / 2) & 1);
+      skew_stage<B>(s, buf ^ 1, qt, pt, ldp, (st + 1) * SKS);
+      mbar_arrive_copies(&s.full[buf ^ 1]);
+    }
+    mbar_wait(&s.full[buf], (st / 2) & 1);
+#pragma unroll
+    for (int kk = 0; kk < SKS; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&s.a[buf][kk][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&s.a[buf][kk][H + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&s.b[buf][kk][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&s.b[buf][kk][H + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fminf(acc[i][j], a[i] + b[j]);
+    }
+    mbar_arrive(&s.empty[buf]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i / CR != st) continue;  // static indices: acc stays in registers
+      const float4 lo = cv[i % CR][0], hi = cv[i % CR][1];
+      acc[i][0] = fminf(acc[i][0], lo.x), acc[i][1] = fminf(acc[i][1], lo.y);
+      acc[i][2] = fminf(acc[i][2], lo.z), acc[i][3] = fminf(acc[i][3], lo.w);
+      acc[i][4] = fminf(acc[i][4], hi.x), acc[i][5] = fminf(acc[i][5], hi.y);
+      acc[i][6] = fminf(acc[i][6], hi.z), acc[i][7] = fminf(acc[i][7], hi.w);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* row = c + (int64_t)((i / 4) * H + ty * 4 + i % 4) * ld;
+    *reinterpret_cast<float4*>(row + tx * 4) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(row + H + tx * 4) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+  if (t.z < 0) return;
+  // mirror[c][r] = tile[r][c]: column j of the thread's block is a row of
+  // the mirror, and its rows ty*4 .. and H + ty*4 .. are that row's columns
+  float* m = win + (int64_t)t.z * B * ld + (int64_t)t.w * B;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float* row = m + (int64_t)((j / 4) * H + tx * 4 + j % 4) * ld;
+    *reinterpret_cast<float4*>(row + ty * 4) =
+        make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+    *reinterpret_cast<float4*>(row + H + ty * 4) =
+        make_float4(acc[4][j], acc[5][j], acc[6][j], acc[7][j]);
+  }
+}
+
+// A listed tile as 64x64 sub-tiles, one CTA of TPB threads each on the
+// minplus_tile body, grid (tiles, (B / 64)^2): the form for a short list
+// (small bt), where whole tiles would leave most SMs idle, and for B = 64.
+// Sub-tile z of tile (o, j) goes transposed into sub-tile (z % subs,
+// z / subs) of the mirror.
+template <int B>
+__device__ __forceinline__ void skew_subtile(const int4 t, const float* q,
+                                             const float* p, int64_t ldp,
+                                             float* win, int64_t ld, int bt) {
+  __shared__ TileSmem s;
+  __shared__ float tr[TILE][TILE + 1];
+  constexpr int subs = B / TILE;
+  const int si = blockIdx.y / subs, sj = blockIdx.y % subs;
+  const int64_t r0 = (int64_t)t.x * B + si * TILE;
+  const int64_t c0 = (int64_t)t.y * B + sj * TILE;
+  const int64_t pc = (int64_t)(t.x + t.y - bt) * B + sj * TILE;
   float acc[MICRO][MICRO];
   load_acc(win + r0 * ld + c0, ld, acc);
-  minplus_tile(q + r0 * block, block, p + pc, ldp, block, acc, s);
+  minplus_tile(q + r0 * B, B, p + pc, ldp, B, acc, s);
   store_acc(win + r0 * ld + c0, ld, acc);
+  if (t.z < 0) return;
+  const int64_t mr0 = (int64_t)t.z * B + sj * TILE;
+  const int64_t mc0 = (int64_t)t.w * B + si * TILE;
+  store_transposed(win + mr0 * ld + mc0, ld, acc, tr);
+}
+
+// The two forms under their own names, so that a profile tells them apart.
+// WHOLE (B = 128 only): grid (tiles), (B / 8)^2 threads; else grid
+// (tiles, (B / 64)^2), TPB threads.
+template <int B, bool WHOLE>
+__global__ void __launch_bounds__(WHOLE ? (B / 8) * (B / 8) : TPB, 2)
+relax_skew_sym_kernel(const int4* tiles, const float* q, const float* p,
+                      int64_t ldp, float* win, int64_t ld, int bt) {
+  if constexpr (WHOLE) {
+    __shared__ __align__(16) SkewSmem<B> s;
+    skew_tile<B>(tiles[blockIdx.x], q, p, ldp, win, ld, bt, s);
+  } else {
+    skew_subtile<B>(tiles[blockIdx.x], q, p, ldp, win, ld, bt);
+  }
+}
+
+template <int B, bool WHOLE>
+__global__ void __launch_bounds__(WHOLE ? (B / 8) * (B / 8) : TPB, 2)
+relax_skew_kernel(const int4* tiles, const float* q, const float* p,
+                  int64_t ldp, float* win, int64_t ld, int bt) {
+  if constexpr (WHOLE) {
+    __shared__ __align__(16) SkewSmem<B> s;
+    skew_tile<B>(tiles[blockIdx.x], q, p, ldp, win, ld, bt, s);
+  } else {
+    skew_subtile<B>(tiles[blockIdx.x], q, p, ldp, win, ld, bt);
+  }
+}
+
+// Whole 128x128 tiles when the list holds at least half as many tiles as
+// the current device has SMs (bt 8 and up on the H100's 132), else 64x64
+// sub-tiles.
+bool skew_whole_tiles(int n_tiles) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return 2 * n_tiles >= sms;
+}
+
+using SkewKernel = void (*)(const int4*, const float*, const float*, int64_t,
+                            float*, int64_t, int);
+
+// One skew form's launch over tiles, n_tiles int4 (o, j, mo, mj) on the
+// device from the wrapper's list: whole tiles at block 128 where the list
+// is long enough, else 64x64 sub-tiles.
+int launch_skew(SkewKernel whole128, SkewKernel sub128, SkewKernel sub64,
+                const int* tiles, int n_tiles, const float* q, const float* p,
+                int64_t ldp, float* win, int64_t ld, int bt, int block,
+                void* stream) {
+  const int4* t = reinterpret_cast<const int4*>(tiles);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (block == 128 && skew_whole_tiles(n_tiles)) {
+    whole128<<<n_tiles, 256, 0, st>>>(t, q, p, ldp, win, ld, bt);
+  } else if (block == 128) {
+    sub128<<<dim3(n_tiles, 4), TPB, 0, st>>>(t, q, p, ldp, win, ld, bt);
+  } else if (block == 64) {
+    sub64<<<n_tiles, TPB, 0, st>>>(t, q, p, ldp, win, ld, bt);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// A register-only probe of the FP32 add + min rate: each thread runs
+// PROBE_CHAINS independent chains x = min(x, x + step), one FP32 add and
+// one FP32 min a step, as a min-plus candidate is, with no memory access in
+// the loop. Candidates issued = threads x PROBE_CHAINS x iters; the time of
+// a launch over every SM gives the rate the min-plus kernels can reach.
+constexpr int PROBE_CHAINS = 32;
+
+__global__ void __launch_bounds__(256)
+addmin_probe_kernel(float* out, float step, int iters) {
+  float x[PROBE_CHAINS];
+#pragma unroll
+  for (int c = 0; c < PROBE_CHAINS; ++c) x[c] = threadIdx.x * 1e-3f + c;
+#pragma unroll 4
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int c = 0; c < PROBE_CHAINS; ++c) x[c] = fminf(x[c], x[c] + step);
+  float m = x[0];
+#pragma unroll
+  for (int c = 1; c < PROBE_CHAINS; ++c) m = fminf(m, x[c]);
+  out[(int64_t)blockIdx.x * blockDim.x + threadIdx.x] = m;
 }
 
 // Classic phase 3, in place: D = min(D, Q (x) P) over an (m, n) D with row
@@ -532,8 +807,8 @@ close_diag_kernel(const float* tile, int64_t ldt, float* out) {
 // returns cudaGetLastError() (0 = launched). Shapes are checked by the
 // Python wrappers: m, n, w multiples of 64 (of 32 for the panel relax); k
 // multiple of 32 (of 64 for a banded relax_full); block 64 or 128; for the
-// panel relax, 16-byte aligned operands with leading dimensions that are
-// multiples of 4.
+// panel and skew relax, 16-byte aligned operands with leading dimensions
+// that are multiples of 4.
 extern "C" {
 
 int safepy_relax_panel(const float* a, int64_t lda, const float* b,
@@ -568,22 +843,29 @@ int safepy_relax_window_sym(const float* q, const float* p, float* d,
   return (int)cudaGetLastError();
 }
 
-int safepy_relax_skew_sym(const float* q, const float* p, int64_t ldp,
-                          float* win, int64_t ld, int bt, int block,
-                          void* stream) {
-  const int subs = block / TILE;
-  const dim3 grid(2 * bt + 1, bt + 1, subs * subs);
-  relax_skew_sym_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(
-      q, p, ldp, win, ld, bt, block);
-  return (int)cudaGetLastError();
+int safepy_relax_skew_sym(const int* tiles, int n_tiles, const float* q,
+                          const float* p, int64_t ldp, float* win, int64_t ld,
+                          int bt, int block, void* stream) {
+  return launch_skew(relax_skew_sym_kernel<128, true>,
+                     relax_skew_sym_kernel<128, false>,
+                     relax_skew_sym_kernel<64, false>, tiles, n_tiles, q, p,
+                     ldp, win, ld, bt, block, stream);
 }
 
-int safepy_relax_skew(const float* q, const float* p, int64_t ldp, float* win,
-                      int64_t ld, int bt, int block, void* stream) {
-  const int subs = block / TILE;
-  const dim3 grid(2 * bt + 1, 2 * bt + 1, subs * subs);
-  relax_skew_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(q, p, ldp, win, ld,
-                                                            bt, block);
+int safepy_relax_skew(const int* tiles, int n_tiles, const float* q,
+                      const float* p, int64_t ldp, float* win, int64_t ld,
+                      int bt, int block, void* stream) {
+  return launch_skew(relax_skew_kernel<128, true>,
+                     relax_skew_kernel<128, false>,
+                     relax_skew_kernel<64, false>, tiles, n_tiles, q, p, ldp,
+                     win, ld, bt, block, stream);
+}
+
+// blocks x 256 threads of the probe; out holds one float a thread
+int safepy_addmin_probe(float* out, float step, int iters, int blocks,
+                        void* stream) {
+  addmin_probe_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(out, step,
+                                                                iters);
   return (int)cudaGetLastError();
 }
 

@@ -37,10 +37,11 @@ _SIGNATURES = {
                                _I64, _P, _I64, _I64, _I, _I, _I, _I, _P),
     "safepy_relax_window_sym": (_P, _P, _P, _I64, _I64, _I, _I, _I, _P),
     "safepy_close_diag": (_P, _I64, _P, _I, _P),
-    "safepy_relax_skew_sym": (_P, _P, _I64, _P, _I64, _I, _I, _P),
-    "safepy_relax_skew": (_P, _P, _I64, _P, _I64, _I, _I, _P),
+    "safepy_relax_skew_sym": (_P, _I, _P, _P, _I64, _P, _I64, _I, _I, _P),
+    "safepy_relax_skew": (_P, _I, _P, _P, _I64, _P, _I64, _I, _I, _P),
     "safepy_relax_full": (_P, _I64, _P, _I64, _P, _I64, _I, _I, _I, _I, _P),
     "safepy_minplus_product": (_P, _I64, _P, _I64, _P, _I64, _I, _I, _I, _P),
+    "safepy_addmin_probe": (_P, ctypes.c_float, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -49,6 +49,7 @@ the result, and it is the JAX package's.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -375,6 +376,32 @@ def relax_skew_plain(win: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
     tiles.copy_(torch.where(in_band[..., None, None], relaxed, tiles))
 
 
+def skew_tiles(bt: int, symmetric: bool) -> torch.Tensor:
+    """(T, 4) int32 CPU tensor of the window tiles a skew kernel relaxes,
+    one CTA each: rows (o, j, mo, mj), tile (o, j) relaxed and, where
+    mo >= 0, its transpose written into tile (mo, mj).
+
+    Symmetric: the upper wedge (o, bt + jj), o + jj <= 2 bt, each with
+    jj >= 1 mirrored into (o + jj, bt - jj) (the plain version's ``upper``
+    and ``lower`` masks); non-symmetric: every tile with
+    ``|o + j - 2 bt| <= bt``, no mirror."""
+    nt = 2 * bt + 1
+    if symmetric:
+        rows = [(o, bt + jj, o + jj, bt - jj) if jj else (o, bt, -1, -1)
+                for jj in range(bt + 1) for o in range(nt - jj)]
+    else:
+        rows = [(o, j, -1, -1) for o in range(nt) for j in range(nt)
+                if abs(o + j - 2 * bt) <= bt]
+    return torch.tensor(rows, dtype=torch.int32).reshape(-1, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_skew_tiles(bt: int, symmetric: bool, device) -> torch.Tensor:
+    """:func:`skew_tiles` on ``device``, uploaded once a (bt, form, device)
+    and only read by the kernels."""
+    return skew_tiles(bt, symmetric).to(device)
+
+
 def _check_skew(win, q, p, bt):
     block = q.shape[1]
     w = (2 * bt + 1) * block
@@ -387,21 +414,30 @@ def _check_skew(win, q, p, bt):
     if block not in (64, 128) or not q.is_contiguous():
         raise ValueError("skew kernels need block 64 or 128 and a contiguous "
                          f"q, got block={block}")
+    # the kernels copy and load 16 bytes at a time
+    for t in (win, q, p):
+        if t.data_ptr() % 16 or t.stride(0) % 4:
+            raise ValueError("skew kernels need 16-byte aligned operands "
+                             f"with row strides % 4 == 0, got stride "
+                             f"{t.stride(0)} at offset {t.data_ptr() % 16}")
     return True
 
 
 def _launch_skew(name, win, q, p, bt):
     from safepy_tpu_torch import native
 
-    native.launch(name, _ptr(q), _ptr(p), p.stride(0), _ptr(win),
-                  win.stride(0), bt, q.shape[1], _stream(win))
+    tiles = _device_skew_tiles(bt, name == "relax_skew_sym", win.device)
+    native.launch(name, _ptr(tiles), tiles.shape[0], _ptr(q), _ptr(p),
+                  p.stride(0), _ptr(win), win.stride(0), bt, q.shape[1],
+                  _stream(win))
     LAUNCHES[name] += 1
 
 
 def relax_skew_sym(win: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
                    bt: int) -> None:
     """Phase 3 of a band-storage round, symmetric form, in place on the
-    (W, W) skewed window ``win`` (W = (2 bt + 1) block; any row stride).
+    (W, W) skewed window ``win`` (W = (2 bt + 1) block; any row stride, on
+    CUDA a multiple of 4 with every operand 16-byte aligned).
 
     In window tiles (o, j), C = win[o, j], Q = q[o] and P = the pivot-row
     tile o + j - bt of p. q: (W, block), the window's tiles (o, 2 bt - o)
@@ -410,7 +446,9 @@ def relax_skew_sym(win: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
     tiles that the in-window Q tiles and the pivot row occupy. Each upper
     tile (o, bt + jj), o + jj <= 2 bt, becomes ``min(C, Q (x) P)`` and, for
     jj >= 1, its transpose goes into tile (o + jj, bt - jj); every other tile
-    keeps its value (``apsp_bandstore._relax_skew_sym_pallas``).
+    keeps its value (``apsp_bandstore._relax_skew_sym_pallas``). The
+    kernel runs one CTA a tile of :func:`skew_tiles`, or a 64x64 sub-tile
+    where the list is short.
     """
     if _check_skew(win, q, p, bt):
         _launch_skew("relax_skew_sym", win, q, p, bt)

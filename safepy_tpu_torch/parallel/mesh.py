@@ -23,9 +23,15 @@ def make_mesh(axes: dict[str, int] | None = None,
     (``mesh.py:10``).
 
     axes: ordered {axis_name: size}; the product must equal the world size.
-    Default: every rank on a single 'perm' axis. device_type: "cuda"
-    (the default where torch sees a card) or "cpu" (gloo on the host).
+    Default: every rank on a single 'perm' axis. device_type: "cuda" (the
+    default; raises where torch sees no card) or "cpu" (gloo on the host),
+    which the caller asks for by name, as ``SAFE(device="cpu")``.
     """
+    device_type = "cuda" if device_type is None else device_type
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_mesh(device_type='cuda') needs a CUDA device "
+                           "and none is available; pass device_type='cpu' "
+                           "for a gloo mesh on the host")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized default process "
                            "group: call torch.distributed.init_process_group "
@@ -38,8 +44,6 @@ def make_mesh(axes: dict[str, int] | None = None,
     sizes = tuple(int(s) for s in axes.values())
     if math.prod(sizes) != world:
         raise ValueError(f"mesh axes {axes} do not cover {world} ranks")
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
     return init_device_mesh(device_type, sizes,
                             mesh_dim_names=tuple(axes.keys()))
 

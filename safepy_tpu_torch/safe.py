@@ -65,6 +65,11 @@ class SAFE:
         # always the dense FW; 'band' = always band storage
         self.apsp_mode = "auto"
         self.band_storage_min_nodes = 16384
+        # the band-storage plan rounds bt (= band // 128 + 1) up to a
+        # multiple of this before deciding whether the band beats dense
+        # storage (safe.py:125-138); 0 or None: the raw band. The band only
+        # widens, so the in-radius results do not change.
+        self.band_bt_bucket = 4
         # False drops the f32 distance band of a band-storage run as soon as
         # its indicator exists (node_distances is then None for the run)
         self.keep_node_distances = True
@@ -77,6 +82,9 @@ class SAFE:
         self.node_key_attribute = "label_orf"
         self.attribute_sign = "both"
         self.node_distance_metric = "shortpath_weighted_layout"
+        # a label for the log only, as in the JAX facade (safe.py:186 and
+        # safe_default.ini's neighborhoodRadiusType)
+        self.neighborhood_radius_type = "diameter"
         self.neighborhood_radius = 0.1
         self.background = "attribute_file"
         self.num_permutations = 1000
@@ -310,9 +318,11 @@ class SAFE:
         ``band_storage_min_nodes`` and above when the band is at most half
         the dense bytes. Two certificates, in order: the geometric one (edge
         lengths ARE the Euclidean endpoint distances, ``banded_order``) and
-        the landmark one (any metric, ``graph_banded_order``). Returns
-        dict(u, v, w (device edge arrays in banded order), rank, rank_dev,
-        band). Cached per radius, mode and metric."""
+        the landmark one (any metric, ``graph_banded_order``). The certified
+        band is bucketed (:meth:`_bucket_band`) before the half-of-dense
+        rule, as in JAX. Returns dict(u, v, w (device edge arrays in banded
+        order), rank, rank_dev, band (bucketed)). Cached per radius, mode
+        and metric."""
         forced = self.apsp_mode == "band"
         if not forced and (self.apsp_mode != "auto"
                            or num_nodes < int(self.band_storage_min_nodes)):
@@ -338,6 +348,7 @@ class SAFE:
         if order is None:
             order, band = _banded.graph_banded_order(num_nodes, edges,
                                                      weights, nr * (1 + 1e-5))
+        band = self._bucket_band(band)
         # the band must beat dense storage (unless forced)
         if forced or (_bst.band_nbytes(num_nodes, band)
                       <= 0.5 * 4 * num_nodes * num_nodes):
@@ -353,6 +364,16 @@ class SAFE:
                 band=int(band))
         self._bandstore_cache[key] = plan
         return plan
+
+    def _bucket_band(self, band: int, block: int = 128) -> int:
+        """``band`` rounded up so that bt = band // block + 1 is a multiple
+        of ``band_bt_bucket``: the largest band of that bt (``safe.py:897``).
+        """
+        bucket = int(self.band_bt_bucket or 0)
+        if bucket <= 1:
+            return int(band)
+        bt = -(-(band // block + 1) // bucket) * bucket
+        return bt * block - 1
 
     def _band_bits_selected(self, num_nodes, band):
         """Would the JAX facade bit-pack the indicator band
@@ -385,7 +406,11 @@ class SAFE:
         if self.band_indicator_bits != "auto" and self.band_indicator_bits:
             raise _not_ported("bit-packed indicator bands "
                               "(band_indicator_bits=True)", "A7 remainder")
-        v = self.node2attribute
+        # counted on the f32 values the device gets, as the JAX facade
+        # counts on its f32 upload (safe.py:1102-1105): 1 + 1e-9 rounds to
+        # 1 and 1e39 overflows to inf
+        with np.errstate(over="ignore"):
+            v = np.asarray(self.node2attribute, np.float32)
         num_other = int(np.count_nonzero(np.isfinite(v) & (v != 0) & (v != 1)))
         if (self.enrichment_type == "hypergeometric"
                 or (self.enrichment_type == "auto" and num_other == 0)):
@@ -400,8 +425,8 @@ class SAFE:
         ``perm_idx`` (P, V): explicit permutations of the V annotated rows
         instead of the session's generator (``num_permutations`` becomes P).
         """
-        for k in ("node_distance_metric", "neighborhood_radius",
-                  "neighborhood_score_type",
+        for k in ("node_distance_metric", "neighborhood_radius_type",
+                  "neighborhood_radius", "neighborhood_score_type",
                   "multiple_testing", "num_permutations", "background"):
             if k in kwargs:
                 setattr(self, k, kwargs.pop(k))
@@ -499,6 +524,9 @@ class SAFE:
         if self.verbose:
             logging.info("Node distance metric: %s (%s APSP)"
                          % (self.node_distance_metric, self.apsp_engine_used))
+            logging.info("Neighborhood definition: %.2f x %s"
+                         % (self.neighborhood_radius,
+                            self.neighborhood_radius_type))
             logging.info("Number of nodes per neighborhood (mean +/- std): "
                          "%.2f +/- %.2f" % (float(mean), float(std)))
         self._update_binary_enrichment()

@@ -146,6 +146,68 @@ def test_skew_kernels_match_pallas(symmetric, bt):
     assert not np.array_equal(want, win)  # the relax changed something
 
 
+def _relax_by_tiles(win, q, p, bt, tiles):
+    """What the CUDA skew kernels do with their tile list, one CTA a row:
+    tile (o, j) becomes min(C, Q_o (x) P_{o + j - bt}) and, where mo >= 0,
+    its transpose goes into tile (mo, mj). Every listed tile is read before
+    any is written, as the kernels' no-overlap argument requires."""
+    block = q.shape[1]
+
+    def tile(x, r, c):
+        return x[r * block:(r + 1) * block, c * block:(c + 1) * block]
+
+    rows = tiles.tolist()
+    relaxed = [K.relax_panel_plain(tile(win, o, j),
+                                   q[o * block:(o + 1) * block],
+                                   p[:, (o + j - bt) * block:
+                                     (o + j - bt + 1) * block])
+               for o, j, _, _ in rows]
+    for (o, j, mo, mj), r in zip(rows, relaxed):
+        tile(win, o, j).copy_(r)
+        if mo >= 0:
+            tile(win, mo, mj).copy_(r.T)
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("bt", [0, 1, 2, 3])
+def test_skew_tile_list_gives_the_plain_versions(symmetric, bt):
+    """The skew kernels' tile list, applied tile by tile, is bitwise the
+    plain version (the masks of relax_skew_sym_plain / relax_skew_plain)."""
+    block = 16
+    win, p, _ = _skew_case(bt, block, 40 + 2 * bt + symmetric)
+    tiles = K.skew_tiles(bt, symmetric)
+    got, want = _t(win.copy()), _t(win.copy())
+    q = bs.skew_pivot_column(got, bt, block).clone()
+    _relax_by_tiles(got, q, _t(p), bt, tiles)
+    (K.relax_skew_sym_plain if symmetric else K.relax_skew_plain)(
+        want, q, _t(p), bt)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("bt", [0, 1, 2, 12])
+def test_skew_tile_list_is_live_tiles_only(bt):
+    """One row a live tile: no tile twice, every relaxed tile's P tile in
+    the pivot-row slab, no mirror among the relaxed tiles (the in-place
+    safety argument), and 247 / 469 tiles at the band slice's bt 12."""
+    nt = 2 * bt + 1
+    sym, full = K.skew_tiles(bt, True), K.skew_tiles(bt, False)
+    assert sym.dtype == full.dtype == torch.int32
+    assert len(sym) == (bt + 1) * nt - bt * (bt + 1) // 2
+    assert len(full) == sum(abs(o + j - 2 * bt) <= bt
+                            for o in range(nt) for j in range(nt))
+    if bt == 12:
+        assert (len(sym), len(full)) == (247, 469)
+    for tiles in (sym, full):
+        o, j = tiles[:, 0], tiles[:, 1]
+        assert len({(a, b) for a, b in zip(o.tolist(), j.tolist())}) == len(
+            tiles)
+        assert ((o + j - bt >= 0) & (o + j - bt < nt)).all()
+    assert (full[:, 2:] == -1).all()
+    mirrors = {tuple(m) for m in sym[:, 2:].tolist() if m[0] >= 0}
+    assert len(mirrors) == len(sym) - nt
+    assert not mirrors & {tuple(t) for t in sym[:, :2].tolist()}
+
+
 def test_skew_wrappers_check_inputs_and_count_no_cpu_launches():
     bt, block = 1, 32
     win, p, _ = _skew_case(bt, block, 0)

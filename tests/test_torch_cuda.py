@@ -58,16 +58,25 @@ def test_kernels_match_plain(dev, block, w, band_tiles):
 
 
 @pytest.mark.parametrize("symmetric", [True, False])
-@pytest.mark.parametrize("block,bt", [(128, 2), (128, 5), (64, 3)])
-def test_skew_kernels_match_plain(dev, symmetric, block, bt):
+@pytest.mark.parametrize("strided", [False, True],
+                         ids=["stride-W", "stride-wider"])
+@pytest.mark.parametrize("block,bt", [(128, 0), (128, 1), (128, 2), (128, 5),
+                                      (128, 12), (64, 0), (64, 1), (64, 3),
+                                      (64, 12)])
+def test_skew_kernels_match_plain(dev, symmetric, strided, block, bt):
     """The skewed window lies inside a band with rows above and below it,
-    as in the band rounds; rows outside it must stay untouched."""
+    as in the band rounds, or (strided) is a view at column 8 of a band 40
+    columns wider than W; everything outside it must stay untouched. At
+    block 128, bt 12 takes the kernels' whole-tile form (a long tile list)
+    and bt 0-5 their 64x64 sub-tile form, which block 64 always takes."""
     from safepy_tpu_torch.ops.apsp_bandstore import skew_pivot_column
 
-    gen = torch.Generator(device=dev).manual_seed(block + bt + symmetric)
+    gen = torch.Generator(device=dev).manual_seed(block + bt + symmetric
+                                                  + 1000 * strided)
     w = (2 * bt + 1) * block
-    s = _inf_laced(gen, dev, w + 2 * block, w)
-    win = s[block:block + w]
+    c0, extra = (8, 40) if strided else (0, 0)
+    s = _inf_laced(gen, dev, w + 2 * block, w + extra)
+    win = s[block:block + w, c0:c0 + w]
     win.copy_(torch.minimum(win, win.T))
     p = _inf_laced(gen, dev, block, w)
     q = skew_pivot_column(win, bt, block)
@@ -75,11 +84,12 @@ def test_skew_kernels_match_plain(dev, symmetric, block, bt):
     kernel = K.relax_skew_sym if symmetric else K.relax_skew
     plain = K.relax_skew_sym_plain if symmetric else K.relax_skew_plain
     K.reset_launches()
-    kernel(got[block:block + w], q, p, bt)
-    plain(want[block:block + w], q, p, bt)
+    kernel(got[block:block + w, c0:c0 + w], q, p, bt)
+    plain(want[block:block + w, c0:c0 + w], q, p, bt)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and not torch.equal(got, s)
     assert K.LAUNCHES["relax_skew_sym" if symmetric else "relax_skew"] == 1
+    assert sum(K.LAUNCHES.values()) == 1
 
 
 @pytest.mark.parametrize("m,n,block,band_tiles", [
@@ -387,3 +397,15 @@ def test_wrappers_refuse_rather_than_fall_back(dev):
     with pytest.raises(ValueError, match="16-byte aligned"):
         y = torch.zeros((128, 260), device=dev)
         K.relax_panel(y[:, 1:129], y[:, 1:129], y[:, 1:129])
+    # skew kernels: a window row stride that is no multiple of 4, a window
+    # at an odd column, a block the kernels do not take
+    q, p = torch.zeros((384, 128), device=dev), torch.zeros((128, 384),
+                                                            device=dev)
+    y = torch.zeros((384, 386), device=dev)
+    for win in (y[:, :384], y[:, 1:385]):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            K.relax_skew_sym(win, q, p, 1)
+    with pytest.raises(ValueError, match="block 64 or 128"):
+        K.relax_skew(torch.zeros((96, 96), device=dev),
+                     torch.zeros((96, 32), device=dev),
+                     torch.zeros((32, 96), device=dev), 1)
