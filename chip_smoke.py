@@ -9,11 +9,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build the CUDA kernels from ``safepy_tpu_torch/csrc`` into ``build/``;
 3. hold each kernel bitwise against its plain torch version on the card at
    the shapes of its path, and time both (CUDA events, median): the
-   banded-window kernels at the Example_1 shapes, the skew kernels at the
+   banded-window kernels at the Example_1 shapes (``relax_window_sym``
+   also over the dense 4,096 matrix, each case with its tile-list form and
+   its bound, and both of its forms timed at list lengths from 35 to 528
+   tiles, ``FORM_CASES``), the skew kernels at the
    49,920-node band shape (block 128, bt 12, W 3,200) and at bt 0-2, at
    block 64 (bt 0-3 and 12), and as views into bands wider than W, the
    classic relax over the dense 4,096 matrix and the 1,024 window, one
-   4096 x 4096 x 4096 min-plus product, and the sharded window rows
+   4096 x 4096 x 4096 min-plus product and a ragged one with negative
+   entries and +inf rows and columns, and the sharded window rows
    (``relax_band_row``, one row of 128 x 3,200 and of 128 x 640, and
    ``relax_band_rows``, a round's rows in one launch, whole and cut); each
    beside its bound; ``close_diag`` also on +inf-diagonal, padding and
@@ -377,13 +381,22 @@ def check_kernels(device, window=1024, npad=4096, band_tiles=6):
         sh["band_rows_128x3200_device_ms"] = device_ms(
             lambda: K.relax_panel(pb, diag, pb), "relax_panel_kernel")
 
-    # relax_window_sym: the slice's window and the dense 4096 round, in place
+    # relax_window_sym: the slice's window and the dense 4096 round, in
+    # place; each over its tile list, in the form the wrapper picks for its
+    # length, beside its own bound
     d = inf_laced(gen, (npad, npad), device)
     d = torch.minimum(d, d.T).contiguous()
     lo = npad // 2 - window // 2
     cases = {"window": (lo, window, band_tiles), "dense": (0, npad, npad // b)}
     shapes, errs = {}, []
     for name, (lo_, w_, bt) in cases.items():
+        nbw = w_ // b
+        tiles = len(K.window_tiles(nbw, min(bt, nbw - 1)))
+        shapes[f"{name}_tiles"] = tiles
+        shapes[f"{name}_form"] = "plain" if device.type != "cuda" else (
+            "whole" if K.window_sym_whole(tiles, b, device) else "sub-tile")
+        shapes[f"{name}_bound_ms"] = bound(*relax_work(
+            w_, w_, b, tiles, 2 * tiles - nbw))[0]
         qw = inf_laced(gen, (w_, b), device)
         pw = inf_laced(gen, (b, w_), device)
         got, want = d.clone(), d.clone()
@@ -398,12 +411,13 @@ def check_kernels(device, window=1024, npad=4096, band_tiles=6):
             device, inner=2)
         shapes[f"{name}_shape"] = [w_, w_, bt]
         if device.type == "cuda":
+            # both forms' kernels: relax_window_sym(_sub)_kernel
             shapes[f"{name}_device_ms"] = device_ms(
                 lambda: K.relax_window_sym(qw, pw, got, lo_, w_, bt),
-                "relax_window_sym_kernel")
+                "relax_window_sym")
         errs.append(max_abs_err(got, want))
     nbw = window // b
-    upper = sum(min(band_tiles, nbw - 1 - i) + 1 for i in range(nbw))
+    upper = shapes["window_tiles"]
     out["relax_window_sym"] = dict(err=max(errs), ms=shapes["window_ms"],
                                    plain_ms=shapes["window_plain_ms"],
                                    work=relax_work(window, window, b, upper,
@@ -541,6 +555,42 @@ def check_band_row_kernel(device, cases=((12, "slice"), (2, "small"))):
         shapes=dict(shapes, window_rows=[nt, b, w, b]))}
 
 
+# (w, band_tiles) of window relax lists from Example_1's 35 tiles to the
+# dense FW's 528, for the two forms' crossover (block 128)
+FORM_CASES = ((1024, 6), (4096, 4), (4096, 8), (4096, 10), (4096, 31))
+
+
+def window_sym_forms(device, cases=FORM_CASES):
+    """Phase 3 on the card: relax_window_sym's kernel in both list forms
+    (whole tiles, 32x32 sub-tiles) at each list length of ``cases``, each
+    bitwise against the plain version; {tiles: (whole device ms, sub-tile
+    device ms, the form the wrapper takes)}."""
+    gen = torch.Generator(device=device).manual_seed(19)
+    b = BLOCK
+    out = {}
+    for w, bt in cases:
+        d = inf_laced(gen, (w, w), device)
+        d = torch.minimum(d, d.T).contiguous()
+        q, p = inf_laced(gen, (w, b), device), inf_laced(gen, (b, w), device)
+        want = d.clone()
+        K.relax_window_sym_plain(q, p, want, 0, w, bt)
+        tiles = K._device_window_tiles(w // b, min(bt, w // b - 1), device)
+        row = []
+        for whole in (1, 0):
+            got = d.clone()
+
+            def launch():
+                native.launch("relax_window_sym", K._ptr(tiles),
+                              tiles.shape[0], K._ptr(q), K._ptr(p),
+                              K._ptr(got), w, 0, w, b, whole, K._stream(got))
+            launch()
+            max_abs_err(got, want)
+            row.append(device_ms(launch, "relax_window_sym", calls=20))
+        whole = K.window_sym_whole(tiles.shape[0], b, device)
+        out[tiles.shape[0]] = (*row, "whole" if whole else "sub-tile")
+    return out
+
+
 def check_full_kernels(device, window=1024, npad=4096, band_tiles=6):
     """Phase 3, op-level path: relax_full over the dense 4096 matrix (k 128)
     and banded on the 1,024 window (band_tiles 6) inside it, in place; one
@@ -574,6 +624,15 @@ def check_full_kernels(device, window=1024, npad=4096, band_tiles=6):
                          device_ms=dev_ms,
                          work=relax_work(w, w, b, tiles, tiles),
                          shapes={"window": [w, w, b], "band_tiles": bt})
+    # a ragged product with negative entries (the op level takes any f32),
+    # rows of a and columns of b at +inf, b a view of row stride 1,303
+    ar = inf_laced(gen, (1000, 777), device) * 4 - 2
+    br = (inf_laced(gen, (777, 1303), device) * 4 - 2)[:, 1:1301]
+    ar[::7] = float("inf")
+    br[:, ::5] = float("inf")
+    ragged_err = max_abs_err(K.minplus_product(ar, br),
+                             K.minplus_product_plain(ar, br))
+    del ar, br
     a = inf_laced(gen, (npad, npad), device)
     bm = inf_laced(gen, (npad, npad), device)
     got = K.minplus_product(a, bm)
@@ -585,13 +644,14 @@ def check_full_kernels(device, window=1024, npad=4096, band_tiles=6):
     err = max_abs_err(got, want)
     del want
     out["minplus_product"] = dict(
-        err=err, plain_ms=plain_ms,
+        err=max(err, ragged_err), plain_ms=plain_ms,
         ms=time_ms(lambda: K.minplus_product(a, bm), device, inner=3,
                    warmup=1, reps=3),
         device_ms=device_ms(lambda: K.minplus_product(a, bm),
                             "minplus_product_kernel", calls=3),
         work=(npad ** 3, 3 * npad * npad * F32),
-        shapes={"mkn": [npad, npad, npad], "plain": "one call"})
+        shapes={"mkn": [npad, npad, npad], "plain": "one call",
+                "ragged_mkn_negative": [1000, 777, 1300]})
     return out
 
 
@@ -1294,6 +1354,10 @@ def main():
               f"ms; bound {k['bound_ms']:.4f} ms by {k['bound_by']}: "
               f"{k['work'][0]} candidates, {k['work'][1]} bytes) "
               f"{k['shapes']}", flush=True)
+    forms = window_sym_forms(device)
+    print(f"window relax forms (block 128): list length -> (whole-tile "
+          f"device ms, sub-tile device ms, form taken), each bitwise equal to "
+          f"plain: {forms}", flush=True)
     # the bounds' candidate rate against the card's measured one;
     # close_diag runs on one SM, so no share of the card's rate fits it
     rate, probe = addmin_rate(device)

@@ -17,7 +17,10 @@
 //                       rank's window rows.
 //   relax_window_sym <- _relax_full_banded_sym :193 (kernel_a + kernel_b):
 //                       relax the upper in-band tiles of a window and mirror
-//                       each into its lower twin, here in place on the matrix.
+//                       each into its lower twin, here in place on the matrix,
+//                       over a list of those tiles: whole tiles on the tile
+//                       engine where the list is long, 32x32 sub-tiles on the
+//                       panel body where it is short (design at the kernels).
 //   close_diag       <- _close_diag :258, the in-tile closure of the pivot
 //                       tile (a jnp fori_loop in the JAX package, not Pallas).
 //   relax_full       <- _relax_full :144 and _relax_full_banded :161: the
@@ -32,12 +35,11 @@
 //   minplus_product  <- min_plus_pallas :62 (_minplus_kernel :46): out =
 //                       A (x) B into a new buffer, the accumulators started
 //                       at +inf in registers; the Pallas (i, j, k) grid's
-//                       sequential k axis becomes the loop inside the block,
-//                       and the wrapper pads the ragged edges with +inf.
-//                       Bound by the FP32 add+min instruction rate, more so
-//                       than the relax kernels: K is the whole matrix width
-//                       (4,096 at the Example_1 shape), so the output store
-//                       is negligible.
+//                       sequential k axis becomes the slab loop of the tile
+//                       engine, one 128x128 tile a CTA, and the wrapper pads
+//                       the ragged edges with +inf. K is the whole matrix
+//                       width (4,096 at the Example_1 shape), so the output
+//                       store is negligible.
 // and in safepy_tpu/ops/apsp_bandstore.py (phase 3 of the band-storage FW):
 //   relax_skew_sym   <- _relax_skew_sym_pallas :324 (pass A + pass B): relax
 //                       the upper wedge of the skewed (W, W) pivot window and
@@ -45,9 +47,9 @@
 //                       lower mirror, in place on the band.
 //   relax_skew       <- _relax_skew_pallas :281: relax every in-band tile of
 //                       the skewed window, no mirror. Both run over a list
-//                       of live tiles: a whole 128x128 tile a CTA where the
-//                       list is long, 64x64 sub-tiles where it is short
-//                       (design at the kernels).
+//                       of live tiles: a whole 128x128 tile a CTA on the
+//                       tile engine where the list is long, 64x64 sub-tiles
+//                       where it is short (design at the kernels).
 //
 // What bounds them on the H100: a min-plus product has no tensor-core route.
 // Every candidate a[i,k] + b[k,j] costs one FP32 add and one FP32 min on the
@@ -59,13 +61,17 @@
 // at 1.98 GHz), is the ceiling; addmin_probe_kernel below measures the
 // rate reached.
 //
-// What the design does about it: each block of 256 threads owns a 64x64
-// output tile, stages 32-deep chunks of A (transposed) and B in shared memory,
-// and each thread keeps a 4x4 micro-tile of the result in registers across the
-// whole contraction. Every shared-memory value a thread loads feeds four
-// candidates, so the inner loop issues 16 adds and 16 mins per 8 shared loads.
-// The panel relax, the skewed-window relax and close_diag have designs of
-// their own (below, at their kernels).
+// What the designs do about it, from the oldest: the classic relax
+// (relax_full) and the skew kernels' sub-tile form run minplus_tile below,
+// where each block of 256 threads owns a 64x64 output tile, stages 32-deep
+// chunks of A (transposed) and B in shared memory, and each thread keeps a
+// 4x4 micro-tile of the result in registers across the whole contraction:
+// every shared value a thread loads feeds four candidates, so the inner loop
+// issues 16 adds and 16 mins per 8 shared loads, and the loads and the
+// arithmetic take turns behind two barriers a chunk. The panel relax
+// (panel_tile), the tile engine (engine_tile: the product and the whole-
+// tile forms of the skew and window relax) and close_diag have designs of
+// their own, below at their code.
 //
 // Bitwise contract: every candidate is one f32 rounding of a + b, and min is
 // exact and order-free on the non-NaN inputs Floyd-Warshall produces, so any
@@ -206,69 +212,137 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// A thread's 2 x 4 block of a 32x32 tile at c (row stride ldc): rows ty and
+// ty + 16, columns 4 tx .. 4 tx + 3.
+__device__ __forceinline__ void panel_load(const float* c, int64_t ldc,
+                                           float (&acc)[2][4]) {
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float4 v = *reinterpret_cast<const float4*>(
+        c + (int64_t)(ty + 16 * h) * ldc + 4 * tx);
+    acc[h][0] = v.x, acc[h][1] = v.y, acc[h][2] = v.z, acc[h][3] = v.w;
+  }
+}
+
+__device__ __forceinline__ void panel_store(float* out, int64_t ldo,
+                                            const float (&acc)[2][4]) {
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    *reinterpret_cast<float4*>(out + (int64_t)(ty + 16 * h) * ldo + 4 * tx) =
+        make_float4(acc[h][0], acc[h][1], acc[h][2], acc[h][3]);
+}
+
+// acc = min(acc, A (x) B) over the staged k-steps k0 .. k1 - 1 (multiples
+// of 4) of a 32x32 tile
+__device__ __forceinline__ void panel_steps(float (&acc)[2][4],
+                                            const PanelSmem& s, int k0,
+                                            int k1) {
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+#pragma unroll 2
+  for (int kk = k0; kk < k1; kk += 4) {
+    const float4 a4[2] = {*reinterpret_cast<const float4*>(&s.a[ty][kk]),
+                          *reinterpret_cast<const float4*>(&s.a[ty + 16][kk])};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 b4 = *reinterpret_cast<const float4*>(&s.b[kk + j][4 * tx]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float av = j == 0 ? a4[h].x : j == 1 ? a4[h].y
+                       : j == 2 ? a4[h].z : a4[h].w;
+        acc[h][0] = fminf(acc[h][0], av + b4.x);
+        acc[h][1] = fminf(acc[h][1], av + b4.y);
+        acc[h][2] = fminf(acc[h][2], av + b4.z);
+        acc[h][3] = fminf(acc[h][3], av + b4.w);
+      }
+    }
+  }
+}
+
+// Copy k-steps c0 .. c0 + cw - 1 of the slab at k0 (A columns, B rows) into
+// s, asynchronously.
+__device__ __forceinline__ void panel_stage(const float* a, int64_t lda,
+                                            const float* b, int64_t ldb,
+                                            int k0, int c0, int cw,
+                                            PanelSmem& s) {
+  const int ach = cw / 4;  // 16-byte chunks of an A row
+  for (int e = threadIdx.x; e < PT * ach; e += PTPB) {
+    const int r = e / ach, ch = e % ach;
+    cp_async16(&s.a[r][c0 + 4 * ch], a + (int64_t)r * lda + k0 + c0 + 4 * ch);
+  }
+  for (int e = threadIdx.x; e < cw * (PT / 4); e += PTPB) {
+    const int kk = c0 + e / (PT / 4), ch = e % (PT / 4);
+    cp_async16(&s.b[kk][4 * ch], b + (int64_t)(k0 + kk) * ldb + 4 * ch);
+  }
+}
+
+// acc = min(acc, A (x) B) on a 32x32 tile: a at its first row (32 x k, lda),
+// b at its first column (k x 32, ldb). Every pointer is 16-byte aligned and
+// every leading dimension a multiple of 4 (checked by the wrappers).
+__device__ __forceinline__ void panel_relax(const float* a, int64_t lda,
+                                            const float* b, int64_t ldb,
+                                            int k, float (&acc)[2][4],
+                                            PanelSmem& s) {
+  for (int k0 = 0; k0 < k; k0 += PKS) {
+    const int kc = k - k0 < PKS ? k - k0 : PKS;  // a multiple of 32
+    panel_stage(a, lda, b, ldb, k0, 0, kc, s);
+    cp_async_wait_all();
+    __syncthreads();
+    panel_steps(acc, s, 0, kc);
+    if (k0 + PKS < k) __syncthreads();  // the next slab overwrites s
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most n (0 .. 3) of this thread's committed copy groups are
+// still in flight
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  if (n >= 3) asm volatile("cp.async.wait_group 3;\n" ::: "memory");
+  else if (n == 2) asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else if (n == 1) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// panel_relax for k <= PKS, the slab copied in 32-deep chunks, one copy
+// group each, all in flight at once, and each chunk relaxed as soon as it
+// has landed: the operand fetch overlaps the arithmetic inside the CTA.
+__device__ __forceinline__ void panel_relax_chunked(const float* a,
+                                                    int64_t lda,
+                                                    const float* b,
+                                                    int64_t ldb, int k,
+                                                    float (&acc)[2][4],
+                                                    PanelSmem& s) {
+  constexpr int CH = 32;
+  for (int c0 = 0; c0 < k; c0 += CH) {
+    panel_stage(a, lda, b, ldb, 0, c0, CH, s);
+    cp_async_commit();
+  }
+  for (int c0 = 0; c0 < k; c0 += CH) {
+    cp_async_wait_pending((k - c0) / CH - 1);
+    __syncthreads();
+    panel_steps(acc, s, c0, c0 + CH);
+  }
+}
+
 // out = min(C, A (x) B) for the 32x32 tile (blockIdx.y, blockIdx.x). A points
 // at the panel's first row (m x k, lda), B at its first column (k x n, ldb).
-// Every pointer is 16-byte aligned and every leading dimension a multiple of
-// 4 (checked by the wrappers). C may be out: each CTA reads its own C tile
-// before it writes it, and A and B must then lie apart from out.
+// C may be out: each CTA reads its own C tile before it writes it, and A and
+// B must then lie apart from out.
 __device__ __forceinline__ void panel_tile(const float* a, int64_t lda,
                                            const float* b, int64_t ldb,
                                            const float* c, int64_t ldc,
                                            float* out, int64_t ldo, int k,
                                            PanelSmem& s) {
-  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
   const int64_t row0 = (int64_t)blockIdx.y * PT;
   const int64_t col0 = (int64_t)blockIdx.x * PT;
-  a += row0 * lda;
-  b += col0;
-
   float acc[2][4];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float4 v = *reinterpret_cast<const float4*>(
-        c + (row0 + ty + 16 * h) * ldc + col0 + 4 * tx);
-    acc[h][0] = v.x, acc[h][1] = v.y, acc[h][2] = v.z, acc[h][3] = v.w;
-  }
-
-  for (int k0 = 0; k0 < k; k0 += PKS) {
-    const int kc = k - k0 < PKS ? k - k0 : PKS;  // a multiple of 32
-    const int ach = kc / 4;                       // 16-byte chunks of an A row
-    for (int e = threadIdx.x; e < PT * ach; e += PTPB) {
-      const int r = e / ach, ch = e % ach;
-      cp_async16(&s.a[r][4 * ch], a + (int64_t)r * lda + k0 + 4 * ch);
-    }
-    for (int e = threadIdx.x; e < kc * (PT / 4); e += PTPB) {
-      const int kk = e / (PT / 4), ch = e % (PT / 4);
-      cp_async16(&s.b[kk][4 * ch], b + (int64_t)(k0 + kk) * ldb + 4 * ch);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-#pragma unroll 2
-    for (int kk = 0; kk < kc; kk += 4) {
-      const float4 a4[2] = {*reinterpret_cast<const float4*>(&s.a[ty][kk]),
-                            *reinterpret_cast<const float4*>(&s.a[ty + 16][kk])};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 b4 = *reinterpret_cast<const float4*>(&s.b[kk + j][4 * tx]);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float av = j == 0 ? a4[h].x : j == 1 ? a4[h].y
-                         : j == 2 ? a4[h].z : a4[h].w;
-          acc[h][0] = fminf(acc[h][0], av + b4.x);
-          acc[h][1] = fminf(acc[h][1], av + b4.y);
-          acc[h][2] = fminf(acc[h][2], av + b4.z);
-          acc[h][3] = fminf(acc[h][3], av + b4.w);
-        }
-      }
-    }
-    if (k0 + PKS < k) __syncthreads();  // the next slab overwrites s
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-    *reinterpret_cast<float4*>(out + (row0 + ty + 16 * h) * ldo + col0 +
-                               4 * tx) =
-        make_float4(acc[h][0], acc[h][1], acc[h][2], acc[h][3]);
+  panel_load(c + row0 * ldc + col0, ldc, acc);
+  panel_relax(a + row0 * lda, lda, b + col0, ldb, k, acc, s);
+  panel_store(out + row0 * ldo + col0, ldo, acc);
 }
 
 // out = min(C, A (x) B) into a separate buffer; grid (n / 32, m / 32).
@@ -297,94 +371,65 @@ relax_band_row_kernel(const float* q, int64_t ldq, int64_t q_rs,
              out + z * o_rs, ldo, k, s);
 }
 
-// In place on the (w, w) window of d that starts at (lo, lo). Block
-// (x, y, z) owns 64x64 sub-tile z of the upper block-tile (i, j) = (x, x + y):
-// it relaxes that sub-tile against q (w x block) and p (block x w), writes it
-// back and, off the diagonal, writes its transpose into tile (j, i). Only
-// upper tiles are read and q, p are separate buffers, so no block reads what
-// another writes. Tiles further than band_tiles from the diagonal are never
-// touched.
-__global__ void __launch_bounds__(TPB)
-relax_window_sym_kernel(const float* q, const float* p, float* d, int64_t ld,
-                        int64_t lo, int w, int block) {
-  __shared__ TileSmem s;
-  __shared__ float t[TILE][TILE + 1];
-  const int ti = blockIdx.x;
-  const int tj = blockIdx.x + blockIdx.y;
-  if (tj >= w / block) return;  // whole block leaves together
-  const int subs = block / TILE;
-  const int si = blockIdx.z / subs, sj = blockIdx.z % subs;
-  const int64_t r0 = (int64_t)ti * block + si * TILE;
-  const int64_t c0 = (int64_t)tj * block + sj * TILE;
-  float* win = d + lo * ld + lo;
-
-  float acc[MICRO][MICRO];
-  load_acc(win + r0 * ld + c0, ld, acc);
-  minplus_tile(q + r0 * block, block, p + c0, w, block, acc, s);
-  store_acc(win + r0 * ld + c0, ld, acc);
-  if (tj == ti) return;
-  store_transposed(win + c0 * ld + r0, ld, acc, t);
-}
-
 // ---------------------------------------------------------------------------
-// Phase 3 of the band-storage round (relax_skew_sym, relax_skew), in place on
-// the (w, w) skewed window (w = (2 bt + 1) B for block B, row stride ld).
-// Window tile (o, j) becomes min(C, Q_o (x) P_{o + j - bt}): Q_o is q's tile
-// o (the snapshot of window tile (o, 2 bt - o), the pivot column; q is
-// (w, B) and contiguous), P_t the pivot-row tile t of p (B x w, row stride
-// ldp). The tiles to relax are listed in ``tiles`` as int4 (o, j, mo, mj):
-// the tile and, where mo >= 0, the lower tile (mo, mj) that receives its
-// transpose (the symmetric form's mirror). The wrapper builds the list once
-// per (bt, form), so the grid holds live tiles only: 247 at bt 12
-// symmetric (the upper wedge), 469 non-symmetric. At B = 128 each CTA owns
-// one whole tile when the list holds at least half as many tiles as the
-// card has SMs. A shorter list (small bt: 35 tiles at bt 4) would leave
-// most SMs idle, so it is relaxed in 64x64 sub-tiles, four CTAs a tile, on
-// the minplus_tile body, as B = 64 always is (a whole 64x64 tile a CTA of
-// 64 threads measured slower there at bt 3, mixed at bt 12). Only listed
-// tiles are read, no listed tile is a mirror, and q and p lie apart from
-// the window, so no CTA reads what another writes; every other tile keeps
-// its value.
+// The tile engine: C = min(C, Q (x) P) (or, for the product, C = Q (x) P
+// from +inf) on whole B x B tiles, one CTA of (B / 8)^2 threads (256 at B =
+// 128) for each tile. It runs the whole-tile forms of the skew relax (B8,
+// B9) and of the window relax (B7), and the min-plus product (B1).
 //
-// What bounds them: the FP32 min, which the H100 issues at half the FP32
-// add's rate (16 lanes a clock in each SM quarter), one a candidate: B^3
-// mins a tile for 2 B^2 floats of C in and out (bt 12: 518 M candidates,
-// 31 us at 16.7 T/s, against 15 us of bytes). The design keeps the issue
-// slots on the arithmetic and overlaps the operand copies with it:
-//   - a CTA of (B / 8)^2 threads (256 at B = 128), each with an 8 x 8
-//     block of the tile in registers (rows ty*4 + {0..3} and B/2 + ty*4 +
-//     {0..3}, columns likewise from tx): 64 candidates a k-step for four
-//     float4 shared loads (two of Q, k-major, two of P);
+// What bounds it: the FP32 min, which the H100 issues at half the FP32 add's
+// rate (16 lanes a clock in each SM quarter), one a candidate: B^2 K mins a
+// tile for 2 B K floats of operands, so the bytes are a small share (bt 12
+// skew: 518 M candidates, 31 us at 16.7 T/s, against 15 us of bytes; the
+// 4096^3 product: 4.1 ms against 0.06 ms). The design keeps the issue slots
+// on the arithmetic and overlaps the operand copies with it:
+//   - each thread holds an 8 x 8 block of the tile in registers (rows ty*4 +
+//     {0..3} and B/2 + ty*4 + {0..3}, columns likewise from tx): 64
+//     candidates a k-step for four float4 shared loads (two of Q, k-major,
+//     two of P);
 //   - k in slabs of 16, double buffered: slab s + 1 is copied by cp.async
 //     (Q 4 bytes at a time, transposed into the k-major slab; P 16 bytes
 //     at a time) while slab s is relaxed. No CTA-wide barrier in the loop:
 //     a "full" mbarrier per buffer completes when every thread's copies
 //     have landed, an "empty" one when every thread is done with the slab,
 //     so warps drift up to a slab apart;
-//   - the accumulators start at +inf and C comes in during the loop: each
-//     slab loads 8 / (B / 16) of the thread's rows of C (two float4 a row)
-//     at its start and folds them in at its end, so the C read overlaps
-//     the arithmetic (min is exact and order-free: the same bits as
-//     starting from C). The tile goes back with float4 stores; the mirror
-//     is written straight from the registers, a thread's 8 x 8 block as 8
-//     rows of two float4 each, with no shared staging and no barrier.
+//   - the accumulators start at +inf. Where there is a C (K = B), it comes
+//     in during the loop: each slab loads 8 / (B / 16) of the thread's rows
+//     of C (two float4 a row) at its start and folds them in at its end, so
+//     the C read overlaps the arithmetic (min is exact and order-free: the
+//     same bits as starting from C). The tile goes back with float4 stores;
+//     a mirror is written straight from the registers, a thread's 8 x 8
+//     block as 8 rows of two float4 each, with no shared staging.
 // The Q copy's mapping (8 threads on 8 consecutive k of one row, 4 rows a
 // warp) reads one 32-byte sector a row and, with the slab's rows padded to
-// B + 4 floats, stores to 32 different banks. Measured on the H100 at bt
-// 12 and not kept: two CTA-wide barriers a slab in place of the mbarriers
-// (slower), C loaded whole at entry (slower; faster at block 64, a shape
-// the band slice does not run), three buffers (no faster), C staged in
-// shared memory by cp.async (slower: register spills), slabs of 8 or 32
-// and one CTA an SM (no faster).
+// B + 4 floats, stores to 32 different banks. Measured on the H100 for the
+// skew kernels at bt 12 and not kept: two CTA-wide barriers a slab in place
+// of the mbarriers (slower), C loaded whole at entry (slower; faster at
+// block 64, a shape the band slice does not run), three buffers (no
+// faster), C staged in shared memory by cp.async (slower: register spills),
+// slabs of 8 or 32 and one CTA an SM (no faster).
 
 constexpr int SKS = 16;  // k staged per slab
 
 template <int B>
-struct SkewSmem {
+struct EngineSmem {
   float a[2][SKS][B + 4];  // Q slabs, k-major
   float b[2][SKS][B];      // P slabs, row-major
   uint64_t full[2];        // mbarriers: every thread's copies of the slab landed
   uint64_t empty[2];       // mbarriers: every thread done with the slab
+};
+
+// One tile of the engine: Q (B x K) at q with row stride ldq, P (K x B) at p
+// with row stride ldp, C at c with row stride ldc; where m is not null, the
+// tile's transpose also goes to m (row stride ldc).
+struct EngineTile {
+  const float* q;
+  int64_t ldq;
+  const float* p;
+  int64_t ldp;
+  float* c;
+  float* m;
+  int64_t ldc;
 };
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
@@ -421,51 +466,101 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
       " @!done bra WAIT;\n}" ::"r"(smem_u32(bar)), "r"(parity) : "memory");
 }
 
-// Copy k rows k0 .. k0 + SKS - 1 of the tile's Q (B x B, row stride B) and
-// P (row stride ldp) into buffer ``buf``, asynchronously.
+// Copy k rows k0 .. k0 + SKS - 1 of tile t's Q and P into buffer ``buf``,
+// asynchronously.
 template <int B>
-__device__ __forceinline__ void skew_stage(SkewSmem<B>& s, int buf,
-                                           const float* qt, const float* pt,
-                                           int64_t ldp, int k0) {
+__device__ __forceinline__ void engine_stage(EngineSmem<B>& s, int buf,
+                                             const EngineTile& t, int k0) {
   constexpr int NT = (B / 8) * (B / 8);
 #pragma unroll
   for (int i = 0; i < B * SKS / NT; ++i) {
     const int e = threadIdx.x + i * NT;
     const int g = e / 8, r = g % B, kk = (g / B) * 8 + e % 8;
-    cp_async4(&s.a[buf][kk][r], qt + (int64_t)r * B + k0 + kk);
+    cp_async4(&s.a[buf][kk][r], t.q + (int64_t)r * t.ldq + k0 + kk);
   }
 #pragma unroll
   for (int i = 0; i < SKS * (B / 4) / NT; ++i) {
     const int e = threadIdx.x + i * NT;
     const int kk = e / (B / 4), ch = e % (B / 4);
-    cp_async16(&s.b[buf][kk][4 * ch], pt + (int64_t)(k0 + kk) * ldp + 4 * ch);
+    cp_async16(&s.b[buf][kk][4 * ch],
+               t.p + (int64_t)(k0 + kk) * t.ldp + 4 * ch);
   }
 }
 
+// acc = min(acc, Q (x) P) over the SKS k-steps of buffer buf
 template <int B>
-__device__ __forceinline__ void skew_tile(const int4 t, const float* q,
-                                          const float* p, int64_t ldp,
-                                          float* win, int64_t ld, int bt,
-                                          SkewSmem<B>& s) {
-  constexpr int TN = B / 8, H = B / 2, NS = B / SKS, NT = TN * TN;
+__device__ __forceinline__ void engine_slab(float (&acc)[8][8],
+                                            const EngineSmem<B>& s, int buf) {
+  constexpr int TN = B / 8, H = B / 2;
   const int tx = threadIdx.x % TN, ty = threadIdx.x / TN;
-  const float* qt = q + (int64_t)t.x * B * B;
-  const float* pt = p + (int64_t)(t.x + t.y - bt) * B;
-  float* c = win + (int64_t)t.x * B * ld + (int64_t)t.y * B;
+#pragma unroll
+  for (int kk = 0; kk < SKS; ++kk) {
+    const float4 a0 = *reinterpret_cast<const float4*>(&s.a[buf][kk][ty * 4]);
+    const float4 a1 =
+        *reinterpret_cast<const float4*>(&s.a[buf][kk][H + ty * 4]);
+    const float4 b0 = *reinterpret_cast<const float4*>(&s.b[buf][kk][tx * 4]);
+    const float4 b1 =
+        *reinterpret_cast<const float4*>(&s.b[buf][kk][H + tx * 4]);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fminf(acc[i][j], a[i] + b[j]);
+  }
+}
 
+// The thread's 8 x 8 block into the tile at c and, where m is not null, its
+// transpose into the tile at m (both row stride ldc), with float4 stores
+template <int B>
+__device__ __forceinline__ void engine_store(const float (&acc)[8][8],
+                                             float* c, float* m,
+                                             int64_t ldc) {
+  constexpr int TN = B / 8, H = B / 2;
+  const int tx = threadIdx.x % TN, ty = threadIdx.x / TN;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* row = c + (int64_t)((i / 4) * H + ty * 4 + i % 4) * ldc;
+    *reinterpret_cast<float4*>(row + tx * 4) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(row + H + tx * 4) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+  if (m == nullptr) return;
+  // mirror[c][r] = tile[r][c]: column j of the thread's block is a row of
+  // the mirror, and its rows ty*4 .. and H + ty*4 .. are that row's columns
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float* row = m + (int64_t)((j / 4) * H + tx * 4 + j % 4) * ldc;
+    *reinterpret_cast<float4*>(row + ty * 4) =
+        make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+    *reinterpret_cast<float4*>(row + H + ty * 4) =
+        make_float4(acc[4][j], acc[5][j], acc[6][j], acc[7][j]);
+  }
+}
+
+// One tile a CTA, ns slabs deep: FOLD_C, C = min(C, Q (x) P) in place (K =
+// B: the whole-tile forms of the skew and window relax); else C = Q (x) P
+// from +inf, C only written (the product).
+template <int B, bool FOLD_C>
+__device__ __forceinline__ void engine_tile(const EngineTile t, int ns,
+                                            EngineSmem<B>& s) {
+  constexpr int TN = B / 8, H = B / 2;
+  const int tx = threadIdx.x % TN, ty = threadIdx.x / TN;
   if (threadIdx.x == 0) {
     for (int b = 0; b < 2; ++b) {
-      mbar_init(&s.full[b], NT);
-      mbar_init(&s.empty[b], NT);
+      mbar_init(&s.full[b], TN * TN);
+      mbar_init(&s.empty[b], TN * TN);
     }
   }
   __syncthreads();
-  skew_stage<B>(s, 0, qt, pt, ldp, 0);
+  engine_stage<B>(s, 0, t, 0);
   mbar_arrive_copies(&s.full[0]);
 
   // C is folded in a few rows a slab (see above)
-  constexpr int CR = 8 / NS;  // rows of C folded a slab: 1 at B 128, 2 at 64
-  static_assert(CR * NS == 8, "every row of C folded in exactly once");
+  constexpr int CR = FOLD_C ? 8 / (B / SKS) : 1;  // 1 at B 128, 2 at 64
+  static_assert(!FOLD_C || CR * (B / SKS) == 8,
+                "every row of C folded in exactly once");
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -473,72 +568,81 @@ __device__ __forceinline__ void skew_tile(const int4 t, const float* q,
     for (int j = 0; j < 8; ++j) acc[i][j] = __int_as_float(0x7f800000);
 
 #pragma unroll 1
-  for (int st = 0; st < NS; ++st) {
+  for (int st = 0; st < ns; ++st) {
     const int buf = st & 1;
     float4 cv[CR][2];
+    if constexpr (FOLD_C) {
 #pragma unroll
-    for (int h = 0; h < CR; ++h) {
-      const int i = st * CR + h;
-      const float* row = c + (int64_t)((i / 4) * H + ty * 4 + i % 4) * ld;
-      cv[h][0] = *reinterpret_cast<const float4*>(row + tx * 4);
-      cv[h][1] = *reinterpret_cast<const float4*>(row + H + tx * 4);
+      for (int h = 0; h < CR; ++h) {
+        const int i = st * CR + h;
+        const float* row =
+            t.c + (int64_t)((i / 4) * H + ty * 4 + i % 4) * t.ldc;
+        cv[h][0] = *reinterpret_cast<const float4*>(row + tx * 4);
+        cv[h][1] = *reinterpret_cast<const float4*>(row + H + tx * 4);
+      }
     }
-    if (st + 1 < NS) {
+    if (st + 1 < ns) {
       // slab st + 1 goes where slab st - 1 was: wait until every thread
       // is done with that one, then copy
       if (st >= 1) mbar_wait(&s.empty[buf ^ 1], ((st - 1) / 2) & 1);
-      skew_stage<B>(s, buf ^ 1, qt, pt, ldp, (st + 1) * SKS);
+      engine_stage<B>(s, buf ^ 1, t, (st + 1) * SKS);
       mbar_arrive_copies(&s.full[buf ^ 1]);
     }
     mbar_wait(&s.full[buf], (st / 2) & 1);
-#pragma unroll
-    for (int kk = 0; kk < SKS; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&s.a[buf][kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&s.a[buf][kk][H + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&s.b[buf][kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&s.b[buf][kk][H + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fminf(acc[i][j], a[i] + b[j]);
-    }
+    engine_slab<B>(acc, s, buf);
     mbar_arrive(&s.empty[buf]);
+    if constexpr (FOLD_C) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (i / CR != st) continue;  // static indices: acc stays in registers
-      const float4 lo = cv[i % CR][0], hi = cv[i % CR][1];
-      acc[i][0] = fminf(acc[i][0], lo.x), acc[i][1] = fminf(acc[i][1], lo.y);
-      acc[i][2] = fminf(acc[i][2], lo.z), acc[i][3] = fminf(acc[i][3], lo.w);
-      acc[i][4] = fminf(acc[i][4], hi.x), acc[i][5] = fminf(acc[i][5], hi.y);
-      acc[i][6] = fminf(acc[i][6], hi.z), acc[i][7] = fminf(acc[i][7], hi.w);
+      for (int i = 0; i < 8; ++i) {
+        if (i / CR != st) continue;  // static indices: acc stays in registers
+        const float4 lo = cv[i % CR][0], hi = cv[i % CR][1];
+        acc[i][0] = fminf(acc[i][0], lo.x), acc[i][1] = fminf(acc[i][1], lo.y);
+        acc[i][2] = fminf(acc[i][2], lo.z), acc[i][3] = fminf(acc[i][3], lo.w);
+        acc[i][4] = fminf(acc[i][4], hi.x), acc[i][5] = fminf(acc[i][5], hi.y);
+        acc[i][6] = fminf(acc[i][6], hi.z), acc[i][7] = fminf(acc[i][7], hi.w);
+      }
     }
   }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float* row = c + (int64_t)((i / 4) * H + ty * 4 + i % 4) * ld;
-    *reinterpret_cast<float4*>(row + tx * 4) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(row + H + tx * 4) =
-        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-  }
-  if (t.z < 0) return;
-  // mirror[c][r] = tile[r][c]: column j of the thread's block is a row of
-  // the mirror, and its rows ty*4 .. and H + ty*4 .. are that row's columns
-  float* m = win + (int64_t)t.z * B * ld + (int64_t)t.w * B;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    float* row = m + (int64_t)((j / 4) * H + tx * 4 + j % 4) * ld;
-    *reinterpret_cast<float4*>(row + ty * 4) =
-        make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
-    *reinterpret_cast<float4*>(row + H + ty * 4) =
-        make_float4(acc[4][j], acc[5][j], acc[6][j], acc[7][j]);
-  }
+  engine_store<B>(acc, t.c, t.m, t.ldc);
 }
+
+// A listed tile of a window relax, in place on the window at win (row
+// stride ld): list row t = (i, j, mi, mj) is tile (i, j), Q its row tile i
+// of q (contiguous, w x B) and P a column tile of p (B x w, row stride ldp):
+// tile i + j - bt for the skewed band window (bt >= 0), tile j for the
+// plain window (bt < 0); where mi >= 0, its transpose goes into tile (mi,
+// mj).
+template <int B>
+__device__ __forceinline__ EngineTile list_tile(const int4 t, const float* q,
+                                                const float* p, int64_t ldp,
+                                                float* win, int64_t ld,
+                                                int bt) {
+  const int pj = bt < 0 ? t.y : t.x + t.y - bt;
+  return {q + (int64_t)t.x * B * B, B, p + (int64_t)pj * B, ldp,
+          win + (int64_t)t.x * B * ld + (int64_t)t.y * B,
+          t.z < 0 ? nullptr : win + (int64_t)t.z * B * ld + (int64_t)t.w * B,
+          ld};
+}
+
+// ---------------------------------------------------------------------------
+// Phase 3 of the band-storage round (relax_skew_sym, relax_skew), in place on
+// the (w, w) skewed window (w = (2 bt + 1) B for block B, row stride ld).
+// Window tile (o, j) becomes min(C, Q_o (x) P_{o + j - bt}): Q_o is q's tile
+// o (the snapshot of window tile (o, 2 bt - o), the pivot column; q is
+// (w, B) and contiguous), P_t the pivot-row tile t of p (B x w, row stride
+// ldp). The tiles to relax are listed in ``tiles`` as int4 (o, j, mo, mj):
+// the tile and, where mo >= 0, the lower tile (mo, mj) that receives its
+// transpose (the symmetric form's mirror). The wrapper builds the list once
+// per (bt, form), so the grid holds live tiles only: 247 at bt 12
+// symmetric (the upper wedge), 469 non-symmetric. At B = 128 each CTA owns
+// one whole tile on the tile engine when the list holds at least half as
+// many tiles as the card has SMs. A shorter list (small bt: 35 tiles at bt
+// 4) would leave most SMs idle, so it is relaxed in 64x64 sub-tiles, four
+// CTAs a tile, on the minplus_tile body, as B = 64 always is (a whole 64x64
+// tile a CTA of 64 threads measured slower there at bt 3, mixed at bt 12).
+// Only listed tiles are read, no listed tile is a mirror, and q and p lie
+// apart from the window, so no CTA reads what another writes; every other
+// tile keeps its value.
 
 // A listed tile as 64x64 sub-tiles, one CTA of TPB threads each on the
 // minplus_tile body, grid (tiles, (B / 64)^2): the form for a short list
@@ -574,8 +678,9 @@ __global__ void __launch_bounds__(WHOLE ? (B / 8) * (B / 8) : TPB, 2)
 relax_skew_sym_kernel(const int4* tiles, const float* q, const float* p,
                       int64_t ldp, float* win, int64_t ld, int bt) {
   if constexpr (WHOLE) {
-    __shared__ __align__(16) SkewSmem<B> s;
-    skew_tile<B>(tiles[blockIdx.x], q, p, ldp, win, ld, bt, s);
+    __shared__ __align__(16) EngineSmem<B> s;
+    engine_tile<B, true>(
+        list_tile<B>(tiles[blockIdx.x], q, p, ldp, win, ld, bt), B / SKS, s);
   } else {
     skew_subtile<B>(tiles[blockIdx.x], q, p, ldp, win, ld, bt);
   }
@@ -586,8 +691,9 @@ __global__ void __launch_bounds__(WHOLE ? (B / 8) * (B / 8) : TPB, 2)
 relax_skew_kernel(const int4* tiles, const float* q, const float* p,
                   int64_t ldp, float* win, int64_t ld, int bt) {
   if constexpr (WHOLE) {
-    __shared__ __align__(16) SkewSmem<B> s;
-    skew_tile<B>(tiles[blockIdx.x], q, p, ldp, win, ld, bt, s);
+    __shared__ __align__(16) EngineSmem<B> s;
+    engine_tile<B, true>(
+        list_tile<B>(tiles[blockIdx.x], q, p, ldp, win, ld, bt), B / SKS, s);
   } else {
     skew_subtile<B>(tiles[blockIdx.x], q, p, ldp, win, ld, bt);
   }
@@ -625,6 +731,103 @@ int launch_skew(SkewKernel whole128, SkewKernel sub128, SkewKernel sub64,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Phase 3 of the symmetric window round (relax_window_sym), in place on the
+// (w, w) window at win (row stride ld): each listed upper tile (i, j) of
+// ``tiles`` (int4 (i, j, mi, mj), as the skew lists: 0 <= j - i <=
+// band_tiles, and (mi, mj) = (j, i) off the diagonal) becomes min(C, Q_i (x)
+// P_j), Q_i the row tile i of q (w x block, contiguous) and P_j the column
+// tile j of p (block x w, contiguous), and its transpose goes into tile
+// (j, i). The wrapper builds the list once per (w / block, band_tiles), so
+// no CTA starts for a tile outside the band. Only listed tiles are read, no
+// listed tile is a mirror, and q and p lie apart from the window, so no CTA
+// reads what another writes; every other tile keeps its value.
+//
+// What bounds it: the FP32 min, one a candidate, as for the engine; the
+// work is block^3 candidates a listed tile (Example_1's window, w 1,024 at
+// band_tiles 6: 35 tiles, 73 M candidates, 4.4 us at 16.7 T/s). Two forms,
+// chosen by the wrapper (apsp_cuda.window_sym_whole) from the list's length:
+//   - whole tiles on the tile engine, one CTA a tile (block 128), where
+//     their waves of two CTAs an SM come out at least 90% full: the dense
+//     FW's 528 tiles at 4,096 are two full waves on the H100;
+//   - 32x32 sub-tiles on the panel body otherwise (Example_1's 35 whole
+//     tiles would fill 35 of 132 SMs), one CTA of 128 threads each (560 at
+//     Example_1, about four an SM, all resident at once): float4 operand
+//     loads, 2 x 4 outputs a thread, the k slab copied by cp.async in
+//     32-deep groups, all in flight at once and each relaxed as it lands
+//     (panel_relax_chunked), so the CTAs, which start together, do not all
+//     wait for their whole operands first (faster than one wait for the
+//     slab). The mirror goes from registers, a thread's block as 4 rows of
+//     two floats.
+// Measured on the H100 at 35 to 528 tiles: sub-tiles faster at 35, 150,
+// 297 and 408 tiles, whole tiles at 252 and 528, even at 338; a part-full
+// last wave of whole tiles costs nearly a full one.
+
+// grid (tiles, (block / 32)^2), PTPB threads: sub-tile (si, sj) of listed
+// tile t, its transpose into sub-tile (sj, si) of the mirror.
+__global__ void __launch_bounds__(PTPB)
+relax_window_sym_sub_kernel(const int4* tiles, const float* q, const float* p,
+                            float* win, int64_t ld, int w, int block) {
+  __shared__ __align__(16) PanelSmem s;
+  const int4 t = tiles[blockIdx.x];
+  const int subs = block / PT;
+  const int si = blockIdx.y / subs, sj = blockIdx.y % subs;
+  const int64_t r0 = (int64_t)t.x * block + si * PT;
+  const int64_t c0 = (int64_t)t.y * block + sj * PT;
+  float acc[2][4];
+  panel_load(win + r0 * ld + c0, ld, acc);
+  panel_relax_chunked(q + r0 * block, block, p + c0, w, block, acc, s);
+  panel_store(win + r0 * ld + c0, ld, acc);
+  if (t.z < 0) return;
+  // mirror[c][r] = sub-tile[r][c]: the thread's column 4 tx + j is a row of
+  // the mirror, and its rows ty, ty + 16 are that row's columns
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  float* m = win + ((int64_t)t.z * block + sj * PT) * ld + (int64_t)t.w * block +
+             si * PT;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float* row = m + (int64_t)(4 * tx + j) * ld;
+    row[ty] = acc[0][j];
+    row[ty + 16] = acc[1][j];
+  }
+}
+
+// grid (tiles), 256 threads: one whole 128x128 listed tile a CTA
+__global__ void __launch_bounds__(256, 2)
+relax_window_sym_kernel(const int4* tiles, const float* q, const float* p,
+                        float* win, int64_t ld, int w) {
+  __shared__ __align__(16) EngineSmem<128> s;
+  engine_tile<128, true>(
+      list_tile<128>(tiles[blockIdx.x], q, p, w, win, ld, -1), 128 / SKS,
+      s);
+}
+
+// ---------------------------------------------------------------------------
+// The min-plus product (minplus_product): out = A (x) B, (m, n) = (m, k) (x)
+// (k, n), m and n multiples of 128, k of SKS (the wrapper pads with +inf).
+// One 128x128 output tile a CTA on the tile engine with no C, grid (n / 128,
+// m / 128), two CTAs an SM (at most 128 registers a thread, no spills): the
+// 1,024 tiles of a 4,096^2 product are 3.9 waves of the H100's 264 slots.
+// Measured on the H100 at 4096^3 and not kept: a persistent grid of two
+// CTAs an SM walking the tiles, each staging the next tile's first slab
+// before it stores the current one; one CTA an SM with more registers,
+// persistent or not; the slabs brought in by bulk copies (the TMA unit,
+// cp.async.bulk behind expect_tx mbarriers) issued by one warp, from an A
+// transposed by the wrapper (all three slower); the copy addresses set up
+// once a tile (no faster, with spills). With its copies and waits taken
+// out, the slab loop alone measured only a little faster: the add and min
+// issue, not the pipeline, is most of the gap to the bound.
+__global__ void __launch_bounds__(256, 2)
+minplus_product_kernel(const float* a, int64_t lda, const float* b,
+                       int64_t ldb, float* out, int64_t ldo, int k) {
+  __shared__ __align__(16) EngineSmem<128> s;
+  const int64_t r0 = (int64_t)blockIdx.y * 128, c0 = (int64_t)blockIdx.x * 128;
+  engine_tile<128, false>(
+      EngineTile{a + r0 * lda, lda, b + c0, ldb, out + r0 * ldo + c0, nullptr,
+                 ldo},
+      k / SKS, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -671,23 +874,6 @@ relax_full_kernel(const float* q, int64_t ldq, const float* p, int64_t ldp,
   load_acc(d + row0 * ldd + col0, ldd, acc);
   minplus_tile(q + row0 * ldq, ldq, p + col0, ldp, k, acc, s);
   store_acc(d + row0 * ldd + col0, ldd, acc);
-}
-
-// out = A (x) B into a new (m, n) buffer; grid (n / 64, m / 64), k a
-// multiple of 32. Reads no C: the accumulators start at +inf.
-__global__ void __launch_bounds__(TPB)
-minplus_product_kernel(const float* a, int64_t lda, const float* b,
-                       int64_t ldb, float* out, int64_t ldo, int k) {
-  __shared__ TileSmem s;
-  const int64_t row0 = (int64_t)blockIdx.y * TILE;
-  const int64_t col0 = (int64_t)blockIdx.x * TILE;
-  float acc[MICRO][MICRO];
-#pragma unroll
-  for (int r = 0; r < MICRO; ++r)
-#pragma unroll
-    for (int c = 0; c < MICRO; ++c) acc[r][c] = __int_as_float(0x7f800000);
-  minplus_tile(a + row0 * lda, lda, b + col0, ldb, k, acc, s);
-  store_acc(out + row0 * ldo + col0, ldo, acc);
 }
 
 // In-tile Floyd-Warshall closure of one (B, B) tile, one CTA of B^2 / 32
@@ -805,10 +991,10 @@ close_diag_kernel(const float* tile, int64_t ldt, float* out) {
 
 // C entry points. Each launches on the given stream, allocates nothing and
 // returns cudaGetLastError() (0 = launched). Shapes are checked by the
-// Python wrappers: m, n, w multiples of 64 (of 32 for the panel relax); k
-// multiple of 32 (of 64 for a banded relax_full); block 64 or 128; for the
-// panel and skew relax, 16-byte aligned operands with leading dimensions
-// that are multiples of 4.
+// Python wrappers: m, n, w multiples of 64 (of 32 for the panel relax, of
+// 128 for the product); k multiple of 32 (of 64 for a banded relax_full, of
+// 16 for the product); block 64 or 128; for every kernel but relax_full,
+// 16-byte aligned operands with leading dimensions that are multiples of 4.
 extern "C" {
 
 int safepy_relax_panel(const float* a, int64_t lda, const float* b,
@@ -831,15 +1017,23 @@ int safepy_relax_band_rows(const float* q, int64_t ldq, int64_t q_rs,
   return (int)cudaGetLastError();
 }
 
-int safepy_relax_window_sym(const float* q, const float* p, float* d,
-                            int64_t ld, int64_t lo, int w, int block,
-                            int band_tiles, void* stream) {
-  const int nbw = w / block;
-  const int reach = band_tiles < nbw - 1 ? band_tiles : nbw - 1;
-  const int subs = block / TILE;
-  const dim3 grid(nbw, reach + 1, subs * subs);
-  relax_window_sym_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(
-      q, p, d, ld, lo, w, block);
+// tiles: n_tiles int4 (i, j, mi, mj) on the device; whole: the tile-engine
+// form (block 128), else 32x32 sub-tiles
+int safepy_relax_window_sym(const int* tiles, int n_tiles, const float* q,
+                            const float* p, float* d, int64_t ld, int64_t lo,
+                            int w, int block, int whole, void* stream) {
+  const int4* t = reinterpret_cast<const int4*>(tiles);
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* win = d + lo * ld + lo;
+  if (whole && block == 128) {
+    relax_window_sym_kernel<<<n_tiles, 256, 0, st>>>(t, q, p, win, ld, w);
+  } else if (!whole && (block == 128 || block == 64)) {
+    const int subs = block / PT;
+    relax_window_sym_sub_kernel<<<dim3(n_tiles, subs * subs), PTPB, 0, st>>>(
+        t, q, p, win, ld, w, block);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -881,8 +1075,8 @@ int safepy_relax_full(const float* q, int64_t ldq, const float* p,
 int safepy_minplus_product(const float* a, int64_t lda, const float* b,
                            int64_t ldb, float* out, int64_t ldo, int m, int n,
                            int k, void* stream) {
-  const dim3 grid(n / TILE, m / TILE);
-  minplus_product_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(
+  const dim3 grid(n / 128, m / 128);
+  minplus_product_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
       a, lda, b, ldb, out, ldo, k);
   return (int)cudaGetLastError();
 }

@@ -35,7 +35,8 @@ _SIGNATURES = {
                            _I, _I, _I, _P),
     "safepy_relax_band_rows": (_P, _I64, _I64, _P, _I64, _I64, _P, _I64,
                                _I64, _P, _I64, _I64, _I, _I, _I, _I, _P),
-    "safepy_relax_window_sym": (_P, _P, _P, _I64, _I64, _I, _I, _I, _P),
+    "safepy_relax_window_sym": (_P, _I, _P, _P, _P, _I64, _I64, _I, _I, _I,
+                                _P),
     "safepy_close_diag": (_P, _I64, _P, _I, _P),
     "safepy_relax_skew_sym": (_P, _I, _P, _P, _I64, _P, _I64, _I, _I, _P),
     "safepy_relax_skew": (_P, _I, _P, _P, _I64, _P, _I64, _I, _I, _P),

@@ -257,6 +257,42 @@ def relax_window_sym_plain(q: torch.Tensor, p: torch.Tensor, d: torch.Tensor,
     win.copy_(out)
 
 
+def window_tiles(nbw: int, band_tiles: int) -> torch.Tensor:
+    """(T, 4) int32 CPU tensor of the upper in-band tiles of a window of
+    ``nbw`` block-tiles, the tiles :func:`relax_window_sym`'s kernel relaxes,
+    one row each: (i, j, j, i) for ``0 < j - i <= band_tiles`` (the tile and
+    the lower tile its transpose goes to), (i, i, -1, -1) on the diagonal;
+    the row convention of :func:`skew_tiles`."""
+    rows = [(i, j, j, i) if j > i else (i, i, -1, -1) for i in range(nbw)
+            for j in range(i, min(i + band_tiles, nbw - 1) + 1)]
+    return torch.tensor(rows, dtype=torch.int32).reshape(-1, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_window_tiles(nbw: int, band_tiles: int, device) -> torch.Tensor:
+    """:func:`window_tiles` on ``device``, uploaded once a (nbw, band_tiles,
+    device) and only read by the kernels."""
+    return window_tiles(nbw, band_tiles).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def window_sym_whole(n_tiles: int, block: int, device) -> bool:
+    """Whether :func:`relax_window_sym` relaxes ``n_tiles`` listed tiles as
+    whole tiles on the tile engine rather than as 32x32 sub-tiles on the
+    panel body: at block 128, where the whole tiles' waves of two CTAs an
+    SM come out at least 90% full (the dense FW's 528 tiles at 4,096 on the
+    H100's 132 SMs; a part-full last wave costs nearly a full one, so
+    Example_1's 35 tiles and most band lengths take sub-tiles)."""
+    if block != 128:
+        return False
+    slots = 2 * _sm_count(device)
+    return n_tiles >= 0.9 * slots * -(-n_tiles // slots)
+
+
 def relax_window_sym(q: torch.Tensor, p: torch.Tensor, d: torch.Tensor,
                      lo: int, w: int, band_tiles: int) -> None:
     """Phase 3 of a round, in place on the (w, w) window ``d[lo:lo+w, lo:lo+w]``.
@@ -267,23 +303,38 @@ def relax_window_sym(q: torch.Tensor, p: torch.Tensor, d: torch.Tensor,
     for i < j, its transpose is written into tile (j, i); tiles beyond the
     band keep their values. For the symmetric matrices of undirected graphs
     ``q == p.T`` bitwise, so the mirror equals the relaxation of the lower
-    tile (``apsp_pallas._relax_full_banded_sym``).
+    tile (``apsp_pallas._relax_full_banded_sym``). The kernel runs over the
+    list of :func:`window_tiles`, in the form :func:`window_sym_whole`
+    picks; on CUDA, ``d`` is 16-byte aligned with a row stride and ``lo``
+    that are multiples of 4.
     """
     block = q.shape[1]
     if (tuple(q.shape) != (w, block) or tuple(p.shape) != (block, w)
-            or w % block or lo < 0 or lo + w > min(d.shape)):
+            or w % block or lo < 0 or lo + w > min(d.shape)
+            or band_tiles < 0):
         raise ValueError(f"bad window: q {tuple(q.shape)}, p {tuple(p.shape)}, "
-                         f"d {tuple(d.shape)}, lo={lo}, w={w}")
+                         f"d {tuple(d.shape)}, lo={lo}, w={w}, "
+                         f"band_tiles={band_tiles}")
     if not _use_kernel(q, p, d):
         relax_window_sym_plain(q, p, d, lo, w, band_tiles)
         return
     if block not in (64, 128) or not q.is_contiguous() or not p.is_contiguous():
         raise ValueError("relax_window_sym kernel needs block 64 or 128 and "
                          f"contiguous panels, got block={block}")
+    # the kernels load and store the window 16 bytes at a time
+    if d.data_ptr() % 16 or d.stride(0) % 4 or lo % 4:
+        raise ValueError("relax_window_sym kernel needs a 16-byte aligned d "
+                         f"with row stride and lo % 4 == 0, got stride "
+                         f"{d.stride(0)}, lo={lo} at offset "
+                         f"{d.data_ptr() % 16}")
     from safepy_tpu_torch import native
 
-    native.launch("relax_window_sym", _ptr(q), _ptr(p), _ptr(d), d.stride(0),
-                  lo, w, block, band_tiles, _stream(d))
+    nbw = w // block
+    tiles = _device_window_tiles(nbw, min(band_tiles, nbw - 1), d.device)
+    whole = window_sym_whole(tiles.shape[0], block, d.device)
+    native.launch("relax_window_sym", _ptr(tiles), tiles.shape[0], _ptr(q),
+                  _ptr(p), _ptr(d), d.stride(0), lo, w, block, int(whole),
+                  _stream(d))
     LAUNCHES["relax_window_sym"] += 1
 
 
@@ -539,9 +590,10 @@ def _pad_inf(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 def minplus_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``A (x) B`` into a new (m, n) f32 tensor (``apsp_pallas.min_plus_pallas``
-    :62). a: (m, k), b: (k, n), any shapes: on CUDA the ragged edges are
-    padded with +inf to the kernel's multiples (64 for m and n, 32 for k),
-    which changes no minimum, and the result is sliced back."""
+    :62). a: (m, k), b: (k, n), any shapes and row strides: on CUDA the
+    ragged edges are padded with +inf to the kernel's multiples (128 for m
+    and n, 16 for k), which changes no minimum, b is copied where the
+    kernel's 16-byte loads need it, and the result is sliced back."""
     m, k = a.shape
     if b.shape[0] != k:
         raise ValueError(f"shape mismatch: a {tuple(a.shape)}, "
@@ -551,9 +603,11 @@ def minplus_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     n = b.shape[1]
     if m == 0 or n == 0:
         return torch.empty((m, n), dtype=torch.float32, device=a.device)
-    mp, np_, kp = (-(-x // t) * t for x, t in ((m, 64), (n, 64), (k, 32)))
+    mp, np_, kp = (-(-x // t) * t for x, t in ((m, 128), (n, 128), (k, 16)))
     ap = _pad_inf(a, mp, kp)
     bp = _pad_inf(b, kp, np_)
+    if bp.data_ptr() % 16 or bp.stride(0) % 4:
+        bp = bp.clone(memory_format=torch.contiguous_format)
     from safepy_tpu_torch import native
 
     out = torch.empty((mp, np_), dtype=torch.float32, device=a.device)

@@ -68,9 +68,18 @@ def _initial_distances(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
 
 
 def initial_distances_device(num_nodes: int, edges, weights=None, *,
-                             device="cpu") -> torch.Tensor:
+                             device=None) -> torch.Tensor:
     """Device-resident dense (N, N) initialization from an undirected edge
-    list (``:73``); only the O(E) edge arrays are copied to the device."""
+    list (``:73``); only the O(E) edge arrays are copied to the device.
+
+    device: None means "cuda", as the JAX function builds on the
+    accelerator, and raises where torch sees no card; the caller asks for
+    the host by name with ``device="cpu"``, as ``SAFE(device="cpu")``."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("initial_distances_device(device='cuda') needs a "
+                           "CUDA device and none is available; pass "
+                           "device='cpu' to build it on the host")
     edges = np.asarray(edges).reshape(-1, 2)
     w = (np.ones(len(edges), np.float32) if weights is None
          else np.asarray(weights, np.float32))

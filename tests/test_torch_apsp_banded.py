@@ -143,11 +143,12 @@ def test_initial_distances_match_jax():
     w = np.array([0.5, 0.25, 1.0, 2.0, 0.75, 3.0])
     want = np.asarray(jnb.initial_distances_device(6, edges, w))
     np.testing.assert_array_equal(
-        tnb.initial_distances_device(6, edges, w).numpy(), want)
+        tnb.initial_distances_device(6, edges, w, device="cpu").numpy(), want)
     np.testing.assert_array_equal(tnb.dense_initial_distances(6, edges, w),
                                   jnb.dense_initial_distances(6, edges, w))
     np.testing.assert_array_equal(
-        tnb.initial_distances_device(6, np.zeros((0, 2), int)).numpy(),
+        tnb.initial_distances_device(6, np.zeros((0, 2), int),
+                                     device="cpu").numpy(),
         np.asarray(jnb.initial_distances_device(6, np.zeros((0, 2), int))))
     # built at a padded size directly == padding afterwards
     u, v = (torch.as_tensor(edges[:, i]) for i in (0, 1))

@@ -65,7 +65,7 @@ def test_relax_panel_matches_pallas(form):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("band_tiles", [1, 3])
+@pytest.mark.parametrize("band_tiles", [1, 3, 0, 4])
 def test_relax_window_sym_matches_pallas(band_tiles):
     """The window lies inside a larger matrix at lo = BLOCK; everything
     outside it must stay untouched."""
@@ -87,6 +87,77 @@ def test_relax_window_sym_matches_pallas(band_tiles):
     outside = np.ones_like(d, dtype=bool)
     outside[lo:lo + w, lo:lo + w] = False
     np.testing.assert_array_equal(got[outside], d[outside])
+
+
+def _relax_window_by_tiles(q, p, d, lo, w, tiles):
+    """relax_window_sym as its kernel runs it: each listed tile relaxed on
+    its own (relax_panel_plain) and written back, its transpose into the
+    mirror where the row names one."""
+    block = q.shape[1]
+    win = d[lo:lo + w, lo:lo + w]
+
+    def tile(i, j):
+        return win[i * block:(i + 1) * block, j * block:(j + 1) * block]
+
+    relaxed = [K.relax_panel_plain(tile(i, j), q[i * block:(i + 1) * block],
+                                   p[:, j * block:(j + 1) * block])
+               for i, j, _, _ in tiles.tolist()]
+    for (i, j, mi, mj), r in zip(tiles.tolist(), relaxed):
+        tile(i, j).copy_(r)
+        if mi >= 0:
+            tile(mi, mj).copy_(r.T)
+
+
+@pytest.mark.parametrize("nbw,band_tiles", [(5, 0), (5, 1), (5, 2), (5, 4),
+                                            (6, 9)])
+def test_window_tile_list_gives_the_plain_version(nbw, band_tiles):
+    """The window relax's tile list, applied tile by tile, is bitwise
+    relax_window_sym_plain (its ``upper`` and ``lower`` masks), the window
+    at lo = BLOCK inside a larger matrix."""
+    rng = np.random.default_rng(nbw * 10 + band_tiles)
+    w, lo = nbw * BLOCK, BLOCK
+    d = _inf_laced(rng, (w + 2 * BLOCK, w + 2 * BLOCK))
+    d = np.minimum(d, d.T)
+    q, p = _t(_inf_laced(rng, (w, BLOCK))), _t(_inf_laced(rng, (BLOCK, w)))
+    got, want = _t(d.copy()), _t(d.copy())
+    _relax_window_by_tiles(q, p, got, lo, w,
+                           K.window_tiles(nbw, min(band_tiles, nbw - 1)))
+    K.relax_window_sym_plain(q, p, want, lo, w, band_tiles)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert not np.array_equal(got.numpy(), d)
+
+
+@pytest.mark.parametrize("nbw,band_tiles,count", [
+    (8, 6, 35), (32, 31, 528), (1, 0, 1), (5, 0, 5), (9, 2, 24)])
+def test_window_tile_list_is_upper_in_band_tiles_only(nbw, band_tiles,
+                                                      count):
+    """One row a live tile: exactly the upper tiles with 0 <= j - i <=
+    band_tiles, each off the diagonal mirrored into (j, i), no mirror among
+    the listed tiles (the in-place safety argument); 35 tiles at Example_1's
+    window (w 1,024, band_tiles 6) and 528 at the dense 4,096."""
+    tiles = K.window_tiles(nbw, band_tiles)
+    assert tiles.dtype == torch.int32 and tiles.shape == (count, 4)
+    listed = [tuple(t) for t in tiles[:, :2].tolist()]
+    assert sorted(listed) == [(i, j) for i in range(nbw) for j in range(nbw)
+                              if 0 <= j - i <= band_tiles]
+    for i, j, mi, mj in tiles.tolist():
+        assert (mi, mj) == ((j, i) if j > i else (-1, -1))
+    mirrors = {tuple(m) for m in tiles[:, 2:].tolist() if m[0] >= 0}
+    assert len(mirrors) == count - nbw and not mirrors & set(listed)
+
+
+def test_window_sym_form_follows_the_list_length(monkeypatch):
+    """Whole tiles on the tile engine at block 128 where their waves of two
+    CTAs an SM (264 slots on the H100's 132) come out at least 90% full,
+    else 32x32 sub-tiles; block 64 always sub-tiles."""
+    monkeypatch.setattr(K, "_sm_count", lambda device: 132)
+    dev = torch.device("cuda")
+    whole = [n for n in range(1, 1000) if K.window_sym_whole(n, 128, dev)]
+    assert whole == [*range(238, 265), *range(476, 529), *range(713, 793),
+                     *range(951, 1000)]
+    assert not K.window_sym_whole(35, 128, dev)   # Example_1's window
+    assert K.window_sym_whole(528, 128, dev)      # the dense 4,096
+    assert not K.window_sym_whole(528, 64, dev)
 
 
 @pytest.mark.parametrize("symmetric", [True, False])

@@ -126,6 +126,68 @@ def test_minplus_product_matches_plain(dev, m, k, n):
     assert K.LAUNCHES["minplus_product"] == 1
 
 
+@pytest.mark.parametrize("m,k,n", [
+    (256, 16, 384),      # one k slab
+    (256, 50, 128),      # k no multiple of the slab
+    (384, 4096, 256),    # the squaring's depth: 256 slabs, parities wrap
+    (200, 64, 300),      # m and n no multiples of the 128 tile
+    (2500, 96, 2000)],   # 320 tiles: more than one wave of 264 CTAs
+    ids=["k-one-slab", "k-ragged", "k-4096", "mn-ragged", "many-tiles"])
+def test_minplus_product_slabs_and_signs_match_plain(dev, m, k, n):
+    """The tile engine's product: negative entries (the op level takes any
+    f32), whole rows of a and columns of b at +inf, b a view whose row
+    stride is no multiple of 4 (the wrapper copies it); bitwise, one
+    launch, the operands untouched."""
+    gen = torch.Generator(device=dev).manual_seed(m + 7 * k + n)
+    a = _inf_laced(gen, dev, m, k) * 4 - 2
+    wide = _inf_laced(gen, dev, k, n + 3) * 4 - 2
+    b = wide[:, 1:n + 1]
+    a[::7] = float("inf")
+    b[:, ::5] = float("inf")
+    a0, b0 = a.clone(), b.clone()
+    K.reset_launches()
+    got = K.minplus_product(a, b)
+    torch.cuda.synchronize()
+    want = K.minplus_product_plain(a, b)
+    assert got.shape == (m, n) and torch.equal(got, want)
+    assert (got < 0).any() and torch.isinf(got).any() and torch.isfinite(
+        got).any()
+    assert torch.equal(a, a0) and torch.equal(b, b0)
+    assert K.LAUNCHES["minplus_product"] == 1 and sum(K.LAUNCHES.values()) == 1
+
+
+@pytest.mark.parametrize("block,w,lo,band_tiles,whole", [
+    (128, 1024, 512, 6, False),   # Example_1's window: 35 tiles, sub-tiles
+    (128, 4096, 0, 32, True),     # the dense FW: 528 tiles, whole tiles
+    (128, 1024, 0, 0, False),     # the diagonal tiles only
+    (64, 448, 64, 3, False),      # block 64: always sub-tiles
+    (128, 2048, 256, 15, False),  # 136 tiles: a part-full wave, sub-tiles
+    (128, 4096, 128, 8, True)],   # 252 tiles: a 95% full wave, whole tiles
+    ids=["example1", "dense", "bt0", "block64", "long-sub", "window-whole"])
+def test_relax_window_sym_forms_match_plain(dev, block, w, lo, band_tiles,
+                                            whole):
+    """Both list forms of relax_window_sym on a symmetric +inf-laced matrix,
+    the window at lo inside it; bitwise, one launch, everything outside the
+    window untouched."""
+    gen = torch.Generator(device=dev).manual_seed(block + w + band_tiles)
+    n = lo + w + block
+    d = _inf_laced(gen, dev, n, n)
+    d = torch.minimum(d, d.T).contiguous()
+    q, p = _inf_laced(gen, dev, w, block), _inf_laced(gen, dev, block, w)
+    tiles = K.window_tiles(w // block, min(band_tiles, w // block - 1))
+    assert K.window_sym_whole(len(tiles), block, d.device) == whole
+    got, want = d.clone(), d.clone()
+    K.reset_launches()
+    K.relax_window_sym(q, p, got, lo, w, band_tiles)
+    torch.cuda.synchronize()
+    K.relax_window_sym_plain(q, p, want, lo, w, band_tiles)
+    assert torch.equal(got, want) and not torch.equal(got, d)
+    outside = torch.ones_like(d, dtype=torch.bool)
+    outside[lo:lo + w, lo:lo + w] = False
+    assert torch.equal(got[outside], d[outside])
+    assert K.LAUNCHES["relax_window_sym"] == 1 and sum(K.LAUNCHES.values()) == 1
+
+
 def test_op_level_apsp_on_the_card(dev):
     """The op-level entry points on a directed matrix: the classic FW, the
     squaring and the banded classic FW against the plain versions on the
@@ -409,3 +471,13 @@ def test_wrappers_refuse_rather_than_fall_back(dev):
         K.relax_skew(torch.zeros((96, 96), device=dev),
                      torch.zeros((96, 32), device=dev),
                      torch.zeros((32, 96), device=dev), 1)
+    # the window relax: a window origin or a row stride that is no
+    # multiple of 4
+    q, p = torch.zeros((256, 128), device=dev), torch.zeros((128, 256),
+                                                            device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.relax_window_sym(q, p, torch.zeros((384, 384), device=dev), 2,
+                           256, 1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.relax_window_sym(q, p, torch.zeros((384, 390), device=dev)[:, :384],
+                           0, 256, 1)

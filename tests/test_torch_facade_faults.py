@@ -9,7 +9,9 @@ Each test pins one repaired fault of the port against the JAX package:
     (``safe.py:1102-1105``), not of the f64 host values;
   * ``run_pipeline`` takes ``neighborhood_radius_type`` (``safe.py:1646``);
   * ``parallel.make_mesh`` runs on the card unless the caller asks for the
-    CPU, as ``SAFE`` does.
+    CPU, as ``SAFE`` does;
+  * so does ``ops.neighborhoods.initial_distances_device``, which JAX builds
+    on the accelerator.
 
 Tolerances as in tests/test_torch_band_pipeline.py: neighborhoods identical,
 distances within 1e-6 relative (the inf pattern equal).
@@ -205,3 +207,26 @@ def test_make_mesh_runs_on_the_card_unless_asked_for_the_cpu():
     # asking for the CPU goes on to the process-group check
     with pytest.raises(RuntimeError, match="init_process_group"):
         make_mesh({"data": 1}, device_type="cpu")
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_initial_distances_device_runs_on_the_card_unless_asked_for_the_cpu(
+        weighted):
+    """Without device, the dense FW initialization is built on the card, as
+    JAX builds it on the accelerator (``ops/neighborhoods.py:73``); with no
+    card it raises, naming the CPU option; with device='cpu' it equals
+    JAX's, parallel edges at their minimum and self-loops under the 0
+    diagonal."""
+    from safepy_tpu.ops import neighborhoods as jnb
+    from safepy_tpu_torch.ops import neighborhoods as tnb
+
+    edges = np.array([[0, 1], [1, 0], [1, 2], [3, 3], [4, 0], [2, 1]])
+    w = np.array([0.5, 0.25, 1.0, 2.0, 0.75, 3.0]) if weighted else None
+    if not torch.cuda.is_available():
+        for device in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                tnb.initial_distances_device(6, edges, w, device=device)
+    got = tnb.initial_distances_device(6, edges, w, device="cpu")
+    assert got.device.type == "cpu" and got.dtype == torch.float32
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jnb.initial_distances_device(6, edges, w)))

@@ -93,6 +93,28 @@ def test_min_plus_product_matches_pallas(method):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("m,k,n", [(40, 16, 70), (130, 17, 20), (3, 1, 129)],
+                         ids=["k-one-slab", "k-ragged", "k-one"])
+def test_minplus_product_plain_matches_pallas_signs_and_inf_lines(m, k, n):
+    """minplus_product's plain version (what the CUDA kernel is held
+    against) on the kernel's edge cases: a k of one 16-deep slab, a k no
+    multiple of it, negative entries, whole rows of a and columns of b at
+    +inf (their outputs stay +inf)."""
+    rng = np.random.default_rng(m + k + n)
+    a = _inf_laced(rng, (m, k)) * 4 - 2
+    b = _inf_laced(rng, (k, n)) * 4 - 2
+    a[::3] = np.inf
+    b[:, ::4] = np.inf
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jp.min_plus_pallas(a, b, block=64))
+    got = K.minplus_product_plain(_t(a), _t(b)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(K.minplus_product(_t(a), _t(b)).numpy(),
+                                  want)
+    assert np.isinf(want[::3]).all() and np.isinf(want[:, ::4]).all()
+    assert (want < 0).any()
+
+
 def test_apsp_squaring_matches_pallas():
     n = 150
     d0 = _directed(n, 0.03, 1)
