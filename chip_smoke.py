@@ -12,7 +12,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    banded-window kernels at the Example_1 shapes (``relax_window_sym``
    also over the dense 4,096 matrix, each case with its tile-list form and
    its bound, and both of its forms timed at list lengths from 35 to 528
-   tiles, ``FORM_CASES``), the skew kernels at the
+   tiles, ``FORM_CASES``; the banded ``relax_full`` kernel and both forms
+   of ``relax_window_sym``'s kernel timed over the banded list at 62 to
+   1,024 tiles, ``FULL_FORM_CASES``), the skew kernels at the
    49,920-node band shape (block 128, bt 12, W 3,200) and at bt 0-2, at
    block 64 (bt 0-3 and 12), and as views into bands wider than W, the
    classic relax over the dense 4,096 matrix and the 1,024 window, one
@@ -591,6 +593,57 @@ def window_sym_forms(device, cases=FORM_CASES):
     return out
 
 
+# (w, band_tiles) of banded relax_full lists (both triangles) from
+# Example_1's 62 tiles through 154, 304 and 518 to every tile of 4096^2
+FULL_FORM_CASES = ((1024, 6), (4096, 2), (3072, 7), (4096, 9), (4096, 31))
+
+
+def full_relax_forms(device, cases=FULL_FORM_CASES):
+    """Phase 3 on the card: three kernels over the banded relax_full's tile
+    list at each length of ``cases`` (block 128, square windows, contiguous
+    operands), each bitwise against the plain version: the banded kernel's
+    two forms (64x64 sub-tiles, whole tiles on the tile engine), and
+    relax_window_sym's 32x32 sub-tiles on the panel body over the same
+    mirror-free list; {tiles: (their device ms in that order, the form the
+    wrapper takes)}."""
+    gen = torch.Generator(device=device).manual_seed(23)
+    b = BLOCK
+    out = {}
+    for w, bt in cases:
+        d = inf_laced(gen, (w, w), device)
+        q, p = inf_laced(gen, (w, b), device), inf_laced(gen, (b, w), device)
+        want = d.clone()
+        K.relax_full_plain(q, p, want, bt)
+        tiles = K._device_full_tiles(w // b, w // b, bt, device)
+        nt = tiles.shape[0]
+        row = []
+        for symbol, launch in (
+                ("relax_full_banded_sub_kernel",
+                 lambda got: native.launch(
+                     "relax_full_banded", K._ptr(tiles), nt, K._ptr(q), b,
+                     K._ptr(p), w, K._ptr(got), w, w, w, b, 0,
+                     K._stream(got))),
+                ("relax_full_banded_whole_kernel",
+                 lambda got: native.launch(
+                     "relax_full_banded", K._ptr(tiles), nt, K._ptr(q), b,
+                     K._ptr(p), w, K._ptr(got), w, w, w, b, 1,
+                     K._stream(got))),
+                ("relax_window_sym_sub_kernel",
+                 lambda got: native.launch(
+                     "relax_window_sym", K._ptr(tiles), nt, K._ptr(q),
+                     K._ptr(p), K._ptr(got), w, 0, w, b, 0,
+                     K._stream(got)))):
+            got = d.clone()
+            launch(got)
+            max_abs_err(got, want)
+            # relaxing again with the same operands is idempotent
+            row.append(device_ms(lambda: launch(got), symbol, calls=20))
+            max_abs_err(got, want)
+        whole = K.full_banded_whole(nt, w, w, b, device)
+        out[nt] = (*row, "whole" if whole else "sub-tile")
+    return out
+
+
 def check_full_kernels(device, window=1024, npad=4096, band_tiles=6):
     """Phase 3, op-level path: relax_full over the dense 4096 matrix (k 128)
     and banded on the 1,024 window (band_tiles 6) inside it, in place; one
@@ -614,16 +667,22 @@ def check_full_kernels(device, window=1024, npad=4096, band_tiles=6):
         ms = time_ms(lambda: K.relax_full(q, p, gw, bt), device)
         plain_ms = time_ms(lambda: K.relax_full_plain(q, p, ww, bt), device,
                            inner=2)
+        # the banded kernel's two forms: relax_full_banded_(sub|whole)_kernel
         dev_ms = device_ms(lambda: K.relax_full(q, p, gw, bt),
-                           "relax_full_kernel")
+                           "relax_full_kernel" if bt is None
+                           else "relax_full_banded")
         errs.append(max_abs_err(got, want))
         nt = w // b
-        tiles = nt * nt if bt is None else sum(
-            abs(i - j) <= bt for i in range(nt) for j in range(nt))
+        tiles = nt * nt if bt is None else len(K.full_tiles(nt, nt, bt))
+        shapes = {"window": [w, w, b], "band_tiles": bt, "tiles": tiles}
+        if bt is not None and device.type == "cuda":
+            shapes["form"] = ("whole" if K.full_banded_whole(tiles, w, w, b,
+                                                             device)
+                              else "sub-tile")
         out[name] = dict(err=max(errs), ms=ms, plain_ms=plain_ms,
                          device_ms=dev_ms,
                          work=relax_work(w, w, b, tiles, tiles),
-                         shapes={"window": [w, w, b], "band_tiles": bt})
+                         shapes=shapes)
     # a ragged product with negative entries (the op level takes any f32),
     # rows of a and columns of b at +inf, b a view of row stride 1,303
     ar = inf_laced(gen, (1000, 777), device) * 4 - 2
@@ -1358,6 +1417,11 @@ def main():
     print(f"window relax forms (block 128): list length -> (whole-tile "
           f"device ms, sub-tile device ms, form taken), each bitwise equal to "
           f"plain: {forms}", flush=True)
+    full_forms = full_relax_forms(device)
+    print(f"full relax forms (block 128, banded relax_full's list): list "
+          f"length -> (64x64 sub-tile, whole-tile, window 32x32 sub-tile "
+          f"device ms, form taken), each bitwise equal to plain: "
+          f"{full_forms}", flush=True)
     # the bounds' candidate rate against the card's measured one;
     # close_diag runs on one SM, so no share of the card's rate fits it
     rate, probe = addmin_rate(device)

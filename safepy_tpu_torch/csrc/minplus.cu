@@ -23,15 +23,17 @@
 //                       panel body where it is short (design at the kernels).
 //   close_diag       <- _close_diag :258, the in-tile closure of the pivot
 //                       tile (a jnp fori_loop in the JAX package, not Pallas).
-//   relax_full       <- _relax_full :144 and _relax_full_banded :161: the
-//                       classic phase 3, D = min(D, Q (x) P) in place over a
-//                       whole (possibly rectangular) matrix or window, each
-//                       64x64 tile by its own block against Q and P, which
-//                       are separate buffers; with a tile band, blocks beyond
-//                       it return at entry and their tiles keep their values.
-//                       Bound by the FP32 add+min instruction rate: each D
-//                       tile is read and written once per 64 x 64 x K
+//   relax_full       <- _relax_full :144: the classic phase 3, D = min(D, Q
+//                       (x) P) in place over a whole (possibly rectangular)
+//                       matrix or window, each 64x64 tile by its own block
+//                       against Q and P, which are separate buffers. Bound
+//                       by the FP32 add+min instruction rate: each D tile
+//                       is read and written once per 64 x 64 x K
 //                       candidates.
+//   relax_full_banded <- _relax_full_banded :161: the same on the tiles
+//                       within a tile band only, over a list of them; the
+//                       tiles beyond keep their values (design at the
+//                       kernel).
 //   minplus_product  <- min_plus_pallas :62 (_minplus_kernel :46): out =
 //                       A (x) B into a new buffer, the accumulators started
 //                       at +inf in registers; the Pallas (i, j, k) grid's
@@ -856,24 +858,224 @@ addmin_probe_kernel(float* out, float step, int iters) {
 // Classic phase 3, in place: D = min(D, Q (x) P) over an (m, n) D with row
 // stride ldd; grid (n / 64, m / 64). Q is (m, k), P is (k, n), both apart
 // from D, so each block reads and writes only its own D tile and in place is
-// safe. With band_tiles >= 0 the band is counted in k-wide block-tiles (the
-// FW block): a block whose tile (row0 / k, col0 / k) lies further than
-// band_tiles from the diagonal returns at once, uniformly, and its tile keeps
-// its value.
+// safe. The banded form has a kernel of its own, below.
 __global__ void __launch_bounds__(TPB)
 relax_full_kernel(const float* q, int64_t ldq, const float* p, int64_t ldp,
-                  float* d, int64_t ldd, int k, int band_tiles) {
+                  float* d, int64_t ldd, int k) {
   __shared__ TileSmem s;
   const int64_t row0 = (int64_t)blockIdx.y * TILE;
   const int64_t col0 = (int64_t)blockIdx.x * TILE;
-  if (band_tiles >= 0) {
-    const int64_t off = row0 / k - col0 / k;
-    if (off > band_tiles || off < -band_tiles) return;
-  }
   float acc[MICRO][MICRO];
   load_acc(d + row0 * ldd + col0, ldd, acc);
   minplus_tile(q + row0 * ldq, ldq, p + col0, ldp, k, acc, s);
   store_acc(d + row0 * ldd + col0, ldd, acc);
+}
+
+// ---------------------------------------------------------------------------
+// The banded classic relax (relax_full with band_tiles), in place on an
+// (m, n) D (row stride ldd): each listed block-tile (i, j) of ``tiles``
+// (int4 (i, j, -1, -1), every tile with |i - j| <= band_tiles, built once
+// per (tile grid, band) by the wrapper, so no CTA starts outside the band)
+// becomes min(D, Q_i (x) P_j), Q (m x block, row stride ldq) and P (block x
+// n, row stride ldp) apart from D. Only listed tiles are read or written.
+//
+// What bounds it: the FP32 min, one a candidate (Example_1's window, w 1,024
+// at band_tiles 6: 62 tiles, 130 M candidates, 7.8 us at 16.7 T/s).
+// relax_full_kernel's body gives each 64x64 tile one CTA of 4 x 4 outputs a
+// thread: 8 scalar shared loads for 16 candidates a k-step (the shared pipe
+// saturates with the adds and mins), and no copy in flight while a CTA
+// computes. Two forms here, chosen by the wrapper
+// (apsp_cuda.full_banded_whole) from the list's length:
+//   - 64x64 sub-tiles (relax_full_banded_sub_kernel), one CTA of two k
+//     groups of 64 threads each (Example_1: 62 tiles, 248 CTAs, all
+//     resident at once):
+//     - a thread holds an 8 x 8 block of the sub-tile (rows ty*4 + {0..3}
+//       and 32 + ty*4 + {0..3}, columns likewise from tx), the tile
+//       engine's ratio: four float4 shared loads for 64 candidates a k-step;
+//     - group g relaxes k-steps g block/2 .. (g + 1) block/2 - 1: it copies
+//       its own Q rows (4 bytes at a time, transposed k-major, rows padded
+//       to 68 floats: 32 banks a warp) and P columns (16 bytes at a time)
+//       by cp.async in 8-deep copy groups, two in flight ahead of the
+//       arithmetic, each relaxed as it lands behind a barrier of the
+//       group's own 64 threads;
+//     - the two partial minima meet in shared memory, where the operands
+//       were; each thread loads its 32 values of C (coalesced 4-byte
+//       loads, so D may have any row stride) while they are written, then
+//       folds and stores (min is exact and order-free: the bits of
+//       min(C, Q (x) P));
+//   - whole 128x128 tiles on the tile engine, one CTA a tile
+//     (relax_full_banded_whole_kernel), where their waves of two CTAs an SM
+//     come out at least 90% full (every tile of a 4,096 window: 1,024).
+// Measured on the H100 over the banded list at 62 to 1,024 tiles
+// (chip_smoke.py's full relax forms line): sub-tiles fastest at 62 and 154
+// tiles, the three forms level at 304, whole tiles fastest at 518 and
+// 1,024; relax_window_sym's 32x32 sub-tiles over the same list never
+// fastest. Not kept: four k groups (as fast at 62 tiles, slower from
+// 154), 8 x 4 outputs a thread in 128-thread groups, copy groups of 4 or
+// 16 k-steps or one for the whole slab, every copy group in flight at once,
+// C loaded before the first wait (spills), a register barrier id (it
+// reserves all 16 barriers), group 0 alone folding group 1's partial
+// (faster from 154 tiles, slower at 62), and one CTA over two sub-tiles
+// side by side that share Q (a little faster at 62, slower from 154). With
+// the copies and the partial minima taken out, the 62-tile launch kept
+// about four fifths of its time: most of the gap to the bound is the add
+// and min issue and the start of a single wave, as for the other bodies.
+
+constexpr int FT = 64;                   // output sub-tile edge
+constexpr int FG = 2;                    // k groups a CTA
+constexpr int FGT = 64;                  // threads a k group, 8 x 8 outputs each
+constexpr int FKC = 64;                  // k-steps a group holds at once
+constexpr int FSK = 8;                   // k-steps a copy group
+constexpr int FCV = FT * FT / (FG * FGT);  // values of C a thread folds
+
+struct FullGroupSmem {
+  float a[FKC][FT + 4];  // Q rows, k-major
+  float b[FKC][FT];      // P columns
+};
+constexpr int FULL_SMEM = FG * (int)sizeof(FullGroupSmem);  // 67,584 bytes
+static_assert(FULL_SMEM >= FG * FT * FT * (int)sizeof(float),
+              "the partial minima fit where the operands were");
+
+// a barrier of k group g's 64 threads only; the barrier ids are
+// immediates, so that the kernel holds three hardware barriers, not all
+// sixteen that a register id reserves
+static_assert(FG == 2, "one barrier id a k group");
+__device__ __forceinline__ void group_sync(int g) {
+  if (g == 0) asm volatile("bar.sync 1, %0;" ::"n"(FGT) : "memory");
+  else asm volatile("bar.sync 2, %0;" ::"n"(FGT) : "memory");
+}
+
+// Copy k-steps k0 .. k0 + FSK - 1 of the group's Q rows (q, row stride ldq)
+// and P columns (p, row stride ldp) into rows c .. c + FSK - 1 of its chunk,
+// asynchronously; lt is the thread's index in the group.
+__device__ __forceinline__ void full_stage(FullGroupSmem& s, int lt,
+                                           const float* q, int64_t ldq,
+                                           const float* p, int64_t ldp,
+                                           int k0, int c) {
+#pragma unroll
+  for (int i = 0; i < FT * FSK / FGT; ++i) {
+    const int e = lt + i * FGT;
+    const int kk = e % FSK, r = e / FSK;  // 8 threads on 8 k of one row
+    cp_async4(&s.a[c + kk][r], q + (int64_t)r * ldq + k0 + kk);
+  }
+#pragma unroll
+  for (int i = 0; i < FSK * (FT / 4) / FGT; ++i) {
+    const int e = lt + i * FGT;
+    const int kk = e / (FT / 4), ch = e % (FT / 4);
+    cp_async16(&s.b[c + kk][4 * ch], p + (int64_t)(k0 + kk) * ldp + 4 * ch);
+  }
+}
+
+// acc = min(acc, Q (x) P) over rows c .. c + FSK - 1 of the group's chunk
+__device__ __forceinline__ void full_steps(float (&acc)[8][8],
+                                           const FullGroupSmem& s, int lt,
+                                           int c) {
+  const int tx = lt % 8, ty = lt / 8;
+#pragma unroll
+  for (int j = 0; j < FSK; ++j) {
+    const int kk = c + j;
+    const float4 a0 = *reinterpret_cast<const float4*>(&s.a[kk][ty * 4]);
+    const float4 a1 = *reinterpret_cast<const float4*>(&s.a[kk][32 + ty * 4]);
+    const float4 b0 = *reinterpret_cast<const float4*>(&s.b[kk][tx * 4]);
+    const float4 b1 = *reinterpret_cast<const float4*>(&s.b[kk][32 + tx * 4]);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) acc[i][jj] = fminf(acc[i][jj], a[i] + b[jj]);
+  }
+}
+
+// grid (tiles, (k / 64)^2), FG * FGT threads, FULL_SMEM bytes of dynamic
+// shared memory: sub-tile (y / subs, y % subs) of listed tile x, k = block
+// (a multiple of 64); sub-tiles past m or n (a ragged last tile) return.
+__global__ void __launch_bounds__(FG * FGT, 2)
+relax_full_banded_sub_kernel(const int4* tiles, const float* q, int64_t ldq,
+                             const float* p, int64_t ldp, float* d,
+                             int64_t ldd, int m, int n, int k) {
+  extern __shared__ __align__(16) unsigned char full_smem[];
+  const int4 t = tiles[blockIdx.x];
+  const int subs = k / FT;
+  const int64_t r0 = (int64_t)t.x * k + (blockIdx.y / subs) * FT;
+  const int64_t c0 = (int64_t)t.y * k + (blockIdx.y % subs) * FT;
+  if (r0 >= m || c0 >= n) return;
+  const int g = threadIdx.x / FGT, lt = threadIdx.x % FGT;
+
+  FullGroupSmem& s = reinterpret_cast<FullGroupSmem*>(full_smem)[g];
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = __int_as_float(0x7f800000);
+  const int kq = k / FG;  // the group's k-steps: g kq .. (g + 1) kq - 1
+  const float* qg = q + r0 * ldq + g * kq;
+  const float* pg = p + (int64_t)g * kq * ldp + c0;
+  for (int k0 = 0; k0 < kq; k0 += FKC) {
+    const int kc = kq - k0 < FKC ? kq - k0 : FKC;  // 32 or 64
+    if (k0 > 0) group_sync(g);  // the group is done with the last chunk
+    // two copy groups in flight ahead of the arithmetic
+    for (int c = 0; c < kc && c < 2 * FSK; c += FSK) {
+      full_stage(s, lt, qg, ldq, pg, ldp, k0 + c, c);
+      cp_async_commit();
+    }
+    for (int c = 0; c < kc; c += FSK) {
+      if (c + 2 * FSK < kc) {
+        full_stage(s, lt, qg, ldq, pg, ldp, k0 + c + 2 * FSK, c + 2 * FSK);
+        cp_async_commit();
+        cp_async_wait_pending(2);
+      } else {
+        cp_async_wait_pending(c + FSK < kc ? 1 : 0);
+      }
+      group_sync(g);
+      full_steps(acc, s, lt, c);
+    }
+  }
+
+  // the partial minima go where the operands were, once every group is
+  // done with its operands
+  __syncthreads();
+  float(*red)[FT][FT] = reinterpret_cast<float(*)[FT][FT]>(full_smem);
+  const int tx = lt % 8, ty = lt / 8;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* row = red[g][(i / 4) * 32 + ty * 4 + i % 4];
+    *reinterpret_cast<float4*>(row + tx * 4) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(row + 32 + tx * 4) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+  // C comes in while the other group writes its partial
+  float* dt = d + r0 * ldd + c0;
+  float cv[FCV];
+#pragma unroll
+  for (int e = 0; e < FCV; ++e) {
+    const int idx = threadIdx.x + e * FG * FGT;
+    cv[e] = dt[(int64_t)(idx / FT) * ldd + idx % FT];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < FCV; ++e) {
+    const int idx = threadIdx.x + e * FG * FGT;
+    const int r = idx / FT, c = idx % FT;
+    float v = cv[e];
+#pragma unroll
+    for (int h = 0; h < FG; ++h) v = fminf(v, red[h][r][c]);
+    dt[(int64_t)r * ldd + c] = v;
+  }
+}
+
+// grid (tiles), 256 threads: one whole 128x128 listed tile a CTA on the tile
+// engine (block 128, m and n multiples of it, q contiguous, d and p 16-byte
+// aligned); q's row stride is the constant 128, which keeps the engine's
+// registers within its two CTAs an SM (a runtime stride spilled)
+__global__ void __launch_bounds__(256, 2)
+relax_full_banded_whole_kernel(const int4* tiles, const float* q,
+                               const float* p, int64_t ldp, float* d,
+                               int64_t ldd) {
+  __shared__ __align__(16) EngineSmem<128> s;
+  engine_tile<128, true>(
+      list_tile<128>(tiles[blockIdx.x], q, p, ldp, d, ldd, -1), 128 / SKS, s);
 }
 
 // In-tile Floyd-Warshall closure of one (B, B) tile, one CTA of B^2 / 32
@@ -994,7 +1196,8 @@ close_diag_kernel(const float* tile, int64_t ldt, float* out) {
 // Python wrappers: m, n, w multiples of 64 (of 32 for the panel relax, of
 // 128 for the product); k multiple of 32 (of 64 for a banded relax_full, of
 // 16 for the product); block 64 or 128; for every kernel but relax_full,
-// 16-byte aligned operands with leading dimensions that are multiples of 4.
+// 16-byte aligned operands with leading dimensions that are multiples of 4
+// (for the banded relax_full, P only).
 extern "C" {
 
 int safepy_relax_panel(const float* a, int64_t lda, const float* b,
@@ -1065,10 +1268,46 @@ int safepy_addmin_probe(float* out, float step, int iters, int blocks,
 
 int safepy_relax_full(const float* q, int64_t ldq, const float* p,
                       int64_t ldp, float* d, int64_t ldd, int m, int n, int k,
-                      int band_tiles, void* stream) {
+                      void* stream) {
   const dim3 grid(n / TILE, m / TILE);
-  relax_full_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(
-      q, ldq, p, ldp, d, ldd, k, band_tiles);
+  relax_full_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(q, ldq, p, ldp, d,
+                                                            ldd, k);
+  return (int)cudaGetLastError();
+}
+
+// tiles: n_tiles int4 (i, j, -1, -1) on the device; whole: the tile-engine
+// form (block 128, m and n multiples of it, q contiguous, d 16-byte aligned
+// with ldd % 4 == 0), else 64x64 sub-tiles (block a multiple of 64)
+int safepy_relax_full_banded(const int* tiles, int n_tiles, const float* q,
+                             int64_t ldq, const float* p, int64_t ldp,
+                             float* d, int64_t ldd, int m, int n, int block,
+                             int whole, void* stream) {
+  const int4* t = reinterpret_cast<const int4*>(tiles);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (whole) {
+    if (block != 128 || ldq != 128 || m % 128 || n % 128)
+      return (int)cudaErrorInvalidValue;
+    relax_full_banded_whole_kernel<<<n_tiles, 256, 0, st>>>(t, q, p, ldp, d,
+                                                            ldd);
+    return (int)cudaGetLastError();
+  }
+  if (block % FT) return (int)cudaErrorInvalidValue;
+  // above 48 KB of shared memory only by this opt-in, once a device
+  static bool opted_in[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        relax_full_banded_sub_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, FULL_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    opted_in[dev] = true;
+  }
+  const int subs = block / FT;
+  relax_full_banded_sub_kernel<<<dim3(n_tiles, subs * subs), FG * FGT,
+                                 FULL_SMEM, st>>>(t, q, ldq, p, ldp, d, ldd,
+                                                  m, n, block);
   return (int)cudaGetLastError();
 }
 

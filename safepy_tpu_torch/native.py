@@ -40,7 +40,9 @@ _SIGNATURES = {
     "safepy_close_diag": (_P, _I64, _P, _I, _P),
     "safepy_relax_skew_sym": (_P, _I, _P, _P, _I64, _P, _I64, _I, _I, _P),
     "safepy_relax_skew": (_P, _I, _P, _P, _I64, _P, _I64, _I, _I, _P),
-    "safepy_relax_full": (_P, _I64, _P, _I64, _P, _I64, _I, _I, _I, _I, _P),
+    "safepy_relax_full": (_P, _I64, _P, _I64, _P, _I64, _I, _I, _I, _P),
+    "safepy_relax_full_banded": (_P, _I, _P, _I64, _P, _I64, _P, _I64, _I,
+                                 _I, _I, _I, _P),
     "safepy_minplus_product": (_P, _I64, _P, _I64, _P, _I64, _I, _I, _I, _P),
     "safepy_addmin_probe": (_P, ctypes.c_float, _I, _I, _P),
 }

@@ -20,6 +20,8 @@ import math
 
 import torch
 
+from safepy_tpu_torch.ops._device import on_device
+
 
 def pad_distances(dist: torch.Tensor, block: int) -> torch.Tensor:
     """Pad an (N, N) distance matrix to a multiple of ``block``
@@ -80,6 +82,7 @@ def min_plus_product(a: torch.Tensor, b: torch.Tensor, *,
     dtype). ``block`` is the JAX tile size, kept for the signature: the CUDA
     kernel pads the ragged edges to its own 64-wide tiles itself.
     """
+    a, b = on_device("min_plus_product", a, b)
     if method in ("auto", "pallas"):
         from safepy_tpu_torch.ops.apsp_cuda import minplus_product
         return minplus_product(a.to(torch.float32), b.to(torch.float32))
@@ -105,6 +108,7 @@ def apsp(dist: torch.Tensor, *, method: str = "auto", block: int = 128,
     Returns (N, N) distances, inf where unreachable: f32, or the input's
     dtype for ``"jax"``.
     """
+    dist, = on_device("apsp", dist)
     n = dist.shape[0]
     if method in ("jax", "torch"):
         return _apsp_torch(dist)

@@ -534,6 +534,36 @@ def relax_full_plain(q: torch.Tensor, p: torch.Tensor, d: torch.Tensor,
     d.copy_(relaxed)
 
 
+def full_tiles(nb_i: int, nb_j: int, band_tiles: int) -> torch.Tensor:
+    """(T, 4) int32 CPU tensor of the block-tiles of an (nb_i, nb_j) tile
+    grid that :func:`relax_full` relaxes with a band, one row each:
+    (i, j, -1, -1) for every tile with ``|i - j| <= band_tiles``, both
+    triangles, no mirror; the row convention of :func:`window_tiles`."""
+    rows = [(i, j, -1, -1) for i in range(nb_i)
+            for j in range(max(0, i - band_tiles), min(nb_j, i + band_tiles + 1))]
+    return torch.tensor(rows, dtype=torch.int32).reshape(-1, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_full_tiles(nb_i: int, nb_j: int, band_tiles: int,
+                       device) -> torch.Tensor:
+    """:func:`full_tiles` on ``device``, uploaded once a (nb_i, nb_j,
+    band_tiles, device) and only read by the kernel."""
+    return full_tiles(nb_i, nb_j, band_tiles).to(device)
+
+
+def full_banded_whole(n_tiles: int, m: int, n: int, block: int,
+                      device) -> bool:
+    """Whether :func:`relax_full` relaxes ``n_tiles`` listed tiles of a
+    band as whole tiles on the tile engine rather than as 64x64 sub-tiles:
+    on whole 128x128 tiles (m and n multiples of the block), where their
+    waves of two CTAs an SM come out at least 90% full, the rule of
+    :func:`window_sym_whole` (measured on the H100: whole tiles fastest at
+    518 and 1,024 listed tiles, sub-tiles at Example_1's 62)."""
+    return (m % block == 0 and n % block == 0
+            and window_sym_whole(n_tiles, block, device))
+
+
 def relax_full(q: torch.Tensor, p: torch.Tensor, d: torch.Tensor,
                band_tiles: int | None = None) -> None:
     """``D = min(D, Q (x) P)``, in place on the (m, n) ``d`` (any row
@@ -542,9 +572,13 @@ def relax_full(q: torch.Tensor, p: torch.Tensor, d: torch.Tensor,
     q: (m, block), p: (block, n), both separate from ``d``: each CUDA block
     reads and writes only its own tile of ``d``. With ``band_tiles``, every
     block-tile (i, j) with ``|i - j| > band_tiles`` keeps its value
-    (``apsp_pallas._relax_full_banded`` :161); without, every tile is
-    relaxed (``_relax_full`` :144). On CUDA, m and n must be multiples of
-    64, block of 32 (of 64 with a band).
+    (``apsp_pallas._relax_full_banded`` :161), and the kernel runs over the
+    list of :func:`full_tiles`, in the form :func:`full_banded_whole`
+    picks; without, every tile is relaxed (``_relax_full`` :144). On CUDA,
+    m and n must be multiples of 64, block of 32 (of 64 with a band, and
+    then p 16-byte aligned with a row stride that is a multiple of 4, as
+    the rounds' new pivot-row panels are; so is d where whole tiles are
+    taken, as the rounds' windows in a block-padded matrix are).
     """
     m, block = q.shape
     if p.shape[0] != block or tuple(d.shape) != (m, p.shape[1]):
@@ -565,11 +599,36 @@ def relax_full(q: torch.Tensor, p: torch.Tensor, d: torch.Tensor,
                          f"block={block}")
     from safepy_tpu_torch import native
 
-    # -1: no band; a band beyond every tile is clamped to fit a C int
-    bt = -1 if band_tiles is None else min(band_tiles, max(m, n) // block)
-    native.launch("relax_full", _ptr(q), q.stride(0), _ptr(p), p.stride(0),
-                  _ptr(d), d.stride(0), m, n, block, bt, _stream(d))
-    LAUNCHES["relax_full" if band_tiles is None else "relax_full_banded"] += 1
+    if band_tiles is None:
+        native.launch("relax_full", _ptr(q), q.stride(0), _ptr(p),
+                      p.stride(0), _ptr(d), d.stride(0), m, n, block,
+                      _stream(d))
+        LAUNCHES["relax_full"] += 1
+        return
+    # the banded kernel copies P 16 bytes at a time
+    if p.data_ptr() % 16 or p.stride(0) % 4:
+        raise ValueError("relax_full banded kernel needs a 16-byte aligned p "
+                         "with a row stride % 4 == 0 (fw_round's pivot-row "
+                         f"panel is a new tensor), got stride {p.stride(0)} "
+                         f"at offset {p.data_ptr() % 16}")
+    nb_i, nb_j = -(-m // block), -(-n // block)
+    tiles = _device_full_tiles(nb_i, nb_j, min(band_tiles, max(nb_i, nb_j)),
+                               d.device)
+    whole = full_banded_whole(tiles.shape[0], m, n, block, d.device)
+    if whole:
+        # the whole-tile form loads and stores D 16 bytes at a time, and
+        # reads q at the constant row stride block
+        if d.data_ptr() % 16 or d.stride(0) % 4:
+            raise ValueError(
+                "relax_full banded kernel's whole-tile form needs a 16-byte "
+                "aligned d with a row stride % 4 == 0 (fw_round's windows at "
+                "lo % block == 0 in a block-padded matrix are), got stride "
+                f"{d.stride(0)} at offset {d.data_ptr() % 16}")
+        q = q.contiguous()
+    native.launch("relax_full_banded", _ptr(tiles), tiles.shape[0], _ptr(q),
+                  q.stride(0), _ptr(p), p.stride(0), _ptr(d), d.stride(0), m,
+                  n, block, int(whole), _stream(d))
+    LAUNCHES["relax_full_banded"] += 1
 
 
 # ----------------------------------------------------------- minplus_product

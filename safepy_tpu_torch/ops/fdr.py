@@ -9,11 +9,14 @@ from __future__ import annotations
 
 import torch
 
+from safepy_tpu_torch.ops._device import on_device
+
 
 def fdr_bh(pvalues) -> torch.Tensor:
     """Benjamini-Hochberg adjusted p-values along the last axis (``:26``), f64
     on the input's device; matches ``statsmodels.stats.multitest
     .fdrcorrection(p)[1]`` on finite input."""
+    pvalues, = on_device("fdr_bh", pvalues)
     p = torch.as_tensor(pvalues, dtype=torch.float64)
     nan_mask = ~torch.isfinite(p)
     big = torch.where(nan_mask, torch.inf, p)  # NaNs sort last, outside m

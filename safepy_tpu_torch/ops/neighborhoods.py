@@ -10,11 +10,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from safepy_tpu_torch.ops._device import on_device
+
 
 def euclidean_distance_matrix(coords: torch.Tensor) -> torch.Tensor:
     """Dense pairwise Euclidean distances of (N, 2) coordinates (``:27``),
     in their dtype, with an exact zero diagonal despite the cancellation of
     ``|x|^2 + |y|^2 - 2 x.y``."""
+    coords, = on_device("euclidean_distance_matrix", coords)
     sq = (coords * coords).sum(dim=1)
     d2 = sq[:, None] + sq[None, :] - 2.0 * coords @ coords.T
     d = torch.sqrt(torch.clamp(d2, min=0.0))
@@ -25,6 +28,7 @@ def euclidean_distance_matrix(coords: torch.Tensor) -> torch.Tensor:
 def neighborhoods_from_distances(dist: torch.Tensor, radius,
                                  *, strict: bool) -> torch.Tensor:
     """f32 indicator: ``dist < r`` (strict) or ``dist <= r`` (``:39``)."""
+    dist, = on_device("neighborhoods_from_distances", dist)
     r = torch.as_tensor(radius, dtype=dist.dtype, device=dist.device)
     ind = (dist < r) if strict else (dist <= r)
     return ind.to(torch.float32)

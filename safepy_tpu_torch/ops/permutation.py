@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from safepy_tpu_torch.ops._device import on_device
 from safepy_tpu_torch.ops.score import (check_fp32_matmul, zscore_shift,
                                         zscore_from_contractions)
 
@@ -150,6 +151,9 @@ def run_permutations(neighborhoods, node2attribute, valid_rows, obs, *,
     scores. Returns int32 (counts_neg, counts_pos); where obs is NaN both
     count zero.
     """
+    neighborhoods, node2attribute, valid_rows, obs = on_device(
+        "run_permutations", neighborhoods, node2attribute, valid_rows, obs,
+        generator=generator)
     nbr_valid, vals, mask = prepare_valid(neighborhoods, node2attribute,
                                           valid_rows)
     V, A = vals.shape

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from safepy_tpu_torch.ops._device import on_device
+
 
 def check_fp32_matmul(precision: str = "highest") -> None:
     """Raise unless f32 matmuls run at full f32 precision."""
@@ -62,6 +64,8 @@ def compute_neighborhood_score(neighborhoods: torch.Tensor,
     neighborhoods: (N, N) 0/1 indicator; node2attribute: (N, A), NaN =
     unannotated; score_type 'sum' or 'z-score'.
     """
+    neighborhoods, node2attribute = on_device(
+        "compute_neighborhood_score", neighborhoods, node2attribute)
     check_fp32_matmul(precision)
     A = neighborhoods.to(torch.float32)
     vals = node2attribute.to(torch.float32)

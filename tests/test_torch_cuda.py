@@ -94,13 +94,27 @@ def test_skew_kernels_match_plain(dev, symmetric, strided, block, bt):
 
 @pytest.mark.parametrize("m,n,block,band_tiles", [
     (768, 768, 128, None), (384, 1152, 128, None), (320, 192, 32, None),
-    (1024, 1024, 128, 2), (448, 448, 64, 3)])
+    (1024, 1024, 128, 2), (448, 448, 64, 3),
+    (1024, 1024, 128, 0), (1024, 1024, 128, 1), (1024, 1024, 128, 6),
+    (384, 640, 128, 1), (640, 384, 64, 2), (320, 448, 128, 1),
+    (4096, 4096, 128, 31)],
+    ids=["768", "rect", "block32", "bt2", "block64", "w1024-bt0",
+         "w1024-bt1", "w1024-bt6", "rect-bt1", "rect-block64-bt2",
+         "ragged-bt1", "all-1024-tiles"])
 def test_relax_full_matches_plain(dev, m, n, block, band_tiles):
-    """In place on a window at (block, block) of a larger matrix, rectangular
-    and banded; everything outside the window stays untouched."""
+    """In place on a window at (block, block) of a larger matrix, whose row
+    stride exceeds n: rectangular, and banded (the list kernel) at bt 0, 1
+    and 6 on Example_1's 1,024 window, at blocks 64 and 128, on windows
+    whose last tiles are cut (m, n no multiples of block) and with every
+    tile of 4096^2 listed; bitwise, one launch, everything outside the
+    window untouched."""
     gen = torch.Generator(device=dev).manual_seed(m + n + block)
     q, p = _inf_laced(gen, dev, m, block), _inf_laced(gen, dev, block, n)
     d = _inf_laced(gen, dev, m + 2 * block, n + 2 * block)
+    if band_tiles is not None:  # Example_1's window: sub-tiles; 1,024: whole
+        nb_i, nb_j = -(-m // block), -(-n // block)
+        tiles = len(K.full_tiles(nb_i, nb_j, band_tiles))
+        assert K.full_banded_whole(tiles, m, n, block, dev) == (tiles == 1024)
     got, want = d.clone(), d.clone()
     K.reset_launches()
     K.relax_full(q, p, got[block:block + m, block:block + n], band_tiles)
@@ -108,6 +122,9 @@ def test_relax_full_matches_plain(dev, m, n, block, band_tiles):
                        band_tiles)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and not torch.equal(got, d)
+    outside = torch.ones_like(d, dtype=torch.bool)
+    outside[block:block + m, block:block + n] = False
+    assert torch.equal(got[outside], d[outside])
     key = "relax_full" if band_tiles is None else "relax_full_banded"
     assert K.LAUNCHES[key] == 1 and sum(K.LAUNCHES.values()) == 1
 
@@ -220,6 +237,53 @@ def test_op_level_apsp_on_the_card(dev):
     got = apsp_banded_fw(pad.to(dev), window=256, symmetric=False)
     assert K.LAUNCHES["relax_full_banded"] == 3
     assert torch.equal(got.cpu(), want)
+
+
+def test_op_level_takes_array_likes_onto_the_card(dev):
+    """Numpy operands at each of the seven op-level entry points compute
+    on the card, as JAX's entry points compute array-likes on the
+    accelerator: a CUDA result equal to the CPU-tensor result of the same
+    numpy (min-plus, indicators, integer-valued scores and counts
+    bitwise; FDR within 1e-12 and distances within 1e-6 relative, summed in
+    another order)."""
+    from safepy_tpu_torch import ops
+
+    rng = np.random.default_rng(8)
+    n = 300
+    d0 = np.full((n, n), np.inf, np.float32)
+    arcs = rng.random((n, n)) < 0.03
+    d0[arcs] = rng.uniform(0.1, 2.0, int(arcs.sum()))
+    np.fill_diagonal(d0, 0.0)
+    coords = rng.uniform(-1, 1, (n, 2))
+    dist = np.hypot(*(coords[:, None] - coords[None]).transpose(2, 0, 1))
+    nbr = (dist <= 0.4).astype(np.float32)
+    vals = rng.integers(-3, 4, (n, 2)).astype(float)
+    vals[rng.random((n, 2)) < 0.3] = np.nan
+    obs = nbr @ np.nan_to_num(vals).astype(np.float32)
+    perm_idx = np.stack([rng.permutation(n) for _ in range(50)])
+    pv = rng.uniform(0, 1, (40, 60)) ** 3
+    pv[rng.random(pv.shape) < 0.15] = np.nan
+    exact = np.testing.assert_array_equal
+    cases = [
+        (ops.apsp, (d0,), exact),
+        (ops.min_plus_product, (d0[:, :200], d0[:200, :250]), exact),
+        (ops.euclidean_distance_matrix, (coords,),
+         lambda g, w: np.testing.assert_allclose(g, w, rtol=1e-6)),
+        (lambda x: ops.neighborhoods_from_distances(x, 0.4, strict=False),
+         (dist,), exact),
+        (ops.compute_neighborhood_score, (nbr, vals), exact),
+        (lambda a, v, o: torch.stack(ops.run_permutations(
+            a, v, None, o, perm_idx=perm_idx, num_permutations=50)),
+         (nbr, vals, obs), exact),
+        (ops.fdr_bh, (pv,),
+         lambda g, w: np.testing.assert_allclose(g, w, rtol=1e-12,
+                                                 atol=1e-12))]
+    for fn, args, compare in cases:
+        got = fn(*args)
+        assert got.device.type == "cuda"
+        want = fn(*(torch.as_tensor(x) for x in args))
+        assert want.device.type == "cpu" and got.dtype == want.dtype
+        compare(got.cpu().numpy(), want.numpy())
 
 
 def _network(n=700, k=8, seed=3):
@@ -452,6 +516,16 @@ def test_wrappers_refuse_rather_than_fall_back(dev):
     with pytest.raises(ValueError, match="% 64 with a band"):
         y = torch.zeros((128, 128), device=dev)
         K.relax_full(y[:, :32], y[:32].clone(), y.clone(), 1)
+    # the banded kernel: a pivot-row panel that is not 16-byte aligned; a
+    # window of whole tiles (1,024 listed) at an odd column
+    with pytest.raises(ValueError, match="16-byte aligned p"):
+        y = torch.zeros((128, 260), device=dev)
+        K.relax_full(torch.zeros((128, 128), device=dev), y[:, 1:129],
+                     torch.zeros((128, 128), device=dev), 0)
+    with pytest.raises(ValueError, match="whole-tile form"):
+        y = torch.zeros((4096, 4097), device=dev)
+        K.relax_full(torch.zeros((4096, 128), device=dev),
+                     torch.zeros((128, 4096), device=dev), y[:, 1:], 31)
     with pytest.raises(TypeError):
         K.minplus_product(x.double(), x.double())
     with pytest.raises(ValueError, match="relax_band_row kernel"):

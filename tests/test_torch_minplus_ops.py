@@ -173,7 +173,8 @@ def test_apsp_defaults_match_jax_on_directed_matrix():
 
 
 @pytest.mark.parametrize("band_tiles,shape", [
-    (None, (4, 4)), (None, (3, 5)), (1, (5, 5)), (2, (6, 6)), (0, (4, 4))])
+    (None, (4, 4)), (None, (3, 5)), (1, (5, 5)), (2, (6, 6)), (0, (4, 4)),
+    (1, (3, 5)), (0, (5, 3))])
 def test_relax_full_matches_pallas(band_tiles, shape):
     """B5 (``_relax_full``, rectangular too) and B6 (``_relax_full_banded``)
     against their plain version, in place on a window of a larger matrix;
@@ -202,6 +203,35 @@ def test_relax_full_matches_pallas(band_tiles, shape):
     outside = np.ones_like(d, dtype=bool)
     outside[block:block + m, block:block + n] = False
     np.testing.assert_array_equal(got[outside], d[outside])
+
+
+@pytest.mark.parametrize("bt", ["0", "1", "nb-1", "nb"])
+@pytest.mark.parametrize("shape", [(4, 4), (3, 5), (5, 3)])
+def test_full_tiles_are_the_tiles_pallas_changes(shape, bt):
+    """The banded relax_full kernel's tile list is the set of tiles that
+    ``_relax_full_banded`` changes: with +inf-free Q and P over an all-+inf
+    D, every in-band tile changes and no other; no tile is listed twice."""
+    block = 32
+    nb = max(shape)
+    band = {"0": 0, "1": 1, "nb-1": nb - 1, "nb": nb}[bt]
+    rng = np.random.default_rng(nb + band)
+    m, n = shape[0] * block, shape[1] * block
+    q = rng.uniform(0, 1, (m, block)).astype(np.float32)
+    p = rng.uniform(0, 1, (block, n)).astype(np.float32)
+    d = np.full((m, n), np.inf, np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        out = np.asarray(jp._relax_full_banded(jnp.asarray(q), jnp.asarray(p),
+                                               jnp.asarray(d), block=block,
+                                               band_tiles=band))
+    tiles = out.reshape(shape[0], block, shape[1], block)
+    changed = {(int(i), int(j)) for i, j in np.argwhere(
+        np.isfinite(tiles).all(axis=(1, 3)))}
+    assert not np.isfinite(tiles).any(axis=(1, 3))[
+        ~np.isfinite(tiles).all(axis=(1, 3))].any()
+    listed = K.full_tiles(*shape, band).tolist()
+    assert len(listed) == len(changed)
+    assert {(i, j) for i, j, _, _ in listed} == changed
+    assert all(mi == mj == -1 for _, _, mi, mj in listed)
 
 
 @pytest.mark.parametrize("block,seed", [(32, 0), (64, 1)])
@@ -260,7 +290,8 @@ def test_fdr_bh_matches_jax():
     assert got.dtype == torch.float64
     np.testing.assert_array_equal(np.isnan(got.numpy()), np.isnan(p))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
-    one = ops.fdr_bh([0.01, 0.04, 0.03, 0.5])  # lists too, last axis
+    one = ops.fdr_bh(torch.tensor([0.01, 0.04, 0.03, 0.5],  # last axis
+                                  dtype=torch.float64))
     np.testing.assert_allclose(one.numpy(), np.asarray(jops.fdr_bh(
         np.array([0.01, 0.04, 0.03, 0.5]))), rtol=1e-12)
 
