@@ -67,8 +67,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    the sharded FW alone; then world 2 over gloo, two processes on the same
    card (``torch.multiprocessing.spawn``), each running the sharded FW and
    the facade run, whose band and indicator must equal world 1's bitwise;
-9. print a JSON line of the kernels (times, bounds, launches), then the
-   card, then the result line.
+10. the binary GO path (run after phase 8, before phase 9's report): two
+    binary matrices of 4,373 terms (seeded, members near random centres,
+    10% unannotated genes) on the Example_1 network through the fused
+    binary ``run_pipeline`` (banded window). Matrix A (term sizes 3-300)
+    must take the f64 tail loop, matrix B (at most 64 sizes of at most
+    120) the class table; B on the loop engine gives the table's indicator
+    and counts and p within 1e-6; 10,000 sampled cells of each within 1e-6
+    of scipy's ``hypergeom.sf``; the stages (``define_neighborhoods``,
+    ``compute_pvalues``) on A give the fused run's neighborhoods and
+    indicator and p within 1e-6; the FDR run on A is
+    ``fdr_bh_logsf_np`` of the unadjusted log-survival within 1 f32 ulp,
+    indicator equal, on sampled rows. Times the warm and steady runs, the
+    census, tail loop, class table and FDR alone, reports the peak device
+    memory and profiles one steady run of each engine;
+9. print a JSON line of the kernels (times, bounds, launches of every
+   path, phase 10's as ``go_binary_loop`` and ``go_binary_table``), then
+   the card, then the result line.
 
 Imports torch, numpy, scipy and the port only; needs one card, nvcc and
 nvidia-smi. Phase 8 starts two processes and joins them.
@@ -92,6 +107,7 @@ import torch.multiprocessing as mp
 from scipy.sparse import coo_matrix
 from scipy.sparse.csgraph import dijkstra, shortest_path
 from scipy.spatial import cKDTree
+from scipy.stats import hypergeom
 from torch.profiler import ProfilerActivity, profile
 
 from safepy_tpu_torch import SAFE, native, ops
@@ -99,6 +115,11 @@ from safepy_tpu_torch import pipeline as pipe
 from safepy_tpu_torch.io.graph_arrays import edge_lengths
 from safepy_tpu_torch.ops import apsp_bandstore as bst
 from safepy_tpu_torch.ops import apsp_cuda as K
+from safepy_tpu_torch.ops.fdr import fdr_bh_logsf, fdr_bh_logsf_np
+from safepy_tpu_torch.ops.hypergeom import (_sf_parts, finalize_logsf_device,
+                                            lgamma_table, tail_iterations)
+from safepy_tpu_torch.ops.hypergeom_table import (build_logsf_table,
+                                                  table_lookup)
 from safepy_tpu_torch.ops.apsp import pad_distances
 from safepy_tpu_torch.ops.apsp_banded import (apsp_banded_fw,
                                               apsp_banded_unpermuted,
@@ -116,6 +137,10 @@ SEED_GRAPH, SEED_ATTR, SEED_NULL = 0, 1, 1885  # bench.py:65,145,152
 BAND_NODES, BAND_KNN, SEED_BAND_ATTR = 49920, 9, 2  # bench.py:326,343-344
 N_PERM = 1000
 N_SOURCES, SEED_SOURCES = 512, 3  # Dijkstra rows checked at band scale
+# phase 10: two GO-like binary matrices of the Costanzo GO biological-process
+# width (4,373 terms) on the Example_1 network, 10% unannotated genes
+GO_ATTRS, GO_NAN_SHARE, GO_SAMPLES = 4373, 0.1, 10000
+SEED_GO_A, SEED_GO_B, SEED_GO_SAMPLES = 21, 22, 23
 BLOCK = 128
 SRC = "safepy_tpu_torch/csrc/minplus.cu"
 
@@ -1359,6 +1384,243 @@ def run_sharded_world2(device, ref, w1, world=2):
                 count_delta=delta)
 
 
+def build_go_matrix(coords, sizes, seed, nan_share=GO_NAN_SHARE):
+    """A binary (N, len(sizes)) GO-like annotation matrix: term j has
+    ``sizes[j]`` members, drawn among the 2 sizes[j] annotated nodes
+    nearest a random centre (members near centres, as
+    examples/example_2_go_annotations.py:17-24 draws them, so that domains
+    of enrichment exist); the rows of unannotated genes are NaN."""
+    rng = np.random.default_rng(seed)
+    n = len(coords)
+    nan_rows = rng.random(n) < nan_share
+    ann = np.flatnonzero(~nan_rows)
+    tree = cKDTree(coords[ann])
+    out = np.zeros((n, len(sizes)))
+    for j, s in enumerate(sizes):
+        _, near = tree.query(rng.uniform(-0.8, 0.8, 2),
+                             k=min(2 * int(s), len(ann)))
+        out[ann[rng.choice(near, int(s), replace=False)], j] = 1.0
+    out[nan_rows] = np.nan
+    return out
+
+
+def go_matrices(coords, attrs=GO_ATTRS):
+    """Phase 10's two matrices. A: term sizes log-uniform on 3-300 (the
+    class table would be 4,096 x 512 x 512 cells, over the 3e8 budget, so
+    'auto' takes the f64 tail loop); B: at most 64 distinct sizes of at most
+    120 (4,096 x 128 x 64 = 33.5 M cells: the class table)."""
+    rng = np.random.default_rng(SEED_GO_A)
+    sizes_a = np.rint(np.exp(rng.uniform(np.log(3), np.log(300), attrs)))
+    rng = np.random.default_rng(SEED_GO_B)
+    sizes_b = rng.choice(np.unique(np.rint(np.geomspace(3, 120, 64))), attrs)
+    return (build_go_matrix(coords, sizes_a, SEED_GO_A),
+            build_go_matrix(coords, sizes_b, SEED_GO_B))
+
+
+def f32_ulps(got, want) -> float:
+    """Largest |got - want| in f32 ulps of ``want`` (equal values,
+    infinities and NaNs included, count 0)."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    same = (got == want) | (np.isnan(got) & np.isnan(want))
+    with np.errstate(invalid="ignore"):
+        diff = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    return float(np.where(same, 0.0, diff / np.spacing(np.abs(want))).max())
+
+
+def sampled_scipy_err(sf, samples=GO_SAMPLES, seed=SEED_GO_SAMPLES):
+    """Largest |p - scipy.stats.hypergeom.sf(k - 1, M, K, n)| over
+    ``samples`` random cells of a binary run, the census (k, n) of each cell
+    summed on the device from the run's own indicator (exact f32
+    integers)."""
+    n2a = sf.node2attribute
+    n, a = n2a.shape
+    rng = np.random.default_rng(seed)
+    rows, cols = rng.integers(0, n, samples), rng.integers(0, a, samples)
+    finite = np.isfinite(n2a)
+    nan0 = np.where(finite, n2a, 0.0)
+    dev = sf.device
+    nbr = sf._neighborhoods_dev[torch.as_tensor(rows, device=dev)]
+    cells = torch.as_tensor(nan0[:, cols].T, dtype=torch.float32, device=dev)
+    k = (nbr * cells).sum(dim=1).cpu().numpy()
+    size = (nbr @ torch.as_tensor(finite.any(axis=1), dtype=torch.float32,
+                                  device=dev)).cpu().numpy()
+    want = hypergeom.sf(k - 1, int(finite.any(axis=1).sum()),
+                        nan0.sum(axis=0)[cols], size)
+    return float(np.abs(sf.pvalues_pos[rows, cols] - want).max())
+
+
+def run_go_path(device, net, steady=3, fdr_rows=512):
+    """Phase 10: the binary GO path at the Example_1 network (banded
+    window): the fused binary ``run_pipeline`` on matrix A (loop engine) and
+    B (class table), B again on the loop engine, the stages on A, FDR on A;
+    the checks of the module doc; walls, parts, peak memory, a profile of
+    one steady run of each engine."""
+    t_phase = time.perf_counter()
+    mat_a, mat_b = go_matrices(net[0])
+    nb = -(-len(net[0]) // BLOCK)
+    out = {}
+
+    def session(vals, **settings):
+        sf = SAFE(device=device, verbose=False)
+        for k, v in settings.items():
+            setattr(sf, k, v)
+        sf.load_network(network_file=net)
+        sf.load_attributes(attribute_file=vals)
+        return sf
+
+    def timed(sf):
+        sync(device)
+        t0 = time.perf_counter()
+        sf.run_pipeline()
+        sync(device)
+        return time.perf_counter() - t0
+
+    def best(fn):
+        times = []
+        for _ in range(steady):
+            sync(device)
+            t0 = time.perf_counter()
+            fn()
+            sync(device)
+            times.append(time.perf_counter() - t0)
+        return min(times)
+
+    def fused(name, vals, engine):
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        sf = session(vals)
+        K.reset_launches()
+        warm = timed(sf)
+        launches = dict(K.LAUNCHES)
+        if sf._hypergeom_engine_used != engine:
+            raise AssertionError(f"matrix {name}: {sf._hypergeom_engine_used}"
+                                 f" taken, {engine} expected")
+        check_launches(device, launches, close_diag=nb, relax_panel=2 * nb,
+                       relax_window_sym=nb)
+        walls = [timed(sf) for _ in range(steady)]
+        peak = (torch.cuda.max_memory_allocated(device) / 1e9
+                if device.type == "cuda" else None)
+        p = sf.pvalues_pos
+        if (p.shape != vals.shape or not np.isfinite(p).all()
+                or sf.nes_binary.shape != vals.shape):
+            raise AssertionError(f"matrix {name}: p-values must be finite, "
+                                 f"of shape {vals.shape}")
+        err = sampled_scipy_err(sf)
+        if err > 1e-6:
+            raise AssertionError(f"matrix {name}: p differs from scipy by "
+                                 f"{err} on sampled cells")
+        out[name] = dict(engine=engine, launches=launches, warm_s=warm,
+                         steady_s=walls, steady_min_s=min(walls),
+                         peak_gb=peak, scipy_err=err,
+                         enriched=int(sf.nes_binary.sum()),
+                         attributes_enriched=int(
+                             (sf.attributes["num_neighborhoods_enriched"] > 0)
+                             .sum()))
+        return sf
+
+    a = fused("A", mat_a, "loop-dense-fused")
+    b = fused("B", mat_b, "table-dense-fused")
+
+    # B on the loop engine: the same indicator and counts as the table's
+    b_loop = session(mat_b, hypergeom_engine="loop")
+    timed(b_loop)
+    if b_loop._hypergeom_engine_used != "loop-dense-fused":
+        raise AssertionError("hypergeom_engine='loop' not taken")
+    if not (np.array_equal(b_loop.nes_binary, b.nes_binary)
+            and np.array_equal(b_loop.attributes["num_neighborhoods_enriched"],
+                               b.attributes["num_neighborhoods_enriched"])):
+        raise AssertionError("matrix B: loop and table indicators differ")
+    out["B_loop_vs_table_p"] = float(np.abs(b_loop.pvalues_pos
+                                            - b.pvalues_pos).max())
+    if out["B_loop_vs_table_p"] > 1e-6:
+        raise AssertionError(f"matrix B: loop and table p-values differ by "
+                             f"{out['B_loop_vs_table_p']}")
+    del b_loop
+
+    # the stages on A: the fused run's neighborhoods and indicator
+    staged = session(mat_a)
+    sync(device)
+    t0 = time.perf_counter()
+    staged.define_neighborhoods()
+    staged.compute_pvalues()
+    sync(device)
+    out["staged_s"] = time.perf_counter() - t0
+    if staged._hypergeom_engine_used != "loop-dense-staged":
+        raise AssertionError(f"staged engine {staged._hypergeom_engine_used}")
+    if not (np.array_equal(staged.neighborhoods, a.neighborhoods)
+            and np.array_equal(staged.nes_binary, a.nes_binary)):
+        raise AssertionError("staged and fused neighborhoods or indicators "
+                             "differ")
+    out["staged_vs_fused_p"] = float(np.abs(staged.pvalues_pos
+                                            - a.pvalues_pos).max())
+    if out["staged_vs_fused_p"] > 1e-6:
+        raise AssertionError(f"staged and fused p-values differ by "
+                             f"{out['staged_vs_fused_p']}")
+    del staged
+
+    # FDR on A: the host log-space BH of the unadjusted log-survival, on
+    # sampled rows (BH adjusts each row alone)
+    fsf = session(mat_a, multiple_testing=True)
+    out["fdr_run_s"] = timed(fsf)
+    rows = torch.as_tensor(np.random.default_rng(SEED_GO_SAMPLES).choice(
+        len(net[0]), fdr_rows, replace=False), device=device)
+    adj, nbin, _ = fdr_bh_logsf_np(a._logsf_dev[rows].cpu().numpy(),
+                                   np.log(0.05))
+    out["fdr_ulps"] = f32_ulps(fsf._logsf_dev[rows].cpu().numpy(), adj)
+    if out["fdr_ulps"] > 1 or not np.array_equal(
+            fsf._nes_binary_dev[rows].cpu().numpy(), nbin):
+        raise AssertionError(f"FDR differs from fdr_bh_logsf_np: "
+                             f"{out['fdr_ulps']} ulps or the indicator")
+    out["fdr_enriched"] = int(fsf.nes_binary.sum())
+    del fsf
+
+    # the parts alone at A's (and B's) own inputs
+    n2a = a._node2attribute_device()
+    finite = torch.isfinite(n2a)
+    nan0 = torch.where(finite, n2a, torch.zeros_like(n2a))
+    nnn = finite.any(dim=1).to(torch.float32)
+    nbr = a._neighborhoods_dev
+    M = int(nnn.sum())
+    # the facade's host passes over the (N, A) f64 matrix each binary run
+    # (M and the term totals, safe.py:1729-1731)
+    out["host_prep_s"] = best(lambda: (
+        np.any(~np.isnan(mat_a), axis=1).sum(),
+        np.nansum(mat_a, axis=0, dtype=np.float64)))
+    out["census_s"] = best(lambda: (nbr @ nnn, nbr @ nan0))
+    counts, nsize = nbr @ nan0, nbr @ nnn
+    shape = counts.shape
+    k_max = int(np.nanmax(np.nansum(mat_a, axis=0)))
+    iters = tail_iterations(M, min(k_max, M))
+    lgt = torch.as_tensor(lgamma_table(M), device=device)
+    out["tail_iterations"] = iters
+    out["tail_s"] = best(lambda: finalize_logsf_device(_sf_parts(
+        counts.double(), M, nan0.sum(dim=0).double()[None].expand(shape),
+        nsize.double()[:, None].expand(shape), lgt, iters), 0.05))
+    kw = b._dense_table_kwargs(np.nansum(mat_b, axis=0), M, 0)
+    r, s_max, c = out["table_spec"] = kw["table_spec"]
+    log_thr = float(np.log(0.05))
+    b_nbr = b._neighborhoods_dev
+    b_n2a = b._node2attribute_device()
+    b_counts = b_nbr @ torch.where(torch.isfinite(b_n2a), b_n2a,
+                                   torch.zeros_like(b_n2a))
+    out["table_build_s"] = best(lambda: build_logsf_table(
+        kw["table_K_dist"], M, log_thr, R=r, S_max=s_max, C=c))
+    table = build_logsf_table(kw["table_K_dist"], M, log_thr, R=r,
+                              S_max=s_max, C=c)
+    out["table_lookup_s"] = best(lambda: table_lookup(
+        table, b_counts, b_nbr @ nnn, kw["table_colc"],
+        float(np.float32(log_thr)), S_max=s_max, R=r, C=c))
+    logsf = a._logsf_dev
+    out["fdr_s"] = best(lambda: fdr_bh_logsf(logsf, log_thr))
+    del counts, nsize, table, b_counts
+    if device.type == "cuda":
+        out["A_profile"] = profile_steady(a)
+        out["B_profile"] = profile_steady(b)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def profile_steady(sf, top=8):
     """Device busy time and idle share of one steady run, and its largest
     kernels, from torch.profiler (CUPTI)."""
@@ -1536,6 +1798,41 @@ def main():
           f"{w2['count_delta']}; phase 8 took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # phase 10: the binary GO path on the Example_1 network, two matrices
+    # of 4,373 terms (run before phase 9's report, which lists its launches)
+    go = run_go_path(device, net)
+    for name in ("A", "B"):
+        m, prof = go[name], go[f"{name}_profile"]
+        print(f"GO binary matrix {name} ({N_NODES} x {GO_ATTRS}): engine "
+              f"{m['engine']}, launches {m['launches']}; warm "
+              f"{m['warm_s']:.4f} s, steady {m['steady_s']} (min "
+              f"{m['steady_min_s']:.4f} s); peak device memory "
+              f"{m['peak_gb']:.3f} GB; {GO_SAMPLES} sampled p within "
+              f"{m['scipy_err']:.3e} of scipy; {m['enriched']} enriched "
+              f"cells, {m['attributes_enriched']} terms enriched somewhere; "
+              f"profile: one steady run, wall {prof['wall_ms']:.3f} ms with "
+              f"the profiler on, device busy {prof['busy_ms']:.3f} ms, idle "
+              f"share {prof['idle_share']:.3f}; largest (name, launches, "
+              f"device ms): {prof['top']}", flush=True)
+    print(f"GO binary checks: matrix B on the loop engine: indicator and "
+          f"counts equal to the table's, p within "
+          f"{go['B_loop_vs_table_p']:.3e}; stages on A (define_neighborhoods "
+          f"+ compute_pvalues) {go['staged_s']:.4f} s: neighborhoods and "
+          f"indicator equal to the fused run's, p within "
+          f"{go['staged_vs_fused_p']:.3e}; FDR run on A {go['fdr_run_s']:.4f}"
+          f" s, within {go['fdr_ulps']:.0f} f32 ulp of fdr_bh_logsf_np on "
+          f"sampled rows, indicator equal, {go['fdr_enriched']} enriched "
+          f"cells", flush=True)
+    print(f"GO binary parts (min of 3): the facade's host passes over the "
+          f"attribute matrix {go['host_prep_s']:.4f} s; census GEMMs "
+          f"{go['census_s']:.4f} s; "
+          f"tail loop + finalization on A {go['tail_s']:.4f} s "
+          f"({go['tail_iterations']} iterations at most); class table on B "
+          f"{go['table_spec']} build {go['table_build_s']:.4f} s, lookup "
+          f"{go['table_lookup_s']:.4f} s; log-space FDR on A "
+          f"{go['fdr_s']:.4f} s; phase 10 took {go['phase_s']:.1f} s",
+          flush=True)
+
     # phase 9: the report; launches from the run of each kernel's path
     replaces = {"relax_panel": "safepy_tpu/ops/apsp_pallas.py:95",
                 "relax_window_sym": "safepy_tpu/ops/apsp_pallas.py:193",
@@ -1561,7 +1858,9 @@ def main():
              "ops_flagship_step": o["step_launches"],
              "sharded_band_world1": w1["launches"],
              **{f"sharded_band_world2_rank{r}": x
-                for r, x in enumerate(w2["run_launches"])}}
+                for r, x in enumerate(w2["run_launches"])},
+             "go_binary_loop": go["A"]["launches"],
+             "go_binary_table": go["B"]["launches"]}
     report = [{"name": name, "route": "cuda", "source": SRC,
                "replaces": replaces[name], "launches": launches[name],
                "launches_by_path": {path: counts[name]

@@ -13,11 +13,14 @@
   * :mod:`.score` -- neighborhood scores (sum, z-score);
   * :mod:`.permutation` -- the permutation null;
   * :mod:`.enrich_band` -- scores and the null over band storage;
-  * :mod:`.fdr` -- Benjamini-Hochberg correction.
+  * :mod:`.hypergeom` -- the hypergeometric survival function (f64 tail
+    loop), host and device finalization;
+  * :mod:`.hypergeom_table` -- the class-table survival engine for binary
+    annotations;
+  * :mod:`.fdr` -- Benjamini-Hochberg correction, linear and in log space.
 
 The package exports the op-level surface of ``safepy_tpu.ops`` (its
-``__init__.py:20-39``) but for the hypergeometric functions, which are not
-ported yet (ROADMAP A5). As there, ``ops.apsp`` is the function; import
+``__init__.py:20-39``). As there, ``ops.apsp`` is the function; import
 the module's other names with ``from safepy_tpu_torch.ops.apsp import ...``.
 Importing these modules builds no kernel.
 """
@@ -29,6 +32,8 @@ from safepy_tpu_torch.ops.neighborhoods import (
 )
 from safepy_tpu_torch.ops.score import compute_neighborhood_score
 from safepy_tpu_torch.ops.permutation import run_permutations
+from safepy_tpu_torch.ops.hypergeom import (hypergeom_neglog10_sf,
+                                            hypergeom_sf)
 from safepy_tpu_torch.ops.fdr import fdr_bh
 
 __all__ = [
@@ -38,5 +43,7 @@ __all__ = [
     "neighborhoods_from_distances",
     "compute_neighborhood_score",
     "run_permutations",
+    "hypergeom_sf",
+    "hypergeom_neglog10_sf",
     "fdr_bh",
 ]

@@ -1,11 +1,13 @@
-"""The quantitative pipeline: graph arrays in, null counts out.
+"""The fused pipelines: graph arrays in, enrichment out.
 
 Port of ``safepy_tpu/pipeline.py``: APSP -> radius threshold -> observed
 scores -> permutation null, over dense or banded-window distances
 (:func:`fused_permutation_pipeline`) or over band storage
-(:func:`fused_permutation_pipeline_band`). The JAX package compiles each into
-one program; here it is eager torch, and the tensors stay on the device of
-the inputs.
+(:func:`fused_permutation_pipeline_band`); APSP -> threshold -> census ->
+hypergeometric survival for binary annotations over dense or banded-window
+distances (:func:`fused_hypergeom_pipeline`). The JAX package compiles each
+into one program; here it is eager torch, and the tensors stay on the device
+of the inputs.
 """
 
 from __future__ import annotations
@@ -13,13 +15,16 @@ from __future__ import annotations
 import torch
 
 from safepy_tpu_torch.ops import apsp_bandstore as bst
+from safepy_tpu_torch.ops import hypergeom as hyper
+from safepy_tpu_torch.ops import hypergeom_table as htab
 from safepy_tpu_torch.ops.apsp_banded import apsp_banded_unpermuted
 from safepy_tpu_torch.ops.apsp_cuda import apsp_blocked_fw
 from safepy_tpu_torch.ops.enrich_band import (band_score, scan_counts_band,
                                               valid_frame_map)
 from safepy_tpu_torch.ops.neighborhoods import threshold_and_stats
 from safepy_tpu_torch.ops.permutation import prepare_valid, scan_counts
-from safepy_tpu_torch.ops.score import compute_neighborhood_score
+from safepy_tpu_torch.ops.score import (check_fp32_matmul,
+                                        compute_neighborhood_score)
 
 
 def _apsp_inline(d0, block, mesh=None, window=None, inv_rank=None,
@@ -62,6 +67,69 @@ def fused_permutation_pipeline(d0, vals, valid_rows, generator, radius, *,
         num_permutations=num_permutations, batch_size=batch_size,
         generator=generator, perm_idx=perm_idx, precision=precision)
     return dist, nbr, obs, counts_neg, counts_pos, mean, std
+
+
+def _hypergeom_tail(nbr, vals, lgt, M: int, enrichment_threshold, *,
+                    iterations: int, table_K_dist=None, table_colc=None,
+                    table_spec=None):
+    """Census GEMMs + survival + device finalization (``pipeline.py:144``,
+    one device; the ``attr`` mesh branch is ROADMAP A10 remainder).
+
+    The census (neighborhood sizes and per-attribute counts) is two f32
+    GEMMs at full f32, so that the counts are exact integers. With
+    ``table_spec = (R, S_max, C)`` and the matching ``table_K_dist`` /
+    ``table_colc`` the survival values come from the class table, else
+    from the per-cell f64 tail loop. Returns (nes f32, log sf f32,
+    indicator int8)."""
+    check_fp32_matmul("highest")
+    finite = torch.isfinite(vals)
+    nan0 = torch.where(finite, vals, torch.zeros_like(vals)).to(torch.float32)
+    nodes_not_nan = finite.any(dim=1).to(torch.float32)
+    nbr = nbr.to(torch.float32)
+    nsize = nbr @ nodes_not_nan
+    counts = nbr @ nan0
+    if table_spec is not None:
+        r, s_max, c = table_spec
+        log_thr64 = torch.log(torch.tensor(float(enrichment_threshold),
+                                           dtype=torch.float64))
+        table = htab.build_logsf_table(table_K_dist, M, float(log_thr64),
+                                       R=r, S_max=s_max, C=c)
+        return htab.table_lookup(table, counts, nsize, table_colc,
+                                 float(log_thr64.to(torch.float32)),
+                                 S_max=s_max, R=r, C=c)
+    K = nan0.sum(dim=0)
+    f64 = torch.float64
+    shape = counts.shape
+    parts = hyper._sf_parts(counts.to(f64), M, K.to(f64)[None, :].expand(shape),
+                            nsize.to(f64)[:, None].expand(shape), lgt,
+                            iterations)
+    return hyper.finalize_logsf_device(parts, enrichment_threshold)
+
+
+def fused_hypergeom_pipeline(d0, vals, lgt, M: int, radius,
+                             enrichment_threshold, *, iterations: int,
+                             strict: bool = False, block: int = 128,
+                             mesh=None, window=None, inv_rank=None,
+                             table_K_dist=None, table_colc=None,
+                             table_spec=None):
+    """APSP + neighborhoods + hypergeometric enrichment (``pipeline.py:203``).
+
+    vals: (N, A) with NaNs; lgt: the f64 lgamma table over [0, M] on the
+    device. Returns (dist, nbr, nes f32, log sf f32, indicator int8,
+    enriched counts int32 (A,), mean size, std size); p-values come from
+    ``exp(float64(log_sf))`` on the host. The enriched counts are reduced on
+    the device.
+    """
+    dist = _apsp_inline(d0, block, mesh, window=window, inv_rank=inv_rank,
+                        radius=radius)
+    nbr, mean, std = threshold_and_stats(dist, radius, strict=strict)
+    nes32, log_sf32, nes_binary = _hypergeom_tail(
+        nbr, vals, lgt, M, enrichment_threshold, iterations=iterations,
+        table_K_dist=table_K_dist, table_colc=table_colc,
+        table_spec=table_spec)
+    enriched_counts = nes_binary.sum(dim=0, dtype=torch.int32)
+    return (dist, nbr, nes32, log_sf32, nes_binary, enriched_counts, mean,
+            std)
 
 
 # ---------------------------------------------------------------------------

@@ -1,29 +1,40 @@
-"""The SAFE facade of the port: the quantitative ``run_pipeline`` path.
+"""The SAFE facade of the port.
 
-Port of the ``safepy_tpu/safe.py`` facade for one workflow: load a network
-and a quantitative attribute matrix, then ``run_pipeline`` computes
-shortest-path neighborhoods, observed neighborhood scores and a two-sided
-permutation null, and sets ``ns``, ``pvalues_neg``, ``pvalues_pos``, ``nes``
-and ``nes_binary`` as the JAX facade does. The neighborhood engine is chosen
-in the JAX facade's order (``safe.py:1702-1712``): band storage
-(O(N W) memory, ``apsp_mode='band'`` or ``'auto'`` at
-``band_storage_min_nodes`` and above when the band beats dense storage),
-then the certified banded window, then the dense Floyd-Warshall.
+Port of the ``safepy_tpu/safe.py`` facade for the enrichment workflows: load
+a network and an attribute matrix, then either ``run_pipeline`` (fused) or
+the stages ``define_neighborhoods`` and ``compute_pvalues`` compute
+neighborhoods and enrichment, and set ``neighborhoods``, ``node_distances``,
+``pvalues_pos``, ``nes`` and ``nes_binary`` (plus ``ns``, ``pvalues_neg`` and
+the counts of the permutation null) as the JAX facade does.
 
-With ``mesh`` set to a DeviceMesh of one ``"data"`` axis
-(``parallel.make_mesh({"data": world})``, one device per rank, every rank
-running the same calls), a run that takes band storage goes through the
-row-sharded band engine (``parallel.band_sharded``, ``safe.py:2073``) and
-every rank gets the same global results.
+- Quantitative attributes take the two-sided permutation null, binary 0/1
+  attributes the one-sided hypergeometric test ('auto'), over dense or
+  banded-window distances; quantitative ones also over band storage.
+- The neighborhood engine is chosen in the JAX facade's order
+  (``safe.py:1702-1712``): band storage (O(N W) memory, ``apsp_mode='band'``
+  or ``'auto'`` at ``band_storage_min_nodes`` and above when the band beats
+  dense storage), then the certified banded window, then the dense
+  Floyd-Warshall. The euclidean metric is the dense distance matrix.
+- ``run_pipeline`` runs the stages for the euclidean metric and for
+  ``background='network'``, as JAX does (``safe.py:1664-1684``).
+- FDR (``multiple_testing``) adjusts log-survival on the device in the fused
+  binary path, linear p-values in the staged one and in the null.
+- With ``mesh`` set to a DeviceMesh of one ``"data"`` axis
+  (``parallel.make_mesh({"data": world})``, one device per rank, every rank
+  running the same calls), a quantitative run that takes band storage goes
+  through the row-sharded band engine (``parallel.band_sharded``,
+  ``safe.py:2073``) and every rank gets the same global results.
 
 Everything else the JAX facade offers raises ``NotImplementedError`` naming
-the ROADMAP item that brings it; nothing quietly takes another path.
+the ROADMAP item that brings it, before anything is computed; nothing
+quietly takes another path.
 
 Differences of idiom: the session has an explicit ``device`` (``"cuda"`` by
 default, ``"cpu"`` for tests); the settings are the JAX facade's defaults
 (``safe.py:80-255``, ``safe_default.ini``) with no INI file; ``load_network``
 also takes the ``(coords, edges, lengths, weights)`` arrays, and networkx
-and pandas are used only when the caller hands in their objects.
+and pandas are used only when the caller hands in their objects; the null
+and ``run_pipeline`` take explicit permutations (``perm_idx``).
 """
 
 from __future__ import annotations
@@ -38,9 +49,20 @@ from safepy_tpu_torch import pipeline as _pipe
 from safepy_tpu_torch.io.graph_arrays import graph_to_arrays
 from safepy_tpu_torch.ops import apsp_banded as _banded
 from safepy_tpu_torch.ops import apsp_bandstore as _bst
+from safepy_tpu_torch.ops import fdr as _fdr
+from safepy_tpu_torch.ops import hypergeom as _hyper
+from safepy_tpu_torch.ops import hypergeom_table as _htab
 from safepy_tpu_torch.ops import neighborhoods as _nbr
 from safepy_tpu_torch.ops.apsp_bandstore import BandedMatrix
-from safepy_tpu_torch.ops.permutation import default_batch_size
+from safepy_tpu_torch.ops.permutation import (default_batch_size,
+                                              run_permutations)
+from safepy_tpu_torch.ops.score import (check_fp32_matmul,
+                                        compute_neighborhood_score)
+
+# the keyword arguments compute_pvalues reads or hands on to its engines
+# (safe.py:1186-1193, 1235-1236, 1587-1589)
+_PVALUE_KWARGS = ("how", "neighborhood_score_type", "multiple_testing",
+                  "background", "num_permutations", "processes", "verbose")
 
 
 def _not_ported(what: str, item: str):
@@ -91,6 +113,11 @@ class SAFE:
         self.multiple_testing = False
         self.neighborhood_score_type = "sum"
         self.enrichment_type = "auto"
+        # hypergeometric survival engine of the fused binary path: 'auto' =
+        # the class table (ops/hypergeom_table.py) for binary annotations
+        # within budget, the per-cell f64 tail loop otherwise; 'table' /
+        # 'loop' force one (safe.py:194-197)
+        self.hypergeom_engine = "auto"
         self.enrichment_threshold = 0.05
         self.random_seed = None
         self.matmul_precision = "highest"
@@ -108,12 +135,15 @@ class SAFE:
         self.attributes = None
         self.node2attribute = None
         self._n2a_dev = None
+        self._num_other_cache = None
 
-        # which APSP engine and window the last run_pipeline took, and the
-        # band relax of a band-storage run ("fw": the only one ported)
+        # which APSP engine and window the last neighborhoods took, the band
+        # relax of a band-storage run ("fw": the only one ported), and which
+        # hypergeometric engine served the last binary enrichment
         self.apsp_engine_used = None
         self.window_used = None
         self._band_relax_used = None
+        self._hypergeom_engine_used = None
         self._neighborhoods_dev = None
         self._neighborhoods_np = None
         self._node_distances_dev = None
@@ -122,15 +152,24 @@ class SAFE:
         self.counts_neg = None
         self.counts_pos = None
         self.pvalues_neg = None
-        self.pvalues_pos = None
-        self.nes = None
-        self.nes_binary = None
+        # the binary results stay on the device (f32 log-survival, f32 NES
+        # or none, int8 indicator) until read: see the lazy views
+        self._pvalues_pos_np = None
+        self._logsf_dev = None
+        self._nes_np = None
+        self._nes_dev = None
+        self._nes_from_logsf = False
+        self._nes_binary_np = None
+        self._nes_binary_dev = None
+        # (indicator, enriched counts) of a device run, for
+        # _update_binary_enrichment
+        self._nes_binary_pending = None
 
     # ---------------------------------------------------------------- config
 
     def _validate(self):
         """The enum and range checks of ``config.validate_config`` that the
-        ported path reads."""
+        ported paths read."""
         if self.background not in ("attribute_file", "network"):
             raise ValueError(f"{self.background} is not a valid setting for "
                              "background. Valid options are: attribute_file, "
@@ -226,6 +265,7 @@ class SAFE:
         self.node2attribute = values
         self.attributes = {"id": np.arange(len(names)), "name": names}
         self._n2a_dev = None
+        self._num_other_cache = None
 
     def _node2attribute_device(self) -> torch.Tensor:
         if self._n2a_dev is None:
@@ -233,9 +273,29 @@ class SAFE:
                 np.asarray(self.node2attribute, np.float32), device=self.device)
         return self._n2a_dev
 
+    def _num_other_values(self) -> int:
+        """Count of finite non-0/1 annotation values (``safe.py:1087``),
+        counted on the f32 values the device gets, as the JAX facade counts
+        on its f32 upload (``:1102-1105``): 1 + 1e-9 rounds to 1 and 1e39
+        overflows to inf. Cached until the attributes change."""
+        if self._num_other_cache is None:
+            with np.errstate(over="ignore"):
+                v = np.asarray(self.node2attribute, np.float32)
+            self._num_other_cache = int(np.count_nonzero(
+                np.isfinite(v) & (v != 0) & (v != 1)))
+        return self._num_other_cache
+
+    def _binary(self) -> bool:
+        """Does this enrichment take the hypergeometric test
+        (``safe.py:1220-1221``)?"""
+        return (self.enrichment_type == "hypergeometric"
+                or (self.enrichment_type == "auto"
+                    and self._num_other_values() == 0))
+
     # --------------------------------------------- lazy views of device results
     # A band-storage run holds BandedMatrix results: their dense views are
     # guarded (BandedMatrix.DENSE_MAX_BYTES); the *_sparse views are O(nnz).
+    # The binary results are downloaded on first read (safe.py:602-664).
 
     @property
     def neighborhoods(self):
@@ -247,6 +307,12 @@ class SAFE:
                 self._neighborhoods_np = (dev.to(torch.int8).cpu().numpy()
                                           .astype(int))
         return self._neighborhoods_np
+
+    @neighborhoods.setter
+    def neighborhoods(self, value):
+        """A caller-set indicator; the enrichment stages upload it."""
+        self._neighborhoods_np = value
+        self._neighborhoods_dev = None
 
     def neighborhoods_sparse(self):
         """scipy CSR of the neighborhood indicator (``safe.py:564``)."""
@@ -267,6 +333,11 @@ class SAFE:
                 self._node_distances_np = dev.cpu().numpy().astype(np.float64)
         return self._node_distances_np
 
+    @node_distances.setter
+    def node_distances(self, value):
+        self._node_distances_np = value
+        self._node_distances_dev = None
+
     def node_distances_sparse(self):
         """scipy CSR of the within-radius distances (``safe.py:588``)."""
         dev = self._node_distances_dev
@@ -275,6 +346,78 @@ class SAFE:
         from scipy.sparse import csr_matrix
         d = np.asarray(self.node_distances)
         return csr_matrix(np.where(np.isfinite(d), d, 0.0))
+
+    @property
+    def nes(self):
+        if self._nes_np is None and self._nes_device() is not None:
+            self._nes_np = self._nes_dev.cpu().numpy().astype(np.float64)
+        return self._nes_np
+
+    @nes.setter
+    def nes(self, value):
+        self._nes_np = value
+        self._nes_dev = None
+        self._nes_from_logsf = False
+
+    def _nes_device(self):
+        """The device NES, derived from the stored log-survival on first use
+        where the run left none (after FDR): ``-logsf / ln 10`` in f64,
+        rounded to f32 (``safe.py:1456``, ``_nes_from_logsf_jit`` :69)."""
+        if (self._nes_dev is None and self._nes_from_logsf
+                and self._logsf_dev is not None):
+            self._nes_dev = (-self._logsf_dev.to(torch.float64)
+                             / np.log(10.0)).to(torch.float32)
+        return self._nes_dev
+
+    @property
+    def pvalues_pos(self):
+        if self._pvalues_pos_np is None and self._logsf_dev is not None:
+            log_sf = self._logsf_dev.cpu().numpy().astype(np.float64)
+            with np.errstate(over="ignore"):
+                self._pvalues_pos_np = np.exp(log_sf)
+        return self._pvalues_pos_np
+
+    @pvalues_pos.setter
+    def pvalues_pos(self, value):
+        self._pvalues_pos_np = value
+        self._logsf_dev = None
+
+    @property
+    def nes_binary(self):
+        if self._nes_binary_np is None and self._nes_binary_dev is not None:
+            self._nes_binary_np = (self._nes_binary_dev.cpu().numpy()
+                                   .astype(float))
+        return self._nes_binary_np
+
+    @nes_binary.setter
+    def nes_binary(self, value):
+        self._nes_binary_np = value
+        self._nes_binary_dev = None
+
+    def _neighborhoods_device(self) -> torch.Tensor:
+        """(N, N) f32 device indicator, uploading a caller-set one
+        (``safe.py:1108``)."""
+        if isinstance(self._neighborhoods_dev, BandedMatrix):
+            raise RuntimeError(
+                "neighborhoods are band-stored (O(N*W)); the dense device "
+                "matrix does not exist at this scale")
+        if self._neighborhoods_dev is None:
+            if self._neighborhoods_np is None:
+                raise RuntimeError("define_neighborhoods has not been run")
+            self._neighborhoods_dev = torch.as_tensor(
+                np.asarray(self._neighborhoods_np, np.float32),
+                device=self.device)
+        return self._neighborhoods_dev
+
+    def _release_device_results(self):
+        """Drop the previous run's device matrices before computing new ones
+        (``safe.py:1392``): a stale band or (N, A) result would otherwise
+        share the device with the new run's until reassigned."""
+        self._neighborhoods_dev = self._node_distances_dev = None
+        self._neighborhoods_np = self._node_distances_np = None
+        self._nes_dev = self._logsf_dev = self._nes_binary_dev = None
+        self._nes_from_logsf = False
+        self._nes_binary_pending = None
 
     # ------------------------------------------------------------ APSP plans
 
@@ -365,6 +508,28 @@ class SAFE:
         self._bandstore_cache[key] = plan
         return plan
 
+    def _euclidean_band_plan(self, coords, num_nodes, nr):
+        """Would the JAX facade take the euclidean metric's band form
+        (``safe.py:734``)? dict(rank, band) or None. The band form itself is
+        not ported (ROADMAP A7 remainder): callers raise on a plan."""
+        forced = self.apsp_mode == "band"
+        if not forced and (self.apsp_mode != "auto"
+                           or num_nodes < int(self.band_storage_min_nodes)):
+            return None
+        key = ("euclid", float(np.float32(nr)), forced)
+        if key in self._bandstore_cache:
+            return self._bandstore_cache[key]
+        plan = None
+        order, band = _banded.banded_order(coords, nr)
+        band = self._bucket_band(band)
+        if forced or (_bst.band_nbytes(num_nodes, band)
+                      <= 0.5 * 4 * num_nodes * num_nodes):
+            rank = np.empty(num_nodes, dtype=np.int64)
+            rank[order] = np.arange(num_nodes)
+            plan = dict(rank=rank, band=int(band))
+        self._bandstore_cache[key] = plan
+        return plan
+
     def _bucket_band(self, band: int, block: int = 128) -> int:
         """``band`` rounded up so that bt = band // block + 1 is a multiple
         of ``band_bt_bucket``: the largest band of that bt (``safe.py:897``).
@@ -393,37 +558,427 @@ class SAFE:
             raise _not_ported("a mesh other than one 'data' axis (the "
                               "'perm' and 'attr' axes, 2-D meshes)",
                               "A10 remainder")
-        if self.multiple_testing:
-            raise _not_ported("FDR (multiple_testing=True)", "A4")
-        if self.background == "network":
-            raise _not_ported("background='network' (stage methods)", "A4")
-        if self.node_distance_metric == "euclidean":
-            raise _not_ported("the euclidean node distance metric, dense or "
-                              "band", "A4 (its band form: A7)")
         if self.band_relax == "bf":
             raise _not_ported("band_relax='bf' (the sparse Bellman-Ford band "
                               "relax, apsp_band_bf)", "A7 remainder")
         if self.band_indicator_bits != "auto" and self.band_indicator_bits:
             raise _not_ported("bit-packed indicator bands "
                               "(band_indicator_bits=True)", "A7 remainder")
-        # counted on the f32 values the device gets, as the JAX facade
-        # counts on its f32 upload (safe.py:1102-1105): 1 + 1e-9 rounds to
-        # 1 and 1e39 overflows to inf
-        with np.errstate(over="ignore"):
-            v = np.asarray(self.node2attribute, np.float32)
-        num_other = int(np.count_nonzero(np.isfinite(v) & (v != 0) & (v != 1)))
-        if (self.enrichment_type == "hypergeometric"
-                or (self.enrichment_type == "auto" and num_other == 0)):
-            raise _not_ported("binary (hypergeometric) enrichment", "A5")
+
+    def _refuse_mesh(self, what: str):
+        if self.mesh is not None:
+            raise _not_ported(f"{what} on a mesh (the sharded dense and "
+                              "hypergeometric engines)", "A10 remainder")
+
+    def _refuse_band_bits(self, num_nodes, band):
+        if self._band_bits_selected(num_nodes, band):
+            raise _not_ported(
+                "bit-packed indicator bands (band_indicator_bits='auto' at "
+                "band_bits_min_bytes and above)", "A7 remainder")
+
+    def _radius(self, coords, lengths, edge_weights):
+        """(radius, edge weights) of the node distance metric: a fraction of
+        the layout's x-extent for 'shortpath_weighted_layout' (over edge
+        lengths) and 'euclidean', absolute for 'shortpath' (over edge
+        weights)."""
+        if self.node_distance_metric == "shortpath":
+            return self.neighborhood_radius, edge_weights
+        x = coords[:, 0]
+        nr = self.neighborhood_radius * (np.max(x) - np.min(x))
+        if self.node_distance_metric == "euclidean":
+            return nr, None
+        if lengths is None:
+            raise ValueError(
+                "shortpath_weighted_layout requires edge 'length' "
+                "attributes (or lengths in the network arrays)")
+        return nr, lengths
+
+    # ---------------------------------------------------------- neighborhoods
+
+    def define_neighborhoods(self, **kwargs):
+        """The neighborhood indicator and distances, left on the device
+        (``safe.py:423``): band storage, the banded window or the dense FW
+        for the shortest-path metrics, the dense distance matrix for the
+        euclidean one."""
+        for k in ("node_distance_metric", "neighborhood_radius_type",
+                  "neighborhood_radius"):
+            if k in kwargs:
+                setattr(self, k, kwargs.pop(k))
+        if kwargs:
+            raise TypeError("unknown define_neighborhoods arguments: "
+                            f"{sorted(kwargs)}")
+        self._validate()
+        if self._num_nodes is None:
+            raise RuntimeError("load_network first")
+        self._refuse_mesh("define_neighborhoods")
+        self._refuse_unported()
+
+        num_nodes = self._num_nodes
+        coords, edges, lengths, edge_weights = self._graph_arrays
+        nr, weights = self._radius(coords, lengths, edge_weights)
+        if self.node_distance_metric == "euclidean":
+            if self._euclidean_band_plan(coords, num_nodes, nr) is not None:
+                raise _not_ported("the euclidean metric's band form "
+                                  "(euclidean_band_neighborhoods)",
+                                  "A7 remainder")
+            dist = _nbr.euclidean_distance_matrix(torch.as_tensor(
+                coords, dtype=torch.float32, device=self.device))
+            nbr, mean, std = _nbr.threshold_and_stats(dist, np.float32(nr),
+                                                      strict=True)
+            self.apsp_engine_used, self.window_used = "euclidean", None
+            return self._store_neighborhoods(nbr, dist, mean, std)
+
+        radius = _nbr.inclusive_radius(nr)
+        bs_plan = self._band_storage_plan(coords, edges, weights, num_nodes,
+                                          nr)
+        if bs_plan is not None:
+            band, rank = bs_plan["band"], bs_plan["rank"]
+            self._refuse_band_bits(num_nodes, band)
+            # drop the previous bands before building new ones
+            self._neighborhoods_dev = self._node_distances_dev = None
+            dist_band, s_ind, mean, std = _pipe.band_neighborhoods(
+                bs_plan["u"], bs_plan["v"], bs_plan["w"], radius, n=num_nodes,
+                band=band, keep_distances=bool(self.keep_node_distances))
+            self._band_relax_used = "fw"
+            self.apsp_engine_used, self.window_used = "band-storage", None
+            return self._store_neighborhoods(
+                BandedMatrix(s_ind, rank, num_nodes, band, fill=0.0),
+                None if dist_band is None
+                else BandedMatrix(dist_band, rank, num_nodes, band,
+                                  fill=np.inf), mean, std)
+        d0, inv_rank, window = self._dense_front(coords, edges, weights,
+                                                 num_nodes, nr)
+        dist = _pipe._apsp_inline(d0, 128, window=window, inv_rank=inv_rank,
+                                  radius=radius)
+        nbr, mean, std = _nbr.threshold_and_stats(dist, radius, strict=False)
+        self._store_neighborhoods(nbr, dist, mean, std)
+
+    def _dense_front(self, coords, edges, weights, num_nodes, nr):
+        """(d0, inv_rank, window) of the banded window when its plan holds,
+        else the cached dense FW initialization (inv_rank, window None), and
+        the engine recorded."""
+        plan = self._banded_plan(coords, edges, weights, num_nodes, nr)
+        if plan is not None:
+            d0, inv_rank, window = plan
+            self.apsp_engine_used, self.window_used = "banded-window", window
+            return d0, inv_rank, window
+        d0 = self._d0_cache.get(self.node_distance_metric)
+        if d0 is None:
+            d0 = _nbr.initial_distances_device(num_nodes, edges, weights,
+                                               device=self.device)
+            self._d0_cache[self.node_distance_metric] = d0
+        self.apsp_engine_used, self.window_used = "dense", None
+        return d0, None, None
+
+    def _store_neighborhoods(self, nbr, dist, mean, std):
+        """The indicator and distances stay where the run left them (dense
+        tensors or bands); the views download them on first read."""
+        self._neighborhoods_dev = nbr
+        self._neighborhoods_np = None
+        self._node_distances_dev = dist
+        self._node_distances_np = None
+        if self.verbose:
+            logging.info("Node distance metric: %s (%s)"
+                         % (self.node_distance_metric, self.apsp_engine_used))
+            logging.info("Neighborhood definition: %.2f x %s"
+                         % (self.neighborhood_radius,
+                            self.neighborhood_radius_type))
+            logging.info("Number of nodes per neighborhood (mean +/- std): "
+                         "%.2f +/- %.2f" % (float(mean), float(std)))
+
+    # -------------------------------------------------------------- p-values
+
+    def compute_pvalues(self, *, perm_idx=None, **kwargs):
+        """Enrichment of the defined neighborhoods (``safe.py:1183``): the
+        hypergeometric test for binary attributes ('auto'), else the
+        permutation null, which takes explicit permutations ``perm_idx``
+        (P, V) as ``run_pipeline`` does.
+
+        ``background='network'`` sets the unannotated values to 0 (on a new
+        array) before the test."""
+        if "how" in kwargs:
+            self.enrichment_type = kwargs["how"]
+        for k in ("neighborhood_score_type", "multiple_testing",
+                  "background"):
+            if k in kwargs:
+                setattr(self, k, kwargs[k])
+        unknown = sorted(set(kwargs) - set(_PVALUE_KWARGS))
+        if unknown:
+            raise TypeError(f"unknown compute_pvalues arguments: {unknown}")
+        self._validate()
+        if self.node2attribute is None:
+            raise RuntimeError("load_attributes first")
+        self._refuse_mesh("compute_pvalues")
+        binary = self._binary()  # NaN -> 0 below does not change it
+        if binary and isinstance(self._neighborhoods_dev, BandedMatrix):
+            raise _not_ported("binary (hypergeometric) enrichment over band "
+                              "storage", "A7 remainder")
+
+        if self.background == "network":
+            logging.info("Setting all null attribute values to 0. Using the "
+                         "network as background for enrichment.")
+            n2a = self.node2attribute
+            self.node2attribute = np.where(np.isnan(n2a), 0.0, n2a)
+            self._n2a_dev = None
+            self._num_other_cache = None
+
+        num_nans = np.sum(np.isnan(self.node2attribute), axis=0)
+        if np.any(num_nans / self.node2attribute.shape[0] > 0.5):
+            logging.warning(
+                "WARNING: more than 50%% of nodes in the network are set to "
+                "NaN and will be ignored for calculating enrichment.\n"
+                "Consider setting sf.background = 'network'.")
+
+        if binary:
+            self.compute_pvalues_by_hypergeom(**kwargs)
+        else:
+            self.compute_pvalues_by_randomization(perm_idx=perm_idx, **kwargs)
+        self._update_binary_enrichment()
+
+    def _log_kwargs(self, kwargs, header):
+        if "verbose" in kwargs:
+            self.verbose = kwargs["verbose"]
+        if kwargs and self.verbose:
+            logging.warning(header)
+            for k in kwargs:
+                logging.warning("\t%s=%s" % (k, str(kwargs[k])))
+
+    def compute_pvalues_by_hypergeom(self, **kwargs):
+        """One-sided hypergeometric enrichment over dense neighborhoods
+        (``safe.py:1228``): the census GEMMs on the device, the tail sum on
+        the device and its finalization on the host, in f64.
+
+        Unlike the fused path, the tail's length is bounded by the largest
+        neighborhood, and FDR adjusts the linear p-values (``fdr_bh``), as
+        in JAX."""
+        self._log_kwargs(kwargs, "Overwriting global settings:")
+        self._validate()
+        self._refuse_mesh("compute_pvalues_by_hypergeom")
+        if isinstance(self._neighborhoods_dev, BandedMatrix):
+            raise _not_ported("binary (hypergeometric) enrichment over band "
+                              "storage", "A7 remainder")
+        if self.verbose:
+            logging.info("Using the hypergeometric test to calculate "
+                         "enrichment...")
+        n2a = self.node2attribute
+        nodes_not_nan = np.any(~np.isnan(n2a), axis=1)
+        n = int(np.sum(nodes_not_nan))
+        N_in_group = np.nansum(n2a, axis=0, dtype=np.float64)  # totals (A,)
+
+        check_fp32_matmul(self.matmul_precision)
+        nbr = self._neighborhoods_device()
+        neighborhood_size = (nbr @ torch.as_tensor(
+            nodes_not_nan, dtype=torch.float32, device=self.device)
+        ).cpu().numpy()
+        n2a_dev = self._node2attribute_device()
+        counts = nbr @ torch.where(torch.isfinite(n2a_dev), n2a_dev,
+                                   torch.zeros_like(n2a_dev))
+
+        k_max = int(max(1, np.nanmax(N_in_group))) if N_in_group.size else 1
+        iters = _hyper.tail_iterations(
+            n, int(min(k_max, max(1, neighborhood_size.max(initial=1)))))
+        self._hypergeom_engine_used = "loop-dense-staged"
+        self.pvalues_pos, nes = _hyper.hypergeom_sf_and_nes(
+            counts, n, N_in_group[None, :], neighborhood_size[:, None],
+            iterations=iters)
+        if self.multiple_testing:
+            if self.verbose:
+                logging.info("Running FDR-adjustment of p-values...")
+            self.pvalues_pos = self._fdr_bh(self.pvalues_pos)
+            with np.errstate(divide="ignore"):
+                self.nes = -np.log10(self.pvalues_pos)
+        else:
+            self.nes = nes
+
+    def _fdr_bh(self, p):
+        """``fdr_bh`` of a host matrix, computed on the session's device."""
+        return _fdr.fdr_bh(torch.as_tensor(p, device=self.device)).cpu().numpy()
+
+    def _dense_table_kwargs(self, K_np, M, num_other,
+                            budget_cells=3 * 10 ** 8):
+        """Arguments routing the dense fused pipeline onto the class table
+        (``safe.py:1303``), or {} for the f64 tail loop: binary annotations
+        and a table within budget whose rows cover every neighborhood size
+        (n <= M)."""
+        if self.hypergeom_engine not in ("auto", "table") or num_other != 0:
+            return {}
+        k_dist, colc = np.unique(np.asarray(K_np, np.float64),
+                                 return_inverse=True)
+        r, s_max = _htab.table_geometry(k_dist, M, M)
+        c = 1
+        while c < max(1, len(k_dist)):
+            c *= 2
+        if s_max * c * r > budget_cells:
+            return {}
+        k_pad = np.zeros(c, np.float64)
+        k_pad[:len(k_dist)] = k_dist
+        return dict(table_K_dist=torch.as_tensor(k_pad, device=self.device),
+                    table_colc=torch.as_tensor(colc.reshape(-1),
+                                               device=self.device),
+                    table_spec=(r, s_max, c))
+
+    def _store_hypergeom_results(self, nes32, log_sf32, nes_binary8, counts):
+        """The fused binary results, left on the device (``safe.py:1408``).
+        With ``multiple_testing`` the log-survival is BH-adjusted on the
+        device in log space (``fdr_bh_logsf``) and replaces the stored one;
+        the NES then derives from it on first read."""
+        if self.multiple_testing:
+            if self.verbose:
+                logging.info("Running FDR-adjustment of p-values...")
+            log_sf32, nes_binary8, counts = _fdr.fdr_bh_logsf(
+                log_sf32, np.log(self.enrichment_threshold),
+                row_chunk=self._fdr_row_chunk(tuple(log_sf32.shape)))
+            nes32 = None
+        self._pvalues_pos_np = None
+        self._nes_np = None
+        self._logsf_dev = log_sf32
+        self._nes_dev = nes32
+        self._nes_from_logsf = nes32 is None
+        self._nes_binary_pending = (nes_binary8, counts)
+
+    @staticmethod
+    def _fdr_row_chunk(shape, budget_bytes=2 * 10 ** 9):
+        """Row chunk keeping one BH pass's f64 sort temporaries (~4 copies
+        of the chunk) under ``budget_bytes`` (``safe.py:1448``); None =
+        unchunked."""
+        n, a = shape
+        if n * a * 8 * 4 <= budget_bytes:
+            return None
+        return max(128, int(budget_bytes // (a * 8 * 4)) // 128 * 128)
+
+    def compute_pvalues_by_randomization(self, *, perm_idx=None, **kwargs):
+        """Two-sided permutation null over the defined neighborhoods
+        (``safe.py:1573``), dense or band-stored. ``perm_idx`` (P, V):
+        explicit permutations of the V annotated rows (original order)
+        instead of the session's generator."""
+        self._log_kwargs(kwargs, "Current settings (possibly overwriting "
+                                 "global ones):")
+        if self.verbose:
+            logging.info("Using randomization to calculate enrichment...")
+        if "num_permutations" in kwargs:
+            self.num_permutations = kwargs["num_permutations"]
+        if "processes" in kwargs and int(kwargs["processes"]) > 1:
+            logging.info("processes=%s requested: the engine batches "
+                         "permutations on the device; ignoring."
+                         % kwargs["processes"])
+        if perm_idx is not None:
+            self.num_permutations = len(perm_idx)
+        self._validate()
+        self._refuse_mesh("compute_pvalues_by_randomization")
+
+        if isinstance(self._neighborhoods_dev, BandedMatrix):
+            return self._randomization_bandstore(self._neighborhoods_dev,
+                                                 perm_idx)
+        n2a = self.node2attribute
+        n2a_dev = self._node2attribute_device()
+        nbr_dev = self._neighborhoods_device()
+        obs_dev = compute_neighborhood_score(
+            nbr_dev, n2a_dev, self.neighborhood_score_type,
+            self.matmul_precision)
+        valid_rows = np.flatnonzero(np.sum(~np.isnan(n2a), axis=1))
+        valid_dev = (None if len(valid_rows) == n2a.shape[0]
+                     else torch.as_tensor(valid_rows, device=self.device))
+        counts_neg, counts_pos = run_permutations(
+            nbr_dev, n2a_dev, valid_dev, obs_dev,
+            generator=self._generator(perm_idx), perm_idx=perm_idx,
+            score_type=self.neighborhood_score_type,
+            num_permutations=int(self.num_permutations),
+            precision=self.matmul_precision)
+        self._store_null(obs_dev, counts_neg, counts_pos)
+
+    def _randomization_bandstore(self, bm, perm_idx):
+        """The permutation null over band-stored neighborhoods
+        (``safe.py:1467``): banded scores, valid-column compaction, banded
+        count scan, rows un-permuted on the device."""
+        n2a = self.node2attribute
+        order = np.argsort(bm.rank)  # permuted position -> original node
+        vals_perm = np.asarray(n2a, np.float32)[order]
+        valid_perm = np.any(~np.isnan(vals_perm), axis=1)
+        V, A = int(valid_perm.sum()), n2a.shape[1]
+        starts, w_c = _bst.compaction_plan(valid_perm, n=bm.n, bt=bm.bt,
+                                           block=bm.block)
+        dev = self.device
+        obs, counts_neg, counts_pos = _pipe._band_perm_tail(
+            bm.data, torch.as_tensor(vals_perm, device=dev),
+            torch.as_tensor(vals_perm[valid_perm], device=dev),
+            torch.as_tensor(valid_perm, device=dev),
+            torch.as_tensor(starts, device=dev),
+            torch.as_tensor(bm.rank, device=dev), self._generator(perm_idx),
+            bt=bm.bt, block=bm.block, score_type=self.neighborhood_score_type,
+            num_permutations=int(self.num_permutations),
+            batch_size=default_batch_size(V, A, int(self.num_permutations)),
+            w_c=w_c, precision=self.matmul_precision, perm_idx=perm_idx)
+        self._store_null(obs, counts_neg, counts_pos)
+
+    def _store_null(self, obs, counts_neg, counts_pos):
+        """Scores and null counts to the host, then p-values and NES."""
+        self.ns = obs.cpu().numpy()
+        self.counts_neg = counts_neg.cpu().numpy()
+        self.counts_pos = counts_pos.cpu().numpy()
+        self._finalize_randomization(self.counts_neg, self.counts_pos,
+                                     self.ns)
+
+    def _finalize_randomization(self, counts_neg, counts_pos, obs):
+        """counts -> p-values -> NES on the host in f64 (``safe.py:1511``):
+        NaN where obs is NaN, FDR when asked (on the device), p = 0 floored
+        to 1/P, sign select."""
+        counts_neg = np.asarray(counts_neg, dtype=np.float64)
+        counts_pos = np.asarray(counts_pos, dtype=np.float64)
+        idx = np.isnan(obs)
+        counts_neg[idx] = np.nan
+        counts_pos[idx] = np.nan
+
+        self.pvalues_neg = counts_neg / self.num_permutations
+        self.pvalues_pos = counts_pos / self.num_permutations
+
+        if self.multiple_testing:
+            if self.verbose:
+                logging.info("Running FDR-adjustment of p-values...")
+            self.pvalues_neg = self._fdr_bh(self.pvalues_neg)
+            self.pvalues_pos = self._fdr_bh(self.pvalues_pos)
+
+        nes_pos = -np.log10(np.where(self.pvalues_pos == 0,
+                                     1 / self.num_permutations,
+                                     self.pvalues_pos))
+        nes_neg = -np.log10(np.where(self.pvalues_neg == 0,
+                                     1 / self.num_permutations,
+                                     self.pvalues_neg))
+        if self.attribute_sign == "highest":
+            self.nes = nes_pos
+        elif self.attribute_sign == "lowest":
+            self.nes = nes_neg
+        else:
+            self.nes = nes_pos - nes_neg
+
+    def _update_binary_enrichment(self):
+        """nes_binary and per-attribute enriched counts (``safe.py:1541``):
+        a device run hands over its int8 indicator (downloaded on first read)
+        and its counts, reduced on the device; otherwise both come from
+        ``nes`` on the host."""
+        if self._nes_binary_pending is not None:
+            self._nes_binary_dev, counts = self._nes_binary_pending
+            self._nes_binary_pending = None
+            self._nes_binary_np = None
+            counts = counts.cpu().numpy()
+        else:
+            idx = ~np.isnan(self.nes)
+            nes_binary = np.zeros(self.nes.shape)
+            nes_binary[idx] = (np.abs(self.nes[idx])
+                               > -np.log10(self.enrichment_threshold))
+            self.nes_binary = nes_binary
+            counts = np.sum(nes_binary, axis=0)
+        self.attributes["num_neighborhoods_enriched"] = counts
 
     # -------------------------------------------------------------- pipeline
 
     def run_pipeline(self, *, perm_idx=None, **kwargs):
-        """Neighborhoods + observed scores + permutation null (quantitative
-        branch of ``safe.py:1635-1793``).
+        """Neighborhoods + enrichment (``safe.py:1635``), the equivalent of
+        ``define_neighborhoods(); compute_pvalues()``: fused for the
+        shortest-path metrics, the stages for the euclidean metric and
+        ``background='network'``.
 
         ``perm_idx`` (P, V): explicit permutations of the V annotated rows
-        instead of the session's generator (``num_permutations`` becomes P).
+        for the permutation null (``num_permutations`` becomes P).
         """
         for k in ("node_distance_metric", "neighborhood_radius_type",
                   "neighborhood_radius", "neighborhood_score_type",
@@ -443,38 +998,44 @@ class SAFE:
         num_nodes = self._num_nodes
         coords, edges, lengths, edge_weights = self._graph_arrays
         self._refuse_unported()
-        if self.node_distance_metric == "shortpath_weighted_layout":
-            x = coords[:, 0]
-            nr = self.neighborhood_radius * (np.max(x) - np.min(x))
-            if lengths is None:
-                raise ValueError(
-                    "shortpath_weighted_layout requires edge 'length' "
-                    "attributes (or lengths in the network arrays)")
-            weights = lengths
+        binary = self._binary()
+        staged = (self.node_distance_metric == "euclidean"
+                  or self.background == "network")
+        if staged or binary:
+            self._refuse_mesh("binary (hypergeometric) enrichment and the "
+                              "stage methods")
+        nr, weights = self._radius(coords, lengths, edge_weights)
+        bs_plan = None
+        if self.node_distance_metric == "euclidean":
+            if self._euclidean_band_plan(coords, num_nodes, nr) is not None:
+                raise _not_ported("the euclidean metric's band form "
+                                  "(_run_pipeline_band_euclid)",
+                                  "A7 remainder")
         else:
-            nr = self.neighborhood_radius
-            weights = edge_weights
-
-        bs_plan = self._band_storage_plan(coords, edges, weights, num_nodes, nr)
+            bs_plan = self._band_storage_plan(coords, edges, weights,
+                                              num_nodes, nr)
+            if bs_plan is not None and binary:
+                raise _not_ported("binary (hypergeometric) enrichment over "
+                                  "band storage", "A7 remainder")
+        if staged:
+            self.define_neighborhoods()
+            self.compute_pvalues(perm_idx=perm_idx)
+            return
         if bs_plan is not None:
             return self._run_pipeline_bandstore(bs_plan, nr, perm_idx)
         if self.mesh is not None:
             raise _not_ported("a mesh where no band-storage plan is taken "
                               "(the sharded dense engines apsp_sharded, "
                               "apsp_sharded_2d)", "A10 remainder")
-        plan = self._banded_plan(coords, edges, weights, num_nodes, nr)
-        if plan is not None:
-            d0, inv_rank, window = plan
-            self.apsp_engine_used, self.window_used = "banded-window", window
-        else:
-            inv_rank, window = None, None
-            d0 = self._d0_cache.get(self.node_distance_metric)
-            if d0 is None:
-                d0 = _nbr.initial_distances_device(num_nodes, edges, weights,
-                                                   device=self.device)
-                self._d0_cache[self.node_distance_metric] = d0
-            self.apsp_engine_used, self.window_used = "dense", None
+        d0, inv_rank, window = self._dense_front(coords, edges, weights,
+                                                 num_nodes, nr)
         radius = _nbr.inclusive_radius(nr)
+        if binary:
+            dist, nbr, mean, std = self._fused_hypergeom(d0, inv_rank, window,
+                                                         radius)
+            self._store_neighborhoods(nbr, dist, mean, std)
+            self._update_binary_enrichment()
+            return
 
         n2a = self.node2attribute
         valid_rows = np.flatnonzero(np.sum(~np.isnan(n2a), axis=1))
@@ -493,6 +1054,28 @@ class SAFE:
                 perm_idx=perm_idx)
         self._store_results(obs, counts_neg, counts_pos, nbr, dist, mean, std)
 
+    def _fused_hypergeom(self, d0, inv_rank, window, radius):
+        """The binary branch of ``run_pipeline`` (``safe.py:1723-1749``):
+        the census and survival over the whole population M, by the class
+        table or the f64 tail loop; results stay on the device. Returns
+        (dist, nbr, mean, std)."""
+        n2a = self.node2attribute
+        M = int(np.any(~np.isnan(n2a), axis=1).sum())
+        K_np = np.nansum(n2a, axis=0, dtype=np.float64)
+        k_max = int(max(1, np.nanmax(K_np))) if K_np.size else 1
+        iters = _hyper.tail_iterations(M, min(k_max, M))
+        lgt = torch.as_tensor(_hyper.lgamma_table(M), device=self.device)
+        table_kw = self._dense_table_kwargs(K_np, M, self._num_other_values())
+        self._hypergeom_engine_used = ("table-dense-fused" if table_kw
+                                       else "loop-dense-fused")
+        (dist, nbr, nes32, log_sf32, nesbin8, counts_dev, mean, std) = \
+            _pipe.fused_hypergeom_pipeline(
+                d0, self._node2attribute_device(), lgt, M, radius,
+                np.float64(self.enrichment_threshold), iterations=iters,
+                window=window, inv_rank=inv_rank, **table_kw)
+        self._store_hypergeom_results(nes32, log_sf32, nesbin8, counts_dev)
+        return dist, nbr, mean, std
+
     def _generator(self, perm_idx):
         """The null's torch.Generator from ``random_seed`` (a fresh seed
         when None), or None when explicit permutations are given. On a mesh
@@ -510,25 +1093,11 @@ class SAFE:
 
     def _store_results(self, obs, counts_neg, counts_pos, nbr, dist, mean,
                        std):
-        """Scores, counts and p-values to the host; the neighborhoods and
-        distances stay where the run left them (dense tensors or bands)."""
-        self.ns = obs.cpu().numpy()
-        self.counts_neg = counts_neg.cpu().numpy()
-        self.counts_pos = counts_pos.cpu().numpy()
-        self._finalize_randomization(self.counts_neg, self.counts_pos,
-                                     self.ns)
-        self._neighborhoods_dev = nbr
-        self._neighborhoods_np = None
-        self._node_distances_dev = dist
-        self._node_distances_np = None
-        if self.verbose:
-            logging.info("Node distance metric: %s (%s APSP)"
-                         % (self.node_distance_metric, self.apsp_engine_used))
-            logging.info("Neighborhood definition: %.2f x %s"
-                         % (self.neighborhood_radius,
-                            self.neighborhood_radius_type))
-            logging.info("Number of nodes per neighborhood (mean +/- std): "
-                         "%.2f +/- %.2f" % (float(mean), float(std)))
+        """A fused quantitative run's results: scores, counts and p-values
+        to the host; the neighborhoods and distances stay where the run left
+        them (dense tensors or bands)."""
+        self._store_null(obs, counts_neg, counts_pos)
+        self._store_neighborhoods(nbr, dist, mean, std)
         self._update_binary_enrichment()
 
     def _run_pipeline_bandstore(self, plan, nr, perm_idx):
@@ -540,14 +1109,8 @@ class SAFE:
         (``safe.py:2122-2127``)."""
         num_nodes = self._num_nodes
         band, rank = plan["band"], plan["rank"]
-        if self._band_bits_selected(num_nodes, band):
-            raise _not_ported(
-                "bit-packed indicator bands (band_indicator_bits='auto' at "
-                "band_bits_min_bytes and above)", "A7 remainder")
-        # drop the previous run's bands before building new ones
-        # (_release_device_results, safe.py:1392)
-        self._neighborhoods_dev = self._node_distances_dev = None
-        self._neighborhoods_np = self._node_distances_np = None
+        self._refuse_band_bits(num_nodes, band)
+        self._release_device_results()
         order = np.argsort(rank)  # permuted position -> original node
         bt = band // 128 + 1
         n2a = self.node2attribute
@@ -590,39 +1153,3 @@ class SAFE:
             None if dist_band is None
             else BandedMatrix(dist_band, rank, num_nodes, band, fill=np.inf),
             mean, std)
-
-    def _finalize_randomization(self, counts_neg, counts_pos, obs):
-        """counts -> p-values -> NES on the host in f64 (``safe.py:1511``):
-        NaN where obs is NaN, p = 0 floored to 1/P, sign select."""
-        counts_neg = np.asarray(counts_neg, dtype=np.float64)
-        counts_pos = np.asarray(counts_pos, dtype=np.float64)
-        idx = np.isnan(obs)
-        counts_neg[idx] = np.nan
-        counts_pos[idx] = np.nan
-
-        self.pvalues_neg = counts_neg / self.num_permutations
-        self.pvalues_pos = counts_pos / self.num_permutations
-
-        nes_pos = -np.log10(np.where(self.pvalues_pos == 0,
-                                     1 / self.num_permutations,
-                                     self.pvalues_pos))
-        nes_neg = -np.log10(np.where(self.pvalues_neg == 0,
-                                     1 / self.num_permutations,
-                                     self.pvalues_neg))
-        if self.attribute_sign == "highest":
-            self.nes = nes_pos
-        elif self.attribute_sign == "lowest":
-            self.nes = nes_neg
-        else:
-            self.nes = nes_pos - nes_neg
-
-    def _update_binary_enrichment(self):
-        """nes_binary and per-attribute enriched counts, host branch
-        (``safe.py:1564-1571``)."""
-        idx = ~np.isnan(self.nes)
-        nes_binary = np.zeros(self.nes.shape)
-        nes_binary[idx] = (np.abs(self.nes[idx])
-                           > -np.log10(self.enrichment_threshold))
-        self.nes_binary = nes_binary
-        self.attributes["num_neighborhoods_enriched"] = np.sum(nes_binary,
-                                                               axis=0)

@@ -12,18 +12,30 @@ import numpy as np
 
 from safepy_tpu_torch.safe import SAFE
 
+# the enrichment settings carried across, each with SAFE's default
+ENRICHMENT_SETTINGS = ("enrichment_type", "enrichment_threshold",
+                       "hypergeom_engine", "multiple_testing", "background",
+                       "attribute_sign", "node_distance_metric")
+
 
 def from_numpy_state(graph_arrays, node2attribute, *, neighborhood_radius,
-                     random_seed, device) -> SAFE:
+                     random_seed, device, **settings) -> SAFE:
     """A port session from what a JAX session holds as numpy.
 
     graph_arrays: ``sf._graph_to_arrays_cached()``, the tuple
     ``(coords, edges, lengths, weights)``; node2attribute: ``sf.node2attribute``
-    (N, A) in node order; the scalars as on the JAX session.
+    (N, A) in node order; the scalars as on the JAX session; ``settings``:
+    any of :data:`ENRICHMENT_SETTINGS`, e.g.
+    ``{k: getattr(jax_sf, k) for k in ENRICHMENT_SETTINGS}``.
     """
+    unknown = sorted(set(settings) - set(ENRICHMENT_SETTINGS))
+    if unknown:
+        raise TypeError(f"unknown settings: {unknown}")
     sf = SAFE(device=device, verbose=False)
     sf.neighborhood_radius = float(neighborhood_radius)
     sf.random_seed = random_seed
+    for name, value in settings.items():
+        setattr(sf, name, value)
     sf.load_network(network_file=tuple(graph_arrays))
     sf.load_attributes(attribute_file=np.asarray(node2attribute))
     return sf

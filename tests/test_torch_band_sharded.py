@@ -589,7 +589,7 @@ def _session(vals=None, mode="band", **settings):
     ("data and perm axes", "A10 remainder"),
     ("no band plan", "A10 remainder"),
     ("auto, no band plan", "A10 remainder"),
-    ("binary attributes", "A5"),
+    ("binary attributes", "A10 remainder"),
     ("bit-packed band", "A7 remainder")])
 def test_unported_mesh_cases_raise(case, item):
     mesh = _data_mesh("data")

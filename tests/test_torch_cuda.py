@@ -555,3 +555,149 @@ def test_wrappers_refuse_rather_than_fall_back(dev):
     with pytest.raises(ValueError, match="16-byte aligned"):
         K.relax_window_sym(q, p, torch.zeros((384, 390), device=dev)[:, :384],
                            0, 256, 1)
+
+
+# ------------------------------------------------- binary enrichment (A5)
+
+def _f32_ulps(got, want):
+    got = got.cpu().to(torch.float32).numpy()
+    want = want.cpu().to(torch.float32).numpy()
+    same = (got == want) | (np.isnan(got) & np.isnan(want))
+    with np.errstate(invalid="ignore"):
+        diff = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    return np.where(same, 0.0, diff / np.spacing(np.abs(want))).max()
+
+
+def _census_grid(M=3971, N=300, A=200, seed=5):
+    rng = np.random.default_rng(seed)
+    K = rng.integers(0, 400, (1, A)).astype(float)
+    n = rng.integers(0, 600, (N, 1)).astype(float)
+    k = np.floor(np.minimum(K, n) * rng.random((N, A)) ** 0.3)
+    return np.broadcast_arrays(k, K, n)
+
+
+def test_hypergeom_tail_and_finalization_on_the_card(dev):
+    """The f64 tail loop on the card equals the host's (integer products,
+    IEEE f64 divides and adds, one op a launch); the finalization's f32
+    exp and log1p round as CUDA's do: within 4 f32 ulps, the indicator
+    exactly."""
+    from safepy_tpu_torch.ops import hypergeom as H
+
+    M = 3971
+    k, K, n = (torch.as_tensor(x) for x in _census_grid(M))
+    lgt = torch.as_tensor(H.lgamma_table(M))
+    it = H.tail_iterations(M, 400)
+    cpu = H._sf_parts(k, M, K, n, lgt, it)
+    gpu = H._sf_parts(k.to(dev), M, K.to(dev), n.to(dev), lgt.to(dev), it)
+    for a, b in zip(cpu, gpu):
+        assert torch.equal(a, b.cpu())
+    for a, b in zip(H.finalize_logsf_device(cpu, 0.05),
+                    H.finalize_logsf_device(gpu, 0.05)):
+        if a.dtype == torch.int8:
+            assert torch.equal(a, b.cpu())
+        else:
+            assert _f32_ulps(b, a) <= 4
+
+
+def test_hypergeom_table_build_and_lookup_on_the_card(dev):
+    """The class table on the card: within 1 f32 ulp plus 1e-11 of the
+    host's (f64 log rounds in the last bit otherwise), the significance
+    bits equal; the lookup of one table equal on both."""
+    from safepy_tpu_torch.ops import hypergeom_table as T
+
+    M = 3971
+    K_dist = torch.as_tensor(np.r_[np.arange(3, 120, 2), [0.0] * 5]
+                             .astype(np.float64))
+    R, S_max = T.table_geometry(K_dist.numpy(), M, M)
+    log_thr = float(np.log(0.05))
+    cpu = T.build_logsf_table(K_dist, M, log_thr, R=R, S_max=S_max, C=64)
+    gpu = T.build_logsf_table(K_dist.to(dev), M, log_thr, R=R, S_max=S_max,
+                              C=64).cpu()
+    diff = (gpu.double() - cpu.double()).abs()
+    assert bool((diff <= torch.as_tensor(np.spacing(np.abs(cpu.numpy())))
+                 .double() + 1e-11).all())
+    thr32 = torch.tensor(log_thr, dtype=torch.float32)
+    assert torch.equal(gpu < thr32, cpu < thr32)
+    rng = np.random.default_rng(2)
+    nsize = torch.as_tensor(rng.integers(0, 400, 500).astype(np.float32))
+    colc = torch.as_tensor(rng.integers(0, 59, 300))
+    Kc = K_dist[colc].to(torch.float32)
+    counts = torch.floor(torch.minimum(nsize[:, None], Kc[None, :])
+                         * torch.as_tensor(rng.random((500, 300)),
+                                           dtype=torch.float32))
+    want = T.table_lookup(cpu, counts, nsize, colc, float(thr32), S_max=S_max,
+                          R=R, C=64)
+    got = T.table_lookup(cpu.to(dev), counts.to(dev), nsize.to(dev),
+                         colc.to(dev), float(thr32), S_max=S_max, R=R, C=64)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("row_chunk", [None, 128])
+def test_fdr_bh_logsf_on_the_card(dev, row_chunk):
+    from safepy_tpu_torch.ops import fdr
+
+    rng = np.random.default_rng(4)
+    logp = np.log(rng.random((700, 300))).astype(np.float32)
+    logp[0, :3] = [-np.inf, -500.0, 0.0]
+    logp[1, ::4] = np.nan
+    cpu = fdr.fdr_bh_logsf(torch.as_tensor(logp), np.log(0.05),
+                           row_chunk=row_chunk)
+    gpu = fdr.fdr_bh_logsf(torch.as_tensor(logp, device=dev), np.log(0.05),
+                           row_chunk=row_chunk)
+    assert _f32_ulps(gpu[0], cpu[0]) <= 1
+    assert torch.equal(gpu[1].cpu(), cpu[1])
+    assert torch.equal(gpu[2].cpu(), cpu[2])
+
+
+def test_hypergeom_sf_on_numpy_operands_computes_on_the_card(dev):
+    """As the other entry points: numpy operands go to the card; the result
+    (numpy, finalized on the host) equals the CPU tensors' within 1e-12."""
+    from safepy_tpu_torch import ops
+
+    k, K, n = _census_grid(N=50, A=40)
+    for fn in (ops.hypergeom_sf, ops.hypergeom_neglog10_sf):
+        got = fn(k, 3971, K, n)
+        want = fn(*(torch.as_tensor(x) for x in (k,)), 3971,
+                  torch.as_tensor(K), torch.as_tensor(n))
+        assert isinstance(got, np.ndarray)
+        fin = np.isfinite(want)
+        np.testing.assert_array_equal(np.isfinite(got), fin)
+        assert np.max(np.abs(got[fin] - want[fin])) <= 1e-12
+
+
+@pytest.mark.parametrize("engine", ["auto", "loop"])
+def test_cuda_binary_session_matches_cpu_session(dev, engine):
+    """The fused binary run_pipeline on the card and on the host: the same
+    engine, neighborhoods, indicator and enriched counts; p-values within
+    4 f32 ulps of their log-survival; the banded window's kernels
+    launched."""
+    net = _network()
+    coords = net[0]
+    rng = np.random.default_rng(1)
+    vals = np.zeros((700, 60))
+    for j in range(60):
+        near = (np.linalg.norm(coords - rng.uniform(-0.8, 0.8, 2), axis=1)
+                < rng.uniform(0.15, 0.5))
+        vals[:, j] = near & (rng.random(700) < 0.6)
+    vals[rng.random(700) < 0.1] = np.nan
+    runs = []
+    for device in ("cpu", dev):
+        sf = SAFE(device=device, verbose=False)
+        sf.hypergeom_engine = engine
+        sf.load_network(network_file=net)
+        sf.load_attributes(attribute_file=vals)
+        K.reset_launches()
+        sf.run_pipeline()
+        runs.append((sf, dict(K.LAUNCHES)))
+    (cpu, _), (gpu, gpu_launches) = runs
+    assert gpu._hypergeom_engine_used == cpu._hypergeom_engine_used
+    assert gpu_launches["relax_window_sym"] == 6
+    np.testing.assert_array_equal(gpu.neighborhoods, cpu.neighborhoods)
+    np.testing.assert_array_equal(gpu.nes_binary, cpu.nes_binary)
+    np.testing.assert_array_equal(gpu.attributes["num_neighborhoods_enriched"],
+                                  cpu.attributes["num_neighborhoods_enriched"])
+    pc = cpu.pvalues_pos
+    assert np.all(np.abs(gpu.pvalues_pos - pc)
+                  <= 1e-9 + 2.0 ** -21 * pc
+                  * np.abs(np.log(np.maximum(pc, 1e-300))))

@@ -6,7 +6,9 @@ Each test pins one repaired fault of the port against the JAX package:
     ``band_bt_bucket`` lattice (``safe.py:806``), so both packages take the
     same engine and store the same band;
   * binary detection counts the non-0/1 values of the f32 upload
-    (``safe.py:1102-1105``), not of the f64 host values;
+    (``safe.py:1102-1105``), not of the f64 host values, and the binary
+    run it selects equals JAX's (p-values within 1e-9 plus 4 f32 ulps of
+    their stored log-survival, tests/test_torch_hypergeom.py);
   * ``run_pipeline`` takes ``neighborhood_radius_type`` (``safe.py:1646``);
   * ``parallel.make_mesh`` runs on the card unless the caller asks for the
     CPU, as ``SAFE`` does;
@@ -163,20 +165,34 @@ def test_forced_band_stores_the_bucketed_band():
                          ids=["rounds-to-one", "overflows-to-inf"])
 def test_binary_detection_counts_on_f32(other):
     """A column of 0, 1 and a value that is 1 or inf in f32: JAX counts no
-    non-binary value, so 'auto' is the binary test, which the port refuses
-    (ROADMAP A5) rather than running the permutation null."""
+    non-binary value, so 'auto' is the binary test, which the port takes
+    too, with JAX's engine and results, rather than the permutation null."""
     n = 300
     net = _arrays(n)
     vals = (np.arange(n) % 2).astype(float)[:, None]
     vals[::7] = other
     jsf = JaxSAFE(verbose=False)
-    jsf.node2attribute = vals
+    jsf.load_network(network_file=_graph(net), node_key_attribute="key")
+    jsf.load_attributes(attribute_file=pd.DataFrame(
+        vals, index=[f"g{i}" for i in range(n)], columns=["b"]))
     with np.errstate(over="ignore"):
         assert jsf._num_other_values() == 0
-    sf = from_numpy_state(net, vals, neighborhood_radius=RADIUS,
-                          random_seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        jsf.run_pipeline(neighborhood_radius=RADIUS)
+    sf = from_numpy_state(jsf._graph_to_arrays_cached(), vals,
+                          neighborhood_radius=RADIUS, random_seed=0,
+                          device="cpu")
+    assert sf._num_other_values() == 0
+    with np.errstate(over="ignore"):
         sf.run_pipeline(num_permutations=20)
+    assert sf._hypergeom_engine_used == jsf._hypergeom_engine_used
+    np.testing.assert_array_equal(sf.neighborhoods, jsf.neighborhoods)
+    np.testing.assert_array_equal(sf.nes_binary, jsf.nes_binary)
+    np.testing.assert_array_equal(sf.attributes["num_neighborhoods_enriched"],
+                                  jsf.attributes["num_neighborhoods_enriched"])
+    pj = jsf.pvalues_pos
+    assert np.all(np.abs(sf.pvalues_pos - pj)
+                  <= 1e-9 + 2.0 ** -21 * pj
+                  * np.abs(np.log(np.maximum(pj, 1e-300))))
     sf.enrichment_type = "permutation"  # the quantitative null still runs
     sf.run_pipeline(num_permutations=20)
     assert sf.ns.shape == (n, 1)

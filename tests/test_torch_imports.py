@@ -2,6 +2,7 @@
 nothing; a CUDA session never falls back to the CPU; the kernel loader raises
 instead of falling back."""
 
+import ast
 import os
 import shutil
 import subprocess
@@ -20,10 +21,14 @@ def test_import_is_light_and_builds_nothing():
             "safepy_tpu_torch.state, safepy_tpu_torch.pipeline, "
             "safepy_tpu_torch.ops.apsp_bandstore, "
             "safepy_tpu_torch.ops.enrich_band, safepy_tpu_torch.ops.fdr, "
+            "safepy_tpu_torch.ops.hypergeom, "
+            "safepy_tpu_torch.ops.hypergeom_table, "
             "safepy_tpu_torch.parallel, "
             "safepy_tpu_torch.parallel.band_sharded\n"
             "from safepy_tpu_torch import ops\n"
             "assert callable(ops.apsp) and callable(ops.min_plus_product)\n"
+            "assert callable(ops.hypergeom_sf)\n"
+            "assert callable(ops.hypergeom_neglog10_sf)\n"
             "from safepy_tpu_torch.parallel import make_mesh\n"
             "assert callable(make_mesh)\n"
             "bad = [m for m in ('jax', 'triton', 'networkx', 'pandas', "
@@ -59,3 +64,27 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
         native.build()
     assert not (tmp_path / "build").exists()
     assert shutil.which("nvcc") is None
+
+
+def test_no_module_of_the_port_imports_jax_or_the_jax_package():
+    """Every import statement of the port's modules and of chip_smoke.py
+    names neither jax nor safepy_tpu (the port keeps its own copies of the
+    host helpers it needs)."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "safepy_tpu_torch")):
+        files += [os.path.join(root, f) for f in names if f.endswith(".py")]
+    assert len(files) > 20
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            bad += [(path, m) for m in mods
+                    if m.split(".")[0] in ("jax", "jaxlib", "safepy_tpu")]
+    assert not bad, bad

@@ -174,14 +174,64 @@ def test_graph_inputs_match_the_jax_loaders():
     np.testing.assert_array_equal(psf.node2attribute, jsf.node2attribute)
 
 
-def _small_port_session():
+def _small_port_session(vals=None, **settings):
+    """(JAX session, port session) on a 60-node network; the JAX session
+    holds the graph and attributes but has run nothing."""
     jsf = JaxSAFE(verbose=False)
-    jsf.load_network(network_file=_network(n=60, seed=6),
-                     node_key_attribute="key")
-    vals = np.random.default_rng(0).normal(size=(60, 1))
-    return from_numpy_state(jsf._graph_to_arrays_cached(), vals,
-                            neighborhood_radius=0.1, random_seed=1,
-                            device="cpu")
+    for k, v in settings.items():
+        setattr(jsf, k, v)
+    g = _network(n=60, seed=6)
+    jsf.load_network(network_file=g, node_key_attribute="key")
+    if vals is None:
+        vals = np.random.default_rng(0).normal(size=(60, 1))
+    jsf.load_attributes(attribute_file=pd.DataFrame(
+        vals, index=[f"g{i}" for i in range(60)]))
+    psf = from_numpy_state(jsf._graph_to_arrays_cached(), jsf.node2attribute,
+                           neighborhood_radius=0.1, random_seed=1,
+                           device="cpu")
+    for k, v in settings.items():
+        setattr(psf, k, v)
+    return jsf, psf
+
+
+def _assert_hypergeom_matches_jax(jsf, psf):
+    """Binary results: the engine, the indicator and the enriched counts
+    exactly; p-values within 1e-9 plus 4 f32 ulps of their stored
+    log-survival (tests/test_torch_hypergeom.py)."""
+    assert psf._hypergeom_engine_used == jsf._hypergeom_engine_used
+    np.testing.assert_array_equal(psf.nes_binary, jsf.nes_binary)
+    np.testing.assert_array_equal(
+        psf.attributes["num_neighborhoods_enriched"],
+        jsf.attributes["num_neighborhoods_enriched"])
+    pj = jsf.pvalues_pos
+    assert np.all(np.abs(psf.pvalues_pos - pj)
+                  <= 1e-9 + 2.0 ** -21 * pj
+                  * np.abs(np.log(np.maximum(pj, 1e-300))))
+
+
+def _assert_matches_jax_run(jsf, psf, perm_idx):
+    """The port's run with injected permutations against the JAX facade's
+    run: neighborhoods, scores and composed counts (as in
+    test_counts_exact_with_injected_permutations), and JAX's finalization
+    of those counts; for binary attributes the hypergeometric results."""
+    np.testing.assert_array_equal(psf.neighborhoods, jsf.neighborhoods)
+    if psf._hypergeom_engine_used is not None:
+        _assert_hypergeom_matches_jax(jsf, psf)
+        return
+    np.testing.assert_array_equal(psf.ns, jsf.ns)
+    n2a = jsf.node2attribute
+    valid_rows = np.flatnonzero(np.isfinite(n2a).any(axis=1))
+    nv, v, m = jperm.prepare_valid(jnp.asarray(jsf.neighborhoods, jnp.float32),
+                                   jnp.asarray(n2a, jnp.float32), valid_rows)
+    scores = np.asarray(jperm.permutation_scores(nv, v, m,
+                                                 jnp.asarray(perm_idx), "sum"))
+    cn, cp = (scores <= jsf.ns[None]).sum(0), (scores >= jsf.ns[None]).sum(0)
+    np.testing.assert_array_equal(psf.counts_neg, cn)
+    np.testing.assert_array_equal(psf.counts_pos, cp)
+    jsf.num_permutations = len(perm_idx)
+    jsf._finalize_randomization(cn, cp, jsf.ns)
+    assert np.max(np.abs(psf.pvalues_pos - jsf.pvalues_pos)) <= 1e-12
+    assert np.max(np.abs(psf.pvalues_neg - jsf.pvalues_neg)) <= 1e-12
 
 
 @pytest.mark.parametrize("setting,value,item", [
@@ -191,17 +241,44 @@ def _small_port_session():
     ("mesh", object(), "A10"),
     ("enrichment_type", "hypergeometric", "A5")])
 def test_unported_paths_raise(setting, value, item):
-    sf = _small_port_session()
-    setattr(sf, setting, value)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        sf.run_pipeline(num_permutations=20)
+    """The options of the JAX facade by the ROADMAP item that brings them.
+    The A4 and A5 cases (FDR, background='network', the euclidean metric,
+    the hypergeometric test), refused until this port had them, run and
+    are held against the JAX facade; the rest still raise, naming their
+    item."""
+    if item in ("A7", "A10"):
+        _, sf = _small_port_session()
+        setattr(sf, setting, value)
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            sf.run_pipeline(num_permutations=20)
+        return
+    rng = np.random.default_rng(0)
+    vals = rng.integers(-3, 4, (60, 1)).astype(float)  # exact f32 sums
+    vals[rng.random(60) < 0.2] = np.nan
+    if item == "A5":
+        vals = (np.nan_to_num(vals) > 0).astype(float)
+    jsf, psf = _small_port_session(vals, **{setting: value})
+    jsf.random_seed = 1
+    jsf.run_pipeline(num_permutations=20)
+    perm_idx = np.stack([np.random.default_rng(s).permutation(
+        int(np.isfinite(jsf.node2attribute).any(axis=1).sum()))
+        for s in range(20)])
+    psf.run_pipeline(perm_idx=perm_idx)
+    assert getattr(psf, setting) == value
+    _assert_matches_jax_run(jsf, psf, perm_idx)
 
 
 def test_binary_attributes_raise_and_quantitative_runs():
-    sf = _small_port_session()
+    """A session reloaded with binary attributes takes the hypergeometric
+    test ('auto'), as the JAX facade does, where it was refused before."""
+    jsf, sf = _small_port_session()
     sf.run_pipeline(num_permutations=20)
     assert sf.apsp_engine_used in ("banded-window", "dense")
     assert np.isfinite(sf.ns).all() and sf.nes.shape == (60, 1)
-    sf.load_attributes(attribute_file=(np.arange(60) % 2).astype(float))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        sf.run_pipeline(num_permutations=20)
+    binary = (np.arange(60) % 2).astype(float)
+    sf.load_attributes(attribute_file=binary)
+    sf.run_pipeline(num_permutations=20)
+    jsf.load_attributes(attribute_file=pd.DataFrame(
+        binary, index=[f"g{i}" for i in range(60)]))
+    jsf.run_pipeline()
+    _assert_hypergeom_matches_jax(jsf, sf)
