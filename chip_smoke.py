@@ -81,9 +81,24 @@ Phases, in order; any failure raises and the script exits non-zero:
     indicator equal, on sampled rows. Times the warm and steady runs, the
     census, tail loop, class table and FDR alone, reports the peak device
     memory and profiles one steady run of each engine;
+11. the domain stage on phase 10's matrix A session (3,971 x 4,373, the
+    loop engine), its terms given seeded GO-like names:
+    ``define_top_attributes``, ``define_domains`` (which must take the
+    intersection-GEMM engine under 'auto': 96 top terms or more) and
+    ``trim_domains``. Checks, on the card: the intersections equal the host
+    f64 ``b.T @ b`` of the downloaded indicator; the condensed jaccard of
+    512 sampled top terms is bitwise scipy's ``pdist``; the device counts
+    and maxima equal the host loop of ``safepy_tpu/domains.py:175-183`` on
+    the downloaded indicator and f32 NES; ``indicator_csc`` equals the
+    dense indicator; re-clustering at threshold 0.6 runs no second GEMM;
+    the session's attributes, node2domain and domains equal those of a CPU
+    session handed the same indicator, NES and counts through the setters.
+    Times (min of 3) the stage and its parts, reports the peak device
+    memory and profiles one stage (the ``domains:`` lines);
 9. print a JSON line of the kernels (times, bounds, launches of every
    path, phase 10's as ``go_binary_loop`` and ``go_binary_table``), then
-   the card, then the result line.
+   the card, then the result line. The domain stage runs no hand-written
+   kernel: its products are ``torch.matmul``.
 
 Imports torch, numpy, scipy and the port only; needs one card, nvcc and
 nvidia-smi. Phase 8 starts two processes and joins them.
@@ -105,16 +120,20 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 from scipy.sparse import coo_matrix
+from scipy.cluster.hierarchy import fcluster, linkage
 from scipy.sparse.csgraph import dijkstra, shortest_path
 from scipy.spatial import cKDTree
+from scipy.spatial.distance import pdist
 from scipy.stats import hypergeom
 from torch.profiler import ProfilerActivity, profile
 
 from safepy_tpu_torch import SAFE, native, ops
+from safepy_tpu_torch import domains as domains_mod
 from safepy_tpu_torch import pipeline as pipe
 from safepy_tpu_torch.io.graph_arrays import edge_lengths
 from safepy_tpu_torch.ops import apsp_bandstore as bst
 from safepy_tpu_torch.ops import apsp_cuda as K
+from safepy_tpu_torch.ops import domains_device as dd
 from safepy_tpu_torch.ops.fdr import fdr_bh_logsf, fdr_bh_logsf_np
 from safepy_tpu_torch.ops.hypergeom import (_sf_parts, finalize_logsf_device,
                                             lgamma_table, tail_iterations)
@@ -141,6 +160,11 @@ N_SOURCES, SEED_SOURCES = 512, 3  # Dijkstra rows checked at band scale
 # width (4,373 terms) on the Example_1 network, 10% unannotated genes
 GO_ATTRS, GO_NAN_SHARE, GO_SAMPLES = 4373, 0.1, 10000
 SEED_GO_A, SEED_GO_B, SEED_GO_SAMPLES = 21, 22, 23
+# phase 11: top terms whose condensed jaccard is held against scipy's pdist
+DOMAIN_SAMPLES, SEED_GO_NAMES = 512, 24
+GO_WORDS = ("regulation", "of", "transport", "cell", "cycle", "protein",
+            "the", "DNA", "repair", "to", "metabolic", "process", "via",
+            "signaling", "positive", "negative", "membrane", "RNA")
 BLOCK = 128
 SRC = "safepy_tpu_torch/csrc/minplus.cu"
 
@@ -1617,17 +1641,202 @@ def run_go_path(device, net, steady=3, fdr_rows=512):
     if device.type == "cuda":
         out["A_profile"] = profile_steady(a)
         out["B_profile"] = profile_steady(b)
+    out["A_session"] = a  # phase 11 runs the domain stage on it
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
-def profile_steady(sf, top=8):
-    """Device busy time and idle share of one steady run, and its largest
-    kernels, from torch.profiler (CUPTI)."""
+def go_term_names(a, seed=SEED_GO_NAMES):
+    """GO-like names of ``a`` terms, stopwords included, for the labels."""
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(GO_WORDS, rng.integers(2, 6))) + f" {j}"
+            for j in range(a)]
+
+
+def run_domain_stage(device, sf, net, steady=3, samples=DOMAIN_SAMPLES):
+    """Phase 11: the domain stage on a binary session's device indicator and
+    NES; the checks, times and peak memory of the module doc."""
+    t_phase = time.perf_counter()
+    if sf._nes_binary_dev is None or sf._nes_device() is None:
+        raise AssertionError("the session holds no device indicator and NES")
+    sf.attributes["name"] = go_term_names(len(sf.attributes["name"]))
+    out = {}
+    calls = []
+    gemm = dd.enrichment_intersections
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return gemm(*args, **kwargs)
+
+    def fresh():
+        """The state a new run leaves: no host indicator, CSC view or
+        intersections yet."""
+        sf._nes_binary_np = sf._nes_binary_i8_np = None
+        sf._nes_binary_csc = sf._domains_inter_cache = None
+
+    def best(fn, before=None):
+        times = []
+        for _ in range(steady):
+            if before is not None:
+                before()
+            sync(device)
+            t0 = time.perf_counter()
+            fn()
+            sync(device)
+            times.append(time.perf_counter() - t0)
+        return min(times)
+
+    def stage():
+        sf.define_top_attributes()
+        sf.define_domains()
+        sf.trim_domains()
+
+    dd.enrichment_intersections = counted
+    try:
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        base = (torch.cuda.memory_allocated(device) / 1e9
+                if device.type == "cuda" else None)
+        out["stage_s"] = best(stage, fresh)
+        out["peak_gb"] = (torch.cuda.max_memory_allocated(device) / 1e9
+                          if device.type == "cuda" else None)
+        out["base_gb"] = base
+        out["top_s"] = best(sf.define_top_attributes, fresh)
+        if device.type == "cuda":
+            fresh()
+            out["profile"] = profile_steady(sf, run=stage)
+
+        # the checks, on one fresh stage
+        fresh()
+        calls.clear()
+        sf.define_top_attributes()
+        top = np.asarray(sf.attributes["top"])
+        out["top"] = int(top.sum())
+        if not domains_mod.uses_gemm(sf.cluster_engine,
+                                     sf.attribute_distance_metric,
+                                     out["top"]):
+            raise AssertionError(f"{out['top']} top terms: 'auto' does not "
+                                 "take the GEMM engine")
+        sf.define_domains()
+        inter = sf._domains_inter_cache
+        if len(calls) != 1 or inter is None:
+            raise AssertionError(f"{len(calls)} intersection GEMMs, cache "
+                                 f"{type(inter).__name__}")
+        b = sf._nes_binary_small()
+        b64 = b.astype(np.float64)
+        t0 = time.perf_counter()
+        if not np.array_equal(inter, b64.T @ b64):
+            raise AssertionError("the intersections differ from the host "
+                                 "f64 product")
+        out["host_product_s"] = time.perf_counter() - t0
+        top_idx = np.flatnonzero(top)
+        cols = np.sort(np.random.default_rng(SEED_GO_NAMES).choice(
+            top_idx, min(samples, len(top_idx)), replace=False))
+        if not np.array_equal(
+                dd.jaccard_condensed_from_counts(inter[np.ix_(cols, cols)]),
+                pdist(b64[:, cols].T, metric="jaccard")):
+            raise AssertionError("the condensed jaccard differs from pdist")
+        dom = np.asarray(sf.attributes["domain"])
+        unique = np.unique(dom)
+        nes32 = sf._nes_device().cpu().numpy()
+        counts_h = np.stack([b[:, dom == d].sum(axis=1) for d in unique],
+                            axis=1).astype(np.float64)
+        with np.errstate(invalid="ignore"):
+            max_h = np.stack(
+                [np.nanmax(np.where(np.isnan(nes32[:, dom == d]), -np.inf,
+                                    nes32[:, dom == d]),
+                           axis=1, initial=-np.inf) for d in unique],
+                axis=1).astype(np.float64)
+        counts_d, max_d = dd.domain_aggregates(
+            sf._nes_binary_dev, sf._nes_device(),
+            np.searchsorted(unique, dom), len(unique))
+        if not (np.array_equal(counts_d, counts_h)
+                and np.array_equal(max_d, max_h)
+                and np.array_equal(sf.node2domain.counts, counts_h)):
+            raise AssertionError("the device aggregates differ from the "
+                                 "host loop")
+        csc = dd.indicator_csc(sf._nes_binary_dev,
+                               sf.attributes["num_neighborhoods_enriched"])
+        if not np.array_equal(csc.toarray(), b):
+            raise AssertionError("indicator_csc differs from the indicator")
+        out["domains_075"] = int((unique != 0).sum())
+        sf.define_domains(attribute_distance_threshold=0.6)
+        out["domains_060"] = int((np.unique(sf.attributes["domain"])
+                                  != 0).sum())
+        sf.define_domains(attribute_distance_threshold=0.75)
+        if len(calls) != 1 or sf._domains_inter_cache is not inter:
+            raise AssertionError("re-clustering ran another intersection "
+                                 "GEMM")
+        pre_attrs = dict(sf.attributes)
+        pre_n2d = sf.node2domain
+        sf.trim_domains()
+    finally:
+        dd.enrichment_intersections = gemm
+
+    # the parts alone, at this run's inputs
+    b_dev, nes_dev = sf._nes_binary_dev, sf._nes_device()
+    out["gemm_s"] = best(lambda: dd.enrichment_intersections(b_dev))
+    sub = inter[np.ix_(top_idx, top_idx)]
+    out["condensed_s"] = best(lambda: dd.jaccard_condensed_from_counts(sub))
+    condensed = dd.jaccard_condensed_from_counts(sub)
+
+    def cluster():
+        z = linkage(condensed, method="average")
+        return fcluster(z, np.max(z[:, 2] * 0.75), criterion="distance")
+
+    out["linkage_s"] = best(cluster)
+    dom_pos = np.searchsorted(unique, dom)
+    out["aggregates_s"] = best(lambda: dd.domain_aggregates(
+        b_dev, nes_dev, dom_pos, len(unique)))
+    out["trim_s"] = best(lambda: domains_mod.trim_domains(
+        dict(pre_attrs), pre_n2d, min_size=sf.attribute_enrichment_min_size,
+        verbose=False))
+
+    # a CPU session handed the same indicator, NES and counts
+    cpu = SAFE(device="cpu", verbose=False)
+    cpu.load_network(network_file=net)
+    cpu.load_attributes(attribute_file=np.zeros((len(b), b.shape[1])))
+    cpu.attributes["name"] = list(sf.attributes["name"])
+    cpu.nes_binary = sf.nes_binary
+    cpu.nes = sf.nes
+    cpu.attributes["num_neighborhoods_enriched"] = np.array(
+        sf.attributes["num_neighborhoods_enriched"])
+    cpu.define_top_attributes()
+    cpu.define_domains()
+    cpu.trim_domains()
+    same = all(np.array_equal(sf.attributes[k], cpu.attributes[k])
+               for k in ("top", "num_connected_components",
+                         "num_large_connected_components", "domain"))
+    same &= all(np.array_equal(getattr(sf.node2domain, k),
+                               getattr(cpu.node2domain, k))
+                for k in ("domains", "counts", "primary_domain",
+                          "primary_nes"))
+    same &= (np.array_equal(sf.domains["id"], cpu.domains["id"])
+             and sf.domains["label"] == cpu.domains["label"])
+    if not same:
+        raise AssertionError("the CUDA domain stage differs from the CPU "
+                             "session's")
+    kept = np.asarray(sf.attributes["domain"])
+    per_domain = np.bincount(kept[kept > 0])[1:]
+    per_primary = np.bincount(sf.node2domain.primary_domain)[1:]
+    out.update(domains_trimmed=len(sf.domains["id"]) - (0 in sf.domains["id"]),
+               attrs_per_domain=(int(per_domain.min()), int(per_domain.max())),
+               nodes_per_domain=(int(per_primary.min()),
+                                 int(per_primary.max())),
+               largest_label=sf.domains["label"][list(sf.domains["id"]).index(
+                   int(np.argmax(np.bincount(kept)[1:])) + 1)],
+               phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+def profile_steady(sf, top=8, run=None):
+    """Device busy time and idle share of one steady run (``run``, else
+    ``sf.run_pipeline``), and its largest kernels, from torch.profiler
+    (CUPTI)."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sf.run_pipeline()
+        (run or sf.run_pipeline)()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # kernels and copies only: an aten op's row repeats its kernels' time
@@ -1832,6 +2041,32 @@ def main():
           f"{go['table_lookup_s']:.4f} s; log-space FDR on A "
           f"{go['fdr_s']:.4f} s; phase 10 took {go['phase_s']:.1f} s",
           flush=True)
+
+    # phase 11: the domain stage on phase 10's matrix A session
+    d = run_domain_stage(device, go.pop("A_session"), net)
+    dp = d["profile"]
+    print(f"domains: matrix A ({N_NODES} x {GO_ATTRS}), {d['top']} top terms "
+          f"(the GEMM engine); {d['domains_075']} domains at threshold 0.75 "
+          f"({d['domains_060']} at 0.6, no second GEMM), "
+          f"{d['domains_trimmed']} after trimming, {d['attrs_per_domain']} "
+          f"terms and {d['nodes_per_domain']} primary nodes per domain "
+          f"(smallest, largest); largest domain's label "
+          f"{d['largest_label']!r}; intersections equal the host f64 "
+          f"product ({d['host_product_s']:.4f} s on the host), "
+          f"{DOMAIN_SAMPLES} sampled terms' condensed jaccard bitwise "
+          f"pdist's, aggregates equal the host loop, CSC view equal, the CPU "
+          f"session's stage equal", flush=True)
+    print(f"domains: times (min of 3) stage {d['stage_s']:.4f} s, "
+          f"define_top_attributes {d['top_s']:.4f} s, intersection GEMM + "
+          f"(A, A) download {d['gemm_s']:.4f} s, condensed distances "
+          f"{d['condensed_s']:.4f} s, linkage + fcluster "
+          f"{d['linkage_s']:.4f} s, aggregates {d['aggregates_s']:.4f} s, "
+          f"trim_domains {d['trim_s']:.4f} s; device memory before "
+          f"{d['base_gb']:.3f} GB, peak {d['peak_gb']:.3f} GB; profile: one "
+          f"stage, wall {dp['wall_ms']:.3f} ms with the profiler on, device "
+          f"busy {dp['busy_ms']:.3f} ms, idle share {dp['idle_share']:.3f}; "
+          f"largest (name, launches, device ms): {dp['top']}; phase 11 took "
+          f"{d['phase_s']:.1f} s", flush=True)
 
     # phase 9: the report; launches from the run of each kernel's path
     replaces = {"relax_panel": "safepy_tpu/ops/apsp_pallas.py:95",

@@ -1,11 +1,15 @@
-"""Graph to the arrays the device core consumes.
+"""Graph to the arrays the device core consumes, and the domain-label
+heuristic.
 
-Port of ``safepy_tpu/io/graph_arrays.py:20``. networkx is imported only by
-:func:`graph_to_arrays`, when a caller hands in a graph; the main path can
-start from arrays instead (see ``SAFE.load_network``).
+Port of ``safepy_tpu/io/graph_arrays.py:20`` and ``:77``. networkx is
+imported only by :func:`graph_to_arrays`, when a caller hands in a graph; the
+main path can start from arrays instead (see ``SAFE.load_network``).
 """
 
 from __future__ import annotations
+
+import re
+from collections import Counter
 
 import numpy as np
 
@@ -52,3 +56,14 @@ def edge_lengths(coords: np.ndarray, edges: np.ndarray,
     if weights is None:
         return dist
     return dist * np.asarray(weights, np.float64)
+
+
+def chop_and_filter(names) -> str:
+    """The five most frequent words of a list of names, minus stopwords: the
+    domain label heuristic (``safepy_tpu/io/graph_arrays.py:77-86``, which
+    takes a pandas Series)."""
+    words = re.findall(r"[\w']+", " ".join(str(n) for n in names))
+    counts = Counter(words)
+    ranked = sorted(counts, key=counts.get, reverse=True)
+    stop = {"of", "a", "the", "an", ",", "via", "to", "into", "from"}
+    return ", ".join([w for w in ranked if w not in stop][:5])

@@ -19,6 +19,11 @@ the counts of the permutation null) as the JAX facade does.
   ``background='network'``, as JAX does (``safe.py:1664-1684``).
 - FDR (``multiple_testing``) adjusts log-survival on the device in the fused
   binary path, linear p-values in the staged one and in the null.
+- The domain stage (``safe.py:2243-2287``): ``define_top_attributes``,
+  ``define_domains`` and ``trim_domains`` cluster the co-enriched
+  attributes into domains (``domains.py``); the jaccard intersections, the
+  node-to-domain counts and the per-domain NES maxima are computed on the
+  session's device (``ops/domains_device.py``).
 - With ``mesh`` set to a DeviceMesh of one ``"data"`` axis
   (``parallel.make_mesh({"data": world})``, one device per rank, every rank
   running the same calls), a quantitative run that takes band storage goes
@@ -45,10 +50,12 @@ import sys
 import numpy as np
 import torch
 
+from safepy_tpu_torch import domains as _domains
 from safepy_tpu_torch import pipeline as _pipe
 from safepy_tpu_torch.io.graph_arrays import graph_to_arrays
 from safepy_tpu_torch.ops import apsp_banded as _banded
 from safepy_tpu_torch.ops import apsp_bandstore as _bst
+from safepy_tpu_torch.ops import domains_device as _dd
 from safepy_tpu_torch.ops import fdr as _fdr
 from safepy_tpu_torch.ops import hypergeom as _hyper
 from safepy_tpu_torch.ops import hypergeom_table as _htab
@@ -119,11 +126,25 @@ class SAFE:
         # 'loop' force one (safe.py:194-197)
         self.hypergeom_engine = "auto"
         self.enrichment_threshold = 0.05
+        self.attribute_enrichment_min_size = 10
         self.random_seed = None
         self.matmul_precision = "highest"
         # a DeviceMesh with one "data" axis shards the band-storage engine
         # over its ranks (the caller initializes torch.distributed)
         self.mesh = None
+
+        self.attribute_unimodality_metric = "connectivity"
+        self.attribute_distance_metric = "jaccard"
+        self.attribute_distance_threshold = 0.75
+        # 'auto' | 'gemm' | 'scipy': how define_domains builds the jaccard
+        # linkage input ('auto' = the intersection GEMM at
+        # domains.CLUSTER_ENGINE_MIN_TOP top attributes and more)
+        self.cluster_engine = "auto"
+        # the (A, A) intersection counts of the device indicator, reused
+        # when the stage re-clusters at another threshold
+        self._domains_inter_cache = None
+        self.domains = None
+        self.node2domain = None
 
         self._graph_arrays = None
         self._num_nodes = None
@@ -161,6 +182,10 @@ class SAFE:
         self._nes_from_logsf = False
         self._nes_binary_np = None
         self._nes_binary_dev = None
+        # the device indicator's int8 download and its CSC view, made on
+        # first use by the domain stage
+        self._nes_binary_i8_np = None
+        self._nes_binary_csc = None
         # (indicator, enriched counts) of a device run, for
         # _update_binary_enrichment
         self._nes_binary_pending = None
@@ -189,6 +214,18 @@ class SAFE:
             raise ValueError("enrichment_threshold must be in the (0,1) range.")
         if self.apsp_mode not in ("auto", "full", "band"):
             raise ValueError(f"unknown apsp_mode: {self.apsp_mode!r}")
+        if (not isinstance(self.attribute_enrichment_min_size, int)
+                or self.attribute_enrichment_min_size < 2):
+            raise ValueError("attribute_enrichment_min_size must be an "
+                             "integer equal or greater than 2.")
+        if (not isinstance(self.attribute_distance_threshold, float)
+                or not 0 < self.attribute_distance_threshold < 1):
+            raise ValueError("attribute_distance_threshold must be a float "
+                             "number in the (0,1) range.")
+        if self.cluster_engine not in ("auto", "gemm", "scipy"):
+            raise ValueError(f"{self.cluster_engine} is not a valid setting "
+                             "for cluster_engine. Valid options are: auto, "
+                             "gemm, scipy.")
 
     # --------------------------------------------------------------- network
 
@@ -385,14 +422,16 @@ class SAFE:
     @property
     def nes_binary(self):
         if self._nes_binary_np is None and self._nes_binary_dev is not None:
-            self._nes_binary_np = (self._nes_binary_dev.cpu().numpy()
-                                   .astype(float))
+            self._nes_binary_np = self._nes_binary_small().astype(float)
         return self._nes_binary_np
 
     @nes_binary.setter
     def nes_binary(self, value):
         self._nes_binary_np = value
         self._nes_binary_dev = None
+        self._nes_binary_i8_np = None
+        self._nes_binary_csc = None
+        self._domains_inter_cache = None
 
     def _neighborhoods_device(self) -> torch.Tensor:
         """(N, N) f32 device indicator, uploading a caller-set one
@@ -418,6 +457,8 @@ class SAFE:
         self._nes_dev = self._logsf_dev = self._nes_binary_dev = None
         self._nes_from_logsf = False
         self._nes_binary_pending = None
+        self._nes_binary_i8_np = self._nes_binary_csc = None
+        self._domains_inter_cache = None
 
     # ------------------------------------------------------------ APSP plans
 
@@ -958,7 +999,10 @@ class SAFE:
         if self._nes_binary_pending is not None:
             self._nes_binary_dev, counts = self._nes_binary_pending
             self._nes_binary_pending = None
-            self._nes_binary_np = None
+            # a new indicator: the views and intersections of the last one
+            # go (the JAX facade drops them at the start of each run)
+            self._nes_binary_np = self._nes_binary_i8_np = None
+            self._nes_binary_csc = self._domains_inter_cache = None
             counts = counts.cpu().numpy()
         else:
             idx = ~np.isnan(self.nes)
@@ -1153,3 +1197,106 @@ class SAFE:
             None if dist_band is None
             else BandedMatrix(dist_band, rank, num_nodes, band, fill=np.inf),
             mean, std)
+
+    # --------------------------------------------------------------- domains
+
+    def _nes_binary_small(self):
+        """The binary indicator without the public property's f64 copy
+        (``safe.py:2149-2164``): the host matrix where one was set, else the
+        device indicator's int8 download, made once."""
+        if self._nes_binary_np is not None:
+            return self._nes_binary_np
+        if self._nes_binary_pending is not None:
+            self._update_binary_enrichment()
+        if self._nes_binary_dev is not None and self._nes_binary_i8_np is None:
+            self._nes_binary_i8_np = self._nes_binary_dev.cpu().numpy()
+        if self._nes_binary_i8_np is not None:
+            return self._nes_binary_i8_np
+        return self.nes_binary
+
+    def _nes_binary_for_top(self):
+        """The indicator for define_top_attributes (``safe.py:2219-2241``):
+        the CSC view of a device indicator of more than 3e7 cells, fewer
+        than a quarter of them nonzero, under int32 indexing; else
+        :meth:`_nes_binary_small`."""
+        if self._nes_binary_pending is not None:
+            self._update_binary_enrichment()
+        if (self._nes_binary_np is None and self._nes_binary_i8_np is None
+                and self._nes_binary_dev is not None
+                and "num_neighborhoods_enriched" in self.attributes):
+            if self._nes_binary_csc is not None:
+                return self._nes_binary_csc
+            n, a = self._nes_binary_dev.shape
+            counts = np.asarray(
+                self.attributes["num_neighborhoods_enriched"], np.int64)
+            if (n * a > 3e7 and 4 * int(counts.sum()) < n * a
+                    and n * a < np.iinfo(np.int32).max):
+                self._nes_binary_csc = _dd.indicator_csc(self._nes_binary_dev,
+                                                         counts)
+                return self._nes_binary_csc
+        return self._nes_binary_small()
+
+    def _take_kwargs(self, kwargs, names, method):
+        for k in names:
+            if k in kwargs:
+                setattr(self, k, kwargs.pop(k))
+        if kwargs:
+            raise TypeError(f"unknown {method} arguments: {sorted(kwargs)}")
+        self._validate()
+
+    def define_top_attributes(self, **kwargs):
+        """Mark the top attributes (``safe.py:2243``): enough enriched
+        neighborhoods, and one connected component of them in the network
+        (the 'connectivity' unimodality metric)."""
+        self._take_kwargs(kwargs, ("attribute_unimodality_metric",
+                                   "attribute_enrichment_min_size"),
+                          "define_top_attributes")
+        if (self.attributes is None
+                or "num_neighborhoods_enriched" not in self.attributes):
+            raise RuntimeError("compute_pvalues (or run_pipeline) first")
+        self.attributes = _domains.define_top_attributes(
+            self.attributes, self._nes_binary_for_top(),
+            self._graph_arrays[1], self._num_nodes,
+            unimodality_metric=self.attribute_unimodality_metric,
+            min_size=self.attribute_enrichment_min_size, verbose=self.verbose)
+
+    def define_domains(self, **kwargs):
+        """Cluster the top attributes into domains and give each node its
+        primary domain (``safe.py:2256``). The intersection GEMM reads the
+        device indicator and is cached across re-clusterings at other
+        thresholds; the host NES and indicator are read only by the scipy
+        engine."""
+        self._take_kwargs(kwargs, ("attribute_distance_threshold",),
+                          "define_domains")
+        if self.attributes is None or "top" not in self.attributes:
+            raise RuntimeError("define_top_attributes first")
+        if self._nes_binary_pending is not None:
+            self._update_binary_enrichment()
+        if (self._domains_inter_cache is None
+                and self._nes_binary_dev is not None
+                and self.attribute_distance_metric == "jaccard"
+                and _domains.uses_gemm(self.cluster_engine, "jaccard",
+                                       int(np.sum(self.attributes["top"])))):
+            self._domains_inter_cache = _dd.enrichment_intersections(
+                self._nes_binary_dev)
+        self.attributes, self.node2domain = _domains.define_domains(
+            self.attributes, lambda: self.nes, self._nes_binary_small,
+            distance_metric=self.attribute_distance_metric,
+            distance_threshold=self.attribute_distance_threshold,
+            verbose=self.verbose, cluster_engine=self.cluster_engine,
+            intersections=self._domains_inter_cache,
+            nes_binary_dev=self._nes_binary_dev, nes_dev=self._nes_device(),
+            device=self.device)
+
+    def trim_domains(self, **kwargs):
+        """Drop the domains that are primary for fewer than
+        ``attribute_enrichment_min_size`` nodes, renumber and label the rest
+        (``safe.py:2283``); sets ``domains``."""
+        self._take_kwargs(kwargs, (), "trim_domains")
+        if self.node2domain is None:
+            raise RuntimeError("define_domains first")
+        self.attributes, self.node2domain, self.domains = \
+            _domains.trim_domains(
+                self.attributes, self.node2domain,
+                min_size=self.attribute_enrichment_min_size,
+                verbose=self.verbose)

@@ -701,3 +701,75 @@ def test_cuda_binary_session_matches_cpu_session(dev, engine):
     assert np.all(np.abs(gpu.pvalues_pos - pc)
                   <= 1e-9 + 2.0 ** -21 * pc
                   * np.abs(np.log(np.maximum(pc, 1e-300))))
+
+
+def test_domain_ops_on_the_card_are_exact(dev):
+    """The intersection GEMM past the counts where bf16 (256) and fp16
+    (2,048) outputs would round equals the host f64 product; the node
+    aggregates and the CSC view equal their CPU results."""
+    from safepy_tpu_torch.ops import domains_device as dd
+
+    rng = np.random.default_rng(4)
+    b = (rng.random((3000, 300)) < 0.8).astype(np.int8)
+    b[:, 7] = 0
+    want = b.T.astype(np.float64) @ b.astype(np.float64)
+    assert want.max() > 2048
+    np.testing.assert_array_equal(
+        dd.enrichment_intersections(torch.as_tensor(b, device=dev)), want)
+    np.testing.assert_array_equal(dd.enrichment_intersections(b, dev), want)
+    nes = rng.normal(size=b.shape).astype(np.float32)
+    nes[rng.random(b.shape) < 0.3] = np.nan
+    dom = rng.integers(0, 9, size=300)
+    got = dd.domain_aggregates(torch.as_tensor(b, device=dev),
+                               torch.as_tensor(nes, device=dev), dom, 10)
+    for g, w in zip(got, dd.domain_aggregates(torch.as_tensor(b),
+                                              torch.as_tensor(nes), dom, 10)):
+        np.testing.assert_array_equal(g, w)
+    sparse = b * (rng.random(b.shape) < 0.05)
+    csc = dd.indicator_csc(torch.as_tensor(sparse, device=dev),
+                           sparse.sum(axis=0))
+    np.testing.assert_array_equal(csc.toarray(), sparse)
+
+
+@pytest.mark.parametrize("engine", ["gemm", "scipy"])
+def test_cuda_domain_stage_matches_cpu_session(dev, engine):
+    """The domain stage of a CUDA binary session (device indicator and NES)
+    equals that of a CPU session handed the same indicator, NES and
+    enriched counts through the setters, exactly, labels included."""
+    net = _network()
+    coords = net[0]
+    rng = np.random.default_rng(2)
+    vals = np.zeros((700, 120))
+    for j in range(120):
+        near = (np.linalg.norm(coords - rng.uniform(-0.8, 0.8, 2), axis=1)
+                < rng.uniform(0.15, 0.5))
+        vals[:, j] = near & (rng.random(700) < 0.6)
+    vals[rng.random(700) < 0.1] = np.nan
+    gpu = SAFE(device=dev, verbose=False)
+    gpu.load_network(network_file=net)
+    gpu.load_attributes(attribute_file=vals)
+    gpu.run_pipeline()
+    cpu = SAFE(device="cpu", verbose=False)
+    cpu.load_network(network_file=net)
+    cpu.load_attributes(attribute_file=vals)
+    cpu.nes_binary = gpu.nes_binary
+    cpu.nes = gpu.nes
+    cpu.attributes["num_neighborhoods_enriched"] = \
+        gpu.attributes["num_neighborhoods_enriched"]
+    for sf in (gpu, cpu):
+        sf.cluster_engine = engine
+        sf.define_top_attributes()
+        sf.define_domains()
+        sf.trim_domains()
+    assert gpu._nes_binary_dev.device.type == dev.type
+    assert int(gpu.attributes["top"].sum()) >= 2
+    for k in ("top", "num_connected_components", "domain"):
+        np.testing.assert_array_equal(gpu.attributes[k], cpu.attributes[k])
+    for k in ("domains", "counts", "primary_domain", "primary_nes"):
+        np.testing.assert_array_equal(getattr(gpu.node2domain, k),
+                                      getattr(cpu.node2domain, k))
+    np.testing.assert_array_equal(gpu.domains["id"], cpu.domains["id"])
+    assert gpu.domains["label"] == cpu.domains["label"]
+    if engine == "gemm":
+        b = gpu.nes_binary
+        np.testing.assert_array_equal(gpu._domains_inter_cache, b.T @ b)
