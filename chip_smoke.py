@@ -95,8 +95,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     session handed the same indicator, NES and counts through the setters.
     Times (min of 3) the stage and its parts, reports the peak device
     memory and profiles one stage (the ``domains:`` lines);
+12. the band GO path: phase 6's network (49,920 nodes, band storage) with
+    a binary matrix of 4,373 terms of matrix A's size law (seeded, 10%
+    unannotated genes) through the fused binary ``run_pipeline``. 'auto'
+    must take the class table (``table-band``) and
+    ``hypergeom_engine='loop'`` the f64 tail loop in host chunks
+    (``hostchunks-band``), each with one ``close_diag``, ``relax_panel``
+    and ``relax_skew_sym`` a FW round; their indicators and counts equal,
+    p within 1e-6 (their log sf ulps printed). The indicator band is bitwise
+    phase 6's; the census equals a host ``scipy.sparse`` product of
+    ``neighborhoods_sparse`` with the matrix; 10,000 sampled cells of each
+    engine within 1e-6 of scipy's ``hypergeom.sf``; the stages equal the
+    fused run; the FDR run is ``fdr_bh_logsf_np`` of the unadjusted
+    log-survival within 1 f32 ulp on sampled rows; the domain stage runs on
+    the ``table-band`` session through the CSC view, which must equal
+    ``np.nonzero`` of the int8 download. Times the warm and steady runs, the host passes, the operand
+    prep, the table's and the tail loop's first and last chunks, FDR and
+    the domain stage, reports the peak memory and profiles one steady run
+    of each engine (the ``band GO`` lines);
 9. print a JSON line of the kernels (times, bounds, launches of every
-   path, phase 10's as ``go_binary_loop`` and ``go_binary_table``), then
+   path, phase 10's as ``go_binary_loop`` and ``go_binary_table``, phase
+   12's as ``band_go_table`` and ``band_go_hostchunks``), then
    the card, then the result line. The domain stage runs no hand-written
    kernel: its products are ``torch.matmul``.
 
@@ -119,7 +138,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
-from scipy.sparse import coo_matrix
+from scipy.sparse import coo_matrix, csc_matrix, issparse
 from scipy.cluster.hierarchy import fcluster, linkage
 from scipy.sparse.csgraph import dijkstra, shortest_path
 from scipy.spatial import cKDTree
@@ -134,6 +153,8 @@ from safepy_tpu_torch.io.graph_arrays import edge_lengths
 from safepy_tpu_torch.ops import apsp_bandstore as bst
 from safepy_tpu_torch.ops import apsp_cuda as K
 from safepy_tpu_torch.ops import domains_device as dd
+from safepy_tpu_torch.ops import enrich_band as eb
+from safepy_tpu_torch.ops import hypergeom_table as htab
 from safepy_tpu_torch.ops.fdr import fdr_bh_logsf, fdr_bh_logsf_np
 from safepy_tpu_torch.ops.hypergeom import (_sf_parts, finalize_logsf_device,
                                             lgamma_table, tail_iterations)
@@ -162,6 +183,8 @@ GO_ATTRS, GO_NAN_SHARE, GO_SAMPLES = 4373, 0.1, 10000
 SEED_GO_A, SEED_GO_B, SEED_GO_SAMPLES = 21, 22, 23
 # phase 11: top terms whose condensed jaccard is held against scipy's pdist
 DOMAIN_SAMPLES, SEED_GO_NAMES = 512, 24
+# phase 12: a GO matrix of matrix A's size law on phase 6's network
+SEED_BAND_GO = 25
 GO_WORDS = ("regulation", "of", "transport", "cell", "cycle", "protein",
             "the", "DNA", "repair", "to", "metabolic", "process", "via",
             "signaling", "positive", "negative", "membrane", "RNA")
@@ -1829,6 +1852,277 @@ def run_domain_stage(device, sf, net, steady=3, samples=DOMAIN_SAMPLES):
     return out
 
 
+def f32_ulps_dev(got, want) -> float:
+    """Largest |got - want| in f32 ulps of ``want``, on the device (equal
+    values count 0)."""
+    w = want.to(torch.float32)
+    ulp = (torch.nextafter(w.abs(), torch.tensor(float("inf"),
+                                                 device=w.device))
+           - w.abs()).double()
+    diff = (got.double() - w.double()).abs()
+    return float(torch.where(got == w, 0.0, diff / ulp).max())
+
+
+def band_census(sf, mat):
+    """The census of a band session on the host: (counts (N, A), sizes
+    (N,), K (A,), M) from a scipy.sparse product of ``neighborhoods_sparse``
+    (original frame) with the annotation matrix."""
+    n, a = mat.shape
+    finite = np.isfinite(mat)
+    r, c = np.nonzero(mat == 1.0)
+    ann = csc_matrix((np.ones(len(r)), (r, c)), shape=(n, a))
+    nbr = sf.neighborhoods_sparse()
+    counts = (nbr @ ann).toarray()
+    sizes = nbr @ finite.any(axis=1).astype(np.float64)
+    return counts, sizes, np.asarray(ann.sum(axis=0)).ravel(), int(
+        finite.any(axis=1).sum())
+
+
+def band_device_census(sf, cols=512):
+    """The census the band engines compute, (N, A) f32 in the original frame:
+    banded products of the cached int8 operands, column chunk by chunk."""
+    bm = sf._neighborhoods_dev
+    nan0, _, _, ok, _ = sf._band_hyper_operands_cached(np.argsort(bm.rank))
+    if not ok:
+        raise AssertionError("the band operands are not binary")
+    npad = bm.data.shape[0] - 2 * bm.bt * BLOCK
+    rank = torch.as_tensor(bm.rank, device=bm.data.device)
+    out = np.empty(tuple(nan0.shape), np.float32)
+    for j in range(0, nan0.shape[1], cols):
+        x = eb._pad_rows_to(nan0[:, j:j + cols].to(torch.float32), npad)
+        out[:, j:j + cols] = bst.band_matmul(bm.data, x, bt=bm.bt)[
+            rank].cpu().numpy()
+    return out
+
+
+def run_band_go(device, ref, attrs=GO_ATTRS, steady=3, fdr_rows=512,
+                samples=GO_SAMPLES):
+    """Phase 12: the band GO path on phase 6's network (session ``ref``) with
+    a binary matrix of ``attrs`` terms (matrix A's size law); the checks,
+    walls, parts, peak memory and profiles of the module doc."""
+    t_phase = time.perf_counter()
+    net = ref._graph_arrays
+    coords = net[0]
+    n = len(coords)
+    nb = -(-n // BLOCK)
+    rng = np.random.default_rng(SEED_BAND_GO)
+    sizes = np.rint(np.exp(rng.uniform(np.log(3), np.log(300), attrs)))
+    t0 = time.perf_counter()
+    mat = build_go_matrix(coords, sizes, SEED_BAND_GO)
+    out = dict(nodes=n, attrs=attrs, matrix_s=time.perf_counter() - t0)
+    cuda = device.type == "cuda"
+
+    def session(**settings):
+        sf = SAFE(device=device, verbose=False)
+        for k in ("apsp_mode", "keep_node_distances", "neighborhood_radius"):
+            setattr(sf, k, getattr(ref, k))
+        for k, v in settings.items():
+            setattr(sf, k, v)
+        sf.load_network(network_file=net)
+        sf.load_attributes(attribute_file=mat)
+        return sf
+
+    def timed(fn):
+        sync(device)
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        return time.perf_counter() - t0
+
+    def best(fn, reps=steady):
+        return min(timed(fn) for _ in range(reps))
+
+    def fused(engine, **settings):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        sf = session(**settings)
+        K.reset_launches()
+        warm = timed(sf.run_pipeline)
+        launches = dict(K.LAUNCHES)
+        if sf._hypergeom_engine_used != engine:
+            raise AssertionError(f"{sf._hypergeom_engine_used} taken, "
+                                 f"{engine} expected")
+        check_launches(device, launches, close_diag=nb, relax_panel=nb,
+                       relax_skew_sym=nb)
+        walls = [timed(sf.run_pipeline) for _ in range(steady)]
+        return sf, dict(engine=engine, launches=launches, warm_s=warm,
+                        steady_s=walls, steady_min_s=min(walls),
+                        peak_gb=(torch.cuda.max_memory_allocated(device) / 1e9
+                                 if cuda else None))
+
+    table, out["table"] = fused("table-band")
+    bm = table._neighborhoods_dev
+    if not torch.equal(bm.data, ref._neighborhoods_dev.data):
+        raise AssertionError("the indicator band differs from phase 6's")
+    counts_np = np.asarray(table.attributes["num_neighborhoods_enriched"])
+
+    # the census against a host scipy.sparse product; sampled cells against
+    # scipy's hypergeom.sf
+    t0 = time.perf_counter()
+    host, nsize, K_host, M = band_census(table, mat)
+    out["host_census_s"] = time.perf_counter() - t0
+    if not np.array_equal(band_device_census(table), host):
+        raise AssertionError("the band census differs from the host "
+                             "scipy.sparse product")
+    rng = np.random.default_rng(SEED_GO_SAMPLES)
+    rows, cols = rng.integers(0, n, samples), rng.integers(0, attrs, samples)
+    want = hypergeom.sf(host[rows, cols] - 1, M, K_host[cols], nsize[rows])
+    idx = (torch.as_tensor(rows, device=device),
+           torch.as_tensor(cols, device=device))
+
+    def scipy_err(sf):
+        p = np.exp(sf._logsf_dev[idx].double().cpu().numpy())
+        return float(np.abs(p - want).max())
+
+    out["table"]["scipy_err"] = scipy_err(table)
+    if out["table"]["scipy_err"] > 1e-6:
+        raise AssertionError(f"table-band p differs from scipy by "
+                             f"{out['table']['scipy_err']}")
+    out["table"].update(enriched=int(counts_np.sum()),
+                        attributes_enriched=int((counts_np > 0).sum()),
+                        mean_neighborhood=float(nsize.mean()))
+
+    # the f64 tail loop in host chunks: the same indicator and counts
+    loop, out["hostchunks"] = fused("hostchunks-band",
+                                    hypergeom_engine="loop")
+    if not (torch.equal(loop._nes_binary_dev, table._nes_binary_dev)
+            and np.array_equal(loop.attributes["num_neighborhoods_enriched"],
+                               counts_np)):
+        raise AssertionError("hostchunks-band and table-band indicators or "
+                             "counts differ")
+    out["hostchunks"]["scipy_err"] = scipy_err(loop)
+    out["loop_vs_table_p"] = float((loop._logsf_dev.double().exp()
+                                    - table._logsf_dev.double().exp())
+                                   .abs().max())
+    out["loop_vs_table_ulps"] = f32_ulps_dev(loop._logsf_dev,
+                                             table._logsf_dev)
+    # p is held; the log sf's ulps are reported: the loop's complement
+    # branch rounds log pmf to f32 before its exp, an error that grows with
+    # |log pmf|, where the table rounds an f64 value once
+    if (out["loop_vs_table_p"] > 1e-6
+            or out["hostchunks"]["scipy_err"] > 1e-6):
+        raise AssertionError(f"hostchunks-band p differs from table-band's "
+                             f"by {out['loop_vs_table_p']}, from scipy by "
+                             f"{out['hostchunks']['scipy_err']}")
+
+    # the parts alone, at this run's inputs
+    order = np.argsort(bm.rank)
+    out["host_operands_s"] = best(
+        lambda: SAFE._hypergeom_host_operands(mat, order))
+    n2a_dev = table._node2attribute_device()
+    out["prep_s"] = best(lambda: eb.band_hyper_operands_device(n2a_dev,
+                                                               order))
+    nan0_d, nnn_d, K_d, _, _ = table._band_hyper_operands_cached(order)
+    K_np = K_d.cpu().numpy()
+    npad = bm.data.shape[0] - 2 * bm.bt * BLOCK
+    nsize_d = bst.band_matmul(bm.data, eb._pad_rows_to(nnn_d[:, None], npad),
+                              bt=bm.bt)[:, 0]
+    plan = htab.plan(K_np, float(nsize_d.max()), M)
+    out["table_plan"] = dict(chunks=len(plan["chunks"]),
+                             total_cells=plan["total_cells"],
+                             geometry=sorted({(c["R"], c["S_max"], c["C"])
+                                              for c in plan["chunks"]}))
+    rank_d = torch.as_tensor(bm.rank, device=device)
+    log_thr = float(np.log(0.05))
+
+    def table_chunk(ch):
+        return eb._band_table_chunk(
+            bm.data, nan0_d[:, ch["start"]:ch["start"] + ch["width"]],
+            nsize_d, torch.as_tensor(ch["K_dist"], device=device),
+            torch.as_tensor(ch["colc"], device=device), M, log_thr, rank_d,
+            R=ch["R"], S_max=ch["S_max"], C=ch["C"], bt=bm.bt, block=BLOCK,
+            npad=npad, precision="highest")
+
+    out["table_chunk_s"] = [best(lambda ch=ch: table_chunk(ch))
+                            for ch in (plan["chunks"][0], plan["chunks"][-1])]
+    out["table_all_s"] = best(lambda: eb.hypergeom_band_table(
+        bm.data, nan0_d, nnn_d, M, 0.05, bt=bm.bt, rank_np=bm.rank,
+        K_np=K_np, plan=plan))
+    nan0_h, nnn_h, _ = SAFE._hypergeom_host_operands(mat, order)
+    K_sorted = np.sort(nan0_h.sum(axis=0), kind="stable")
+    chunk = SAFE._hypergeom_attr_chunk(n, attrs)
+    out["attr_chunk"] = chunk
+    starts = [min(c * chunk, attrs - chunk) for c in range(-(-attrs // chunk))]
+    out["chunk_iters"] = [eb._iteration_bucket(tail_iterations(
+        M, min(int(max(1.0, K_sorted[s:s + chunk].max())), M)))
+        for s in starts]
+    lgt = torch.as_tensor(lgamma_table(M), device=device)
+    order_a = np.argsort(nan0_h.sum(axis=0), kind="stable")
+
+    nnn_t = torch.as_tensor(nnn_h, device=device)
+    out["tail_chunk_s"] = []
+    for i in (0, len(starts) - 1):  # the smallest terms, the largest
+        cols_a = order_a[starts[i]:starts[i] + chunk]
+        x = torch.as_tensor(nan0_h[:, cols_a], device=device)
+        k_c = torch.as_tensor(K_sorted[starts[i]:starts[i] + chunk],
+                              device=device)
+        out["tail_chunk_s"].append(best(lambda: eb.hypergeom_core_band(
+            bm.data, x, nnn_t, k_c, lgt, M, 0.05,
+            iterations=out["chunk_iters"][i], bt=bm.bt, rank=rank_d)))
+    row_chunk = SAFE._fdr_row_chunk(tuple(table._logsf_dev.shape))
+    out["fdr_s"] = best(lambda: fdr_bh_logsf(table._logsf_dev, log_thr,
+                                             row_chunk=row_chunk))
+    del nan0_h, nnn_h, x
+    if cuda:
+        out["table"]["profile"] = profile_steady(table)
+        out["hostchunks"]["profile"] = profile_steady(loop)
+    del loop
+
+    # the stages: the fused run's results
+    staged = session()
+    out["staged_s"] = timed(lambda: (staged.define_neighborhoods(),
+                                     staged.compute_pvalues()))
+    if staged._hypergeom_engine_used != "table-band-staged":
+        raise AssertionError(f"staged engine {staged._hypergeom_engine_used}")
+    if not (torch.equal(staged._neighborhoods_dev.data, bm.data)
+            and torch.equal(staged._logsf_dev, table._logsf_dev)
+            and torch.equal(staged._nes_binary_dev, table._nes_binary_dev)
+            and np.array_equal(
+                staged.attributes["num_neighborhoods_enriched"], counts_np)):
+        raise AssertionError("the stages differ from the fused run")
+    del staged
+
+    # FDR: the host log-space BH of the unadjusted log-survival, on sampled
+    # rows (BH adjusts each row alone)
+    fsf = session(multiple_testing=True)
+    out["fdr_run_s"] = timed(fsf.run_pipeline)
+    rows = torch.as_tensor(np.random.default_rng(SEED_GO_SAMPLES).choice(
+        n, fdr_rows, replace=False), device=device)
+    adj, nbin, _ = fdr_bh_logsf_np(table._logsf_dev[rows].cpu().numpy(),
+                                   np.log(0.05))
+    out["fdr_ulps"] = f32_ulps(fsf._logsf_dev[rows].cpu().numpy(), adj)
+    if out["fdr_ulps"] > 1 or not np.array_equal(
+            fsf._nes_binary_dev[rows].cpu().numpy(), nbin):
+        raise AssertionError(f"FDR differs from fdr_bh_logsf_np: "
+                             f"{out['fdr_ulps']} ulps or the indicator")
+    out["fdr_enriched"] = int(np.sum(
+        fsf.attributes["num_neighborhoods_enriched"]))
+    del fsf
+
+    # the domain stage on the table-band session, through the CSC view
+    table.attributes["name"] = go_term_names(attrs)
+    t0 = time.perf_counter()
+    csc = table._nes_binary_for_top()
+    out["csc_s"] = time.perf_counter() - t0
+    if not issparse(csc):
+        raise AssertionError("define_top_attributes did not take the CSC "
+                             "view")
+    r, c = np.nonzero(table._nes_binary_dev.cpu().numpy())
+    want_csc = csc_matrix((np.ones(len(r), np.int8), (r, c)),
+                          shape=csc.shape)
+    if (csc != want_csc).nnz or not np.all(csc.data == 1):
+        raise AssertionError("the CSC view differs from np.nonzero of the "
+                             "int8 download")
+    out["top_s"] = timed(table.define_top_attributes)
+    out["domains_s"] = timed(table.define_domains)
+    out["trim_s"] = timed(table.trim_domains)
+    top = np.asarray(table.attributes["top"])
+    out.update(top=int(top.sum()),
+               domains=len(table.domains["id"]) - (0 in table.domains["id"]),
+               phase_s=time.perf_counter() - t_phase)
+    return out
+
+
 def profile_steady(sf, top=8, run=None):
     """Device busy time and idle share of one steady run (``run``, else
     ``sf.run_pipeline``), and its largest kernels, from torch.profiler
@@ -2068,6 +2362,49 @@ def main():
           f"largest (name, launches, device ms): {dp['top']}; phase 11 took "
           f"{d['phase_s']:.1f} s", flush=True)
 
+    # phase 12: the band GO path on phase 6's network, 4,373 terms
+    bg = run_band_go(device, bs["session"])
+    for name in ("table", "hostchunks"):
+        m = bg[name]
+        prof = m.get("profile", {})
+        print(f"band GO {name} ({bg['nodes']} x {bg['attrs']}; {card}): "
+              f"engine {m['engine']}, launches {m['launches']}; warm "
+              f"{m['warm_s']:.4f} s, steady {m['steady_s']} (min "
+              f"{m['steady_min_s']:.4f} s); peak device memory "
+              f"{m['peak_gb']:.3f} GB; {GO_SAMPLES} sampled p within "
+              f"{m['scipy_err']:.3e} of scipy; profile: one steady run, "
+              f"wall {prof.get('wall_ms', 0):.3f} ms with the profiler on, "
+              f"device busy {prof.get('busy_ms', 0):.3f} ms, idle share "
+              f"{prof.get('idle_share', 0):.3f}; largest (name, launches, "
+              f"device ms): {prof.get('top')}", flush=True)
+    t = bg["table"]
+    print(f"band GO checks ({card}): indicator band bitwise phase 6's; "
+          f"census equal to the host scipy.sparse product "
+          f"({bg['host_census_s']:.2f} s on the host); mean neighborhood "
+          f"{t['mean_neighborhood']:.2f}; {t['enriched']} enriched cells, "
+          f"{t['attributes_enriched']} terms enriched somewhere; "
+          f"hostchunks-band: indicator and counts equal to table-band's, p "
+          f"within {bg['loop_vs_table_p']:.3e}, log sf within "
+          f"{bg['loop_vs_table_ulps']:.0f} f32 ulps; stages "
+          f"{bg['staged_s']:.4f} s, equal to the fused run; FDR run "
+          f"{bg['fdr_run_s']:.4f} s, within {bg['fdr_ulps']:.0f} f32 ulp of "
+          f"fdr_bh_logsf_np on sampled rows, {bg['fdr_enriched']} enriched "
+          f"cells; CSC view ({bg['csc_s']:.4f} s) equal to np.nonzero of "
+          f"the int8 download", flush=True)
+    print(f"band GO parts (min of 3; {card}): host operands of the loop "
+          f"engines {bg['host_operands_s']:.4f} s; device operand prep "
+          f"{bg['prep_s']:.4f} s; class table plan {bg['table_plan']}: "
+          f"census + table + lookup of the first and last chunk "
+          f"{bg['table_chunk_s']} s, all chunks {bg['table_all_s']:.4f} s; "
+          f"tail loop of the first and last host chunk of {bg['attr_chunk']}"
+          f" columns {bg['tail_chunk_s']} s (iteration buckets "
+          f"{bg['chunk_iters']}); log-space FDR {bg['fdr_s']:.4f} s; "
+          f"domain stage: define_top_attributes {bg['top_s']:.4f} s, "
+          f"define_domains {bg['domains_s']:.4f} s, trim_domains "
+          f"{bg['trim_s']:.4f} s ({bg['top']} top terms, {bg['domains']} "
+          f"domains); matrix built in {bg['matrix_s']:.1f} s; phase 12 took "
+          f"{bg['phase_s']:.1f} s", flush=True)
+
     # phase 9: the report; launches from the run of each kernel's path
     replaces = {"relax_panel": "safepy_tpu/ops/apsp_pallas.py:95",
                 "relax_window_sym": "safepy_tpu/ops/apsp_pallas.py:193",
@@ -2095,7 +2432,9 @@ def main():
              **{f"sharded_band_world2_rank{r}": x
                 for r, x in enumerate(w2["run_launches"])},
              "go_binary_loop": go["A"]["launches"],
-             "go_binary_table": go["B"]["launches"]}
+             "go_binary_table": go["B"]["launches"],
+             "band_go_table": bg["table"]["launches"],
+             "band_go_hostchunks": bg["hostchunks"]["launches"]}
     report = [{"name": name, "route": "cuda", "source": SRC,
                "replaces": replaces[name], "launches": launches[name],
                "launches_by_path": {path: counts[name]

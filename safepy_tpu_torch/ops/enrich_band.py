@@ -1,10 +1,21 @@
-"""Neighborhood scores and the permutation null over band-storage
-neighborhoods, never densified.
+"""Enrichment statistics over band-storage neighborhoods, never densified.
 
-Port of ``safepy_tpu/ops/enrich_band.py`` for the quantitative branch:
+Port of ``safepy_tpu/ops/enrich_band.py``. Quantitative attributes:
 :func:`band_score` (sum and z-score, ``:44``) and :func:`scan_counts_band`
-(the two-sided null, ``:70``, gather engine). Everything lives in the
-permuted (banded-order) node frame; callers un-permute the row outputs.
+(the two-sided null, ``:70``, gather engine). Binary attributes (the
+hypergeometric test, reference safe.py:556-608) with the census as banded
+products:
+
+- :func:`hypergeom_core_band` (``:138``): census + per-cell f64 survival
+  tail + device finalization, optionally in attribute chunks;
+- :func:`hypergeom_band_hostchunks` (``:245``): the tail in K-sorted column
+  chunks, each with its own iteration bound;
+- :func:`hypergeom_band_table` (``:431``): the class-table engine
+  (:mod:`.hypergeom_table`) chunk by chunk into preallocated outputs.
+
+Everything lives in the permuted (banded-order) node frame; callers
+un-permute the row outputs, or pass ``rank`` and get them in the original
+frame.
 
 Permutations are drawn as in :mod:`.permutation`: ``torch.rand(C, V).argsort``
 rows from the session's generator, or an explicit ``perm_idx`` (P, V), both
@@ -16,12 +27,16 @@ not ported.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from safepy_tpu_torch.ops import hypergeom_table as htab
 from safepy_tpu_torch.ops.apsp_bandstore import (band_count_batch,
                                                  band_matmul,
                                                  band_matmul_batch)
+from safepy_tpu_torch.ops.hypergeom import (_sf_parts, finalize_logsf_device,
+                                            tail_iterations)
 from safepy_tpu_torch.ops.permutation import count_scan, random_permutations
 from safepy_tpu_torch.ops.score import (zscore_from_contractions,
                                         zscore_shift)
@@ -151,3 +166,283 @@ def scan_counts_band(compact, starts, vals, mask, obs, frame_map, *,
         counts_neg += cn
         counts_pos += cp
     return counts_neg, counts_pos
+
+
+# ---------------------------------------------------------------------------
+# Hypergeometric enrichment (binary annotations)
+# ---------------------------------------------------------------------------
+
+def _npad(s_ind, bt: int, block: int) -> int:
+    return s_ind.shape[0] - 2 * bt * block
+
+
+def _tail(counts, nsize, K, lgt, M, enrichment_threshold, iterations):
+    """(log sf f32, indicator int8) of a census block: the f64 tail loop
+    and the device finalization, as the dense fused path runs them."""
+    f64 = torch.float64
+    shape = counts.shape
+    parts = _sf_parts(counts.to(f64), M, K.to(f64)[None, :].expand(shape),
+                      nsize.to(f64)[:, None].expand(shape), lgt, iterations)
+    _nes, logsf, nbin = finalize_logsf_device(parts, enrichment_threshold)
+    return logsf, nbin
+
+
+def hypergeom_core_band(s_ind, nan0, nodes_not_nan, K, lgt, M,
+                        enrichment_threshold, *, iterations: int, bt: int,
+                        block: int = 128, precision: str = "highest",
+                        attr_chunk: int | None = None, rank=None):
+    """Census + survival tail over the banded indicator from NaN-zeroed
+    operands (``:138``).
+
+    nan0: (n, A) annotations with NaN set to 0, rows in the permuted frame;
+    nodes_not_nan: (n,) f32; K: (A,) per-attribute totals; lgt: the f64
+    lgamma table over [0, M] on the band's device. ``rank`` (n,): un-permute
+    the row outputs to the original frame (chunk by chunk when chunked).
+    ``attr_chunk``: compute the tail over columns in chunks of this size,
+    so that one chunk's f64 intermediates are live at a time; the last chunk
+    clamps its start to ``A - attr_chunk`` and recomputes a few columns
+    identically. Returns (log sf f32, indicator int8), (n, A) with ``rank``
+    else (npad, A).
+    """
+    npad = _npad(s_ind, bt, block)
+    dev = s_ind.device
+    nan0 = torch.as_tensor(nan0, device=dev).to(torch.float32)
+    nnn = torch.as_tensor(nodes_not_nan, device=dev).to(torch.float32)
+    K = torch.as_tensor(K, device=dev)
+    A = nan0.shape[1]
+    kw = dict(bt=bt, block=block, precision=precision)
+
+    def gather(x):
+        return x if rank is None else x.index_select(0, rank)
+
+    if attr_chunk is None or attr_chunk >= A:
+        stacked = _pad_rows_to(torch.cat([nnn[:, None], nan0], dim=1), npad)
+        prod = band_matmul(s_ind, stacked, **kw)
+        logsf, nbin = _tail(prod[:, 1:], prod[:, 0], K, lgt, M,
+                            enrichment_threshold, iterations)
+        return gather(logsf), gather(nbin)
+
+    nsize = band_matmul(s_ind, _pad_rows_to(nnn[:, None], npad), **kw)[:, 0]
+    nan0_r = _pad_rows_to(nan0, npad)
+    out_rows = npad if rank is None else rank.shape[0]
+    logsf_b = torch.empty((out_rows, A), dtype=torch.float32, device=dev)
+    bin_b = torch.empty((out_rows, A), dtype=torch.int8, device=dev)
+    for ci in range(-(-A // attr_chunk)):
+        start = min(ci * attr_chunk, A - attr_chunk)
+        cols = slice(start, start + attr_chunk)
+        counts = band_matmul(s_ind, nan0_r[:, cols], **kw)
+        logsf_c, bin_c = _tail(counts, nsize, K[cols], lgt, M,
+                               enrichment_threshold, iterations)
+        logsf_b[:, cols] = gather(logsf_c)
+        bin_b[:, cols] = gather(bin_c)
+    return logsf_b, bin_b
+
+
+def hypergeom_tail_band(s_ind, vals, lgt, M, enrichment_threshold, *,
+                        iterations: int, bt: int, block: int = 128,
+                        precision: str = "highest",
+                        attr_chunk: int | None = None, rank=None):
+    """:func:`hypergeom_core_band` from the raw NaN-carrying (n, A)
+    annotations in the permuted frame (``:217``)."""
+    vals = torch.as_tensor(vals, device=s_ind.device).to(torch.float32)
+    finite = torch.isfinite(vals)
+    nan0 = torch.where(finite, vals, torch.zeros_like(vals))
+    nodes_not_nan = finite.any(dim=1).to(torch.float32)
+    return hypergeom_core_band(s_ind, nan0, nodes_not_nan, nan0.sum(dim=0),
+                               lgt, M, enrichment_threshold,
+                               iterations=iterations, bt=bt, block=block,
+                               precision=precision, attr_chunk=attr_chunk,
+                               rank=rank)
+
+
+def _iteration_bucket(iters: int) -> int:
+    """The tail's iteration bound rounded up to a power of two, from 64
+    (``:236``). JAX rounds to share compiled programs; the bound also
+    decides how long a chunk's loop may run, so the port keeps it."""
+    b = 64
+    while b < iters:
+        b *= 2
+    return b
+
+
+def hypergeom_band_hostchunks(s_ind, nan0_np, nodes_not_nan_np, lgt, M,
+                              enrichment_threshold, *, bt: int,
+                              block: int = 128, rank_np, attr_chunk: int,
+                              precision: str = "highest"):
+    """The f64 survival tail in host-driven column chunks (``:245``).
+
+    The columns are sorted by their annotated total K, so each chunk's
+    iteration bound (:func:`_iteration_bucket` of ``tail_iterations``)
+    fits its own largest term; each chunk is one :func:`hypergeom_core_band`
+    call with the row un-permute inside. The last chunk clamps its start and
+    drops the columns it recomputes. The chunks are joined and put back in
+    the original column order with one ``index_select``.
+
+    nan0_np, nodes_not_nan_np: host f32 operands in the permuted row frame.
+    Returns (log sf f32, indicator int8, enriched counts int32 (A,)) on the
+    band's device, the (n, A) matrices in the original node frame.
+    """
+    dev = s_ind.device
+    n_attrs = nan0_np.shape[1]
+    K_np = nan0_np.sum(axis=0)
+    order_a = np.argsort(K_np, kind="stable")
+    inv_a = np.argsort(order_a, kind="stable")
+
+    nan0_dev = torch.as_tensor(nan0_np[:, order_a], device=dev)
+    nnn_dev = torch.as_tensor(nodes_not_nan_np, device=dev)
+    rank_dev = torch.as_tensor(rank_np, dtype=torch.int64, device=dev)
+    K_sorted = K_np[order_a]
+
+    attr_chunk = min(attr_chunk, n_attrs)
+    logsf_pieces, bin_pieces = [], []
+    for ci in range(-(-n_attrs // attr_chunk)):
+        start = min(ci * attr_chunk, n_attrs - attr_chunk)
+        overlap = ci * attr_chunk - start
+        K_c = K_sorted[start:start + attr_chunk]
+        k_max = int(max(1.0, float(K_c.max()))) if K_c.size else 1
+        iters = _iteration_bucket(tail_iterations(M, min(k_max, M)))
+        logsf_c, bin_c = hypergeom_core_band(
+            s_ind, nan0_dev[:, start:start + attr_chunk], nnn_dev,
+            torch.as_tensor(K_c, dtype=torch.float32, device=dev), lgt, M,
+            enrichment_threshold, iterations=iters, bt=bt, block=block,
+            precision=precision, rank=rank_dev)
+        logsf_pieces.append(logsf_c[:, overlap:])
+        bin_pieces.append(bin_c[:, overlap:])
+    del nan0_dev
+    inv_dev = torch.as_tensor(inv_a, device=dev)
+
+    def assemble(pieces):
+        sorted_cols = torch.cat(pieces, dim=1)
+        pieces.clear()
+        return sorted_cols.index_select(1, inv_dev)
+
+    logsf = assemble(logsf_pieces)
+    nbin = assemble(bin_pieces)
+    return logsf, nbin, nbin.sum(dim=0, dtype=torch.int32)
+
+
+def band_hyper_operands_device(n2a_dev, order):
+    """(nan0 int8, nodes_not_nan f32, K f32, binary_ok) from the device
+    annotation upload, rows gathered into the permuted frame by ``order``
+    (permuted position -> original row) (``:322``).
+
+    nan0 is stored int8: callers read it only when ``binary_ok`` (every
+    finite value 0 or 1), where the cast is exact."""
+    finite = torch.isfinite(n2a_dev)
+    nan0 = torch.where(finite, n2a_dev, torch.zeros_like(n2a_dev))
+    K = nan0.sum(dim=0)
+    nnn = finite.any(dim=1).to(torch.float32)
+    binary_ok = bool(((n2a_dev == 0.0) | (n2a_dev == 1.0) | ~finite).all())
+    order = torch.as_tensor(order, device=n2a_dev.device)
+    return (nan0.to(torch.int8).index_select(0, order),
+            nnn.index_select(0, order), K, binary_ok)
+
+
+def _column_sums_chunked(nan0_dev, chunk_cols: int = 1024) -> np.ndarray:
+    """Per-attribute totals of an int8 (n, A) matrix, summed in f32 (exact
+    below 2^24 rows) over column chunks, so that no f32 copy of the whole
+    matrix exists (``:410``)."""
+    a = nan0_dev.shape[1]
+    return torch.cat([nan0_dev[:, j:j + chunk_cols].sum(dim=0,
+                                                        dtype=torch.float32)
+                      for j in range(0, a, chunk_cols)]).cpu().numpy()
+
+
+def hypergeom_band_table(s_ind, nan0, nodes_not_nan, M,
+                         enrichment_threshold, *, bt: int, block: int = 128,
+                         rank_np, precision: str = "highest",
+                         chunk_cols: int = 512, plan=None,
+                         logsf_out: str = "device", K_np=None):
+    """Hypergeometric enrichment of binary annotations by the class-table
+    engine, column chunk by column chunk (``:431``).
+
+    nan0: (n, A) int8 or f32 annotations with NaN set to 0, rows in the
+    permuted frame (host or device); ``K_np``: their column totals if the
+    caller has them. Each chunk of ``htab.plan`` is one banded census, one
+    table build and one lookup with the row un-permute
+    (:func:`_band_table_chunk`); its columns are copied into the outputs.
+
+    ``logsf_out``: where the (n, A) outputs live. ``'device'``: f32 log sf
+    and int8 indicator on the device; ``'f16'``: the log sf stored f16 (the
+    indicator and counts are decided in f64 before, so they stay exact);
+    ``'host'``: numpy buffers filled chunk by chunk, equal to ``'device'``.
+    JAX's ``'auto'`` chooses among them by its memory planner
+    (``hbm.census_select``), which is not ported (ROADMAP A8): here it is
+    ``'device'``.
+
+    Returns (log sf, indicator, enriched counts int32 (A,) on the device),
+    the (n, A) matrices in the original node frame, or None when the plan
+    is ineligible (non-integer totals, or a table over budget).
+    """
+    dev = s_ind.device
+    nan0_dev = torch.as_tensor(nan0, device=dev)
+    if K_np is None:
+        K_np = _column_sums_chunked(nan0_dev)
+    K_np = np.asarray(K_np)
+    npad = _npad(s_ind, bt, block)
+    kw = dict(bt=bt, block=block, precision=precision)
+    nnn_dev = torch.as_tensor(nodes_not_nan, device=dev).to(torch.float32)
+    nsize_dev = band_matmul(s_ind, _pad_rows_to(nnn_dev[:, None], npad),
+                            **kw)[:, 0]
+    if plan is None:
+        plan = htab.plan(K_np, float(nsize_dev.max()), int(M),
+                         chunk_cols=chunk_cols)
+    if plan is None:
+        return None
+    if logsf_out not in ("device", "f16", "host", "auto"):
+        raise ValueError(f"unknown logsf_out: {logsf_out!r}")
+    if logsf_out == "auto":
+        logsf_out = "device"
+
+    log_thr64 = float(np.log(enrichment_threshold))
+    rank_dev = torch.as_tensor(rank_np, dtype=torch.int64, device=dev)
+    n, n_attrs = len(rank_np), nan0_dev.shape[1]
+    host = logsf_out == "host"
+    if host:
+        logsf = np.empty((n, n_attrs), np.float32)
+        nbin = np.empty((n, n_attrs), np.int8)
+    else:
+        dtype = torch.float16 if logsf_out == "f16" else torch.float32
+        logsf = torch.empty((n, n_attrs), dtype=dtype, device=dev)
+        nbin = torch.empty((n, n_attrs), dtype=torch.int8, device=dev)
+    counts = []
+    for ch in plan["chunks"]:
+        start, width = ch["start"], ch["width"]
+        logsf_c, bin_c = _band_table_chunk(
+            s_ind, nan0_dev[:, start:start + width], nsize_dev,
+            torch.as_tensor(ch["K_dist"], device=dev),
+            torch.as_tensor(ch["colc"], device=dev), M, log_thr64, rank_dev,
+            R=ch["R"], S_max=ch["S_max"], C=ch["C"], npad=npad, **kw)
+        # a chunk's leading `overlap` columns repeat the previous chunk's
+        counts.append(bin_c.sum(dim=0, dtype=torch.int32)[ch["overlap"]:])
+        if host:
+            logsf[:, start:start + width] = logsf_c.cpu().numpy()
+            nbin[:, start:start + width] = bin_c.cpu().numpy()
+        else:
+            _place_chunk(logsf, nbin, logsf_c, bin_c, start)
+        del logsf_c, bin_c
+    return logsf, nbin, torch.cat(counts)
+
+
+def _place_chunk(logsf, nbin, logsf_c, bin_c, start: int):
+    """Copy one chunk's columns into the outputs in place (``:596``); the
+    f32 log sf is cast to the output's dtype (f16 storage) on the copy."""
+    width = logsf_c.shape[1]
+    logsf[:, start:start + width].copy_(logsf_c)
+    nbin[:, start:start + width].copy_(bin_c)
+
+
+def _band_table_chunk(s_ind, cols, nsize, K_dist, colc, M, log_thr64, rank,
+                      *, R: int, S_max: int, C: int, bt: int, block: int,
+                      npad: int, precision: str):
+    """One column chunk (``:609``): banded census of the chunk's columns
+    (int8 cast to f32 here), the chunk's class table, one lookup, rows
+    un-permuted by ``rank``. Returns (log sf f32, indicator int8)."""
+    counts = band_matmul(s_ind, _pad_rows_to(cols.to(torch.float32), npad),
+                         bt=bt, block=block, precision=precision)
+    table = htab.build_logsf_table(K_dist, M, log_thr64, R=R, S_max=S_max,
+                                   C=C)
+    _nes, logsf, nbin = htab.table_lookup(
+        table, counts, nsize, colc, float(np.float32(log_thr64)),
+        S_max=S_max, R=R, C=C)
+    return logsf.index_select(0, rank), nbin.index_select(0, rank)

@@ -16,8 +16,8 @@ it and enriched counts are exact.
 
 Only the gather form of :func:`table_lookup` is ported: JAX's slot loop
 (``_lookup_slot_loop`` :228) exists because the TPU serializes element
-gathers, and is bit-identical to the gather. The chunk planner (``plan``
-:265) serves the band engines only (ROADMAP A7 remainder).
+gathers, and is bit-identical to the gather. The chunk planner :func:`plan`
+serves the band engines (``ops/enrich_band.hypergeom_band_table``).
 """
 
 from __future__ import annotations
@@ -153,3 +153,55 @@ def table_lookup(table, counts, nsize, colc, log_thr32, *, S_max: int,
     ln10 = torch.tensor(np.float32(np.log(10.0)), device=logsf.device)
     nes = -logsf / ln10
     return nes, logsf, nbin
+
+
+def plan(K_np, n_max, M: int, *, chunk_cols: int = 512,
+         budget_cells: int = 12 * 10 ** 8,
+         chunk_budget_cells: int = 4 * 10 ** 8):
+    """Host plan of the chunked table engine (``:265``), or None where it
+    does not apply.
+
+    Eligible: integer K (binary annotations), an integer ``n_max`` (the
+    largest neighborhood size), each chunk's table within
+    ``chunk_budget_cells`` and their sum within ``budget_cells``. Chunks of
+    ``chunk_cols`` columns run in natural column order, each with its own
+    classes: ``K_dist`` (its distinct totals padded with zeros to a power of
+    two, ``C``), ``colc`` (each column's class) and the geometry (``R``,
+    ``S_max``) of :func:`table_geometry`.
+
+    JAX then unifies the chunks' geometry (``_unify_chunk_signatures``
+    :327) so that one compiled program serves the run; that is a
+    compile-cache device, and the values of a cell do not depend on the
+    geometry, so it is not ported. The chunks keep JAX's ``overlap`` key
+    (columns a chunk recomputes from the one before; 0 here), which the
+    engines trim from their per-chunk counts.
+    """
+    K_np = np.asarray(K_np, np.float64)
+    if K_np.size == 0 or not np.all(K_np == np.floor(K_np)):
+        return None
+    if n_max != int(n_max):
+        return None
+    n_max = int(n_max)
+
+    chunks = []
+    total = 0
+    for s in range(0, len(K_np), chunk_cols):
+        kc = K_np[s:s + chunk_cols]
+        k_dist, colc = np.unique(kc, return_inverse=True)
+        r, s_max = table_geometry(k_dist, n_max, M)
+        c = 1
+        while c < len(k_dist):
+            c *= 2
+        k_dist_padded = np.zeros(c, np.float64)
+        k_dist_padded[:len(k_dist)] = k_dist
+        cells = r * s_max * c
+        if cells > chunk_budget_cells:
+            return None
+        total += cells
+        chunks.append(dict(start=s, width=len(kc), overlap=0,
+                           K_dist=k_dist_padded,
+                           colc=colc.reshape(-1).astype(np.int32), R=r,
+                           S_max=s_max, C=c))
+    if total > budget_cells:
+        return None
+    return dict(chunks=chunks, total_cells=total, n_max=n_max, M=int(M))

@@ -5,7 +5,8 @@ scores -> permutation null, over dense or banded-window distances
 (:func:`fused_permutation_pipeline`) or over band storage
 (:func:`fused_permutation_pipeline_band`); APSP -> threshold -> census ->
 hypergeometric survival for binary annotations over dense or banded-window
-distances (:func:`fused_hypergeom_pipeline`). The JAX package compiles each
+distances (:func:`fused_hypergeom_pipeline`) or over band storage
+(:func:`fused_hypergeom_pipeline_band`). The JAX package compiles each
 into one program; here it is eager torch, and the tensors stay on the device
 of the inputs.
 """
@@ -19,7 +20,9 @@ from safepy_tpu_torch.ops import hypergeom as hyper
 from safepy_tpu_torch.ops import hypergeom_table as htab
 from safepy_tpu_torch.ops.apsp_banded import apsp_banded_unpermuted
 from safepy_tpu_torch.ops.apsp_cuda import apsp_blocked_fw
-from safepy_tpu_torch.ops.enrich_band import (band_score, scan_counts_band,
+from safepy_tpu_torch.ops.enrich_band import (band_score,
+                                              hypergeom_core_band,
+                                              scan_counts_band,
                                               valid_frame_map)
 from safepy_tpu_torch.ops.neighborhoods import threshold_and_stats
 from safepy_tpu_torch.ops.permutation import prepare_valid, scan_counts
@@ -234,3 +237,32 @@ def fused_permutation_pipeline_band(u, v, w, vals, vals_valid, valid, starts,
         num_permutations=num_permutations, batch_size=batch_size, w_c=w_c,
         precision=precision, perm_idx=perm_idx)
     return dist_band, s_ind, obs, counts_neg, counts_pos, mean, std
+
+
+def fused_hypergeom_pipeline_band(u, v, w, nan0, nodes_not_nan, K, lgt, M,
+                                  radius, enrichment_threshold, rank, *,
+                                  n: int, band: int, block: int = 128,
+                                  iterations: int,
+                                  keep_distances: bool = True,
+                                  precision: str = "highest"):
+    """Band-storage APSP + threshold + hypergeometric enrichment
+    (``pipeline.py:477``, FW engine).
+
+    nan0 (n, A) NaN-zeroed annotations, nodes_not_nan (n,) and the totals K
+    (A,) are precomputed on the host, rows in the permuted frame; ``rank``
+    maps original node i to its permuted position and un-permutes the row
+    outputs inside the tail. Returns (dist_band or None, s_ind, log sf f32,
+    indicator int8, enriched counts int32 (A,) reduced on the device, mean,
+    std): the (n, A) matrices in the original frame, the bands in the
+    permuted one. The NES is derived from the log sf by the caller.
+    """
+    dist_band, s_ind, mean, std, bt = _band_front(
+        u, v, w, radius, n=n, band=band, block=block,
+        keep_distances=keep_distances)
+    log_sf32, nes_binary = hypergeom_core_band(
+        s_ind, nan0, nodes_not_nan, K, lgt, M, enrichment_threshold,
+        iterations=iterations, bt=bt, block=block, precision=precision,
+        rank=rank)
+    enriched_counts = nes_binary.sum(dim=0, dtype=torch.int32)
+    return (dist_band, s_ind, log_sf32, nes_binary, enriched_counts, mean,
+            std)

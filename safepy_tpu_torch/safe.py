@@ -8,8 +8,11 @@ neighborhoods and enrichment, and set ``neighborhoods``, ``node_distances``,
 the counts of the permutation null) as the JAX facade does.
 
 - Quantitative attributes take the two-sided permutation null, binary 0/1
-  attributes the one-sided hypergeometric test ('auto'), over dense or
-  banded-window distances; quantitative ones also over band storage.
+  attributes the one-sided hypergeometric test ('auto'), over dense,
+  banded-window or band-storage neighborhoods. Over band storage the binary
+  test takes the class table (``table-band``), else the f64 tail loop in
+  host-driven column chunks (``hostchunks-band``) or whole
+  (``loop-band``), fused or staged (``safe.py:1327-1390, 1893-2047``).
 - The neighborhood engine is chosen in the JAX facade's order
   (``safe.py:1702-1712``): band storage (O(N W) memory, ``apsp_mode='band'``
   or ``'auto'`` at ``band_storage_min_nodes`` and above when the band beats
@@ -44,6 +47,7 @@ and ``run_pipeline`` take explicit permutations (``perm_idx``).
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import sys
 
@@ -52,10 +56,12 @@ import torch
 
 from safepy_tpu_torch import domains as _domains
 from safepy_tpu_torch import pipeline as _pipe
+from safepy_tpu_torch.debug import validate_attributes
 from safepy_tpu_torch.io.graph_arrays import graph_to_arrays
 from safepy_tpu_torch.ops import apsp_banded as _banded
 from safepy_tpu_torch.ops import apsp_bandstore as _bst
 from safepy_tpu_torch.ops import domains_device as _dd
+from safepy_tpu_torch.ops import enrich_band as _eb
 from safepy_tpu_torch.ops import fdr as _fdr
 from safepy_tpu_torch.ops import hypergeom as _hyper
 from safepy_tpu_torch.ops import hypergeom_table as _htab
@@ -65,11 +71,6 @@ from safepy_tpu_torch.ops.permutation import (default_batch_size,
                                               run_permutations)
 from safepy_tpu_torch.ops.score import (check_fp32_matmul,
                                         compute_neighborhood_score)
-
-# the keyword arguments compute_pvalues reads or hands on to its engines
-# (safe.py:1186-1193, 1235-1236, 1587-1589)
-_PVALUE_KWARGS = ("how", "neighborhood_score_type", "multiple_testing",
-                  "background", "num_permutations", "processes", "verbose")
 
 
 def _not_ported(what: str, item: str):
@@ -125,6 +126,10 @@ class SAFE:
         # within budget, the per-cell f64 tail loop otherwise; 'table' /
         # 'loop' force one (safe.py:194-197)
         self.hypergeom_engine = "auto"
+        # where the band class table keeps its (N, A) log-survival
+        # (safe.py:161): 'auto' and 'device' keep f32 on the device; the
+        # f16 and host residencies wait for the memory planner (ROADMAP A8)
+        self.logsf_store = "auto"
         self.enrichment_threshold = 0.05
         self.attribute_enrichment_min_size = 10
         self.random_seed = None
@@ -157,6 +162,10 @@ class SAFE:
         self.node2attribute = None
         self._n2a_dev = None
         self._num_other_cache = None
+        # the band binary engines' device operands, keyed on the attribute
+        # load (_attr_serial) and the banded order
+        self._attr_serial = 0
+        self._band_operands_cache = None
 
         # which APSP engine and window the last neighborhoods took, the band
         # relax of a band-storage run ("fw": the only one ported), and which
@@ -193,39 +202,53 @@ class SAFE:
     # ---------------------------------------------------------------- config
 
     def _validate(self):
-        """The enum and range checks of ``config.validate_config`` that the
-        ported paths read."""
+        """The enum and range checks of ``config.validate_config``
+        (``config.py:140-193``) that the ported paths read: an offending
+        setting is restored to its default (the constructor's, which is
+        ``safe_default.ini``'s) before the ``ValueError``."""
+        def reject(name, default, message):
+            setattr(self, name, default)
+            raise ValueError(message)
+
         if self.background not in ("attribute_file", "network"):
-            raise ValueError(f"{self.background} is not a valid setting for "
-                             "background. Valid options are: attribute_file, "
-                             "network.")
+            reject("background", "attribute_file",
+                   f"{self.background} is not a valid setting for "
+                   "background. Valid options are: attribute_file, network.")
         if self.node_distance_metric not in ("euclidean", "shortpath",
                                              "shortpath_weighted_layout"):
-            raise ValueError(f"{self.node_distance_metric} is not a valid "
-                             "setting for node_distance_metric.")
+            reject("node_distance_metric", "shortpath_weighted_layout",
+                   f"{self.node_distance_metric} is not a valid setting for "
+                   "node_distance_metric. Valid options are: euclidean, "
+                   "shortpath, shortpath_weighted_layout")
         if self.attribute_sign not in ("highest", "lowest", "both"):
-            raise ValueError(f"{self.attribute_sign} is not a valid setting "
-                             "for attribute_sign.")
+            reject("attribute_sign", "both",
+                   f"{self.attribute_sign} is not a valid setting for "
+                   "attribute_sign. Valid options are: highest, lowest, both")
         if (not isinstance(self.num_permutations, int)
                 or self.num_permutations < 10):
-            raise ValueError("num_permutations must be an integer equal or "
-                             "greater than 10.")
-        if not 0 < self.enrichment_threshold < 1:
-            raise ValueError("enrichment_threshold must be in the (0,1) range.")
+            reject("num_permutations", 1000, "num_permutations must be an "
+                   "integer equal or greater than 10.")
+        if (not isinstance(self.enrichment_threshold, float)
+                or not 0 < self.enrichment_threshold < 1):
+            reject("enrichment_threshold", 0.05,
+                   "enrichment_threshold must be in the (0,1) range.")
         if self.apsp_mode not in ("auto", "full", "band"):
-            raise ValueError(f"unknown apsp_mode: {self.apsp_mode!r}")
+            reject("apsp_mode", "auto", f"unknown apsp_mode: "
+                   f"{self.apsp_mode!r}")
         if (not isinstance(self.attribute_enrichment_min_size, int)
                 or self.attribute_enrichment_min_size < 2):
-            raise ValueError("attribute_enrichment_min_size must be an "
-                             "integer equal or greater than 2.")
+            reject("attribute_enrichment_min_size", 10,
+                   "attribute_enrichment_min_size must be an integer equal "
+                   "or greater than 2.")
         if (not isinstance(self.attribute_distance_threshold, float)
                 or not 0 < self.attribute_distance_threshold < 1):
-            raise ValueError("attribute_distance_threshold must be a float "
-                             "number in the (0,1) range.")
+            reject("attribute_distance_threshold", 0.75,
+                   "attribute_distance_threshold must be a float number in "
+                   "the (0,1) range.")
         if self.cluster_engine not in ("auto", "gemm", "scipy"):
-            raise ValueError(f"{self.cluster_engine} is not a valid setting "
-                             "for cluster_engine. Valid options are: auto, "
-                             "gemm, scipy.")
+            reject("cluster_engine", "auto",
+                   f"{self.cluster_engine} is not a valid setting for "
+                   "cluster_engine. Valid options are: auto, gemm, scipy.")
 
     # --------------------------------------------------------------- network
 
@@ -274,7 +297,9 @@ class SAFE:
         """Load node attributes: an (N, A) or (N,) float array in node order
         (NaN = unannotated), or a pandas DataFrame indexed by node key, which
         is coerced to numbers, averaged over duplicate keys and aligned to the
-        node order with NaN fill (``io/attributes.py:29``)."""
+        node order with NaN fill (``io/attributes.py:29``). Then JAX's
+        checks (``safe.py:416-419``): a ``ValidationError`` (a
+        ``ValueError``) for +/-inf, a warning for all-NaN columns."""
         if self._num_nodes is None:
             raise RuntimeError("load_network first")
         pd = sys.modules.get("pandas")
@@ -303,6 +328,9 @@ class SAFE:
         self.attributes = {"id": np.arange(len(names)), "name": names}
         self._n2a_dev = None
         self._num_other_cache = None
+        self._band_operands_cache = None
+        self._attr_serial += 1
+        validate_attributes(values, self._num_nodes, warn=self.verbose)
 
     def _node2attribute_device(self) -> torch.Tensor:
         if self._n2a_dev is None:
@@ -644,10 +672,7 @@ class SAFE:
         for k in ("node_distance_metric", "neighborhood_radius_type",
                   "neighborhood_radius"):
             if k in kwargs:
-                setattr(self, k, kwargs.pop(k))
-        if kwargs:
-            raise TypeError("unknown define_neighborhoods arguments: "
-                            f"{sorted(kwargs)}")
+                setattr(self, k, kwargs[k])
         self._validate()
         if self._num_nodes is None:
             raise RuntimeError("load_network first")
@@ -733,7 +758,8 @@ class SAFE:
         """Enrichment of the defined neighborhoods (``safe.py:1183``): the
         hypergeometric test for binary attributes ('auto'), else the
         permutation null, which takes explicit permutations ``perm_idx``
-        (P, V) as ``run_pipeline`` does.
+        (P, V) as ``run_pipeline`` does. The keyword arguments go on to the
+        test, which logs them and reads those it knows.
 
         ``background='network'`` sets the unannotated values to 0 (on a new
         array) before the test."""
@@ -743,17 +769,11 @@ class SAFE:
                   "background"):
             if k in kwargs:
                 setattr(self, k, kwargs[k])
-        unknown = sorted(set(kwargs) - set(_PVALUE_KWARGS))
-        if unknown:
-            raise TypeError(f"unknown compute_pvalues arguments: {unknown}")
         self._validate()
         if self.node2attribute is None:
             raise RuntimeError("load_attributes first")
         self._refuse_mesh("compute_pvalues")
         binary = self._binary()  # NaN -> 0 below does not change it
-        if binary and isinstance(self._neighborhoods_dev, BandedMatrix):
-            raise _not_ported("binary (hypergeometric) enrichment over band "
-                              "storage", "A7 remainder")
 
         if self.background == "network":
             logging.info("Setting all null attribute values to 0. Using the "
@@ -762,6 +782,8 @@ class SAFE:
             self.node2attribute = np.where(np.isnan(n2a), 0.0, n2a)
             self._n2a_dev = None
             self._num_other_cache = None
+            self._band_operands_cache = None
+            self._attr_serial += 1
 
         num_nans = np.sum(np.isnan(self.node2attribute), axis=0)
         if np.any(num_nans / self.node2attribute.shape[0] > 0.5):
@@ -785,23 +807,22 @@ class SAFE:
                 logging.warning("\t%s=%s" % (k, str(kwargs[k])))
 
     def compute_pvalues_by_hypergeom(self, **kwargs):
-        """One-sided hypergeometric enrichment over dense neighborhoods
-        (``safe.py:1228``): the census GEMMs on the device, the tail sum on
-        the device and its finalization on the host, in f64.
+        """One-sided hypergeometric enrichment (``safe.py:1228``).
 
-        Unlike the fused path, the tail's length is bounded by the largest
+        Over dense neighborhoods: the census GEMMs on the device, the tail
+        sum on the device and its finalization on the host, in f64; unlike
+        the fused path, the tail's length is bounded by the largest
         neighborhood, and FDR adjusts the linear p-values (``fdr_bh``), as
-        in JAX."""
+        in JAX. Over band storage: :meth:`_hypergeom_bandstore`."""
         self._log_kwargs(kwargs, "Overwriting global settings:")
         self._validate()
         self._refuse_mesh("compute_pvalues_by_hypergeom")
-        if isinstance(self._neighborhoods_dev, BandedMatrix):
-            raise _not_ported("binary (hypergeometric) enrichment over band "
-                              "storage", "A7 remainder")
         if self.verbose:
             logging.info("Using the hypergeometric test to calculate "
                          "enrichment...")
         n2a = self.node2attribute
+        if isinstance(self._neighborhoods_dev, BandedMatrix):
+            return self._hypergeom_bandstore(self._neighborhoods_dev, n2a)
         nodes_not_nan = np.any(~np.isnan(n2a), axis=1)
         n = int(np.sum(nodes_not_nan))
         N_in_group = np.nansum(n2a, axis=0, dtype=np.float64)  # totals (A,)
@@ -1022,17 +1043,17 @@ class SAFE:
         ``background='network'``.
 
         ``perm_idx`` (P, V): explicit permutations of the V annotated rows
-        for the permutation null (``num_permutations`` becomes P).
+        for the permutation null (``num_permutations`` becomes P). Other
+        keyword arguments set the settings of those names; the rest are
+        ignored, as in JAX (``safe.py:1646-1660``).
         """
         for k in ("node_distance_metric", "neighborhood_radius_type",
                   "neighborhood_radius", "neighborhood_score_type",
                   "multiple_testing", "num_permutations", "background"):
             if k in kwargs:
-                setattr(self, k, kwargs.pop(k))
+                setattr(self, k, kwargs[k])
         if "how" in kwargs:
-            self.enrichment_type = kwargs.pop("how")
-        if kwargs:
-            raise TypeError(f"unknown run_pipeline arguments: {sorted(kwargs)}")
+            self.enrichment_type = kwargs["how"]
         if perm_idx is not None:
             self.num_permutations = len(perm_idx)
         self._validate()
@@ -1058,13 +1079,12 @@ class SAFE:
         else:
             bs_plan = self._band_storage_plan(coords, edges, weights,
                                               num_nodes, nr)
-            if bs_plan is not None and binary:
-                raise _not_ported("binary (hypergeometric) enrichment over "
-                                  "band storage", "A7 remainder")
         if staged:
             self.define_neighborhoods()
             self.compute_pvalues(perm_idx=perm_idx)
             return
+        if bs_plan is not None and binary:
+            return self._run_pipeline_band_hypergeom(bs_plan, nr)
         if bs_plan is not None:
             return self._run_pipeline_bandstore(bs_plan, nr, perm_idx)
         if self.mesh is not None:
@@ -1198,6 +1218,187 @@ class SAFE:
             else BandedMatrix(dist_band, rank, num_nodes, band, fill=np.inf),
             mean, std)
 
+    # ------------------------------------------------- band binary enrichment
+
+    @staticmethod
+    def _hypergeom_host_operands(n2a, order):
+        """(nan0 f32, nodes_not_nan f32, K f32) in the permuted frame for
+        the band tail-loop engines, on the host (``safe.py:711``); K is
+        summed in f64."""
+        finite = ~np.isnan(n2a)
+        nan0 = np.where(finite, n2a, 0.0).astype(np.float32)
+        K = nan0.sum(axis=0, dtype=np.float64).astype(np.float32)
+        nnn = np.any(finite, axis=1).astype(np.float32)
+        return nan0[order], nnn[order], K
+
+    @staticmethod
+    def _hypergeom_attr_chunk(n, num_attrs, budget_elems=2 ** 24):
+        """Attribute chunk of the band tail loop (``safe.py:725``): about
+        ten (N, chunk) f64 intermediates are live in one chunk, so a chunk
+        holds at most ``budget_elems`` cells; None = unchunked."""
+        if n * num_attrs <= budget_elems:
+            return None
+        return int(max(64, budget_elems // max(1, n)))
+
+    def _band_hyper_operands_cached(self, order):
+        """(nan0 int8, nodes_not_nan, K, binary_ok, M) of the band class
+        table, built on the device from the annotation upload
+        (``enrich_band.band_hyper_operands_device``) and cached across runs
+        on the attribute load and a sha1 of ``order`` (``safe.py:1018``).
+        Where the values are not all 0/1 only the scalars are kept."""
+        key = (self._attr_serial, order.shape[0],
+               hashlib.sha1(order.tobytes()).digest())
+        c = self._band_operands_cache
+        if c is not None and c[0] == key:
+            return c[1]
+        nan0, nnn, K, binary_ok = _eb.band_hyper_operands_device(
+            self._node2attribute_device(), order)
+        M = int(nnn.sum())
+        out = (nan0 if binary_ok else None, nnn, K, binary_ok, M)
+        self._band_operands_cache = (key, out)
+        return out
+
+    def _table_logsf_out(self) -> str:
+        """The class table's ``logsf_out`` for ``logsf_store``: 'auto' and
+        'device' keep the log-survival on the device. JAX's 'auto' chooses
+        the residency by its memory planner, and 'f16' / 'host' are that
+        planner's levers (ROADMAP A8)."""
+        if self.logsf_store in ("f16", "host"):
+            raise _not_ported(f"logsf_store={self.logsf_store!r} in the "
+                              "facade (the memory planner's residencies)",
+                              "A8")
+        if self.logsf_store not in ("auto", "device"):
+            raise ValueError(f"unknown logsf_out: {self.logsf_store!r}")
+        return "device"
+
+    def _band_tail_operands(self, n2a, order):
+        """(nan0, nnn, K, M, iterations, lgt) of the band tail-loop engines:
+        the host operands, the population and the tail's bound."""
+        nan0, nnn, K = self._hypergeom_host_operands(n2a, order)
+        M = int(nnn.sum())
+        k_max = int(max(1, K.max())) if K.size else 1
+        iters = _hyper.tail_iterations(M, min(k_max, M))
+        lgt = torch.as_tensor(_hyper.lgamma_table(M), device=self.device)
+        return nan0, nnn, K, M, iters, lgt
+
+    def _run_pipeline_band_hypergeom(self, plan, nr):
+        """run_pipeline's binary branch over band storage, one device
+        (``safe.py:1893-2047``): the class table (``table-band``) for
+        binary annotations within its budget, else the f64 tail loop in
+        host-driven column chunks past ``_hypergeom_attr_chunk``'s budget
+        (``hostchunks-band``), else fused with the band front
+        (``loop-band``). ``hypergeom_engine='loop'`` skips the table; where
+        the table does not apply, 'table' takes the loop engines as in JAX.
+        The results stay on the device; the NES derives from the log sf."""
+        num_nodes = self._num_nodes
+        band, rank = plan["band"], plan["rank"]
+        self._refuse_band_bits(num_nodes, band)
+        self._release_device_results()
+        order = np.argsort(rank)  # permuted position -> original node
+        bt = band // 128 + 1
+        n2a = self.node2attribute
+        radius = _nbr.inclusive_radius(nr)
+        thr = np.float64(self.enrichment_threshold)
+        keep = bool(self.keep_node_distances)
+
+        def front():
+            return _pipe.band_neighborhoods(plan["u"], plan["v"], plan["w"],
+                                            radius, n=num_nodes, band=band,
+                                            keep_distances=keep)
+
+        table_out = done = None
+        if self.hypergeom_engine in ("auto", "table"):
+            logsf_out = self._table_logsf_out()
+            nan0, nnn, K, binary_ok, M = \
+                self._band_hyper_operands_cached(order)
+            if binary_ok:
+                done = front()
+                table_out = _eb.hypergeom_band_table(
+                    done[1], nan0, nnn, M, thr, bt=bt, rank_np=rank,
+                    precision=self.matmul_precision, logsf_out=logsf_out,
+                    K_np=K.cpu().numpy())
+        attr_chunk = self._hypergeom_attr_chunk(num_nodes, n2a.shape[1])
+        if table_out is not None:
+            self._hypergeom_engine_used = "table-band"
+            dist_band, s_ind, mean, std = done
+            log_sf32, nesbin8, counts = table_out
+        else:
+            nan0, nnn, K, M, iters, lgt = self._band_tail_operands(n2a,
+                                                                   order)
+            if attr_chunk is not None:
+                self._hypergeom_engine_used = "hostchunks-band"
+                dist_band, s_ind, mean, std = done or front()
+                log_sf32, nesbin8, counts = _eb.hypergeom_band_hostchunks(
+                    s_ind, nan0, nnn, lgt, M, thr, bt=bt, rank_np=rank,
+                    attr_chunk=attr_chunk, precision=self.matmul_precision)
+            else:
+                self._hypergeom_engine_used = "loop-band"
+                dev = self.device
+                (dist_band, s_ind, log_sf32, nesbin8, counts, mean, std) = \
+                    _pipe.fused_hypergeom_pipeline_band(
+                        plan["u"], plan["v"], plan["w"],
+                        torch.as_tensor(nan0, device=dev),
+                        torch.as_tensor(nnn, device=dev),
+                        torch.as_tensor(K, device=dev), lgt, M, radius, thr,
+                        plan["rank_dev"], n=num_nodes, band=band,
+                        iterations=iters, keep_distances=keep,
+                        precision=self.matmul_precision)
+        self._band_relax_used = "fw"
+        self.apsp_engine_used, self.window_used = "band-storage", None
+        self._store_hypergeom_results(None, log_sf32, nesbin8, counts)
+        self._store_neighborhoods(
+            BandedMatrix(s_ind, rank, num_nodes, band, fill=0.0),
+            None if dist_band is None
+            else BandedMatrix(dist_band, rank, num_nodes, band, fill=np.inf),
+            mean, std)
+        self._update_binary_enrichment()
+
+    def _hypergeom_bandstore(self, bm, n2a):
+        """The staged hypergeometric test over band-stored neighborhoods
+        (``safe.py:1327-1390``): the class table
+        (``table-band-staged``), else the tail loop in host chunks
+        (``hostchunks-band-staged``) or whole (``loop-band-staged``), the
+        rows un-permuted on the device. ``hypergeom_engine='table'`` raises
+        where the table does not apply."""
+        order = np.argsort(bm.rank)  # permuted position -> original node
+        thr = np.float64(self.enrichment_threshold)
+        kw = dict(bt=bm.bt, block=bm.block, precision=self.matmul_precision)
+        table_out = None
+        if self.hypergeom_engine in ("auto", "table"):
+            logsf_out = self._table_logsf_out()
+            nan0, nnn, K, binary_ok, M = \
+                self._band_hyper_operands_cached(order)
+            if binary_ok:
+                table_out = _eb.hypergeom_band_table(
+                    bm.data, nan0, nnn, M, thr, rank_np=bm.rank,
+                    logsf_out=logsf_out, K_np=K.cpu().numpy(), **kw)
+        if table_out is not None:
+            self._hypergeom_engine_used = "table-band-staged"
+            return self._store_hypergeom_results(None, *table_out)
+        if self.hypergeom_engine == "table":
+            raise ValueError(
+                "hypergeom_engine='table' requires binary 0/1 annotations "
+                "with an in-budget class table")
+
+        nan0, nnn, K, M, iters, lgt = self._band_tail_operands(n2a, order)
+        attr_chunk = self._hypergeom_attr_chunk(bm.n, n2a.shape[1])
+        if attr_chunk is not None:
+            self._hypergeom_engine_used = "hostchunks-band-staged"
+            log_sf32, nes_binary8, counts = _eb.hypergeom_band_hostchunks(
+                bm.data, nan0, nnn, lgt, M, thr, rank_np=bm.rank,
+                attr_chunk=attr_chunk, **kw)
+        else:
+            self._hypergeom_engine_used = "loop-band-staged"
+            dev = self.device
+            log_sf32, nes_binary8 = _eb.hypergeom_core_band(
+                bm.data, torch.as_tensor(nan0, device=dev),
+                torch.as_tensor(nnn, device=dev),
+                torch.as_tensor(K, device=dev), lgt, M, thr,
+                iterations=iters,
+                rank=torch.as_tensor(bm.rank, device=dev), **kw)
+            counts = nes_binary8.sum(dim=0, dtype=torch.int32)
+        self._store_hypergeom_results(None, log_sf32, nes_binary8, counts)
+
     # --------------------------------------------------------------- domains
 
     def _nes_binary_small(self):
@@ -1236,12 +1437,12 @@ class SAFE:
                 return self._nes_binary_csc
         return self._nes_binary_small()
 
-    def _take_kwargs(self, kwargs, names, method):
+    def _take_kwargs(self, kwargs, names):
+        """Set the settings of ``names`` that ``kwargs`` holds and check
+        them; other names are ignored, as in JAX (``safe.py:2243-2258``)."""
         for k in names:
             if k in kwargs:
-                setattr(self, k, kwargs.pop(k))
-        if kwargs:
-            raise TypeError(f"unknown {method} arguments: {sorted(kwargs)}")
+                setattr(self, k, kwargs[k])
         self._validate()
 
     def define_top_attributes(self, **kwargs):
@@ -1249,8 +1450,7 @@ class SAFE:
         neighborhoods, and one connected component of them in the network
         (the 'connectivity' unimodality metric)."""
         self._take_kwargs(kwargs, ("attribute_unimodality_metric",
-                                   "attribute_enrichment_min_size"),
-                          "define_top_attributes")
+                                   "attribute_enrichment_min_size"))
         if (self.attributes is None
                 or "num_neighborhoods_enriched" not in self.attributes):
             raise RuntimeError("compute_pvalues (or run_pipeline) first")
@@ -1266,8 +1466,7 @@ class SAFE:
         device indicator and is cached across re-clusterings at other
         thresholds; the host NES and indicator are read only by the scipy
         engine."""
-        self._take_kwargs(kwargs, ("attribute_distance_threshold",),
-                          "define_domains")
+        self._take_kwargs(kwargs, ("attribute_distance_threshold",))
         if self.attributes is None or "top" not in self.attributes:
             raise RuntimeError("define_top_attributes first")
         if self._nes_binary_pending is not None:
@@ -1291,8 +1490,8 @@ class SAFE:
     def trim_domains(self, **kwargs):
         """Drop the domains that are primary for fewer than
         ``attribute_enrichment_min_size`` nodes, renumber and label the rest
-        (``safe.py:2283``); sets ``domains``."""
-        self._take_kwargs(kwargs, (), "trim_domains")
+        (``safe.py:2283``); sets ``domains``. It reads no keyword argument
+        and checks no setting, as in JAX (``safe.py:2284-2287``)."""
         if self.node2domain is None:
             raise RuntimeError("define_domains first")
         self.attributes, self.node2domain, self.domains = \

@@ -14,8 +14,8 @@ from safepy_tpu_torch.safe import SAFE
 
 # the enrichment settings carried across, each with SAFE's default
 ENRICHMENT_SETTINGS = ("enrichment_type", "enrichment_threshold",
-                       "hypergeom_engine", "multiple_testing", "background",
-                       "attribute_sign", "node_distance_metric")
+                       "hypergeom_engine", "logsf_store", "multiple_testing",
+                       "background", "attribute_sign", "node_distance_metric")
 # the domain stage's settings, each with SAFE's default
 DOMAIN_SETTINGS = ("attribute_enrichment_min_size",
                    "attribute_unimodality_metric", "attribute_distance_metric",

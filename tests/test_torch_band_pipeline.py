@@ -294,13 +294,37 @@ def test_still_refused_band_options_raise(setting, value, item):
 
 
 def test_band_binary_attributes_raise_and_quantitative_runs():
+    """Both kinds of attribute run over band storage. The binary one (the
+    band GO engines, refused until they were ported) takes the class table
+    and equals the JAX package's run on the same network (the indicator,
+    the neighborhoods and the counts exactly; tests/test_torch_band_go.py
+    holds every engine)."""
     sf = _small_band_session()
     sf.run_pipeline(num_permutations=20)
     assert sf.apsp_engine_used == "band-storage"
     assert np.isfinite(sf.ns).all() and sf.nes.shape == (200, 1)
     assert sf.node_distances_sparse().nnz == sf.neighborhoods.sum()
-    sf.load_attributes(attribute_file=(np.arange(200) % 2).astype(float))
-    # binary over band storage (the band GO engines) is not ported
-    with pytest.raises(NotImplementedError,
-                       match=re.escape("ROADMAP A7 remainder")):
-        sf.run_pipeline(num_permutations=20)
+    binary = (np.arange(200) % 2).astype(float)
+    sf.load_attributes(attribute_file=binary)
+    sf.run_pipeline(num_permutations=20)
+    assert sf._hypergeom_engine_used == "table-band"
+    assert sf.nes_binary.shape == (200, 1)
+
+    jsf = JaxSAFE(verbose=False)
+    jsf.apsp_mode = "band"
+    jsf.load_network(network_file=_graph(200, seed=51),
+                     node_key_attribute="key")
+    jsf.load_attributes(attribute_file=pd.DataFrame(
+        binary[:, None], index=[f"g{i}" for i in range(200)], columns=["b"]))
+    jsf.run_pipeline()
+    psf = from_numpy_state(jsf._graph_to_arrays_cached(), jsf.node2attribute,
+                           neighborhood_radius=jsf.neighborhood_radius,
+                           random_seed=None, device="cpu")
+    psf.apsp_mode = "band"
+    psf.run_pipeline()
+    assert psf._hypergeom_engine_used == jsf._hypergeom_engine_used
+    np.testing.assert_array_equal(psf.neighborhoods, jsf.neighborhoods)
+    np.testing.assert_array_equal(psf.nes_binary, jsf.nes_binary)
+    np.testing.assert_array_equal(
+        psf.attributes["num_neighborhoods_enriched"],
+        jsf.attributes["num_neighborhoods_enriched"].to_numpy())

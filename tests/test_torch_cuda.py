@@ -703,6 +703,104 @@ def test_cuda_binary_session_matches_cpu_session(dev, engine):
                   * np.abs(np.log(np.maximum(pc, 1e-300))))
 
 
+def _band_go_matrix(coords, a=40, seed=6):
+    rng = np.random.default_rng(seed)
+    n = len(coords)
+    vals = np.zeros((n, a))
+    for j in range(a):
+        near = (np.linalg.norm(coords - rng.uniform(-0.8, 0.8, 2), axis=1)
+                < rng.uniform(0.15, 0.5))
+        vals[:, j] = near & (rng.random(n) < 0.6)
+    vals[rng.random(n) < 0.1] = np.nan
+    return vals
+
+
+@pytest.mark.parametrize("staged", [False, True], ids=["fused", "staged"])
+@pytest.mark.parametrize("label,engine,attr_chunk", [
+    ("table-band", "auto", None), ("hostchunks-band", "loop", 7),
+    ("loop-band", "loop", None)])
+def test_cuda_band_binary_session_matches_cpu_session(dev, label, engine,
+                                                      attr_chunk, staged):
+    """The band GO engines on the card and on the host, band storage
+    forced: the same engine, neighborhoods, indicator and enriched counts;
+    the log-survival within 4 f32 ulps (the tail loop's f32 exp and log1p)
+    or 1 ulp plus 1e-11 (the class table's f64 log); one launch of each
+    band FW kernel a round on the card."""
+    net = _network(n=900)
+    vals = _band_go_matrix(net[0])
+    runs = []
+    for device in ("cpu", dev):
+        sf = SAFE(device=device, verbose=False)
+        sf.apsp_mode, sf.hypergeom_engine = "band", engine
+        if attr_chunk is not None:
+            sf._hypergeom_attr_chunk = lambda n, a, budget_elems=0: attr_chunk
+        sf.load_network(network_file=net)
+        sf.load_attributes(attribute_file=vals)
+        K.reset_launches()
+        if staged:
+            sf.define_neighborhoods()
+            sf.compute_pvalues()
+        else:
+            sf.run_pipeline()
+        runs.append((sf, dict(K.LAUNCHES)))
+    (cpu, _), (gpu, launches) = runs
+    want = label + ("-staged" if staged else "")
+    assert gpu._hypergeom_engine_used == cpu._hypergeom_engine_used == want
+    nb = -(-900 // 128)
+    assert (launches["close_diag"], launches["relax_panel"],
+            launches["relax_skew_sym"]) == (nb, nb, nb)
+    np.testing.assert_array_equal(gpu.neighborhoods, cpu.neighborhoods)
+    np.testing.assert_array_equal(gpu.nes_binary, cpu.nes_binary)
+    np.testing.assert_array_equal(gpu.attributes["num_neighborhoods_enriched"],
+                                  cpu.attributes["num_neighborhoods_enriched"])
+    got, ref = gpu._logsf_dev, cpu._logsf_dev
+    if label == "table-band":
+        diff = (got.cpu().double() - ref.double()).abs()
+        assert bool((diff <= torch.as_tensor(np.spacing(np.abs(ref.numpy())))
+                     .double() + 1e-11).all())
+    else:
+        assert _f32_ulps(got, ref) <= 4
+
+
+def test_band_table_residencies_on_the_card(dev):
+    """hypergeom_band_table on the card: 'host' bit-equal to 'device',
+    'f16' with the same indicator and counts; each within the table's
+    tolerance of the host run."""
+    from safepy_tpu_torch.ops import enrich_band as eb
+
+    net = _network(n=900)
+    sf = SAFE(device=dev, verbose=False)
+    sf.apsp_mode = "band"
+    sf.load_network(network_file=net)
+    sf.load_attributes(attribute_file=_band_go_matrix(net[0]))
+    sf.define_neighborhoods()
+    bm = sf._neighborhoods_dev
+    order = np.argsort(bm.rank)
+    nan0, nnn, K_, ok, M = sf._band_hyper_operands_cached(order)
+    assert ok and nan0.is_cuda
+    kw = dict(bt=bm.bt, rank_np=bm.rank, chunk_cols=16, K_np=K_.cpu().numpy())
+    out = {mode: eb.hypergeom_band_table(bm.data, nan0, nnn, M, 0.05,
+                                         logsf_out=mode, **kw)
+           for mode in ("device", "f16", "host")}
+    cpu = eb.hypergeom_band_table(bm.data.cpu(), nan0.cpu(), nnn.cpu(), M,
+                                  0.05, **kw)
+    dev_logsf, dev_bin, dev_counts = out["device"]
+    np.testing.assert_array_equal(out["host"][0], dev_logsf.cpu().numpy())
+    np.testing.assert_array_equal(out["host"][1], dev_bin.cpu().numpy())
+    assert out["f16"][0].dtype == torch.float16
+    for mode in ("f16", "host"):
+        np.testing.assert_array_equal(np.asarray(out[mode][1].cpu()
+                                                 if mode == "f16"
+                                                 else out[mode][1]),
+                                      cpu[1].numpy())
+        assert torch.equal(out[mode][2].cpu(), cpu[2])
+    diff = (dev_logsf.cpu().double() - cpu[0].double()).abs()
+    assert bool((diff <= torch.as_tensor(np.spacing(np.abs(cpu[0].numpy())))
+                 .double() + 1e-11).all())
+    assert torch.equal(dev_bin.cpu(), cpu[1])
+    assert torch.equal(dev_counts.cpu(), cpu[2])
+
+
 def test_domain_ops_on_the_card_are_exact(dev):
     """The intersection GEMM past the counts where bf16 (256) and fp16
     (2,048) outputs would round equals the host f64 product; the node

@@ -616,14 +616,56 @@ def test_domain_settings_are_checked(setting, value):
         sf._validate()
 
 
+def _dry_run_network(n=200, seed=0):
+    """The network of the JAX package's dry run (``__graft_entry__.py:
+    97-110``) at 200 nodes: uniform in the unit square, edges under 0.18,
+    and six binary attributes, each 80% of the nodes in a disc."""
+    rng = np.random.default_rng(seed)
+    coords = rng.uniform(0, 1, (n, 2))
+    g = nx.Graph()
+    for i in range(n):
+        g.add_node(i, x=float(coords[i, 0]), y=float(coords[i, 1]),
+                   label=f"g{i}", key=f"g{i}")
+    d = np.linalg.norm(coords[:, None] - coords[None], axis=-1)
+    g.add_edges_from(zip(*np.nonzero(np.triu(d < 0.18, 1))))
+    calculate_edge_lengths(g, verbose=False)
+    binary = np.zeros((n, 6))
+    for j, centre in enumerate(rng.uniform(0.2, 0.8, (6, 2))):
+        disc = np.linalg.norm(coords - centre, axis=1) < 0.25
+        binary[disc, j] = rng.random(int(disc.sum())) < 0.8
+    return g, pd.DataFrame(binary, index=[f"g{i}" for i in range(n)],
+                           columns=[f"b{j}" for j in range(6)])
+
+
 def test_stage_order_and_unknown_arguments():
+    """The stages refuse to run out of order; a keyword argument a stage
+    does not read is ignored, as in JAX: the domain calls of the JAX
+    package's dry run (``__graft_entry__.py:151-157``, one device) give
+    the same domains in both packages."""
     sf = SAFE(device="cpu", verbose=False)
     with pytest.raises(RuntimeError, match="compute_pvalues"):
         sf.define_top_attributes()
     sf.attributes = {"num_neighborhoods_enriched": np.zeros(3)}
     with pytest.raises(RuntimeError, match="define_top_attributes first"):
-        sf.define_domains()
-    with pytest.raises(RuntimeError, match="define_domains first"):
-        sf.trim_domains()
-    with pytest.raises(TypeError, match="unknown define_domains arguments"):
         sf.define_domains(attribute_distance_metric="cosine")
+    with pytest.raises(RuntimeError, match="define_domains first"):
+        sf.trim_domains(attribute_enrichment_min_size=2)
+
+    g, attrs = _dry_run_network()
+    jsf = JaxSAFE(verbose=False)
+    jsf.load_network(network_file=g, node_key_attribute="key")
+    jsf.load_attributes(attribute_file=attrs)
+    psf = from_numpy_state(jsf._graph_to_arrays_cached(), jsf.node2attribute,
+                           neighborhood_radius=jsf.neighborhood_radius,
+                           random_seed=None, device="cpu",
+                           attribute_names=jsf.attributes["name"])
+    for sf in (jsf, psf):
+        sf.define_neighborhoods(not_a_setting=1)
+        sf.compute_pvalues(not_a_setting=1)
+        sf.define_top_attributes(attribute_enrichment_min_size=2)
+        sf.define_domains(attribute_distance_threshold=0.9,
+                          attribute_enrichment_min_size=2)
+        sf.trim_domains(attribute_enrichment_min_size=2)
+    assert int(psf.attributes["top"].sum()) >= 2
+    np.testing.assert_array_equal(psf.nes_binary, jsf.nes_binary)
+    _assert_stage_equal(psf, jsf, trimmed=True)

@@ -326,7 +326,8 @@ def test_caller_set_neighborhoods_upload(net):
 
 def test_from_numpy_state_carries_the_enrichment_settings(net):
     settings = dict(enrichment_type="hypergeometric", enrichment_threshold=0.01,
-                    hypergeom_engine="loop", multiple_testing=True,
+                    hypergeom_engine="loop", logsf_store="device",
+                    multiple_testing=True,
                     background="network", attribute_sign="highest",
                     node_distance_metric="shortpath")
     jsf = _jax(net, _go_matrix(net[1]), **settings)
@@ -356,21 +357,30 @@ def _data_mesh():
     ("compute_pvalues on a mesh", "A10 remainder")])
 def test_unported_cases_raise_before_anything_is_computed(net, case, item):
     """Each refusal names its ROADMAP item and leaves no result behind;
-    nothing quietly takes another path."""
+    nothing quietly takes another path. Binary enrichment over band
+    storage, fused and staged (with ``background='network'``), was refused
+    until the band GO engines were ported: those cases now run and equal
+    the JAX package's runs (tests/test_torch_band_go.py holds every
+    engine)."""
     binary = "binary" in case or "compute_pvalues" in case
     vals = _go_matrix(net[1]) if binary else _integers(N_NODES)
     jsf = _jax(net, vals)
     psf = _port(jsf, apsp_mode="band" if "band" in case else "auto",
                 node_distance_metric=("euclidean" if "euclidean" in case
                                       else "shortpath_weighted_layout"))
-    if case == "staged binary over band storage":
-        psf.define_neighborhoods()  # band storage
-        psf.background = "network"
-        before = psf.node2attribute
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            psf.compute_pvalues()
-        assert psf.node2attribute is before  # background not yet applied
-        assert psf.nes is None
+    if case.endswith("binary over band storage"):
+        jsf.apsp_mode = "band"
+        if case.startswith("staged"):
+            for sf in (jsf, psf):
+                sf.define_neighborhoods()  # band storage
+                sf.background = "network"
+                sf.compute_pvalues()
+        else:
+            jsf.run_pipeline()
+            psf.run_pipeline()
+        assert psf._hypergeom_engine_used == jsf._hypergeom_engine_used
+        assert psf.apsp_engine_used == "band-storage"
+        _assert_binary_equal(psf, jsf, fused=True)
         return
     if "mesh" in case:
         psf.mesh = _data_mesh()

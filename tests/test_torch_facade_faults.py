@@ -13,7 +13,11 @@ Each test pins one repaired fault of the port against the JAX package:
   * ``parallel.make_mesh`` runs on the card unless the caller asks for the
     CPU, as ``SAFE`` does;
   * so does ``ops.neighborhoods.initial_distances_device``, which JAX builds
-    on the accelerator.
+    on the accelerator;
+  * ``load_attributes`` refuses +/-inf with a ``ValueError`` and warns on
+    all-NaN columns (``debug.validate_attributes``, ``safe.py:416-419``);
+  * a failed settings check restores the offending setting to its default
+    before it raises (``config.validate_config``, ``config.py:140-193``).
 
 Tolerances as in tests/test_torch_band_pipeline.py: neighborhoods identical,
 distances within 1e-6 relative (the inf pattern equal).
@@ -246,3 +250,96 @@ def test_initial_distances_device_runs_on_the_card_unless_asked_for_the_cpu(
     assert got.device.type == "cpu" and got.dtype == torch.float32
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(jnb.initial_distances_device(6, edges, w)))
+
+
+# C8: the attribute checks of load_attributes
+
+DRY_N = 200
+
+
+def _dry_graph():
+    """200 uniform nodes, edges under 0.18 (``__graft_entry__.py:97-110``)."""
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(0, 1, (DRY_N, 2))
+    g = nx.Graph()
+    for i in range(DRY_N):
+        g.add_node(i, x=float(coords[i, 0]), y=float(coords[i, 1]),
+                   label=f"g{i}", key=f"g{i}")
+    d = np.linalg.norm(coords[:, None] - coords[None], axis=-1)
+    g.add_edges_from(zip(*np.nonzero(np.triu(d < 0.18, 1))))
+    calculate_edge_lengths(g, verbose=False)
+    return g
+
+
+def _inf_matrix(kind):
+    rng = np.random.default_rng(1)
+    if kind == "quantitative":
+        vals = rng.normal(size=(DRY_N, 6))
+    else:
+        vals = (rng.random((DRY_N, 6)) < 0.2).astype(float)
+    vals[3, 0] = np.inf
+    return vals
+
+
+@pytest.mark.parametrize("kind", ["quantitative", "binary"])
+@pytest.mark.parametrize("form", ["array", "dataframe"])
+def test_load_attributes_refuses_inf_as_jax_does(kind, form):
+    g = _dry_graph()
+    vals = _inf_matrix(kind)
+    df = pd.DataFrame(vals, index=[f"g{i}" for i in range(DRY_N)],
+                      columns=[f"c{j}" for j in range(6)])
+    jsf = JaxSAFE(verbose=False)
+    jsf.load_network(network_file=g, node_key_attribute="key")
+    with pytest.raises(ValueError, match="inf"):
+        jsf.load_attributes(attribute_file=df)
+    psf = SAFE(device="cpu", verbose=False)
+    if form == "array":
+        psf.load_network(network_file=jsf._graph_to_arrays_cached())
+    else:
+        psf.load_network(network_file=g, node_key_attribute="key")
+    with pytest.raises(ValueError, match=r"\+/-inf; use NaN"):
+        psf.load_attributes(attribute_file=vals if form == "array" else df)
+
+
+def test_all_nan_column_warns_as_jax_does(caplog):
+    g = _dry_graph()
+    vals = np.random.default_rng(2).normal(size=(DRY_N, 3))
+    vals[:, 1] = np.nan
+    df = pd.DataFrame(vals, index=[f"g{i}" for i in range(DRY_N)],
+                      columns=["a", "b", "c"])
+    for sf in (JaxSAFE(verbose=True), SAFE(device="cpu", verbose=True)):
+        sf.load_network(network_file=g, node_key_attribute="key")
+        caplog.clear()
+        sf.load_attributes(attribute_file=df)
+        assert "1 attribute column(s) are entirely NaN" in caplog.text
+
+
+# C9: a failed check restores the default
+
+@pytest.mark.parametrize("setting,value", [
+    ("background", "nope"), ("node_distance_metric", "nope"),
+    ("attribute_sign", "nope"), ("num_permutations", 5),
+    ("num_permutations", 100.0), ("enrichment_threshold", 1.5),
+    ("enrichment_threshold", 0.0), ("enrichment_threshold", 1),
+    ("apsp_mode", "nope"), ("attribute_enrichment_min_size", 1),
+    ("attribute_enrichment_min_size", 2.5),
+    ("attribute_distance_threshold", 1.5),
+    ("attribute_distance_threshold", 1), ("cluster_engine", "pdist")])
+def test_failed_check_restores_the_default_as_jax_does(setting, value):
+    """Every check of the port: the setting after the error equals JAX's
+    after its ``validate_config`` error. JAX checks no ``apsp_mode``; the
+    port restores JAX's constructor default there."""
+    psf, jsf = SAFE(device="cpu", verbose=False), JaxSAFE(verbose=False)
+    setattr(psf, setting, value)
+    with pytest.raises(ValueError):
+        psf._validate()
+    if setting == "apsp_mode":
+        want = jsf.apsp_mode
+    else:
+        setattr(jsf, setting, value)
+        with pytest.raises(ValueError):
+            jsf.validate_config()
+        want = getattr(jsf, setting)
+    got = getattr(psf, setting)
+    assert got == want and type(got) is type(want)
+    psf._validate()  # the restored settings pass

@@ -19,7 +19,8 @@ def test_import_is_light_and_builds_nothing():
     before = sorted(os.listdir(build)) if os.path.isdir(build) else None
     code = ("import sys, safepy_tpu_torch, safepy_tpu_torch.safe, "
             "safepy_tpu_torch.state, safepy_tpu_torch.pipeline, "
-            "safepy_tpu_torch.domains, safepy_tpu_torch.ops.domains_device, "
+            "safepy_tpu_torch.domains, safepy_tpu_torch.debug, "
+            "safepy_tpu_torch.ops.domains_device, "
             "safepy_tpu_torch.ops.apsp_bandstore, "
             "safepy_tpu_torch.ops.enrich_band, safepy_tpu_torch.ops.fdr, "
             "safepy_tpu_torch.ops.hypergeom, "
