@@ -113,11 +113,42 @@ Phases, in order; any failure raises and the script exits non-zero:
     prep, the table's and the tail loop's first and last chunks, FDR and
     the domain stage, reports the peak memory and profiles one steady run
     of each engine (the ``band GO`` lines);
+13. the A7 remainder (run after phase 12, before phase 9's report), each
+    part's times printed beside the card: (c) ``band_relax='bf'`` on phase
+    6's network through ``run_pipeline``: the relax recorded ('bf'), the
+    slot width, the rounds and the budget; the indicator band against phase
+    6's FW band (each differing cell printed with its distance to the
+    radius in f32 ulps, and refused beyond one ulp); the counts equal to
+    phase 6's; BF's relax alone against the FW's, and a profile of it; then
+    with ``bf_max_iters`` replaced by one round the run falls back to the
+    FW ('bf->fw', one ``close_diag``, ``relax_panel`` and ``relax_skew_sym``
+    a round). (d) ``band_indicator_bits=True`` on the same network: the
+    quantitative run's band is phase 6's packed, its scores and counts
+    phase 6's; a ``table-band`` run of phase 12's matrix gives phase 12's
+    indicator, counts and log sf bitwise; peaks against theirs. (b) the
+    euclidean band at 49,920 uniform points with kept distances: 512
+    distance and indicator rows equal to a host f32 computation with JAX's
+    arithmetic, the stages equal to the fused run under the same
+    permutations, and 256 binary terms of phase 12's size law through the
+    staged band GO engine within 1e-6 of scipy on 10,000 sampled cells.
+    (a) the euclidean band at 1,000,000 uniform points (about 125 a
+    neighborhood, one normal attribute with 30% NaN, 1,000 permutations,
+    ``keep_node_distances=False``, the defaults otherwise): it must take
+    band storage (band 6,655, bt 52, W 13,440) and the bit-packed
+    indicator (1.70 GB); 512 seeded rows equal the host's, and the count
+    of their cells within one f32 ulp of the radius is printed; the same
+    session with ``band_indicator_bits=False`` gives the packed band's
+    bytes, scores and counts. Times the warm and steady runs, the
+    indicator build, the null, the scores and the compaction alone in both
+    forms, reports both peaks and profiles one steady run. No euclidean
+    path launches a hand-written kernel;
 9. print a JSON line of the kernels (times, bounds, launches of every
    path, phase 10's as ``go_binary_loop`` and ``go_binary_table``, phase
-   12's as ``band_go_table`` and ``band_go_hostchunks``), then
-   the card, then the result line. The domain stage runs no hand-written
-   kernel: its products are ``torch.matmul``.
+   12's as ``band_go_table`` and ``band_go_hostchunks``, phase 13's as
+   ``band_bf``, ``band_bf_fallback``, ``band_packed``,
+   ``band_packed_table`` and the ``euclid_band_*`` paths), then the card,
+   then the result line. The domain stage runs no hand-written kernel:
+   its products are ``torch.matmul``.
 
 Imports torch, numpy, scipy and the port only; needs one card, nvcc and
 nvidia-smi. Phase 8 starts two processes and joins them.
@@ -185,6 +216,10 @@ SEED_GO_A, SEED_GO_B, SEED_GO_SAMPLES = 21, 22, 23
 DOMAIN_SAMPLES, SEED_GO_NAMES = 512, 24
 # phase 12: a GO matrix of matrix A's size law on phase 6's network
 SEED_BAND_GO = 25
+# phase 13: the euclidean band at a million points (a scatter/UMAP input),
+# and at phase 6's size with kept distances and a GO matrix of 256 terms
+EUCLID_NODES, EUCLID_ROWS, SEED_EUCLID = 1_000_000, 512, 26
+EUCLID_GO_TERMS = 256
 GO_WORDS = ("regulation", "of", "transport", "cell", "cycle", "protein",
             "the", "DNA", "repair", "to", "metabolic", "process", "via",
             "signaling", "positive", "negative", "membrane", "RNA")
@@ -2119,16 +2154,469 @@ def run_band_go(device, ref, attrs=GO_ATTRS, steady=3, fdr_rows=512,
     top = np.asarray(table.attributes["top"])
     out.update(top=int(top.sum()),
                domains=len(table.domains["id"]) - (0 in table.domains["id"]),
-               phase_s=time.perf_counter() - t_phase)
+               phase_s=time.perf_counter() - t_phase,
+               session=table, matrix=mat)  # phase 13 (d) compares with them
     return out
 
 
-def profile_steady(sf, top=8, run=None):
+# ---------------------------------------------------------------------------
+# Phase 13: the euclidean band form, the sparse Bellman-Ford relax and the
+# bit-packed indicator band
+# ---------------------------------------------------------------------------
+
+def peak_reset(device):
+    """Reset the allocator's peak; the bytes allocated now (None on the
+    CPU)."""
+    if device.type != "cuda":
+        return None
+    torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.memory_allocated(device)
+
+
+def peak_gb(device):
+    if device.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 1e9
+
+
+def timed_s(device, fn):
+    """Host seconds of ``fn`` between two synchronises."""
+    sync(device)
+    t0 = time.perf_counter()
+    fn()
+    sync(device)
+    return time.perf_counter() - t0
+
+
+def best_s(device, fn, reps=3):
+    return min(timed_s(device, fn) for _ in range(reps))
+
+
+def euclid_points(n, seed=SEED_EUCLID):
+    """n uniform points in [-1, 1]^2 and one normal attribute with 30% NaN
+    (phase 6's law)."""
+    coords = np.random.default_rng(seed).uniform(-1, 1, (n, 2))
+    return coords, build_band_attribute(n, seed + 1)
+
+
+def euclid_session(device, coords, vals, **settings):
+    """A euclidean-metric session on scatter points (no edges) with phase
+    6's radius law: about 125 points a neighborhood."""
+    sf = SAFE(device=device, verbose=False)
+    sf.node_distance_metric = "euclidean"
+    sf.neighborhood_radius = float(np.sqrt(125.0 / (np.pi * len(coords))))
+    sf.random_seed = SEED_NULL
+    for k, v in settings.items():
+        setattr(sf, k, v)
+    sf.load_network(network_file=(coords, np.zeros((0, 2), np.int64), None,
+                                  None))
+    sf.load_attributes(attribute_file=vals)
+    return sf
+
+
+def euclid_radius(sf) -> np.float32:
+    x = sf._graph_arrays[0][:, 0]
+    return np.float32(sf.neighborhood_radius * (x.max() - x.min()))
+
+
+def euclid_host_rows(coords, src, r, chunk=8):
+    """The strict ``d < r`` rows of the points ``src`` against every point
+    on the host, in JAX's f32 arithmetic as the port takes it
+    (``ops.apsp_bandstore._euclid_distances``: fma(dy, dy, dx dx) through
+    f64, the f64 root rounded to f32), a chunk of rows at a time. Returns
+    (the rows' neighbor index arrays, their distances, the count of cells
+    within one f32 ulp of r)."""
+    c32 = coords.astype(np.float32)
+    r = np.float32(r)
+    ulp = np.spacing(r)
+    rows, dists, near = [], [], 0
+    for i0 in range(0, len(src), chunk):
+        s = src[i0:i0 + chunk]
+        dx = c32[s, 0][:, None] - c32[None, :, 0]
+        dy = c32[s, 1][:, None] - c32[None, :, 1]
+        ssq = (dy.astype(np.float64) ** 2
+               + (dx * dx).astype(np.float64)).astype(np.float32)
+        d = np.sqrt(ssq.astype(np.float64)).astype(np.float32)
+        near += int((np.abs(d - r) <= ulp).sum())
+        for row in d:
+            j = np.flatnonzero(row < r)
+            rows.append(j)
+            dists.append(row[j])
+    return rows, dists, near
+
+
+def band_rows(bm, src):
+    """Rows of the original nodes ``src`` of a band (int8, bit-packed or f32
+    distances): per row the original indices of its nonzero (finite)
+    cells, sorted, and their values."""
+    order = np.argsort(bm.rank)
+    pos = bm.rank[src]
+    g = torch.as_tensor(bm.bt * bm.block + pos, device=bm.data.device)
+    host = bm.data[g].cpu().numpy()
+    if host.dtype == np.uint8:
+        host = np.unpackbits(host, axis=1, bitorder="little")
+    rows, vals = [], []
+    for k, p in enumerate(pos):
+        c = np.flatnonzero(np.isfinite(host[k]) if np.isinf(bm.fill)
+                           else host[k] != 0)
+        j = (p // bm.block - bm.bt) * bm.block + c
+        keep = (j >= 0) & (j < bm.n)
+        idx = order[j[keep]]
+        srt = np.argsort(idx)
+        rows.append(idx[srt])
+        vals.append(host[k][c[keep]][srt])
+    return rows, vals
+
+
+def same_rows(got, want) -> int:
+    """Count of the rows whose index arrays differ."""
+    return sum(not np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def packed_equals(packed, plain, rows=1 << 14) -> bool:
+    """Is the bit-packed band the int8 band packed? Compared a chunk of
+    rows at a time, so that no unpacked copy of a large band exists."""
+    return all(torch.equal(bst.pack_bits_tile(plain[r0:r0 + rows]),
+                           packed[r0:r0 + rows])
+               for r0 in range(0, plain.shape[0], rows))
+
+
+def run_euclid_1m(device, n=EUCLID_NODES, steady=3, rows=EUCLID_ROWS,
+                  **settings):
+    """Phase 13 (a): the euclidean band at ``n`` points through
+    ``run_pipeline`` with the defaults ('auto' band storage, 'auto' packing)
+    and ``keep_node_distances=False``; ``settings`` override (the CPU
+    rehearsal forces the band and the packing at small n)."""
+    t_phase = time.perf_counter()
+    coords, vals = euclid_points(n)
+    sf = euclid_session(device, coords, vals, keep_node_distances=False,
+                        **settings)
+    out = dict(nodes=n, valid_rows=int(np.isfinite(vals).sum()))
+    base = peak_reset(device)
+    K.reset_launches()
+    out["warm_s"] = timed_s(device, sf.run_pipeline)
+    out["launches"] = dict(K.LAUNCHES)
+    out["peak_packed_gb"], out["base_gb"] = peak_gb(device), (
+        None if base is None else base / 1e9)
+    check_launches(device, out["launches"])  # no FW: no kernel
+    bm = sf._neighborhoods_dev
+    if sf.apsp_engine_used != "band-storage" or bm.data.dtype != torch.uint8:
+        raise AssertionError(f"the packed euclidean band was not taken: "
+                             f"{sf.apsp_engine_used}, {bm.data.dtype}")
+    width = (2 * bm.bt + 1) * BLOCK
+    if n == EUCLID_NODES and (bm.band, bm.bt, width) != (6655, 52, 13440):
+        raise AssertionError(f"band {bm.band}, bt {bm.bt}, W {width}")
+    out.update(band=bm.band, bt=bm.bt, width=width,
+               packed_gb=bm.data.numel() / 1e9,
+               int8_gb=bst.band_nbytes(n, bm.band, itemsize=1) / 1e9)
+    walls = [timed_s(device, sf.run_pipeline) for _ in range(steady)]
+    out.update(steady_s=walls, steady_min_s=min(walls))
+    if (sf.ns.shape != (n, 1) or not np.isfinite(sf.ns).all()
+            or (sf.counts_neg + sf.counts_pos).min() < N_PERM):
+        raise AssertionError("scores must be finite, of shape (n, 1), and "
+                             "counts_neg + counts_pos at least P")
+
+    # seeded rows of the unpacked indicator against the host
+    r = euclid_radius(sf)
+    src = np.random.default_rng(SEED_SOURCES).choice(n, rows, replace=False)
+    t0 = time.perf_counter()
+    want, _, out["near_radius_cells"] = euclid_host_rows(coords, src, r)
+    out["host_rows_s"] = time.perf_counter() - t0
+    got, _ = band_rows(bm, src)
+    bad = same_rows(got, want)
+    if bad:
+        raise AssertionError(f"{bad} of {rows} indicator rows differ from "
+                             f"the host's")
+    out["mean_neighborhood"] = float(np.mean([len(w) for w in want]))
+
+    # the parts alone, and the unpack in the contractions
+    plan = sf._euclidean_band_plan(coords, n, float(r))
+    rank = plan["rank"]
+    coords_perm = torch.as_tensor(coords[np.argsort(rank)],
+                                  dtype=torch.float32, device=device)
+    bt = bm.bt
+    out["build_packed_s"] = best_s(
+        device, lambda: bst.euclidean_band_indicator(
+            coords_perm, r, n=n, band=bm.band, packed=True))
+    tail_args, kw = sf._band_null_operands(rank, bt, None)
+    out["w_c"] = kw["w_c"]
+    out["batch"] = kw["batch_size"]
+
+    def null(band):
+        gen = torch.Generator(device=device).manual_seed(SEED_NULL)
+        return pipe._band_perm_tail(band, *tail_args[:-1], gen, bt=bt,
+                                    block=BLOCK, **kw)
+
+    out["null_packed_s"] = best_s(device, lambda: null(bm.data))
+    vals_dev = tail_args[0]
+    out["score_packed_s"] = best_s(device, lambda: eb.band_score(
+        bm.data, vals_dev, bt=bt))
+    valid_dev = tail_args[2]
+    out["compact_packed_s"] = best_s(device, lambda: bst.apply_compaction(
+        bm.data, valid_dev, kw["w_c"], bt=bt))
+    if device.type == "cuda":
+        t0 = time.perf_counter()
+        out["profile"] = profile_steady(sf, host_ops=False)
+        out["profile_s"] = time.perf_counter() - t0
+    packed = bm.data
+    ns, cn, cp = sf.ns.copy(), sf.counts_neg.copy(), sf.counts_pos.copy()
+
+    # the same session with the int8 band: equal bytes, scores and counts
+    sf.band_indicator_bits = False
+    peak_reset(device)
+    K.reset_launches()
+    out["int8_run_s"] = timed_s(device, sf.run_pipeline)
+    out["int8_launches"] = dict(K.LAUNCHES)
+    out["peak_int8_gb"] = peak_gb(device)
+    check_launches(device, out["int8_launches"])
+    plain = sf._neighborhoods_dev.data
+    if plain.dtype != torch.int8 or not packed_equals(packed, plain):
+        raise AssertionError("the int8 band is not the packed band unpacked")
+    del plain
+    if not (np.array_equal(sf.ns, ns, equal_nan=True)
+            and np.array_equal(sf.counts_neg, cn)
+            and np.array_equal(sf.counts_pos, cp)):
+        raise AssertionError("the int8 run's scores or counts differ from "
+                             "the packed run's")
+    out["int8_steady_s"] = timed_s(device, sf.run_pipeline)
+    out["build_int8_s"] = best_s(
+        device, lambda: bst.euclidean_band_indicator(coords_perm, r, n=n,
+                                                     band=bm.band))
+    plain = sf._neighborhoods_dev.data
+    out["null_int8_s"] = best_s(device, lambda: null(plain))
+    out["score_int8_s"] = best_s(device, lambda: eb.band_score(
+        plain, vals_dev, bt=bt))
+    out["compact_int8_s"] = best_s(device, lambda: bst.apply_compaction(
+        plain, valid_dev, kw["w_c"], bt=bt))
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def run_euclid_keep(device, n=BAND_NODES, terms=EUCLID_GO_TERMS,
+                    rows=EUCLID_ROWS, samples=GO_SAMPLES):
+    """Phase 13 (b): the euclidean band at ``n`` points with kept
+    distances: the f32 band against the host on sampled rows, the stages
+    against the fused run, and a binary matrix of ``terms`` terms of phase
+    12's size law through the staged band GO engines against scipy."""
+    t_phase = time.perf_counter()
+    coords, vals = euclid_points(n, SEED_EUCLID + 2)
+    sf = euclid_session(device, coords, vals, apsp_mode="band")
+    V = int(np.isfinite(vals).sum())
+    perm_idx = np.stack([np.random.default_rng(SEED_NULL + i).permutation(V)
+                         for i in range(N_PERM // 10)])
+    peak_reset(device)
+    K.reset_launches()
+    out = dict(nodes=n)
+    out["fused_s"] = timed_s(device, lambda: sf.run_pipeline(
+        perm_idx=perm_idx))
+    out["launches"] = dict(K.LAUNCHES)
+    out["peak_gb"] = peak_gb(device)
+    check_launches(device, out["launches"])
+    bm, dm = sf._neighborhoods_dev, sf._node_distances_dev
+    if bm.data.dtype != torch.int8 or dm is None:
+        raise AssertionError("kept distances: an int8 band and an f32 band "
+                             "expected")
+    r = euclid_radius(sf)
+    src = np.random.default_rng(SEED_SOURCES).choice(n, rows, replace=False)
+    want, want_d, out["near_radius_cells"] = euclid_host_rows(coords, src, r)
+    got, got_d = band_rows(dm, src)
+    if same_rows(got, want) or not all(np.array_equal(a, b)
+                                       for a, b in zip(got_d, want_d)):
+        raise AssertionError("distance band rows differ from the host's")
+    if same_rows(band_rows(bm, src)[0], want):
+        raise AssertionError("indicator rows differ from the host's")
+
+    staged = euclid_session(device, coords, vals, apsp_mode="band")
+    out["staged_s"] = timed_s(device, lambda: (
+        staged.define_neighborhoods(),
+        staged.compute_pvalues(perm_idx=perm_idx)))
+    if not (torch.equal(staged._neighborhoods_dev.data, bm.data)
+            and np.array_equal(staged.ns, sf.ns, equal_nan=True)
+            and np.array_equal(staged.counts_neg, sf.counts_neg)
+            and np.array_equal(staged.counts_pos, sf.counts_pos)):
+        raise AssertionError("the stages differ from the fused run")
+    del staged
+
+    rng = np.random.default_rng(SEED_BAND_GO)
+    sizes = np.rint(np.exp(rng.uniform(np.log(3), np.log(300), terms)))
+    mat = build_go_matrix(coords, sizes, SEED_BAND_GO)
+    go = euclid_session(device, coords, mat, apsp_mode="band")
+    K.reset_launches()
+    out["go_s"] = timed_s(device, lambda: (go.define_neighborhoods(),
+                                           go.compute_pvalues()))
+    out["go_launches"] = dict(K.LAUNCHES)
+    check_launches(device, out["go_launches"])
+    if go._hypergeom_engine_used != "table-band-staged":
+        raise AssertionError(f"engine {go._hypergeom_engine_used}")
+    host, nsize, K_host, M = band_census(go, mat)
+    rng = np.random.default_rng(SEED_GO_SAMPLES)
+    rs, cs = rng.integers(0, n, samples), rng.integers(0, terms, samples)
+    p = go.pvalues_pos[rs, cs]
+    out["go_scipy_err"] = float(np.abs(p - hypergeom.sf(
+        host[rs, cs] - 1, M, K_host[cs], nsize[rs])).max())
+    if out["go_scipy_err"] > 1e-6:
+        raise AssertionError(f"band GO p differs from scipy by "
+                             f"{out['go_scipy_err']}")
+    out.update(terms=terms, go_enriched=int(np.sum(
+        go.attributes["num_neighborhoods_enriched"])),
+        mean_neighborhood=float(nsize.mean()),
+        phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+def run_band_bf(device, ref, steady=3):
+    """Phase 13 (c): ``band_relax='bf'`` on phase 6's network (session
+    ``ref``): the relax recorded, the slots and rounds, the indicator band
+    against phase 6's FW band (a differing cell only within one f32 ulp of
+    the radius), the counts; then a budget of one round, which must fall
+    back to the FW; BF's relax alone against the FW's."""
+    t_phase = time.perf_counter()
+    nb = -(-ref._num_nodes // BLOCK)
+    sf = _band_session(device, ref)
+    sf.band_relax = "bf"
+    peak_reset(device)
+    K.reset_launches()
+    out = dict(warm_s=timed_s(device, lambda: sf.run_pipeline(
+        num_permutations=N_PERM)))
+    out["launches"] = dict(K.LAUNCHES)
+    out["peak_gb"] = peak_gb(device)
+    check_launches(device, out["launches"])  # BF launches no FW kernel
+    if sf._band_relax_used != "bf":
+        raise AssertionError(f"relax {sf._band_relax_used}, 'bf' expected")
+    out["steady_s"] = best_s(device, lambda: sf.run_pipeline(
+        num_permutations=N_PERM), steady)
+    coords, edges, lengths, _ = sf._graph_arrays
+    nr = sf.neighborhood_radius * (coords[:, 0].max() - coords[:, 0].min())
+    plan = sf._band_storage_plan(coords, edges, lengths, len(coords), nr)
+    nbr_s, dlt_s, wgt_s = plan["bf_slots"]
+    out.update(slots=int(nbr_s.shape[1]), budget=int(plan["bf_max_iters"]))
+    bt, r = plan["band"] // BLOCK + 1, inclusive_radius(nr)
+    s0 = bst.band_init_from_edges(plan["u"], plan["v"], plan["w"],
+                                  n=len(coords), band=plan["band"])
+    s_bf, conv, out["iters"] = bst.apsp_band_bf(s0.clone(), nbr_s, dlt_s,
+                                                wgt_s, r, bt=bt)
+    if not conv:
+        raise AssertionError("BF did not converge within its budget")
+    s_fw = bst.apsp_band_fw(s0.clone(), bt=bt)
+    got, want = sf._neighborhoods_dev.data, ref._neighborhoods_dev.data
+    g, c = torch.nonzero(got != want, as_tuple=True)
+    out["cells_differing"] = int(g.numel())
+    # each differing cell's distance to the radius, in f32 ulps of it: the
+    # nearer of its BF and FW distances
+    ulps = (torch.minimum((s_bf[g, c].double() - float(r)).abs(),
+                          (s_fw[g, c].double() - float(r)).abs())
+            / float(np.spacing(np.float32(r)))).cpu().tolist()
+    for gi, ci, u in zip(g.tolist(), c.tolist(), ulps):
+        print(f"band BF: cell ({gi}, {ci}) differs from the FW band, "
+              f"{u:.2f} f32 ulps from the radius", flush=True)
+    if any(u > 1 for u in ulps):
+        raise AssertionError("a BF indicator cell differs beyond one ulp of "
+                             "the radius")
+    if not ulps and not (
+            np.array_equal(sf.counts_neg, ref.counts_neg)
+            and np.array_equal(sf.counts_pos, ref.counts_pos)):
+        raise AssertionError("BF counts differ from phase 6's")
+    out["bf_alone_s"] = best_s(device, lambda: bst.apsp_band_bf(
+        s0.clone(), nbr_s, dlt_s, wgt_s, r, bt=bt), steady)
+    out["fw_alone_s"] = best_s(device, lambda: bst.apsp_band_fw(
+        s0.clone(), bt=bt), steady)
+    if device.type == "cuda":
+        out["profile"] = profile_steady(None, run=lambda: bst.apsp_band_bf(
+            s0.clone(), nbr_s, dlt_s, wgt_s, r, bt=bt))
+    del s0, s_bf, s_fw
+
+    # a budget of one round: BF gives way to the FW
+    budget = bst.bf_max_iters
+    bst.bf_max_iters = lambda *a, **k: 1
+    try:
+        fb = _band_session(device, ref)
+        fb.band_relax = "bf"
+        K.reset_launches()
+        out["fallback_s"] = timed_s(device, lambda: fb.run_pipeline(
+            num_permutations=N_PERM))
+        out["fallback_launches"] = dict(K.LAUNCHES)
+    finally:
+        bst.bf_max_iters = budget
+    check_launches(device, out["fallback_launches"], close_diag=nb,
+                   relax_panel=nb, relax_skew_sym=nb)
+    if fb._band_relax_used != "bf->fw" or not (
+            torch.equal(fb._neighborhoods_dev.data, want)
+            and np.array_equal(fb.counts_neg, ref.counts_neg)):
+        raise AssertionError(f"the fall-back run: {fb._band_relax_used}, or "
+                             f"its results differ from phase 6's")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def run_band_packed(device, ref, go_ref, go_mat):
+    """Phase 13 (d): phase 6's network with ``band_indicator_bits=True``:
+    the quantitative run against phase 6's (band bytes, counts), and one
+    ``table-band`` run of phase 12's matrix against phase 12's session
+    ``go_ref`` (indicator, counts, log sf bitwise); peaks."""
+    t_phase = time.perf_counter()
+    nb = -(-ref._num_nodes // BLOCK)
+    sf = _band_session(device, ref)
+    sf.band_indicator_bits = True
+    base = peak_reset(device)
+    out = dict(base_gb=None if base is None else base / 1e9)
+    K.reset_launches()
+    out["quant_s"] = timed_s(device, lambda: sf.run_pipeline(
+        num_permutations=N_PERM))
+    out["quant_launches"] = dict(K.LAUNCHES)
+    out["quant_peak_gb"] = peak_gb(device)
+    check_launches(device, out["quant_launches"], close_diag=nb,
+                   relax_panel=nb, relax_skew_sym=nb)
+    data = sf._neighborhoods_dev.data
+    if data.dtype != torch.uint8 or not packed_equals(
+            data, ref._neighborhoods_dev.data):
+        raise AssertionError("the packed band is not phase 6's packed")
+    if not (np.array_equal(sf.counts_neg, ref.counts_neg)
+            and np.array_equal(sf.counts_pos, ref.counts_pos)
+            and np.array_equal(sf.ns, ref.ns)):
+        raise AssertionError("the packed run's scores or counts differ from "
+                             "phase 6's")
+    out["quant_steady_s"] = timed_s(device, lambda: sf.run_pipeline(
+        num_permutations=N_PERM))
+    del sf
+
+    go = SAFE(device=device, verbose=False)
+    for k in ("apsp_mode", "keep_node_distances", "neighborhood_radius"):
+        setattr(go, k, getattr(ref, k))
+    go.band_indicator_bits = True
+    go.load_network(network_file=ref._graph_arrays)
+    go.load_attributes(attribute_file=go_mat)
+    base = peak_reset(device)
+    out["table_base_gb"] = None if base is None else base / 1e9
+    K.reset_launches()
+    out["table_s"] = timed_s(device, go.run_pipeline)
+    out["table_launches"] = dict(K.LAUNCHES)
+    out["table_peak_gb"] = peak_gb(device)
+    check_launches(device, out["table_launches"], close_diag=nb,
+                   relax_panel=nb, relax_skew_sym=nb)
+    if go._hypergeom_engine_used != "table-band":
+        raise AssertionError(f"engine {go._hypergeom_engine_used}")
+    if not (go._neighborhoods_dev.data.dtype == torch.uint8
+            and torch.equal(go._nes_binary_dev, go_ref._nes_binary_dev)
+            and torch.equal(go._logsf_dev, go_ref._logsf_dev)
+            and np.array_equal(go.attributes["num_neighborhoods_enriched"],
+                               go_ref.attributes[
+                                   "num_neighborhoods_enriched"])):
+        raise AssertionError("the packed table-band run differs from phase "
+                             "12's")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def profile_steady(sf, top=8, run=None, host_ops=True):
     """Device busy time and idle share of one steady run (``run``, else
     ``sf.run_pipeline``), and its largest kernels, from torch.profiler
-    (CUPTI)."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    (CUPTI). ``host_ops=False`` records the device's events only: at 10^5
+    launches a run, the host ops' events cost the profiler minutes to
+    aggregate."""
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         (run or sf.run_pipeline)()
         torch.cuda.synchronize()
@@ -2405,6 +2893,85 @@ def main():
           f"domains); matrix built in {bg['matrix_s']:.1f} s; phase 12 took "
           f"{bg['phase_s']:.1f} s", flush=True)
 
+    # phase 13: the sparse BF relax and the packed graph band on phase 6's
+    # network, then the euclidean band at 49,920 and at 1,000,000 points
+    bf = run_band_bf(device, bs["session"])
+    bp = bf.get("profile", {})
+    print(f"band BF ({card}): band_relax='bf' records 'bf', {bf['slots']} "
+          f"slots, {bf['iters']} rounds of a budget of {bf['budget']}; "
+          f"launches {bf['launches']}; warm {bf['warm_s']:.4f} s, steady "
+          f"min {bf['steady_s']:.4f} s, peak {bf['peak_gb']:.3f} GB; relax "
+          f"alone (min of 3) BF {bf['bf_alone_s']:.4f} s, FW "
+          f"{bf['fw_alone_s']:.4f} s (phase 6's FW front "
+          f"{bs['front_s']:.4f} s); {bf['cells_differing']} indicator cells "
+          f"differ from phase 6's FW band, counts equal; BF relax profile: "
+          f"wall {bp.get('wall_ms', 0):.3f} ms, device busy "
+          f"{bp.get('busy_ms', 0):.3f} ms, largest (name, launches, device "
+          f"ms): {bp.get('top')}", flush=True)
+    print(f"band BF fall-back ({card}): a budget of one round records "
+          f"'bf->fw', run {bf['fallback_s']:.4f} s, launches "
+          f"{bf['fallback_launches']}, band and counts equal to phase 6's; "
+          f"phase 13 (c) took {bf['phase_s']:.1f} s", flush=True)
+    pk = run_band_packed(device, bs["session"], bg.pop("session"),
+                         bg.pop("matrix"))
+    print(f"band packed ({card}): band_indicator_bits=True, quantitative run "
+          f"{pk['quant_s']:.4f} s (steady {pk['quant_steady_s']:.4f} s), "
+          f"launches {pk['quant_launches']}, peak {pk['quant_peak_gb']:.3f} "
+          f"GB (phase 6's {bs['peak_gb']:.3f} GB; {pk['base_gb']:.3f} GB "
+          f"resident before), band the packed phase-6 band, scores and counts "
+          f"equal; table-band run {pk['table_s']:.4f} s, launches "
+          f"{pk['table_launches']}, peak {pk['table_peak_gb']:.3f} GB "
+          f"({pk['table_base_gb']:.3f} GB resident before; phase 12's warm "
+          f"{bg['table']['warm_s']:.4f} s, peak {bg['table']['peak_gb']:.3f} "
+          f"GB), indicator, counts and log sf bitwise phase 12's; phase 13 "
+          f"(d) took {pk['phase_s']:.1f} s",
+          flush=True)
+    del bs["session"]
+    torch.cuda.empty_cache()
+    ek = run_euclid_keep(device)
+    print(f"euclid band keep ({card}): {ek['nodes']} points, kept "
+          f"distances; fused run {ek['fused_s']:.4f} s, launches "
+          f"{ek['launches']}, peak {ek['peak_gb']:.3f} GB; {EUCLID_ROWS} "
+          f"distance and indicator rows equal to the host's "
+          f"({ek['near_radius_cells']} cells within one f32 ulp of the "
+          f"radius); stages {ek['staged_s']:.4f} s, equal to the fused run; "
+          f"{ek['terms']} binary terms through the staged band GO engine "
+          f"{ek['go_s']:.4f} s, {GO_SAMPLES} sampled p within "
+          f"{ek['go_scipy_err']:.3e} of scipy, {ek['go_enriched']} enriched "
+          f"cells; mean neighborhood {ek['mean_neighborhood']:.2f}; phase 13 "
+          f"(b) took {ek['phase_s']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    e1 = run_euclid_1m(device)
+    ep = e1.get("profile", {})
+    print(f"euclid band ({e1['nodes']} points; {card}): band {e1['band']}, "
+          f"bt {e1['bt']}, W {e1['width']}, w_c {e1['w_c']}, packed "
+          f"indicator {e1['packed_gb']:.3f} GB (int8 {e1['int8_gb']:.3f} "
+          f"GB); launches {e1['launches']}; warm {e1['warm_s']:.4f} s, "
+          f"steady {e1['steady_s']} (min {e1['steady_min_s']:.4f} s); peak "
+          f"{e1['peak_packed_gb']:.3f} GB packed, {e1['peak_int8_gb']:.3f} "
+          f"GB int8 ({e1['base_gb']:.3f} GB resident before); "
+          f"{EUCLID_ROWS} indicator rows equal to the host's "
+          f"({e1['host_rows_s']:.1f} s on the host; "
+          f"{e1['near_radius_cells']} cells within one f32 ulp of the "
+          f"radius); mean neighborhood {e1['mean_neighborhood']:.2f}; "
+          f"profile ({e1.get('profile_s', 0):.1f} s with its processing): "
+          f"one steady run, wall {ep.get('wall_ms', 0):.3f} ms, "
+          f"device busy {ep.get('busy_ms', 0):.3f} ms, idle share "
+          f"{ep.get('idle_share', 0):.3f}; largest (name, launches, device "
+          f"ms): {ep.get('top')}", flush=True)
+    print(f"euclid band parts (min of 3; {card}): indicator build packed "
+          f"{e1['build_packed_s']:.4f} s, int8 {e1['build_int8_s']:.4f} s; "
+          f"null tail ({e1['valid_rows']} valid rows x {N_PERM} "
+          f"permutations, batch {e1['batch']}) packed "
+          f"{e1['null_packed_s']:.4f} s, int8 {e1['null_int8_s']:.4f} s; "
+          f"scores packed {e1['score_packed_s']:.4f} s, int8 "
+          f"{e1['score_int8_s']:.4f} s; compaction packed "
+          f"{e1['compact_packed_s']:.4f} s, int8 {e1['compact_int8_s']:.4f} "
+          f"s; int8 run {e1['int8_run_s']:.4f} s (steady "
+          f"{e1['int8_steady_s']:.4f} s): bytes, scores and counts equal to "
+          f"the packed run's; phase 13 (a) took {e1['phase_s']:.1f} s",
+          flush=True)
+
     # phase 9: the report; launches from the run of each kernel's path
     replaces = {"relax_panel": "safepy_tpu/ops/apsp_pallas.py:95",
                 "relax_window_sym": "safepy_tpu/ops/apsp_pallas.py:193",
@@ -2434,7 +3001,15 @@ def main():
              "go_binary_loop": go["A"]["launches"],
              "go_binary_table": go["B"]["launches"],
              "band_go_table": bg["table"]["launches"],
-             "band_go_hostchunks": bg["hostchunks"]["launches"]}
+             "band_go_hostchunks": bg["hostchunks"]["launches"],
+             "band_bf": bf["launches"],
+             "band_bf_fallback": bf["fallback_launches"],
+             "band_packed": pk["quant_launches"],
+             "band_packed_table": pk["table_launches"],
+             "euclid_band_49920_keep": ek["launches"],
+             "euclid_band_49920_go": ek["go_launches"],
+             "euclid_band_1m_packed": e1["launches"],
+             "euclid_band_1m_int8": e1["int8_launches"]}
     report = [{"name": name, "route": "cuda", "source": SRC,
                "replaces": replaces[name], "launches": launches[name],
                "launches_by_path": {path: counts[name]

@@ -1,13 +1,13 @@
 """Band-STORAGE Floyd-Warshall: O(N W) memory APSP for large networks.
 
-Port of ``safepy_tpu/ops/apsp_bandstore.py`` (FW engine, plain int8
-indicator). The radius certificate of :mod:`.apsp_banded` puts every matrix
-entry that a within-radius result needs within B of the diagonal in the
-banded order, so the matrix is held in block-row-aligned skewed storage: with
-tile size b and tile half-band bt = B // b + 1, row i (block I = i // b)
-stores the column slab [(I - bt) b, (I + bt + 1) b), an (N_ghost, W) array
-with W = (2 bt + 1) b, plus bt ghost block-rows of +inf on each side so the
-pivot windows never branch at the edges.
+Port of ``safepy_tpu/ops/apsp_bandstore.py``. The radius certificate of
+:mod:`.apsp_banded` puts every matrix entry that a within-radius result
+needs within B of the diagonal in the banded order, so the matrix is held in
+block-row-aligned skewed storage: with tile size b and tile half-band
+bt = B // b + 1, row i (block I = i // b) stores the column slab
+[(I - bt) b, (I + bt + 1) b), an (N_ghost, W) array with W = (2 bt + 1) b,
+plus bt ghost block-rows of +inf on each side so the pivot windows never
+branch at the edges.
 
 Each round of :func:`apsp_band_fw` closes the pivot tile (at the static slab
 offset bt b), relaxes the pivot row against it, and relaxes the (W, W)
@@ -24,9 +24,14 @@ banded contractions (:func:`band_matmul`, :func:`band_matmul_batch`,
 :func:`band_count_batch`) and the valid-column compaction then run the
 scores and the permutation null without densifying.
 
-Not ported (ROADMAP A7): the bit-packed indicator, the sparse Bellman-Ford
-relax ``apsp_band_bf`` and the euclidean band. The chunked compaction sort is
-a TPU workaround and is not ported.
+Besides the FW: the sparse Bellman-Ford relax :func:`apsp_band_bf` (with
+its host slots :func:`band_bf_slots` and budget :func:`bf_max_iters`); the
+euclidean metric's band straight from the coordinates
+(:func:`euclidean_band_distances`, :func:`euclidean_band_indicator`); and
+the bit-packed indicator (uint8, 8 cells a byte, LSB-first), which every
+consumer recognizes by its dtype and unpacks one group of block-rows at a
+time. The chunked compaction sort of JAX is a TPU workaround; the port's
+compaction runs in groups of block-rows for its transient's sake.
 """
 
 from __future__ import annotations
@@ -85,10 +90,66 @@ def _host(s) -> np.ndarray:
     return s.cpu().numpy() if isinstance(s, torch.Tensor) else np.asarray(s)
 
 
+# ---------------------------------------------------------------------------
+# Bit-packed indicator storage (``:102-151``)
+#
+# A 0/1 indicator band may store 8 columns a byte: uint8, LSB-first (bit j of
+# byte c is column 8 c + j, numpy's bitorder='little'). The dtype is the
+# flag: uint8 means packed bits, int8 plain 0/1, and every banded consumer
+# branches on it. Consumers unpack one group of block-rows at a time.
+# ---------------------------------------------------------------------------
+
+def is_packed_bits(x: torch.Tensor) -> bool:
+    """True when ``x`` is a bit-packed indicator band (``:115``)."""
+    return x.dtype == torch.uint8
+
+
+def _bit_weights(device) -> torch.Tensor:
+    return torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8,
+                        device=device)
+
+
+def unpack_bits_tile(packed: torch.Tensor) -> torch.Tensor:
+    """(..., w8) uint8 -> (..., 8 w8) bool, LSB-first (``:120``)."""
+    bits = (packed.unsqueeze(-1) & _bit_weights(packed.device)) != 0
+    return bits.reshape(*packed.shape[:-1], packed.shape[-1] * 8)
+
+
+def pack_bits_tile(ind: torch.Tensor) -> torch.Tensor:
+    """(..., w) 0/1 values -> (..., w // 8) uint8, LSB-first, w divisible by
+    8 (``:127``)."""
+    bits = (ind.reshape(*ind.shape[:-1], ind.shape[-1] // 8, 8) != 0)
+    return (bits.to(torch.uint8) * _bit_weights(ind.device)).sum(
+        dim=-1, dtype=torch.uint8)
+
+
+def pack_band_bits(s_ind: torch.Tensor) -> torch.Tensor:
+    """Whole-band pack (``:135``); the producers pack group by group."""
+    return pack_bits_tile(s_ind)
+
+
+def unpack_band_bits(packed: torch.Tensor) -> torch.Tensor:
+    """Whole-band unpack to int8 (``:142``), for small bands and tests."""
+    return unpack_bits_tile(packed).to(torch.int8)
+
+
+def unpack_band_bits_host(packed) -> np.ndarray:
+    """NumPy unpack, LSB-first (``:148``): the host side of a packed
+    download."""
+    return np.unpackbits(_host(packed), axis=1, bitorder="little")
+
+
+def band_width(s: torch.Tensor) -> int:
+    """Slab width W of a band, packed or not."""
+    return s.shape[1] * (8 if is_packed_bits(s) else 1)
+
+
 def unpack_band(s, n: int, band: int, block: int = 128, fill=_INF):
-    """Skewed storage (tensor or array) -> dense numpy (n, n), ``fill``
-    outside the stored band (``:154``)."""
+    """Skewed storage (tensor or array, possibly bit-packed) -> dense numpy
+    (n, n), ``fill`` outside the stored band (``:154``)."""
     s = _host(s)
+    if s.dtype == np.uint8:
+        s = unpack_band_bits_host(s)
     bt, nb, w = band_params(n, band, block)
     dense = np.full((n, n), fill, dtype=s.dtype)
     for i_blk in range(nb):
@@ -146,10 +207,13 @@ class BandedMatrix:
 
     def to_sparse(self):
         """scipy CSR of the finite (distances) or nonzero (indicator)
-        entries, original frame; O(nnz) host memory."""
+        entries, original frame; O(nnz) host memory besides the band's
+        download (a packed band is unpacked on the host, as in JAX)."""
         from scipy.sparse import coo_matrix
 
         s = _host(self.data)
+        if s.dtype == np.uint8:
+            s = unpack_band_bits_host(s)
         bt, nb, _ = band_params(self.n, self.band, self.block)
         real = s[bt * self.block:(bt + nb) * self.block]
         gi, c = np.nonzero(np.isfinite(real) if np.isinf(self.fill)
@@ -256,19 +320,249 @@ def apsp_band_fw(s: torch.Tensor, *, bt: int, block: int = 128,
 
 
 # ---------------------------------------------------------------------------
+# Sparse Bellman-Ford band relaxation (the low-hop alternative to FW)
+# ---------------------------------------------------------------------------
+
+def band_bf_slots(u, v, w, *, n: int, band: int, block: int = 128):
+    """Host-side neighbor slots of each permuted row for
+    :func:`apsp_band_bf` (``:481``, copied).
+
+    u, v: node ranks in the banded order; w: edge lengths, one entry per
+    undirected edge (both directions are made here). Out-of-band edges are
+    dropped as in :func:`band_init_from_edges`. Returns ``(nbr, dlt, wgt,
+    S)``: ``nbr[i, s]`` the s-th neighbor of permuted row i (0-padded),
+    ``dlt[i, s] = i // block - nbr // block`` (int8), ``wgt[i, s]`` the edge
+    length (+inf padding), ``S`` the largest directed degree; None when the
+    offset would overflow int8 (a band of ~16k elements and more).
+    """
+    bt, nb, width = band_params(n, band, block)
+    if bt + 1 > 127:
+        return None
+    u = np.asarray(u, np.int64)
+    v = np.asarray(v, np.int64)
+    w = np.asarray(w, np.float32)
+    uu = np.concatenate([u, v])
+    vv = np.concatenate([v, u])
+    ww = np.concatenate([w, w])
+    col = vv - (uu // block - bt) * block
+    keep = (col >= 0) & (col < width)
+    uu, vv, ww = uu[keep], vv[keep], ww[keep]
+
+    order = np.argsort(uu, kind="stable")
+    uu, vv, ww = uu[order], vv[order], ww[order]
+    idx = np.arange(len(uu), dtype=np.int64)
+    first = np.r_[True, uu[1:] != uu[:-1]] if len(uu) else np.zeros(0, bool)
+    group_start = np.maximum.accumulate(np.where(first, idx, 0))
+    slot = idx - group_start
+    S = int(slot.max()) + 1 if len(slot) else 1
+
+    npad = nb * block
+    nbr = np.zeros((npad, S), np.int32)
+    dlt = np.zeros((npad, S), np.int8)
+    wgt = np.full((npad, S), np.inf, np.float32)
+    nbr[uu, slot] = vv.astype(np.int32)
+    dlt[uu, slot] = (uu // block - vv // block).astype(np.int8)
+    wgt[uu, slot] = ww
+    return nbr, dlt, wgt, S
+
+
+def apsp_band_bf(s: torch.Tensor, nbr, dlt, wgt, clamp, *, bt: int,
+                 block: int = 128, max_iters: int = 512, group: int = 4,
+                 stripe: int = 1024):
+    """Sparse Bellman-Ford relaxation over the skewed band (``:526``), IN
+    PLACE on ``s``.
+
+    Each round relaxes every row against its neighbors' rows,
+    ``D[i, :] = min(D[i, :], w(i, m) + D[m, :])``: a within-radius shortest
+    path has few edges, so few rounds reach the FW fixpoint. Neighbor m's
+    entries for row i's slab are one contiguous run of the flat band, at
+    ``(bt b + m) W + dlt b``; they are gathered from a window view of the
+    flat band (one start per row, ``group`` slots at a time), and lanes
+    outside m's slab are masked to +inf, which is exact. Entries above
+    ``clamp`` (the inclusive radius) go to +inf each round.
+
+    A round runs in column stripes of ``stripe`` lanes, the last start
+    clamped to W - stripe, each written back before the next is gathered
+    (Gauss-Seidel), in JAX's order, so the band, the rounds and the flag are
+    JAX's bit for bit. One host sync a round reads the flag.
+
+    Returns ``(s, converged, iters)``. ``converged`` False (``max_iters``
+    reached) means the band holds upper bounds: the caller finishes with
+    :func:`apsp_band_fw`, which is exact from any such state.
+    """
+    dev = s.device
+    width = s.shape[1]
+    npad = s.shape[0] - 2 * bt * block
+    P = min(stripe, width)
+    nstripes = -(-width // P)
+    clamp = torch.as_tensor(clamp, dtype=s.dtype, device=dev)
+    nbr = torch.as_tensor(nbr, device=dev).to(torch.int64)
+    shift = torch.as_tensor(dlt, device=dev).to(torch.int64) * block
+    wgt = torch.as_tensor(wgt, device=dev).to(s.dtype)
+    S = nbr.shape[1]
+    base = (bt * block + nbr) * width + shift            # (npad, S) int64
+    lane_lo = (-shift).clamp_min(0)[:, :, None]
+    lane_hi = (width - shift).clamp_max(width)[:, :, None]
+    lane = torch.arange(P, device=dev)
+    windows = s.view(-1).unfold(0, P, 1)  # windows[j] = flat[j:j + P]
+    real = s[bt * block:bt * block + npad]
+
+    iters, changed = 0, True
+    while changed and iters < max_iters:
+        flag = torch.zeros((), dtype=torch.bool, device=dev)
+        for sp in range(nstripes):
+            c0 = min(sp * P, width - P)
+            cur = real[:, c0:c0 + P]
+            acc = cur.clone()
+            lanes = lane + c0
+            for k0 in range(0, S, group):
+                k1 = min(S, k0 + group)
+                g = windows[base[:, k0:k1] + c0]        # (npad, k, P)
+                g.masked_fill_((lanes < lane_lo[:, k0:k1])
+                               | (lanes >= lane_hi[:, k0:k1]), _INF)
+                g.add_(wgt[:, k0:k1, None])
+                torch.minimum(acc, g.amin(dim=1), out=acc)
+            acc.masked_fill_(acc > clamp, _INF)
+            flag |= (acc < cur).any()
+            cur.copy_(acc)
+        changed = bool(flag)
+        iters += 1
+    return s, not changed, iters
+
+
+def bf_max_iters(n: int, band: int, S: int, block: int = 128,
+                 floor: int = 16, cap: int = 512) -> int:
+    """Round budget at which BF has spent about one FW's time (``:622``,
+    copied with its v5e rates: 0.76 T min-plus/s for FW, 0.8 TB/s for BF's
+    gathers). It only decides when BF gives way to FW; the results do not
+    depend on it."""
+    bt, nb, width = band_params(n, band, block)
+    fw_s = 0.75 * (2 * bt + 1) ** 2 * nb * 2 * block ** 3 / 0.76e12
+    iter_s = 3 * S * nb * block * width * 4 / 0.8e12
+    return int(np.clip(fw_s / max(iter_s, 1e-12), floor, cap))
+
+
+# ---------------------------------------------------------------------------
+# The euclidean metric's band, straight from the coordinates
+# ---------------------------------------------------------------------------
+
+def _euclid_ghosted(coords_perm, *, n: int, band: int, block: int):
+    """(ghosted coordinates, bt, nb, W): the permuted coordinates at rows
+    bt b .. bt b + n of a zero array, so that block-row i's slab is rows
+    i b .. i b + W (``_euclid_block_setup`` ``:668``)."""
+    bt, nb, width = band_params(n, band, block)
+    coords_perm = torch.as_tensor(coords_perm).to(torch.float32)
+    cg = torch.zeros(((nb + 2 * bt) * block, 2), dtype=torch.float32,
+                     device=coords_perm.device)
+    cg[bt * block:bt * block + n] = coords_perm
+    return cg, bt, nb, width
+
+
+def _euclid_distances(cg, i0: int, i1: int, *, n: int, bt: int, block: int,
+                      width: int) -> torch.Tensor:
+    """(i1 - i0, block, W) f32 distances of real block-rows i0 .. i1 - 1 to
+    their slabs (``blk_d`` ``:680``).
+
+    JAX's arithmetic: ``diff = rows - slab``, ``sqrt(max(sum(diff * diff),
+    0))`` in f32. XLA's CPU backend computes that sum of two squares as one
+    fused multiply-add, fma(dy, dy, dx dx), so it is taken so here: the f64
+    product dy dy is exact and the sum of two nonnegative terms is rounded
+    to f32 once. The square root is taken in f64 and rounded to f32, which
+    is the correctly rounded f32 root on every device (torch's vectorized
+    CPU f32 ``sqrt`` is not). Pad rows and columns are +inf explicitly, and
+    the real diagonal exactly 0.
+    """
+    g = i1 - i0
+    dev = cg.device
+    rows = cg[(i0 + bt) * block:(i1 + bt) * block].view(g, block, 1, 2)
+    slab = cg.unfold(0, width, block)[i0:i1]            # (g, 2, W)
+    dx = rows[..., 0] - slab[:, None, 0, :]
+    dy = rows[..., 1] - slab[:, None, 1, :]
+    ssq = (dy.double() * dy.double() + (dx * dx).double()).float()
+    d = torch.sqrt(ssq.clamp_min_(0.0).double()).float()
+    row_g = torch.arange(i0 * block, i1 * block, device=dev).view(g, block, 1)
+    col_g = (((torch.arange(i0, i1, device=dev) - bt) * block).view(g, 1, 1)
+             + torch.arange(width, device=dev))
+    d.masked_fill_((row_g >= n) | (col_g < 0) | (col_g >= n), _INF)
+    d.diagonal(offset=bt * block, dim1=1, dim2=2).copy_(
+        torch.where(row_g[..., 0] < n, 0.0, _INF))
+    return d
+
+
+def euclidean_band_distances(coords_perm, *, n: int, band: int,
+                             block: int = 128) -> torch.Tensor:
+    """Banded pairwise euclidean distances in the skewed frame (``:643``),
+    on the device of ``coords_perm`` ((n, 2), banded order), a group of
+    block-rows at a time. Pairs beyond the band are +inf: the band
+    certificate puts them beyond the radius."""
+    cg, bt, nb, width = _euclid_ghosted(coords_perm, n=n, band=band,
+                                        block=block)
+    out = torch.full(((nb + 2 * bt) * block, width), _INF,
+                     dtype=torch.float32, device=cg.device)
+    for i0, i1 in _groups(0, nb, block * width):
+        out[(i0 + bt) * block:(i1 + bt) * block] = _euclid_distances(
+            cg, i0, i1, n=n, bt=bt, block=block, width=width).view(-1, width)
+    return out
+
+
+def euclidean_band_indicator(coords_perm, radius, *, n: int, band: int,
+                             block: int = 128,
+                             packed: bool = False) -> torch.Tensor:
+    """The strict ``dist < radius`` indicator band built directly
+    (``:702``): int8, or bit-packed uint8 with ``packed``, packed group by
+    group as it is built; the f32 band never exists. Bitwise
+    ``euclidean_band_distances(...) < radius``."""
+    cg, bt, nb, width = _euclid_ghosted(coords_perm, n=n, band=band,
+                                        block=block)
+    r = torch.as_tensor(radius, dtype=torch.float32, device=cg.device)
+    out = torch.zeros(((nb + 2 * bt) * block, width // 8 if packed else width),
+                      dtype=torch.uint8 if packed else torch.int8,
+                      device=cg.device)
+    for i0, i1 in _groups(0, nb, block * width):
+        ind = _euclid_distances(cg, i0, i1, n=n, bt=bt, block=block,
+                                width=width).view(-1, width) < r
+        out[(i0 + bt) * block:(i1 + bt) * block] = (
+            pack_bits_tile(ind) if packed else ind)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Downstream consumers: threshold, sizes, contractions, without densifying
 # ---------------------------------------------------------------------------
 
-def band_threshold(s: torch.Tensor, radius) -> torch.Tensor:
-    """``<= radius`` int8 0/1 indicator in the same skewed frame (``:736``,
-    unpacked form)."""
+def band_threshold(s: torch.Tensor, radius, *, packed: bool = False,
+                   chunk_blocks: int = 256, block: int = 128) -> torch.Tensor:
+    """``<= radius`` 0/1 indicator in the same skewed frame (``:736``): int8,
+    or with ``packed`` bit-packed uint8 made in row chunks of
+    ``chunk_blocks`` block-rows, so that the transient is chunk-sized."""
     r = torch.as_tensor(radius, dtype=s.dtype, device=s.device)
-    return (s <= r).to(torch.int8)
+    if not packed:
+        return (s <= r).to(torch.int8)
+    out = torch.empty((s.shape[0], s.shape[1] // 8), dtype=torch.uint8,
+                      device=s.device)
+    step = chunk_blocks * block
+    for r0 in range(0, s.shape[0], step):
+        out[r0:r0 + step] = pack_bits_tile(s[r0:r0 + step] <= r)
+    return out
 
 
 def band_row_sizes(s_ind: torch.Tensor) -> torch.Tensor:
-    """f32 per-row sums of an int8 indicator band (``:773``)."""
-    return s_ind.sum(dim=1, dtype=torch.float32)
+    """f32 per-row sums of an int8 or bit-packed indicator band (``:773``),
+    in groups of rows, a packed group's bytes counted through a popcount
+    table. The sums are integers below 2^24, so exact in any order."""
+    packed = is_packed_bits(s_ind)
+    out = torch.empty(s_ind.shape[0], dtype=torch.float32,
+                      device=s_ind.device)
+    if packed:
+        popcount = torch.tensor([bin(b).count("1") for b in range(256)],
+                                dtype=torch.uint8, device=s_ind.device)
+    step = max(1, _GROUP_ELEMS // max(1, s_ind.shape[1]))
+    for r0 in range(0, s_ind.shape[0], step):
+        x = s_ind[r0:r0 + step]
+        if packed:
+            x = popcount[x.to(torch.int64)]
+        out[r0:r0 + step] = x.sum(dim=1, dtype=torch.float32)
+    return out
 
 
 def band_row_stats(s_ind: torch.Tensor, *, n: int, bt: int, block: int = 128):
@@ -307,11 +601,14 @@ def _groups(lo: int, hi: int, per_block_elems: int):
 
 def _block_rows(s_rows, i0: int, i1: int, bt: int, block: int,
                 row_block_offset: int = 0):
-    """(i1 - i0, block, width) f32 rows of real block-rows i0 .. i1 - 1."""
-    width = s_rows.shape[1]
+    """(i1 - i0, block, W) f32 rows of real block-rows i0 .. i1 - 1, a
+    packed band's unpacked here (``:821-825``)."""
     r0 = i0 + bt - row_block_offset
-    return s_rows[r0 * block:(r0 + i1 - i0) * block].view(
-        i1 - i0, block, width).to(torch.float32)
+    rows = s_rows[r0 * block:(r0 + i1 - i0) * block].view(
+        i1 - i0, block, s_rows.shape[1])
+    if is_packed_bits(s_rows):
+        rows = unpack_bits_tile(rows)
+    return rows.to(torch.float32)
 
 
 def band_matmul(s_ind, x, *, bt: int, block: int = 128,
@@ -319,7 +616,8 @@ def band_matmul(s_ind, x, *, bt: int, block: int = 128,
                 row_block_offset: int = 0) -> torch.Tensor:
     """(banded indicator) @ x without densifying (``:801``).
 
-    s_ind: ((nb + 2 bt) b, W); x: (npad, A) in the same permuted row frame.
+    s_ind: ((nb + 2 bt) b, W) int8, or bit-packed; x: (npad, A) in the same
+    permuted row frame.
     Block-row I's slab covers rows [(I - bt) b, (I + bt + 1) b) of x, so the
     product is nb (b, W) x (W, A) matmuls, run as batched matmuls over
     groups of block-rows. Returns (npad, A) f32. A row shard passes
@@ -328,7 +626,7 @@ def band_matmul(s_ind, x, *, bt: int, block: int = 128,
     (``band_sharded._band_matmul_local`` :187).
     """
     check_fp32_matmul(precision)
-    width = s_ind.shape[1]
+    width = band_width(s_ind)
     lo, hi = _block_range(s_ind, bt, block, blocks, row_block_offset)
     a_dim = x.shape[1]
     xg = F.pad(x.to(torch.float32), (0, 0, bt * block, bt * block))
@@ -359,13 +657,14 @@ def band_matmul_batch(s_rows, x_batch, starts, *, bt: int, block: int = 128,
     (``:835``).
 
     s_rows: ((nb + 2 bt) b, w_c) banded indicator, column-compacted
-    (:func:`compact_band_columns`); x_batch: (C, v_pad, A) value rows;
-    starts: (nb,) slab start rows. Returns (C, npad, A); for a row shard
-    (``blocks``, ``row_block_offset``: :func:`_block_range`) the
-    (C, (hi - lo) b, A) rows of its real block-rows.
+    (:func:`compact_band_columns`), int8 or bit-packed; x_batch:
+    (C, v_pad, A) value rows; starts: (nb,) slab start rows. Returns
+    (C, npad, A); for a row shard (``blocks``, ``row_block_offset``:
+    :func:`_block_range`) the (C, (hi - lo) b, A) rows of its real
+    block-rows.
     """
     check_fp32_matmul(precision)
-    w_c = s_rows.shape[1]
+    w_c = band_width(s_rows)
     lo, hi = _block_range(s_rows, bt, block, blocks, row_block_offset)
     c_dim, _, a_dim = x_batch.shape
     starts = torch.as_tensor(starts, dtype=torch.int64, device=x_batch.device)
@@ -396,7 +695,7 @@ def band_count_batch(s_rows, x_batch, starts, obs, live=None, *, bt: int,
     real block-rows.
     """
     check_fp32_matmul(precision)
-    w_c = s_rows.shape[1]
+    w_c = band_width(s_rows)
     lo, hi = _block_range(s_rows, bt, block, blocks, row_block_offset)
     c_dim, _, a_dim = x_batch.shape
     starts = torch.as_tensor(starts, dtype=torch.int64, device=x_batch.device)
@@ -446,34 +745,50 @@ def compaction_plan(valid, *, n: int, bt: int, block: int = 128):
 def apply_compaction(s_ind, valid, w_c: int, *, bt: int, block: int = 128,
                      row_block_offset: int = 0) -> torch.Tensor:
     """Device half of the compaction (``:968``): each slab's columns stably
-    sorted valid-first, invalid entries zeroed, the first ``w_c`` kept.
+    sorted valid-first, invalid entries zeroed, the first ``w_c`` kept;
+    packed in, packed out.
 
-    ``valid``: (n,) bool in the permuted order. The 128 rows of a block-row
+    ``valid``: (n,) bool in the permuted order. The rows of a block-row
     share one slab and so one validity key: one stable argsort of the
-    (nbg, W) keys and one gather give JAX's per-row stable sort exactly.
+    block-row's keys and one gather give JAX's per-row stable sort exactly.
+    It runs a group of block-rows at a time (a packed group is unpacked,
+    compacted and packed again), so that the transient stays group-sized.
     ``s_ind`` holds ghosted block-rows ``row_block_offset`` onwards (a row
-    shard, ``band_sharded.py:483``). Returns (nbg b, w_c) int8.
+    shard, ``band_sharded.py:483``). Returns (nbg b, w_c) int8, or
+    (nbg b, w_c / 8) uint8 for a packed band.
     """
-    rows, width = s_ind.shape
-    nbg = rows // block
+    packed = is_packed_bits(s_ind)
+    width = band_width(s_ind)
+    nbg = s_ind.shape[0] // block
     dev = s_ind.device
     valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
     n = valid.shape[0]
-    # absolute column of slab cell (Ig, c) is (Ig - 2 bt) b + c
-    cols = ((torch.arange(nbg, device=dev)[:, None] + row_block_offset
-             - 2 * bt) * block + torch.arange(width, device=dev)[None, :])
-    ok = valid[cols.clamp(0, n - 1)] & (cols >= 0) & (cols < n)
-    order = torch.argsort((~ok).to(torch.uint8), dim=1, stable=True)[:, :w_c]
-    kept = torch.gather(ok, 1, order).to(torch.int8)
-    comp = torch.gather(s_ind.to(torch.int8).view(nbg, block, width), 2,
-                        order[:, None, :].expand(nbg, block, w_c))
-    return (comp * kept[:, None, :]).view(nbg * block, w_c)
+    out = torch.empty((nbg * block, w_c // 8 if packed else w_c),
+                      dtype=torch.uint8 if packed else torch.int8, device=dev)
+    lanes = torch.arange(width, device=dev)
+    for g0, g1 in _groups(0, nbg, block * width):
+        # absolute column of slab cell (Ig, c) is (Ig - 2 bt) b + c
+        cols = ((torch.arange(g0, g1, device=dev)[:, None] + row_block_offset
+                 - 2 * bt) * block + lanes)
+        ok = valid[cols.clamp(0, n - 1)] & (cols >= 0) & (cols < n)
+        order = torch.argsort((~ok).to(torch.uint8), dim=1,
+                              stable=True)[:, :w_c]
+        kept = torch.gather(ok, 1, order).to(torch.int8)
+        rows = s_ind[g0 * block:g1 * block].view(g1 - g0, block,
+                                                 s_ind.shape[1])
+        if packed:
+            rows = unpack_bits_tile(rows)
+        comp = torch.gather(rows.to(torch.int8), 2,
+                            order[:, None, :].expand(g1 - g0, block, w_c))
+        comp = (comp * kept[:, None, :]).view(-1, w_c)
+        out[g0 * block:g1 * block] = pack_bits_tile(comp) if packed else comp
+    return out
 
 
 def compact_band_columns(s_ind, valid, *, bt: int, block: int = 128):
     """Restrict the banded indicator to valid columns, keeping bandedness
-    (``:1053``). Returns (compact ((nb + 2 bt) b, w_c) int8, starts (nb,)
-    int64 tensor, w_c)."""
+    (``:1053``). Returns (compact ((nb + 2 bt) b, w_c) int8, or its packed
+    form for a packed band, starts (nb,) int64 tensor, w_c)."""
     n = np.asarray(valid).shape[0]
     starts, w_c = compaction_plan(valid, n=n, bt=bt, block=block)
     return (apply_compaction(s_ind, valid, w_c, bt=bt, block=block),

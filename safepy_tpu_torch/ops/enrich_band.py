@@ -15,7 +15,9 @@ products:
 
 Everything lives in the permuted (banded-order) node frame; callers
 un-permute the row outputs, or pass ``rank`` and get them in the original
-frame.
+frame. The indicator band may be int8 or bit-packed: every contraction goes
+through the banded products of :mod:`.apsp_bandstore`, which unpack a packed
+band one group of block-rows at a time.
 
 Permutations are drawn as in :mod:`.permutation`: ``torch.rand(C, V).argsort``
 rows from the session's generator, or an explicit ``perm_idx`` (P, V), both
@@ -34,7 +36,8 @@ import torch.nn.functional as F
 from safepy_tpu_torch.ops import hypergeom_table as htab
 from safepy_tpu_torch.ops.apsp_bandstore import (band_count_batch,
                                                  band_matmul,
-                                                 band_matmul_batch)
+                                                 band_matmul_batch,
+                                                 band_width)
 from safepy_tpu_torch.ops.hypergeom import (_sf_parts, finalize_logsf_device,
                                             tail_iterations)
 from safepy_tpu_torch.ops.permutation import count_scan, random_permutations
@@ -99,10 +102,10 @@ def scan_counts_band(compact, starts, vals, mask, obs, frame_map, *,
     """Two-sided permutation counts against the compacted band (``:70``).
 
     compact: ((nb + 2 bt) b, w_c) valid-column-compacted indicator
-    (``ops.apsp_bandstore.compact_band_columns``); starts: (nb,) slab starts
-    in the valid-rank frame; vals, mask: (V, A) NaN->0 values and finite
-    masks of the valid rows in permuted order; obs: (npad, A) observed scores
-    in the permuted frame. Permutations come from ``perm_idx`` (P, V) or
+    (``ops.apsp_bandstore.compact_band_columns``), int8 or bit-packed;
+    starts: (nb,) slab starts in the valid-rank frame; vals, mask: (V, A)
+    NaN->0 values and finite masks of the valid rows in permuted order;
+    obs: (npad, A) observed scores in the permuted frame. Permutations come from ``perm_idx`` (P, V) or
     ``generator`` and index the valid rows in original order;
     ``frame_map`` = :func:`valid_frame_map` carries them into the banded
     frame.
@@ -116,7 +119,7 @@ def scan_counts_band(compact, starts, vals, mask, obs, frame_map, *,
     """
     V, A = vals.shape
     dev = vals.device
-    w_c = compact.shape[1]
+    w_c = band_width(compact)  # counted in bits for a packed band (``:88``)
     v_pad = V + w_c  # slack so starts[i] + w_c never overruns
     if perm_idx is not None:
         perm_idx = torch.as_tensor(perm_idx, dtype=torch.int64, device=dev)

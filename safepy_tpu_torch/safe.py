@@ -17,9 +17,17 @@ the counts of the permutation null) as the JAX facade does.
   (``safe.py:1702-1712``): band storage (O(N W) memory, ``apsp_mode='band'``
   or ``'auto'`` at ``band_storage_min_nodes`` and above when the band beats
   dense storage), then the certified banded window, then the dense
-  Floyd-Warshall. The euclidean metric is the dense distance matrix.
-- ``run_pipeline`` runs the stages for the euclidean metric and for
-  ``background='network'``, as JAX does (``safe.py:1664-1684``).
+  Floyd-Warshall. The band is relaxed by the FW, or with
+  ``band_relax='bf'`` by the sparse Bellman-Ford, which gives way to the FW
+  when it runs out of rounds (``_band_relax_used`` says which ran). The
+  euclidean metric takes the same band storage, built from the coordinates
+  (``safe.py:443-466, 1795``), else the dense distance matrix. The indicator
+  band is bit-packed with ``band_indicator_bits`` (``'auto'``: once the int8
+  band reaches ``band_bits_min_bytes``; on the euclidean band only without
+  kept distances).
+- ``run_pipeline`` runs the stages for ``background='network'`` and for the
+  euclidean metric, except a quantitative run over the euclidean band,
+  which is fused, as JAX does (``safe.py:1664-1684``).
 - FDR (``multiple_testing``) adjusts log-survival on the device in the fused
   binary path, linear p-values in the staged one and in the null.
 - The domain stage (``safe.py:2243-2287``): ``define_top_attributes``,
@@ -103,10 +111,11 @@ class SAFE:
         # False drops the f32 distance band of a band-storage run as soon as
         # its indicator exists (node_distances is then None for the run)
         self.keep_node_distances = True
-        # options of the JAX band engine that are not ported (ROADMAP A7):
-        # the sparse Bellman-Ford relax ('bf') and the bit-packed indicator
-        # (True, or 'auto' once the int8 band reaches band_bits_min_bytes)
+        # the band relax: 'bf' = the sparse Bellman-Ford (falling back to the
+        # FW when it runs out of rounds); anything else = the FW
         self.band_relax = "auto"
+        # bit-pack the indicator band: True, False, or 'auto' = once the int8
+        # band reaches band_bits_min_bytes
         self.band_indicator_bits = "auto"
         self.band_bits_min_bytes = 4 * 10 ** 9
         self.node_key_attribute = "label_orf"
@@ -168,7 +177,7 @@ class SAFE:
         self._band_operands_cache = None
 
         # which APSP engine and window the last neighborhoods took, the band
-        # relax of a band-storage run ("fw": the only one ported), and which
+        # relax of a band-storage run ("fw", "bf" or "bf->fw"), and which
         # hypergeometric engine served the last binary enrichment
         self.apsp_engine_used = None
         self.window_used = None
@@ -573,14 +582,17 @@ class SAFE:
                 v=torch.as_tensor(permuted[:, 1], device=dev),
                 w=torch.as_tensor(np.asarray(weights, np.float32), device=dev),
                 rank=rank, rank_dev=torch.as_tensor(rank, device=dev),
-                band=int(band))
+                band=int(band),
+                # host edges for the sparse BF's slots, built on first use
+                edges_perm=permuted,
+                weights_np=np.asarray(weights, np.float32))
         self._bandstore_cache[key] = plan
         return plan
 
     def _euclidean_band_plan(self, coords, num_nodes, nr):
-        """Would the JAX facade take the euclidean metric's band form
-        (``safe.py:734``)? dict(rank, band) or None. The band form itself is
-        not ported (ROADMAP A7 remainder): callers raise on a plan."""
+        """Band plan of the euclidean metric (``safe.py:734``): the band
+        certificate is the measured index separation of the radius pairs
+        themselves, with no edge contract. dict(rank, band) or None."""
         forced = self.apsp_mode == "band"
         if not forced and (self.apsp_mode != "auto"
                            or num_nodes < int(self.band_storage_min_nodes)):
@@ -610,8 +622,7 @@ class SAFE:
         return bt * block - 1
 
     def _band_bits_selected(self, num_nodes, band):
-        """Would the JAX facade bit-pack the indicator band
-        (``safe.py:990``)?"""
+        """Bit-pack the indicator band (``safe.py:990``)?"""
         if self.band_indicator_bits == "auto":
             return (_bst.band_nbytes(num_nodes, band, itemsize=1)
                     >= float(self.band_bits_min_bytes))
@@ -627,23 +638,61 @@ class SAFE:
             raise _not_ported("a mesh other than one 'data' axis (the "
                               "'perm' and 'attr' axes, 2-D meshes)",
                               "A10 remainder")
-        if self.band_relax == "bf":
-            raise _not_ported("band_relax='bf' (the sparse Bellman-Ford band "
-                              "relax, apsp_band_bf)", "A7 remainder")
-        if self.band_indicator_bits != "auto" and self.band_indicator_bits:
-            raise _not_ported("bit-packed indicator bands "
-                              "(band_indicator_bits=True)", "A7 remainder")
 
     def _refuse_mesh(self, what: str):
         if self.mesh is not None:
             raise _not_ported(f"{what} on a mesh (the sharded dense and "
                               "hypergeometric engines)", "A10 remainder")
 
-    def _refuse_band_bits(self, num_nodes, band):
-        if self._band_bits_selected(num_nodes, band):
-            raise _not_ported(
-                "bit-packed indicator bands (band_indicator_bits='auto' at "
-                "band_bits_min_bytes and above)", "A7 remainder")
+    def _band_bf_args(self, plan):
+        """(bf_slots, bf_max_iters) keyword arguments of the band pipelines
+        for ``band_relax`` (``safe.py:827``): {} = the FW. The slots are
+        built on the first 'bf' run and kept in the plan; a band too wide
+        for them (``band_bf_slots`` returns None) takes the FW."""
+        if self.band_relax != "bf":
+            return {}
+        if "bf_slots" not in plan:
+            n = int(len(plan["rank"]))
+            slots = _bst.band_bf_slots(
+                plan["edges_perm"][:, 0], plan["edges_perm"][:, 1],
+                plan["weights_np"], n=n, band=int(plan["band"]))
+            if slots is None:
+                plan["bf_slots"] = None
+            else:
+                nbr, dlt, wgt, s_slots = slots
+                dev = self.device
+                plan["bf_slots"] = tuple(torch.as_tensor(x, device=dev)
+                                         for x in (nbr, dlt, wgt))
+                plan["bf_max_iters"] = _bst.bf_max_iters(
+                    n, int(plan["band"]), s_slots)
+        if plan["bf_slots"] is None:
+            return {}
+        return dict(bf_slots=plan["bf_slots"],
+                    bf_max_iters=int(plan["bf_max_iters"]))
+
+    def _band_front_dispatch(self, plan, radius, num_nodes):
+        """``pipeline.band_neighborhoods`` with the selected relax
+        (``safe.py:856``): when the sparse BF runs out of rounds (the band
+        then holds upper bounds) the FW runs again from the start. Records
+        the relax that gave the result in ``_band_relax_used``. Returns
+        (dist_band or None, s_ind, mean, std)."""
+        kw = dict(n=num_nodes, band=plan["band"],
+                  keep_distances=bool(self.keep_node_distances),
+                  packed=self._band_bits_selected(num_nodes, plan["band"]))
+        edges = (plan["u"], plan["v"], plan["w"], radius)
+        bf = self._band_bf_args(plan)
+        if bf:
+            out = _pipe.band_neighborhoods(*edges, **kw, **bf)
+            if out[4]:
+                self._band_relax_used = "bf"
+                return out[:4]
+            del out
+            self._band_relax_used = "bf->fw"
+            logging.info("band BF relax hit its iteration budget; "
+                         "re-dispatching Floyd-Warshall")
+        else:
+            self._band_relax_used = "fw"
+        return _pipe.band_neighborhoods(*edges, **kw)[:4]
 
     def _radius(self, coords, lengths, edge_weights):
         """(radius, edge weights) of the node distance metric: a fraction of
@@ -683,10 +732,24 @@ class SAFE:
         coords, edges, lengths, edge_weights = self._graph_arrays
         nr, weights = self._radius(coords, lengths, edge_weights)
         if self.node_distance_metric == "euclidean":
-            if self._euclidean_band_plan(coords, num_nodes, nr) is not None:
-                raise _not_ported("the euclidean metric's band form "
-                                  "(euclidean_band_neighborhoods)",
-                                  "A7 remainder")
+            eb_plan = self._euclidean_band_plan(coords, num_nodes, nr)
+            if eb_plan is not None:
+                rank, band = eb_plan["rank"], eb_plan["band"]
+                keep = bool(self.keep_node_distances)
+                # drop the previous bands before building new ones
+                self._neighborhoods_dev = self._node_distances_dev = None
+                dist_band, s_ind, mean, std = \
+                    _pipe.euclidean_band_neighborhoods(
+                        torch.as_tensor(coords[np.argsort(rank)],
+                                        dtype=torch.float32,
+                                        device=self.device),
+                        np.float32(nr), n=num_nodes, band=band,
+                        keep_distances=keep,
+                        packed=(not keep and self._band_bits_selected(
+                            num_nodes, band)))
+                self.apsp_engine_used, self.window_used = "band-storage", None
+                return self._store_band_neighborhoods(
+                    s_ind, dist_band, rank, band, mean, std)
             dist = _nbr.euclidean_distance_matrix(torch.as_tensor(
                 coords, dtype=torch.float32, device=self.device))
             nbr, mean, std = _nbr.threshold_and_stats(dist, np.float32(nr),
@@ -698,20 +761,13 @@ class SAFE:
         bs_plan = self._band_storage_plan(coords, edges, weights, num_nodes,
                                           nr)
         if bs_plan is not None:
-            band, rank = bs_plan["band"], bs_plan["rank"]
-            self._refuse_band_bits(num_nodes, band)
             # drop the previous bands before building new ones
             self._neighborhoods_dev = self._node_distances_dev = None
-            dist_band, s_ind, mean, std = _pipe.band_neighborhoods(
-                bs_plan["u"], bs_plan["v"], bs_plan["w"], radius, n=num_nodes,
-                band=band, keep_distances=bool(self.keep_node_distances))
-            self._band_relax_used = "fw"
+            dist_band, s_ind, mean, std = self._band_front_dispatch(
+                bs_plan, radius, num_nodes)
             self.apsp_engine_used, self.window_used = "band-storage", None
-            return self._store_neighborhoods(
-                BandedMatrix(s_ind, rank, num_nodes, band, fill=0.0),
-                None if dist_band is None
-                else BandedMatrix(dist_band, rank, num_nodes, band,
-                                  fill=np.inf), mean, std)
+            return self._store_band_neighborhoods(
+                s_ind, dist_band, bs_plan["rank"], bs_plan["band"], mean, std)
         d0, inv_rank, window = self._dense_front(coords, edges, weights,
                                                  num_nodes, nr)
         dist = _pipe._apsp_inline(d0, 128, window=window, inv_rank=inv_rank,
@@ -735,6 +791,17 @@ class SAFE:
             self._d0_cache[self.node_distance_metric] = d0
         self.apsp_engine_used, self.window_used = "dense", None
         return d0, None, None
+
+    def _store_band_neighborhoods(self, s_ind, dist_band, rank, band, mean,
+                                  std):
+        """:meth:`_store_neighborhoods` of an indicator band and a distance
+        band (or None), wrapped with their frame."""
+        n = self._num_nodes
+        self._store_neighborhoods(
+            BandedMatrix(s_ind, rank, n, band, fill=0.0),
+            None if dist_band is None
+            else BandedMatrix(dist_band, rank, n, band, fill=np.inf),
+            mean, std)
 
     def _store_neighborhoods(self, nbr, dist, mean, std):
         """The indicator and distances stay where the run left them (dense
@@ -952,24 +1019,9 @@ class SAFE:
         """The permutation null over band-stored neighborhoods
         (``safe.py:1467``): banded scores, valid-column compaction, banded
         count scan, rows un-permuted on the device."""
-        n2a = self.node2attribute
-        order = np.argsort(bm.rank)  # permuted position -> original node
-        vals_perm = np.asarray(n2a, np.float32)[order]
-        valid_perm = np.any(~np.isnan(vals_perm), axis=1)
-        V, A = int(valid_perm.sum()), n2a.shape[1]
-        starts, w_c = _bst.compaction_plan(valid_perm, n=bm.n, bt=bm.bt,
-                                           block=bm.block)
-        dev = self.device
+        tail_args, kw = self._band_null_operands(bm.rank, bm.bt, perm_idx)
         obs, counts_neg, counts_pos = _pipe._band_perm_tail(
-            bm.data, torch.as_tensor(vals_perm, device=dev),
-            torch.as_tensor(vals_perm[valid_perm], device=dev),
-            torch.as_tensor(valid_perm, device=dev),
-            torch.as_tensor(starts, device=dev),
-            torch.as_tensor(bm.rank, device=dev), self._generator(perm_idx),
-            bt=bm.bt, block=bm.block, score_type=self.neighborhood_score_type,
-            num_permutations=int(self.num_permutations),
-            batch_size=default_batch_size(V, A, int(self.num_permutations)),
-            w_c=w_c, precision=self.matmul_precision, perm_idx=perm_idx)
+            bm.data, *tail_args, bt=bm.bt, block=bm.block, **kw)
         self._store_null(obs, counts_neg, counts_pos)
 
     def _store_null(self, obs, counts_neg, counts_pos):
@@ -1039,7 +1091,8 @@ class SAFE:
     def run_pipeline(self, *, perm_idx=None, **kwargs):
         """Neighborhoods + enrichment (``safe.py:1635``), the equivalent of
         ``define_neighborhoods(); compute_pvalues()``: fused for the
-        shortest-path metrics, the stages for the euclidean metric and
+        shortest-path metrics and for a quantitative run over the euclidean
+        band, the stages for the rest of the euclidean metric and for
         ``background='network'``.
 
         ``perm_idx`` (P, V): explicit permutations of the V annotated rows
@@ -1064,18 +1117,22 @@ class SAFE:
         coords, edges, lengths, edge_weights = self._graph_arrays
         self._refuse_unported()
         binary = self._binary()
-        staged = (self.node_distance_metric == "euclidean"
-                  or self.background == "network")
+        euclid = self.node_distance_metric == "euclidean"
+        staged = euclid or self.background == "network"
+        if euclid and self.mesh is not None:
+            raise _not_ported("the euclidean metric on a mesh (the sharded "
+                              "euclidean band pipeline)", "A10 remainder")
         if staged or binary:
             self._refuse_mesh("binary (hypergeometric) enrichment and the "
                               "stage methods")
         nr, weights = self._radius(coords, lengths, edge_weights)
         bs_plan = None
-        if self.node_distance_metric == "euclidean":
-            if self._euclidean_band_plan(coords, num_nodes, nr) is not None:
-                raise _not_ported("the euclidean metric's band form "
-                                  "(_run_pipeline_band_euclid)",
-                                  "A7 remainder")
+        if euclid:
+            eb_plan = (None if binary or self.background == "network"
+                       else self._euclidean_band_plan(coords, num_nodes, nr))
+            if eb_plan is not None:
+                return self._run_pipeline_band_euclid(eb_plan, coords, nr,
+                                                      perm_idx)
         else:
             bs_plan = self._band_storage_plan(coords, edges, weights,
                                               num_nodes, nr)
@@ -1173,32 +1230,33 @@ class SAFE:
         (``safe.py:2122-2127``)."""
         num_nodes = self._num_nodes
         band, rank = plan["band"], plan["rank"]
-        self._refuse_band_bits(num_nodes, band)
+        packed = self._band_bits_selected(num_nodes, band)
+        if self.mesh is not None and packed:
+            raise _not_ported("a bit-packed indicator band on a mesh (the "
+                              "sharded band engine packs no band)",
+                              "A10 remainder")
         self._release_device_results()
-        order = np.argsort(rank)  # permuted position -> original node
         bt = band // 128 + 1
-        n2a = self.node2attribute
-        vals_perm = np.asarray(n2a, np.float32)[order]
-        valid_perm = np.any(~np.isnan(vals_perm), axis=1)
-        V, A = int(valid_perm.sum()), n2a.shape[1]
-        starts, w_c = _bst.compaction_plan(valid_perm, n=num_nodes, bt=bt)
-        batch = default_batch_size(V, A, int(self.num_permutations))
-        dev = self.device
-        args = (plan["u"], plan["v"], plan["w"],
-                torch.as_tensor(vals_perm, device=dev),
-                torch.as_tensor(vals_perm[valid_perm], device=dev),
-                torch.as_tensor(valid_perm, device=dev),
-                torch.as_tensor(starts, device=dev), plan["rank_dev"],
-                self._generator(perm_idx), _nbr.inclusive_radius(nr))
-        kw = dict(n=num_nodes, band=band,
-                  score_type=self.neighborhood_score_type,
-                  num_permutations=int(self.num_permutations),
-                  batch_size=batch, w_c=w_c, precision=self.matmul_precision,
-                  keep_distances=bool(self.keep_node_distances),
-                  perm_idx=perm_idx)
+        tail_args, kw = self._band_null_operands(rank, bt, perm_idx)
+        args = ((plan["u"], plan["v"], plan["w"]) + tail_args
+                + (_nbr.inclusive_radius(nr),))
+        kw.update(n=num_nodes, band=band,
+                  keep_distances=bool(self.keep_node_distances))
         if self.mesh is None:
-            (dist_band, s_ind, obs, counts_neg, counts_pos, mean, std) = \
-                _pipe.fused_permutation_pipeline_band(*args, **kw)
+            bf = self._band_bf_args(plan)
+            out = _pipe.fused_permutation_pipeline_band(
+                *args, packed=packed, **kw, **bf)
+            if bf and not out[7]:
+                self._band_relax_used = "bf->fw"
+                logging.info("band BF relax hit its iteration budget; "
+                             "re-dispatching Floyd-Warshall")
+                del out
+                out = _pipe.fused_permutation_pipeline_band(
+                    *args, packed=packed, **kw)
+            else:
+                self._band_relax_used = "bf" if bf else "fw"
+            (dist_band, s_ind, obs, counts_neg, counts_pos, mean,
+             std) = out[:7]
         else:
             from safepy_tpu_torch.parallel.band_sharded import (
                 fused_permutation_pipeline_band_sharded)
@@ -1209,14 +1267,62 @@ class SAFE:
             s_ind = s_ind[:g_rows]
             if dist_band is not None:
                 dist_band = dist_band[:g_rows]
-        self._band_relax_used = "fw"
+            self._band_relax_used = "fw"  # the sharded engine relaxes by FW
         self.apsp_engine_used, self.window_used = "band-storage", None
-        self._store_results(
-            obs, counts_neg, counts_pos,
-            BandedMatrix(s_ind, rank, num_nodes, band, fill=0.0),
-            None if dist_band is None
-            else BandedMatrix(dist_band, rank, num_nodes, band, fill=np.inf),
-            mean, std)
+        self._store_null(obs, counts_neg, counts_pos)
+        self._store_band_neighborhoods(s_ind, dist_band, rank, band, mean,
+                                       std)
+        self._update_binary_enrichment()
+
+    def _band_null_operands(self, rank, bt, perm_idx):
+        """The permutation null's operands over a band in the permuted frame
+        (``safe.py:2053-2068``): ((vals, vals_valid, valid, starts, rank,
+        generator) on the device, the tail's keyword arguments)."""
+        order = np.argsort(rank)  # permuted position -> original node
+        n2a = self.node2attribute
+        vals_perm = np.asarray(n2a, np.float32)[order]
+        valid_perm = np.any(~np.isnan(vals_perm), axis=1)
+        V, A = int(valid_perm.sum()), n2a.shape[1]
+        starts, w_c = _bst.compaction_plan(valid_perm, n=len(rank), bt=bt)
+        dev = self.device
+        args = (torch.as_tensor(vals_perm, device=dev),
+                torch.as_tensor(vals_perm[valid_perm], device=dev),
+                torch.as_tensor(valid_perm, device=dev),
+                torch.as_tensor(starts, device=dev),
+                torch.as_tensor(rank, device=dev), self._generator(perm_idx))
+        kw = dict(score_type=self.neighborhood_score_type,
+                  num_permutations=int(self.num_permutations),
+                  batch_size=default_batch_size(V, A,
+                                                int(self.num_permutations)),
+                  w_c=w_c, precision=self.matmul_precision,
+                  perm_idx=perm_idx)
+        return args, kw
+
+    def _run_pipeline_band_euclid(self, plan, coords, nr, perm_idx):
+        """run_pipeline's quantitative branch for the euclidean metric at
+        band-storage scale (``safe.py:1795``): the band straight from the
+        coordinates, then the scores and the permutation null over it, with
+        no graph algorithm. Without kept distances the indicator is built
+        directly, bit-packed when ``_band_bits_selected``."""
+        num_nodes = self._num_nodes
+        band, rank = plan["band"], plan["rank"]
+        self._release_device_results()
+        bt = band // 128 + 1
+        keep = bool(self.keep_node_distances)
+        tail_args, kw = self._band_null_operands(rank, bt, perm_idx)
+        (dist_band, s_ind, obs, counts_neg, counts_pos, mean, std) = \
+            _pipe.fused_permutation_pipeline_band_euclid(
+                torch.as_tensor(coords[np.argsort(rank)],
+                                dtype=torch.float32, device=self.device),
+                *tail_args, np.float32(nr), n=num_nodes, band=band,
+                keep_distances=keep,
+                packed=not keep and self._band_bits_selected(num_nodes, band),
+                **kw)
+        self.apsp_engine_used, self.window_used = "band-storage", None
+        self._store_null(obs, counts_neg, counts_pos)
+        self._store_band_neighborhoods(s_ind, dist_band, rank, band, mean,
+                                       std)
+        self._update_binary_enrichment()
 
     # ------------------------------------------------- band binary enrichment
 
@@ -1289,22 +1395,20 @@ class SAFE:
         (``hostchunks-band``), else fused with the band front
         (``loop-band``). ``hypergeom_engine='loop'`` skips the table; where
         the table does not apply, 'table' takes the loop engines as in JAX.
-        The results stay on the device; the NES derives from the log sf."""
+        The front takes ``band_relax`` and ``band_indicator_bits``
+        (:meth:`_band_front_dispatch`). The results stay on the device; the
+        NES derives from the log sf."""
         num_nodes = self._num_nodes
         band, rank = plan["band"], plan["rank"]
-        self._refuse_band_bits(num_nodes, band)
         self._release_device_results()
         order = np.argsort(rank)  # permuted position -> original node
         bt = band // 128 + 1
         n2a = self.node2attribute
         radius = _nbr.inclusive_radius(nr)
         thr = np.float64(self.enrichment_threshold)
-        keep = bool(self.keep_node_distances)
 
         def front():
-            return _pipe.band_neighborhoods(plan["u"], plan["v"], plan["w"],
-                                            radius, n=num_nodes, band=band,
-                                            keep_distances=keep)
+            return self._band_front_dispatch(plan, radius, num_nodes)
 
         table_out = done = None
         if self.hypergeom_engine in ("auto", "table"):
@@ -1334,23 +1438,31 @@ class SAFE:
             else:
                 self._hypergeom_engine_used = "loop-band"
                 dev = self.device
-                (dist_band, s_ind, log_sf32, nesbin8, counts, mean, std) = \
-                    _pipe.fused_hypergeom_pipeline_band(
-                        plan["u"], plan["v"], plan["w"],
+                args = (plan["u"], plan["v"], plan["w"],
                         torch.as_tensor(nan0, device=dev),
                         torch.as_tensor(nnn, device=dev),
                         torch.as_tensor(K, device=dev), lgt, M, radius, thr,
-                        plan["rank_dev"], n=num_nodes, band=band,
-                        iterations=iters, keep_distances=keep,
-                        precision=self.matmul_precision)
-        self._band_relax_used = "fw"
+                        plan["rank_dev"])
+                kw = dict(n=num_nodes, band=band, iterations=iters,
+                          keep_distances=bool(self.keep_node_distances),
+                          precision=self.matmul_precision,
+                          packed=self._band_bits_selected(num_nodes, band))
+                bf = self._band_bf_args(plan)
+                out = _pipe.fused_hypergeom_pipeline_band(*args, **kw, **bf)
+                if bf and not out[7]:
+                    self._band_relax_used = "bf->fw"
+                    logging.info("band BF relax hit its iteration budget; "
+                                 "re-dispatching Floyd-Warshall")
+                    del out
+                    out = _pipe.fused_hypergeom_pipeline_band(*args, **kw)
+                else:
+                    self._band_relax_used = "bf" if bf else "fw"
+                (dist_band, s_ind, log_sf32, nesbin8, counts, mean,
+                 std) = out[:7]
         self.apsp_engine_used, self.window_used = "band-storage", None
         self._store_hypergeom_results(None, log_sf32, nesbin8, counts)
-        self._store_neighborhoods(
-            BandedMatrix(s_ind, rank, num_nodes, band, fill=0.0),
-            None if dist_band is None
-            else BandedMatrix(dist_band, rank, num_nodes, band, fill=np.inf),
-            mean, std)
+        self._store_band_neighborhoods(s_ind, dist_band, rank, band, mean,
+                                       std)
         self._update_binary_enrichment()
 
     def _hypergeom_bandstore(self, bm, n2a):

@@ -20,6 +20,10 @@ ENRICHMENT_SETTINGS = ("enrichment_type", "enrichment_threshold",
 DOMAIN_SETTINGS = ("attribute_enrichment_min_size",
                    "attribute_unimodality_metric", "attribute_distance_metric",
                    "attribute_distance_threshold", "cluster_engine")
+# the band-storage engine's settings, each with SAFE's default
+BAND_SETTINGS = ("apsp_mode", "band_storage_min_nodes", "band_bt_bucket",
+                 "keep_node_distances", "band_relax", "band_indicator_bits",
+                 "band_bits_min_bytes")
 
 
 def from_numpy_state(graph_arrays, node2attribute, *, neighborhood_radius,
@@ -32,11 +36,12 @@ def from_numpy_state(graph_arrays, node2attribute, *, neighborhood_radius,
     (N, A) in node order; ``attribute_names``: ``sf.attributes["name"]``,
     the names the domain labels are made of (else "attribute j"); the
     scalars as on the JAX session; ``settings``: any of
-    :data:`ENRICHMENT_SETTINGS` and :data:`DOMAIN_SETTINGS`, e.g.
+    :data:`ENRICHMENT_SETTINGS`, :data:`DOMAIN_SETTINGS` and
+    :data:`BAND_SETTINGS`, e.g.
     ``{k: getattr(jax_sf, k) for k in ENRICHMENT_SETTINGS}``.
     """
     unknown = sorted(set(settings) - set(ENRICHMENT_SETTINGS)
-                     - set(DOMAIN_SETTINGS))
+                     - set(DOMAIN_SETTINGS) - set(BAND_SETTINGS))
     if unknown:
         raise TypeError(f"unknown settings: {unknown}")
     sf = SAFE(device=device, verbose=False)

@@ -31,7 +31,8 @@ from safepy_tpu_torch import pipeline as pipe
 from safepy_tpu_torch.io.graph_arrays import edge_lengths
 from safepy_tpu_torch.ops import apsp_banded as ab
 from safepy_tpu_torch.ops import apsp_bandstore as bs
-from safepy_tpu_torch.state import from_numpy_state
+from safepy_tpu_torch.state import (BAND_SETTINGS, ENRICHMENT_SETTINGS,
+                                    from_numpy_state)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -108,7 +109,8 @@ def test_fused_band_pipeline_matches_jax_pieces():
         torch.as_tensor(valid_perm), torch.as_tensor(starts),
         torch.as_tensor(rank), None, r, n=n, band=band, block=block,
         num_permutations=P, batch_size=16, w_c=w_c, perm_idx=perm_idx)
-    dist_band, s_ind, obs, counts_neg, counts_pos, mean, std = out
+    dist_band, s_ind, obs, counts_neg, counts_pos, mean, std, converged = out
+    assert converged
 
     s = jbs.band_init_from_edges(jnp.asarray(pe[:, 0], jnp.int32),
                                  jnp.asarray(pe[:, 1], jnp.int32),
@@ -280,17 +282,64 @@ def _small_band_session(**settings):
                     **settings)
 
 
-@pytest.mark.parametrize("setting,value,item", [
-    ("band_relax", "bf", "A7 remainder"),
-    ("band_indicator_bits", True, "A7 remainder"),
-    ("band_bits_min_bytes", 1, "A7 remainder"),
-    ("node_distance_metric", "euclidean", "A7 remainder"),
-    ("mesh", object(), "A10")])
+@pytest.mark.parametrize("setting,value,item", [("mesh", object(), "A10")])
 def test_still_refused_band_options_raise(setting, value, item):
     sf = _small_band_session(**{setting: value})
     with pytest.raises(NotImplementedError,
                        match=re.escape(f"ROADMAP {item}")):
         sf.run_pipeline(num_permutations=20)
+
+
+@pytest.mark.parametrize("setting,value", [
+    ("band_relax", "bf"), ("band_indicator_bits", True),
+    ("band_bits_min_bytes", 1), ("node_distance_metric", "euclidean")])
+def test_formerly_refused_band_options_match_jax(setting, value):
+    """The A7 remainder (the sparse Bellman-Ford relax, the bit-packed
+    indicator, forced or past band_bits_min_bytes, and the euclidean band
+    form), refused until it was ported, runs over band storage and equals
+    the JAX package's run with the same settings, carried across by
+    from_numpy_state: the band and the relax that made it bitwise, the
+    distances (bitwise where both relax alike), the scores, and the counts
+    of the same permutations."""
+    n = 200
+    vals = _dyadic(n, 52, a_dim=2)
+    jsf = JaxSAFE(verbose=False)
+    jsf.apsp_mode = "band"
+    jsf.random_seed = SEED
+    setattr(jsf, setting, value)
+    jsf.load_network(network_file=_graph(n, seed=51), node_key_attribute="key")
+    jsf.load_attributes(attribute_file=pd.DataFrame(
+        vals, index=[f"g{i}" for i in range(n)]))
+    jsf.run_pipeline(num_permutations=20)
+    psf = from_numpy_state(
+        jsf._graph_to_arrays_cached(), jsf.node2attribute,
+        neighborhood_radius=jsf.neighborhood_radius, random_seed=None,
+        device="cpu", **{k: getattr(jsf, k)
+                         for k in ENRICHMENT_SETTINGS + BAND_SETTINGS})
+    perm_idx = _perm_idx(vals, 32, 53)
+    psf.run_pipeline(perm_idx=perm_idx)
+
+    assert psf.apsp_engine_used == "band-storage"
+    assert psf._band_relax_used == jsf._band_relax_used
+    pb, jb = psf._neighborhoods_dev, jsf._neighborhoods_dev
+    np.testing.assert_array_equal(pb.rank, jb.rank)
+    np.testing.assert_array_equal(pb.data.numpy(), np.asarray(jb.data))
+    np.testing.assert_array_equal(psf.neighborhoods, jsf.neighborhoods)
+    if setting in ("band_relax", "node_distance_metric"):
+        np.testing.assert_array_equal(psf.node_distances, jsf.node_distances)
+    else:  # the symmetric FW mirrors tiles: last-bit differences inside
+        inside = jsf.neighborhoods.astype(bool)
+        np.testing.assert_allclose(psf.node_distances[inside],
+                                   jsf.node_distances[inside], rtol=1e-6)
+    np.testing.assert_array_equal(psf.ns, jsf.ns)
+    valid = np.flatnonzero(np.isfinite(vals).any(axis=1))
+    nv = jsf.neighborhoods[:, valid].astype(np.float32)
+    scores = np.einsum("nv,cva->cna", nv,
+                       np.nan_to_num(vals[valid])[perm_idx].astype(np.float32))
+    np.testing.assert_array_equal(psf.counts_neg,
+                                  (scores <= jsf.ns[None]).sum(0))
+    np.testing.assert_array_equal(psf.counts_pos,
+                                  (scores >= jsf.ns[None]).sum(0))
 
 
 def test_band_binary_attributes_raise_and_quantitative_runs():

@@ -480,7 +480,7 @@ def test_sharded_front_and_matmul(world_runs, pipe_case):
     the unsharded front and band_matmul, on every rank."""
     ranks = world_runs(2)
     c = pipe_case
-    dist_band, ind, mean, std = pipe.band_neighborhoods(
+    dist_band, ind, mean, std, _ = pipe.band_neighborhoods(
         *_pipe_args(c)[:3], c["radius"], n=PIPE_NODES, band=int(c["band"]),
         block=BLOCK)
     g_rows = ind.shape[0]
@@ -590,7 +590,7 @@ def _session(vals=None, mode="band", **settings):
     ("no band plan", "A10 remainder"),
     ("auto, no band plan", "A10 remainder"),
     ("binary attributes", "A10 remainder"),
-    ("bit-packed band", "A7 remainder")])
+    ("bit-packed band", "A10 remainder")])
 def test_unported_mesh_cases_raise(case, item):
     mesh = _data_mesh("data")
     kw = {}

@@ -871,3 +871,145 @@ def test_cuda_domain_stage_matches_cpu_session(dev, engine):
     if engine == "gemm":
         b = gpu.nes_binary
         np.testing.assert_array_equal(gpu._domains_inter_cache, b.T @ b)
+
+
+# ---------------------------------------------- the A7 remainder on the card
+
+def test_packed_band_consumers_on_the_card(dev):
+    """The bit-packed band's consumers on the card against the host: pack,
+    unpack, the packed threshold, per-row sizes, the banded products and
+    the packed compaction, bitwise (dyadic operands: every f32 sum is exact
+    in any order), and a packed band's products equal the int8 band's."""
+    from safepy_tpu_torch.ops import apsp_bandstore as bs
+
+    rng = np.random.default_rng(5)
+    n, band = 1500, 300
+    coords = np.sort(rng.uniform(-1, 1, (n, 2)).astype(np.float32), axis=0)
+    dist = bs.euclidean_band_distances(torch.as_tensor(coords), n=n, band=band)
+    r = np.float32(0.06)
+    bt = band // 128 + 1
+    valid = rng.random(n) < 0.7
+    starts, w_c = bs.compaction_plan(valid, n=n, bt=bt)
+    def dyadic(*shape):
+        return torch.as_tensor(rng.integers(-8, 9, shape) / 4,
+                               dtype=torch.float32)
+
+    x = dyadic(-(-n // 128) * 128, 3)
+    xb = dyadic(4, int(valid.sum()) + w_c, 2)
+    obs = dyadic(x.shape[0], 2)
+    out = {}
+    for device in ("cpu", dev):
+        packed = bs.band_threshold(dist.to(device), r, packed=True,
+                                   chunk_blocks=3)
+        plain = bs.band_threshold(dist.to(device), r)
+        assert torch.equal(bs.unpack_band_bits(packed), plain)
+        assert torch.equal(bs.pack_band_bits(plain), packed)
+        comp = bs.apply_compaction(packed, valid, w_c, bt=bt)
+        assert torch.equal(bs.band_matmul(packed, x.to(device), bt=bt),
+                           bs.band_matmul(plain, x.to(device), bt=bt))
+        out[device] = [packed, bs.band_row_sizes(packed), comp,
+                       bs.band_matmul(packed, x.to(device), bt=bt),
+                       *bs.band_count_batch(comp, xb.to(device), starts,
+                                            obs.to(device), bt=bt)]
+    for got, want in zip(out[dev], out["cpu"]):
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_euclidean_band_on_the_card(dev, packed):
+    """The euclidean band built on the card is the host's bitwise (the same
+    f64 sum of squares and f64 root, rounded to f32 once each), and a CUDA
+    euclidean band session equals a CPU one."""
+    from safepy_tpu_torch.ops import apsp_bandstore as bs
+
+    rng = np.random.default_rng(6)
+    n, band = 2000, 400
+    coords = np.sort(rng.uniform(-1, 1, (n, 2)).astype(np.float32), axis=0)
+    got = bs.euclidean_band_distances(torch.as_tensor(coords, device=dev),
+                                      n=n, band=band)
+    want = bs.euclidean_band_distances(torch.as_tensor(coords), n=n,
+                                       band=band)
+    assert torch.equal(got.cpu(), want)
+    ind = bs.euclidean_band_indicator(torch.as_tensor(coords, device=dev),
+                                      np.float32(0.05), n=n, band=band,
+                                      packed=packed)
+    assert torch.equal(ind.cpu(), bs.euclidean_band_indicator(
+        torch.as_tensor(coords), np.float32(0.05), n=n, band=band,
+        packed=packed))
+
+    vals = rng.integers(-3, 4, (n, 1)).astype(float)
+    vals[rng.random(n) < 0.3] = np.nan
+    perm_idx = np.stack([rng.permutation(int(np.isfinite(vals).sum()))
+                         for _ in range(50)])
+    runs = []
+    for device in ("cpu", dev):
+        sf = SAFE(device=device, verbose=False)
+        sf.apsp_mode, sf.node_distance_metric = "band", "euclidean"
+        sf.keep_node_distances = not packed
+        sf.band_indicator_bits = packed
+        sf.load_network(network_file=(coords, np.zeros((0, 2), np.int64),
+                                      None, None))
+        sf.load_attributes(attribute_file=vals)
+        K.reset_launches()
+        sf.run_pipeline(perm_idx=perm_idx)
+        runs.append((sf, dict(K.LAUNCHES)))
+    (cpu, _), (gpu, launches) = runs
+    assert not any(launches.values())  # the euclidean band runs no FW
+    assert gpu._neighborhoods_dev.data.dtype == (torch.uint8 if packed
+                                                 else torch.int8)
+    assert torch.equal(gpu._neighborhoods_dev.data.cpu(),
+                       cpu._neighborhoods_dev.data)
+    np.testing.assert_array_equal(gpu.ns, cpu.ns)
+    np.testing.assert_array_equal(gpu.counts_neg, cpu.counts_neg)
+    np.testing.assert_array_equal(gpu.counts_pos, cpu.counts_pos)
+
+
+@pytest.mark.parametrize("budget", [None, 1])
+def test_band_bf_on_the_card(dev, monkeypatch, budget):
+    """``band_relax='bf'`` on the card: the band, the flag and the rounds
+    of ``apsp_band_bf`` equal the host's; the session records "bf" and
+    gives the FW session's indicator and counts; with a budget of one round
+    it records "bf->fw" and launches the FW kernels once a round."""
+    from safepy_tpu_torch.ops import apsp_bandstore as bs
+    from safepy_tpu_torch.ops.neighborhoods import inclusive_radius
+
+    if budget is not None:
+        monkeypatch.setattr(bs, "bf_max_iters", lambda *a, **k: budget)
+    net = _network(n=900)
+    rng = np.random.default_rng(2)
+    vals = rng.integers(-3, 4, (900, 1)).astype(float)
+    vals[rng.random(900) < 0.3] = np.nan
+    perm_idx = np.stack([rng.permutation(int(np.isfinite(vals).sum()))
+                         for _ in range(50)])
+    runs = []
+    for device, relax in (("cpu", "bf"), (dev, "bf"), (dev, "fw")):
+        sf = SAFE(device=device, verbose=False)
+        sf.apsp_mode, sf.band_relax = "band", relax
+        sf.load_network(network_file=net)
+        sf.load_attributes(attribute_file=vals)
+        K.reset_launches()
+        sf.run_pipeline(perm_idx=perm_idx)
+        runs.append((sf, dict(K.LAUNCHES)))
+    (cpu, _), (gpu, launches), (fw, _) = runs
+    want = "bf" if budget is None else "bf->fw"
+    assert gpu._band_relax_used == cpu._band_relax_used == want
+    nb = -(-900 // 128)
+    assert launches["relax_skew_sym"] == (0 if budget is None else nb)
+    assert torch.equal(gpu._neighborhoods_dev.data.cpu(),
+                       cpu._neighborhoods_dev.data)
+    assert torch.equal(gpu._neighborhoods_dev.data, fw._neighborhoods_dev.data)
+    np.testing.assert_array_equal(gpu.counts_neg, fw.counts_neg)
+    np.testing.assert_array_equal(gpu.counts_pos, fw.counts_pos)
+    plan = next(p for p in gpu._bandstore_cache.values() if p)
+    if budget is None:
+        s0 = bs.band_init_from_edges(plan["u"], plan["v"], plan["w"], n=900,
+                                     band=plan["band"])
+        bt = plan["band"] // 128 + 1
+        x = net[0][:, 0]
+        r = inclusive_radius(gpu.neighborhood_radius * (x.max() - x.min()))
+        got = bs.apsp_band_bf(s0.clone(), *plan["bf_slots"], r, bt=bt)
+        want_s = bs.apsp_band_bf(
+            s0.cpu(), *(t.cpu() for t in plan["bf_slots"]), r, bt=bt)
+        assert torch.equal(got[0].cpu(), want_s[0])
+        assert got[1:] == want_s[1:]

@@ -336,7 +336,7 @@ def test_from_numpy_state_carries_the_enrichment_settings(net):
     with pytest.raises(TypeError, match="unknown settings"):
         from_numpy_state(jsf._graph_to_arrays_cached(), jsf.node2attribute,
                          neighborhood_radius=0.1, random_seed=0,
-                         device="cpu", band_relax="bf")
+                         device="cpu", band_split_min_bytes=1)
 
 
 def _data_mesh():
@@ -359,9 +359,10 @@ def test_unported_cases_raise_before_anything_is_computed(net, case, item):
     """Each refusal names its ROADMAP item and leaves no result behind;
     nothing quietly takes another path. Binary enrichment over band
     storage, fused and staged (with ``background='network'``), was refused
-    until the band GO engines were ported: those cases now run and equal
-    the JAX package's runs (tests/test_torch_band_go.py holds every
-    engine)."""
+    until the band GO engines were ported, and the euclidean band form,
+    fused and staged, until it was: those cases now run and equal the JAX
+    package's runs (tests/test_torch_band_go.py holds every band GO engine,
+    tests/test_torch_euclid_band.py the euclidean band)."""
     binary = "binary" in case or "compute_pvalues" in case
     vals = _go_matrix(net[1]) if binary else _integers(N_NODES)
     jsf = _jax(net, vals)
@@ -382,11 +383,32 @@ def test_unported_cases_raise_before_anything_is_computed(net, case, item):
         assert psf.apsp_engine_used == "band-storage"
         _assert_binary_equal(psf, jsf, fused=True)
         return
+    if case.endswith("euclidean band form"):
+        jsf.apsp_mode, jsf.node_distance_metric = "band", "euclidean"
+        jsf.random_seed = 3
+        perm_idx = _perm_idx(vals)
+        if case.startswith("staged"):
+            jsf.define_neighborhoods()
+            jsf.compute_pvalues(num_permutations=len(perm_idx))
+            psf.define_neighborhoods()
+            psf.compute_pvalues(perm_idx=perm_idx)
+        else:
+            jsf.run_pipeline(num_permutations=len(perm_idx))
+            psf.run_pipeline(perm_idx=perm_idx)
+        assert psf.apsp_engine_used == "band-storage"
+        np.testing.assert_array_equal(psf._neighborhoods_dev.data.numpy(),
+                                      np.asarray(jsf._neighborhoods_dev.data))
+        np.testing.assert_array_equal(psf.neighborhoods, jsf.neighborhoods)
+        np.testing.assert_array_equal(psf.node_distances, jsf.node_distances)
+        np.testing.assert_array_equal(psf.ns, jsf.ns)
+        cn, cp = _jax_counts(jsf, perm_idx)
+        np.testing.assert_array_equal(psf.counts_neg, cn)
+        np.testing.assert_array_equal(psf.counts_pos, cp)
+        return
     if "mesh" in case:
         psf.mesh = _data_mesh()
     call = {"define_neighborhoods on a mesh": psf.define_neighborhoods,
-            "compute_pvalues on a mesh": psf.compute_pvalues,
-            "staged euclidean band form": psf.define_neighborhoods}.get(
+            "compute_pvalues on a mesh": psf.compute_pvalues}.get(
                 case, psf.run_pipeline)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         call()

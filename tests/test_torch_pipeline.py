@@ -242,11 +242,12 @@ def _assert_matches_jax_run(jsf, psf, perm_idx):
     ("enrichment_type", "hypergeometric", "A5")])
 def test_unported_paths_raise(setting, value, item):
     """The options of the JAX facade by the ROADMAP item that brings them.
-    The A4 and A5 cases (FDR, background='network', the euclidean metric,
-    the hypergeometric test), refused until this port had them, run and
-    are held against the JAX facade; the rest still raise, naming their
-    item."""
-    if item in ("A7", "A10"):
+    The A4, A5 and A7 cases (FDR, background='network', the euclidean
+    metric, the hypergeometric test; the sparse Bellman-Ford relax and the
+    bit-packed indicator, run over band storage), refused until this port
+    had them, run and are held against the JAX facade; the mesh still
+    raises, naming its item."""
+    if item == "A10":
         _, sf = _small_port_session()
         setattr(sf, setting, value)
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -257,7 +258,8 @@ def test_unported_paths_raise(setting, value, item):
     vals[rng.random(60) < 0.2] = np.nan
     if item == "A5":
         vals = (np.nan_to_num(vals) > 0).astype(float)
-    jsf, psf = _small_port_session(vals, **{setting: value})
+    band = {"apsp_mode": "band"} if item == "A7" else {}
+    jsf, psf = _small_port_session(vals, **{setting: value}, **band)
     jsf.random_seed = 1
     jsf.run_pipeline(num_permutations=20)
     perm_idx = np.stack([np.random.default_rng(s).permutation(
@@ -265,6 +267,7 @@ def test_unported_paths_raise(setting, value, item):
         for s in range(20)])
     psf.run_pipeline(perm_idx=perm_idx)
     assert getattr(psf, setting) == value
+    assert psf._band_relax_used == jsf._band_relax_used
     _assert_matches_jax_run(jsf, psf, perm_idx)
 
 
