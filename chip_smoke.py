@@ -142,30 +142,60 @@ Phases, in order; any failure raises and the script exits non-zero:
     indicator build, the null, the scores and the compaction alone in both
     forms, reports both peaks and profiles one steady run. No euclidean
     path launches a hand-written kernel;
+14. the file-driven workflow (run after phase 13, before phase 9's
+    report), its files written with numpy and scipy into a temporary
+    directory: an INI (``layoutAlgorithm = spring_tpu``, ``randomSeed``),
+    phase 4's network as a 3-column ``.txt`` of gene keys and as a MATLAB
+    session with its coordinates, phase 4's attribute as a ``.txt`` (NaN
+    rows blank) and GO matrix A of phase 10 as a 3,971 x 4,373 ``.txt``.
+    (a) ``SAFE(path_to_ini_file=...)``, ``load_network`` (the native
+    parse and the exact energy layout on the card, reproducible from its
+    seed), ``load_attributes``, ``run_pipeline``: the engine and window,
+    the launches, the parse, layout and edge-length times (min of 3), the
+    GO file's parse (min of 2), the steady wall, the indicator against
+    scipy Dijkstra's on the layout, and the layout's neighborhood
+    preservation against the port's CPU layout of the same graph and seed
+    (computed on a host thread meanwhile; within 0.05). The ``.mat`` twin
+    with phase 4's attribute and seed gives phase 4's arrays,
+    neighborhoods, scores and counts. GO matrix A from its file on the
+    twin equals phase 10's matrix; ``compute_pvalues``, the domain stage
+    and ``print_output_files`` follow, and the three TSVs read back with
+    ``csv`` equal the session's arrays. ``cli.main`` in-process pickles
+    the NES of a facade run of the same INI. (b) the sampled energy layout
+    (2,048 repulsors) of phase 6's 49,920-node network on the card: its
+    time and preservation statistic;
 9. print a JSON line of the kernels (times, bounds, launches of every
    path, phase 10's as ``go_binary_loop`` and ``go_binary_table``, phase
    12's as ``band_go_table`` and ``band_go_hostchunks``, phase 13's as
    ``band_bf``, ``band_bf_fallback``, ``band_packed``,
-   ``band_packed_table`` and the ``euclid_band_*`` paths), then the card,
+   ``band_packed_table`` and the ``euclid_band_*`` paths, phase 14's as
+   ``file_example1``, ``file_mat_twin`` and ``file_cli``), then the card,
    then the result line. The domain stage runs no hand-written kernel:
-   its products are ``torch.matmul``.
+   its products are ``torch.matmul``; the layouts are plain torch, as JAX
+   keeps them in ``jnp``.
 
-Imports torch, numpy, scipy and the port only; needs one card, nvcc and
-nvidia-smi. Phase 8 starts two processes and joins them.
+Imports torch, numpy, scipy and the port only; needs one card, nvcc, g++
+(the host edge-list parser) and nvidia-smi. Phase 8 starts two processes
+and joins them; phase 14 one host thread.
 """
 
 from __future__ import annotations
 
+import csv
 import hashlib
 import json
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
+import tempfile
+import threading
 import time
 from types import SimpleNamespace
 
 import numpy as np
+import scipy.io as spio
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -177,10 +207,14 @@ from scipy.spatial.distance import pdist
 from scipy.stats import hypergeom
 from torch.profiler import ProfilerActivity, profile
 
-from safepy_tpu_torch import SAFE, native, ops
+from safepy_tpu_torch import SAFE, cli, native, ops
 from safepy_tpu_torch import domains as domains_mod
 from safepy_tpu_torch import pipeline as pipe
+from safepy_tpu_torch.io import attributes as attr_io
+from safepy_tpu_torch.io import edgelist
+from safepy_tpu_torch.io import layout as layout_mod
 from safepy_tpu_torch.io.graph_arrays import edge_lengths
+from safepy_tpu_torch.io.record import NetworkRecord
 from safepy_tpu_torch.ops import apsp_bandstore as bst
 from safepy_tpu_torch.ops import apsp_cuda as K
 from safepy_tpu_torch.ops import domains_device as dd
@@ -223,6 +257,10 @@ EUCLID_GO_TERMS = 256
 GO_WORDS = ("regulation", "of", "transport", "cell", "cycle", "protein",
             "the", "DNA", "repair", "to", "metabolic", "process", "via",
             "signaling", "positive", "negative", "membrane", "RNA")
+# phase 14: the card layout's neighborhood-preservation statistic against
+# the CPU layout's of the same graph and seed (float32 reductions round
+# differently on the two, and 1,000 Adam steps carry the difference)
+PRESERVATION_MARGIN = 0.05
 BLOCK = 128
 SRC = "safepy_tpu_torch/csrc/minplus.cu"
 
@@ -2632,6 +2670,287 @@ def profile_steady(sf, top=8, run=None, host_ops=True):
                      for e in device[:top]])
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the file-driven workflow (INI, network and attribute files, the
+# device spring layout, the TSV reports and the batch CLI)
+# ---------------------------------------------------------------------------
+
+def gene_keys(n):
+    return np.array([f"G{i:05d}" for i in range(n)], dtype=object)
+
+
+def preservation(coords, edges, L=15):
+    """The share of edges whose endpoints are among each other's L nearest
+    layout neighbours on at least one side
+    (tests/test_layout_quality.py:29-38)."""
+    coords = np.asarray(coords, np.float64)
+    _, nn = cKDTree(coords).query(coords, k=L + 1)
+    nn = nn[:, 1:]
+    u, v = edges[:, 0], edges[:, 1]
+    hit = (nn[u] == v[:, None]).any(axis=1) | (nn[v] == u[:, None]).any(axis=1)
+    return float(hit.mean())
+
+
+def write_file_inputs(tmp, net, vals, go_a, names):
+    """Phase 14's files, with numpy and scipy only: phase 4's network as a
+    3-column .txt of gene keys and as a MATLAB session (coordinates
+    included), its attribute as a one-column .txt (NaN rows blank), GO
+    matrix A as a .txt, and the INI. Returns their paths."""
+    coords, edges, _, _ = net
+    n = len(coords)
+    keys = gene_keys(n)
+    paths = SimpleNamespace(network=os.path.join(tmp, "network.txt"),
+                            attribute=os.path.join(tmp, "attribute.txt"),
+                            go=os.path.join(tmp, "go.txt"),
+                            mat=os.path.join(tmp, "network.mat"),
+                            ini=os.path.join(tmp, "example1.ini"))
+    with open(paths.network, "w") as f:
+        f.writelines(f"{keys[u]}\t{keys[v]}\t1.0\n" for u, v in edges)
+    with open(paths.attribute, "w") as f:
+        f.write("gene\tattribute\n")
+        f.writelines(f"{keys[i]}\t{'' if np.isnan(x) else repr(float(x))}\n"
+                     for i, x in enumerate(vals[:, 0]))
+    digits = np.array(["0", "1"])
+    blank = "\t" * (go_a.shape[1] - 1)
+    with open(paths.go, "w") as f:
+        f.write("gene\t" + "\t".join(names) + "\n")
+        for i in range(n):
+            row = go_a[i]
+            f.write(keys[i] + "\t" + (blank if np.isnan(row[0]) else "\t".join(
+                digits[row.astype(np.int64)])) + "\n")
+    adjacency = coo_matrix((np.ones(2 * len(edges)),
+                            (np.concatenate([edges[:, 0], edges[:, 1]]),
+                             np.concatenate([edges[:, 1], edges[:, 0]]))),
+                           shape=(n, n)).tocsc()
+    spio.savemat(paths.mat, {"layout": {
+        "edges": adjacency, "label": keys, "label_orf": keys,
+        "x": coords[:, 0], "y": coords[:, 1]}})
+    with open(paths.ini, "w") as f:
+        f.write(f"[Input files]\nnetworkfile = {paths.network}\n"
+                f"annotationfile = {paths.attribute}\n"
+                "layoutAlgorithm = spring_tpu\n"
+                f"[Analysis parameters]\nrandomSeed = {SEED_NULL}\n")
+    return paths
+
+
+def read_tsv(path):
+    with open(path, newline="") as f:
+        return list(csv.reader(f, delimiter="\t"))
+
+
+def check_reports(sf, out_dir):
+    """Read the three TSV reports back with csv and hold them against the
+    session's arrays."""
+    dom = read_tsv(os.path.join(out_dir, "domain_properties_annotation.txt"))
+    if dom[0] != ["domain", "id", "label"]:
+        raise AssertionError(f"domain report header {dom[0]}")
+    ids = [int(r[0]) for r in dom[1:]]
+    if (ids != list(sf.domains["id"]) or [int(r[1]) for r in dom[1:]] != ids
+            or [r[2] for r in dom[1:]] != list(sf.domains["label"])
+            or 0 in ids):
+        raise AssertionError("domain report differs from sf.domains")
+    att = read_tsv(os.path.join(out_dir, "attribute_properties_annotation.txt"))
+    head = att[0]
+    col = {name: [r[j] for r in att[1:]] for j, name in enumerate(head)}
+    a = sf.attributes
+    if (head[1:] != list(a) or col["name"] != list(a["name"])
+            or [float(x) for x in col["num_neighborhoods_enriched"]]
+            != [float(x) for x in a["num_neighborhoods_enriched"]]
+            or col["top"] != [str(bool(x)) for x in a["top"]]
+            or [int(x) for x in col["domain"]] != list(a["domain"])):
+        raise AssertionError("attribute report differs from sf.attributes")
+    nod = read_tsv(os.path.join(out_dir, "node_properties_annotation.txt"))
+    if nod[0] != ["", "id", "key", "label", "domain", "nes", "num_domains"]:
+        raise AssertionError(f"node report header {nod[0]}")
+    rows = nod[1:]
+    n2d = sf.node2domain
+    if ([r[2] for r in rows] != list(sf.graph.nodes["key"])
+            or [int(r[4]) for r in rows] != list(n2d.primary_domain)
+            or not np.array_equal(np.array([float(r[5]) for r in rows]),
+                                  n2d.primary_nes)
+            or not np.array_equal(np.array([float(r[6]) for r in rows]),
+                                  sf.nodes["num_domains"])):
+        raise AssertionError("node report differs from sf.node2domain")
+    return dict(domains=len(ids), rows=(len(att) - 1, len(rows)))
+
+
+def run_file_workflow(device, net, vals, ref, band_edges, tmp, steady=3):
+    """Phase 14 (a) and (b), as the module docstring says. ``ref``: phase
+    4's array-loaded session; ``band_edges``: phase 6's edge list."""
+    t_phase = time.perf_counter()
+    coords, edges, lengths, _ = net
+    n = len(coords)
+    go_a = go_matrices(coords)[0]
+    names = go_term_names(go_a.shape[1])
+    t0 = time.perf_counter()
+    paths = write_file_inputs(tmp, net, vals, go_a, names)
+    out = dict(write_s=time.perf_counter() - t0, launches={})
+
+    # (a) 1: SAFE(path_to_ini_file=...) -> load_network (the native parse
+    # and the exact energy layout on the card) -> load_attributes
+    sf = SAFE(path_to_ini_file=paths.ini, verbose=False, device=device)
+    if sf.layout_algorithm != "spring_tpu":
+        raise AssertionError("the INI session is not the card's spring_tpu")
+    out["load_network_s"] = timed_s(device, lambda: sf.load_network(
+        node_key_attribute="key"))
+    graph = sf.graph
+    if graph.num_nodes != n or graph.number_of_edges() != len(edges):
+        raise AssertionError(f"file network {graph}")
+    if graph.nodes["x"].dtype != np.float32:
+        raise AssertionError("the device layout did not give float32")
+    out["parse_s"] = best_s(device, lambda: edgelist.parse_edgelist(
+        paths.network, 3), reps=steady)
+    rec = NetworkRecord(graph.num_nodes, graph.edges)
+    out["layout_s"] = best_s(device, lambda: layout_mod.spring_layout_device(
+        rec, seed=SEED_NULL, device=device), reps=steady)
+    again = layout_mod.spring_layout_device(rec, seed=SEED_NULL, device=device)
+    if not (np.array_equal(again[:, 0], graph.nodes["x"])
+            and np.array_equal(again[:, 1], graph.nodes["y"])):
+        raise AssertionError("the seeded device layout is not reproducible")
+    laid = NetworkRecord(graph.num_nodes, graph.edges, dict(graph.nodes))
+    out["lengths_s"] = best_s(device, lambda: layout_mod.calculate_edge_lengths(
+        laid, verbose=False), reps=steady)
+    if not np.array_equal(laid.edge_data["length"],
+                          graph.edge_data["length"]):
+        raise AssertionError("edge lengths differ from the session's")
+    # GO width: the host parse of matrix A's file, before anything else
+    # loads the host
+    go_keys = list(gene_keys(n))
+    out["go_parse_s"] = best_s(device, lambda: attr_io.read_attributes(
+        paths.go, node_label_order=go_keys, verbose=False), reps=2)
+
+    # the port's CPU layout of the same graph and seed, for the
+    # preservation statistic, on a host thread while the card works
+    cpu_layout = {}
+
+    def cpu_reference():
+        t0 = time.perf_counter()
+        cpu_layout["xy"] = layout_mod.spring_layout_device(
+            rec, seed=SEED_NULL, device="cpu")
+        cpu_layout["s"] = time.perf_counter() - t0
+
+    worker = threading.Thread(target=cpu_reference)
+    worker.start()
+
+    sf.load_attributes()
+    if sf.node2attribute.dtype != np.float32:
+        raise AssertionError("the attribute file did not read float32")
+    K.reset_launches()
+    out["warm_s"] = timed_s(device, sf.run_pipeline)
+    out["launches"]["file_example1"] = dict(K.LAUNCHES)
+    out["engine"], out["window"] = sf.apsp_engine_used, sf.window_used
+    # the certified banded window, or B7's dense form where the layout
+    # fails the certificate: each round one close_diag, the pivot panels
+    # and one relax_window_sym
+    nb = -(-n // BLOCK)
+    if sf.apsp_engine_used not in ("banded-window", "dense"):
+        raise AssertionError(f"engine {sf.apsp_engine_used}")
+    check_launches(device, out["launches"]["file_example1"], close_diag=nb,
+                   relax_panel=2 * nb, relax_window_sym=nb)
+    out["steady_s"] = min(timed_s(device, sf.run_pipeline)
+                          for _ in range(steady))
+    fc, fe, fl, _ = sf._graph_arrays
+    r = float(inclusive_radius(sf.neighborhood_radius
+                               * (fc[:, 0].max() - fc[:, 0].min())))
+    if not np.array_equal(sf.neighborhoods.astype(bool),
+                          dijkstra_indicator(fc, fe, fl, r)):
+        raise AssertionError("file session's indicator differs from scipy "
+                             "Dijkstra's on its own layout")
+    finite = np.isfinite(sf.ns)
+    if (sf.ns.shape != (n, 1) or not finite.any()
+            or not (sf.counts_neg + sf.counts_pos)[finite].min()
+            >= sf.num_permutations):
+        raise AssertionError("file session's scores or counts are off")
+    out["mean_neighborhood"] = float(sf.neighborhoods.sum(axis=1).mean())
+
+    # (a) 2: the .mat twin of phase 4's network, phase 4's attribute and
+    # seed: phase 4's results exactly
+    tw = SAFE(path_to_ini_file=paths.ini, verbose=False, device=device)
+    tw.load_network(network_file=paths.mat, node_key_attribute="key")
+    tc, te, tl, _ = tw._graph_arrays
+    if not (np.array_equal(tc, coords) and np.array_equal(te, edges)
+            and np.array_equal(tl, lengths)):
+        raise AssertionError("the .mat twin's arrays differ from phase 4's")
+    tw.load_attributes(attribute_file=vals)
+    K.reset_launches()
+    out["mat_s"] = timed_s(device, tw.run_pipeline)
+    out["launches"]["file_mat_twin"] = dict(K.LAUNCHES)
+    if not (np.array_equal(tw.neighborhoods, ref.neighborhoods)
+            and np.array_equal(tw.ns, ref.ns, equal_nan=True)
+            and np.array_equal(tw.counts_neg, ref.counts_neg)
+            and np.array_equal(tw.counts_pos, ref.counts_pos)):
+        raise AssertionError("the .mat twin's results differ from phase 4's")
+
+    # (a) 3: GO matrix A from its file on the twin, the stages, the domain
+    # stage and the reports
+    t0 = time.perf_counter()
+    tw.load_attributes(attribute_file=paths.go)
+    out["go_load_s"] = time.perf_counter() - t0
+    if not np.array_equal(tw.node2attribute, go_a, equal_nan=True):
+        raise AssertionError("GO file values differ from phase 10's matrix A")
+    K.reset_launches()
+    out["go_pvalues_s"] = timed_s(device, tw.compute_pvalues)
+    t0 = time.perf_counter()
+    tw.define_top_attributes()
+    tw.define_domains()
+    tw.trim_domains()
+    out["go_domains_s"] = time.perf_counter() - t0
+    report_dir = os.path.join(tmp, "reports")
+    os.makedirs(report_dir)
+    out["reports_s"] = timed_s(device, lambda: tw.print_output_files(
+        output_dir=report_dir))
+    out.update(go_engine=tw._hypergeom_engine_used,
+               go_enriched=int(np.asarray(
+                   tw.attributes["num_neighborhoods_enriched"]).sum()),
+               go_top=int(np.sum(tw.attributes["top"])),
+               **check_reports(tw, report_dir))
+
+    # (a) 4: the batch CLI in-process against a facade run of the INI
+    pickle_path = os.path.join(tmp, "nes.p")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    if cli.main([paths.attribute, "--ini", paths.ini, "--output",
+                 pickle_path, "--device", str(device)]) != 0:
+        raise AssertionError("the CLI failed")
+    out["cli_s"] = time.perf_counter() - t0
+    out["launches"]["file_cli"] = dict(K.LAUNCHES)
+    with open(pickle_path, "rb") as f:
+        cli_nes = pickle.load(f)
+    fa = SAFE(path_to_ini_file=paths.ini, verbose=False, device=device)
+    fa.load_network()
+    fa.define_neighborhoods()
+    fa.load_attributes(attribute_file=paths.attribute)
+    fa.compute_pvalues(num_permutations=N_PERM)
+    if not np.array_equal(cli_nes, fa.nes, equal_nan=True):
+        raise AssertionError("the CLI's NES differ from the facade's")
+
+    # (b) the sampled energy layout at band scale, on the card
+    bn = int(band_edges.max()) + 1
+    brec = NetworkRecord(bn, band_edges)
+    out["band_layout_warm_s"] = timed_s(device, lambda: out.update(
+        band_xy=layout_mod.spring_layout_device(brec, seed=SEED_NULL,
+                                                device=device)))
+    out["band_layout_s"] = timed_s(device, lambda: layout_mod.
+                                   spring_layout_device(brec, seed=SEED_NULL,
+                                                        device=device))
+    out["band_nodes"], out["band_edges"] = bn, len(band_edges)
+    out["band_preservation"] = preservation(out.pop("band_xy"), band_edges)
+
+    t0 = time.perf_counter()
+    worker.join()
+    out["cpu_layout_s"], out["join_wait_s"] = (cpu_layout["s"],
+                                               time.perf_counter() - t0)
+    out["preservation"] = preservation(
+        np.column_stack([graph.nodes["x"], graph.nodes["y"]]), graph.edges)
+    out["preservation_cpu"] = preservation(cpu_layout["xy"], graph.edges)
+    if abs(out["preservation"] - out["preservation_cpu"]) > PRESERVATION_MARGIN:
+        raise AssertionError(f"card layout preservation "
+                             f"{out['preservation']} vs the CPU layout's "
+                             f"{out['preservation_cpu']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main():
     started = time.perf_counter()
     # phase 1: the card
@@ -2926,6 +3245,7 @@ def main():
           f"GB), indicator, counts and log sf bitwise phase 12's; phase 13 "
           f"(d) took {pk['phase_s']:.1f} s",
           flush=True)
+    band_edges = bs["session"]._graph_arrays[1]
     del bs["session"]
     torch.cuda.empty_cache()
     ek = run_euclid_keep(device)
@@ -2972,6 +3292,46 @@ def main():
           f"the packed run's; phase 13 (a) took {e1['phase_s']:.1f} s",
           flush=True)
 
+    # phase 14: the file-driven workflow, then the sampled layout at
+    # phase 6's size
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        fw = run_file_workflow(device, net, vals, s["session"], band_edges,
+                               tmp)
+    print(f"file workflow ({card}): SAFE(path_to_ini_file) + load_network "
+          f"(native parse + exact energy layout on the card) "
+          f"{fw['load_network_s']:.4f} s; parse alone {fw['parse_s']:.4f} s, "
+          f"layout alone {fw['layout_s']:.4f} s, edge lengths "
+          f"{fw['lengths_s']:.6f} s (min of 3); engine {fw['engine']}, "
+          f"window {fw['window']}, launches "
+          f"{fw['launches']['file_example1']}; run_pipeline warm "
+          f"{fw['warm_s']:.4f} s, steady min {fw['steady_s']:.4f} s; "
+          f"indicator equal to scipy Dijkstra's on the layout; mean "
+          f"neighborhood {fw['mean_neighborhood']:.2f}; preservation "
+          f"{fw['preservation']:.4f} (the CPU layout's "
+          f"{fw['preservation_cpu']:.4f}, {fw['cpu_layout_s']:.1f} s on a host "
+          f"thread, {fw['join_wait_s']:.1f} s of it waited for at the end); "
+          f"inputs written in "
+          f"{fw['write_s']:.1f} s", flush=True)
+    print(f"file workflow checks ({card}): the .mat twin's arrays, "
+          f"neighborhoods, scores and counts equal phase 4's (run "
+          f"{fw['mat_s']:.4f} s, launches {fw['launches']['file_mat_twin']}); "
+          f"GO matrix A file ({N_NODES} x {GO_ATTRS}) parse min of 2 "
+          f"{fw['go_parse_s']:.4f} s, values equal phase 10's; "
+          f"compute_pvalues {fw['go_pvalues_s']:.4f} s (engine "
+          f"{fw['go_engine']}, {fw['go_enriched']} enriched cells), domain "
+          f"stage {fw['go_domains_s']:.4f} s ({fw['go_top']} top terms, "
+          f"{fw['domains']} domains), reports {fw['reports_s']:.4f} s "
+          f"({fw['rows']} rows), read back equal to the session; CLI "
+          f"{fw['cli_s']:.4f} s, launches {fw['launches']['file_cli']}, its "
+          f"pickle equal to the facade's NES", flush=True)
+    print(f"band layout ({fw['band_nodes']} nodes, {fw['band_edges']} edges; "
+          f"{card}): sampled energy layout (2,048 repulsors, 1,000 steps) "
+          f"warm {fw['band_layout_warm_s']:.4f} s, again "
+          f"{fw['band_layout_s']:.4f} s; preservation "
+          f"{fw['band_preservation']:.4f}; phase 14 took "
+          f"{fw['phase_s']:.1f} s", flush=True)
+
     # phase 9: the report; launches from the run of each kernel's path
     replaces = {"relax_panel": "safepy_tpu/ops/apsp_pallas.py:95",
                 "relax_window_sym": "safepy_tpu/ops/apsp_pallas.py:193",
@@ -3009,7 +3369,8 @@ def main():
              "euclid_band_49920_keep": ek["launches"],
              "euclid_band_49920_go": ek["go_launches"],
              "euclid_band_1m_packed": e1["launches"],
-             "euclid_band_1m_int8": e1["int8_launches"]}
+             "euclid_band_1m_int8": e1["int8_launches"],
+             **fw["launches"]}
     report = [{"name": name, "route": "cuda", "source": SRC,
                "replaces": replaces[name], "launches": launches[name],
                "launches_by_path": {path: counts[name]

@@ -69,6 +69,9 @@ def define_top_attributes(attributes, nes_binary, edges, num_nodes, *,
                  "defined by: %s" % unimodality_metric)
 
     top = np.asarray(attributes["num_neighborhoods_enriched"]) >= min_size
+    # 'top' before the connectivity columns: the JAX table's column order,
+    # which the attribute report keeps
+    attributes["top"] = top
     if unimodality_metric == "connectivity":
         a = len(top)
         num_components = np.zeros(a, np.int64)

@@ -1,26 +1,45 @@
-"""Graph to the arrays the device core consumes, and the domain-label
-heuristic.
+"""Graph to the arrays the device core consumes, node coordinates, and the
+domain-label heuristic.
 
-Port of ``safepy_tpu/io/graph_arrays.py:20`` and ``:77``. networkx is
-imported only by :func:`graph_to_arrays`, when a caller hands in a graph; the
-main path can start from arrays instead (see ``SAFE.load_network``).
+Port of ``safepy_tpu/io/graph_arrays.py:20``, ``:53`` and ``:77``. The
+functions take the port's :class:`~safepy_tpu_torch.io.record.NetworkRecord`
+or a networkx graph; networkx is never imported here.
 """
 
 from __future__ import annotations
 
+import logging
 import re
 from collections import Counter
 
 import numpy as np
 
+from safepy_tpu_torch.io.record import NetworkRecord
+
+
+def _record_coords(G: NetworkRecord):
+    """(N, 2) f64 coordinates of a record, or None where a node lacks one."""
+    x, y = G.node_attribute("x"), G.node_attribute("y")
+    if x is None or y is None or any(v is None for v in x) or any(
+            v is None for v in y):
+        return None
+    return np.column_stack([np.asarray(x, np.float64),
+                            np.asarray(y, np.float64)])
+
 
 def graph_to_arrays(G):
     """(coords[N,2] f64, edges[E,2] int64, lengths[E] f64 or None, weights[E]
-    f64) of a networkx graph whose nodes are labelled 0..N-1.
+    f64) of a network record, or of a networkx graph whose nodes are
+    labelled 0..N-1.
 
-    Lengths come from the 'length' edge attribute when every edge has one;
+    Lengths come from the 'length' edge data when every edge has one;
     weights from 'weight', 1 where absent.
     """
+    if isinstance(G, NetworkRecord):
+        length = G.edge_data.get("length")
+        return (_record_coords(G), G.edges.copy(),
+                None if length is None else np.asarray(length, np.float64),
+                np.asarray(G.edge_data["weight"], np.float64))
     n = G.number_of_nodes()
     xs = dict(G.nodes.data("x"))
     ys = dict(G.nodes.data("y"))
@@ -43,6 +62,32 @@ def graph_to_arrays(G):
             [float(d.get("weight", 1)) for _, _, d in G.edges(data=True)],
             np.float64)
     return coords, edges, lengths, weights
+
+
+def get_node_coordinates(graph, labels=()):
+    """(N, 2) layout coordinates; with labels, also which labels were found
+    (``graph_arrays.py:53-74``, with its warning for missing labels)."""
+    if isinstance(graph, NetworkRecord):
+        node_xy = np.column_stack([np.asarray(graph.nodes["x"], float),
+                                   np.asarray(graph.nodes["y"], float)])
+        node_labels = dict(enumerate(graph.nodes.get("label", ())))
+    else:
+        x = dict(graph.nodes.data("x"))
+        y = dict(graph.nodes.data("y"))
+        node_xy = np.column_stack([np.asarray(list(x.values()), float),
+                                   np.asarray(list(y.values()), float)])
+        node_labels = {u: d["label"] for u, d in graph.nodes(data=True)
+                       if "label" in d}
+    if len(labels) == 0:
+        return node_xy
+    label2node = {v: k for k, v in node_labels.items()}
+    found = [lb for lb in labels if lb in label2node]
+    missing = [lb for lb in labels if lb not in label2node]
+    if missing:
+        logging.warning("These labels are missing from the network (case "
+                        "sensitive): %s" % ", ".join(missing))
+    idx = [label2node[lb] for lb in found]
+    return node_xy[idx, :], found
 
 
 def edge_lengths(coords: np.ndarray, edges: np.ndarray,

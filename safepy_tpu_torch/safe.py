@@ -45,27 +45,45 @@ Everything else the JAX facade offers raises ``NotImplementedError`` naming
 the ROADMAP item that brings it, before anything is computed; nothing
 quietly takes another path.
 
-Differences of idiom: the session has an explicit ``device`` (``"cuda"`` by
-default, ``"cpu"`` for tests); the settings are the JAX facade's defaults
-(``safe.py:80-255``, ``safe_default.ini``) with no INI file; ``load_network``
-also takes the ``(coords, edges, lengths, weights)`` arrays, and networkx
-and pandas are used only when the caller hands in their objects; the null
-and ``run_pipeline`` take explicit permutations (``perm_idx``).
+The session is built as JAX's is (``safe.py:80-272``): the package
+defaults of ``safe_default.ini``, then the user INI (``config.py``); the
+network and attribute files are read by ``io`` (``load_network``,
+``load_attributes``, ``safe.py:282-419``; a ``.scatter`` input also builds
+``graph_euclidean``, which ``define_top_attributes`` uses for
+connectivity), and ``print_output_files`` writes the TSV reports
+(``output.py``).
+
+Differences of idiom: the session has a keyword-only ``device``
+(``"cuda"`` by default, ``"cpu"`` for tests); ``graph`` is an
+``io.NetworkRecord`` and ``nodes`` a dict of arrays, not networkx and
+pandas objects; ``load_network`` also takes the ``(coords, edges, lengths,
+weights)`` arrays, and networkx and pandas are used only when the caller
+hands in their objects or asks for networkx's layouts; the null and
+``run_pipeline`` take explicit permutations (``perm_idx``).
 """
 
 from __future__ import annotations
 
 import hashlib
 import logging
+import os
+import pickle
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from safepy_tpu_torch import config as _config
 from safepy_tpu_torch import domains as _domains
+from safepy_tpu_torch import output as _output
 from safepy_tpu_torch import pipeline as _pipe
 from safepy_tpu_torch.debug import validate_attributes
-from safepy_tpu_torch.io.graph_arrays import graph_to_arrays
+from safepy_tpu_torch.io import attributes as _attr_io
+from safepy_tpu_torch.io import network as _net_io
+from safepy_tpu_torch.io.graph_arrays import (get_node_coordinates,
+                                              graph_to_arrays)
+from safepy_tpu_torch.io.record import NetworkRecord, graph_edges
 from safepy_tpu_torch.ops import apsp_banded as _banded
 from safepy_tpu_torch.ops import apsp_bandstore as _bst
 from safepy_tpu_torch.ops import domains_device as _dd
@@ -89,13 +107,30 @@ def _not_ported(what: str, item: str):
 class SAFE:
     """One SAFE analysis on one torch device."""
 
-    def __init__(self, device="cuda", verbose: bool = True):
+    def __init__(self, path_to_ini_file="", path_to_safe_data=None,
+                 verbose: bool = True, *, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SAFE(device='cuda') needs a CUDA device and "
                                "none is available; pass device='cpu' to run "
                                "on the host")
         self.verbose = verbose
+
+        # the INI-backed settings (read_config below): the package
+        # defaults' DEFAULT section, from which a failed check restores
+        self.default_config = None
+        self.path_to_safe_data = path_to_safe_data
+        self.path_to_network_file = None
+        self.view_name = None
+        self.path_to_attribute_file = None
+        self.layout_algorithm = "spring_embedded"
+        self.output_dir = ""
+        # the loaded network (an io.record.NetworkRecord), the euclidean
+        # pseudo-network of a scatter input, and the node table (id, key,
+        # label; after print_output_files the node-properties table)
+        self.graph = None
+        self.graph_euclidean = None
+        self.nodes = None
 
         # 'auto' = band storage at band_storage_min_nodes and above (when
         # the band is at most half the dense bytes), else the banded window
@@ -140,6 +175,7 @@ class SAFE:
         # f16 and host residencies wait for the memory planner (ROADMAP A8)
         self.logsf_store = "auto"
         self.enrichment_threshold = 0.05
+        self.enrichment_max_log10 = 16
         self.attribute_enrichment_min_size = 10
         self.random_seed = None
         self.matmul_precision = "highest"
@@ -162,7 +198,6 @@ class SAFE:
 
         self._graph_arrays = None
         self._num_nodes = None
-        self._node_keys = None
         self._d0_cache = {}
         self._banded_cache = {}
         self._bandstore_cache = {}
@@ -208,133 +243,230 @@ class SAFE:
         # _update_binary_enrichment
         self._nes_binary_pending = None
 
+        self.read_config(path_to_ini_file,
+                         path_to_safe_data=self.path_to_safe_data)
+        self.validate_config()
+
     # ---------------------------------------------------------------- config
 
-    def _validate(self):
-        """The enum and range checks of ``config.validate_config``
-        (``config.py:140-193``) that the ported paths read: an offending
-        setting is restored to its default (the constructor's, which is
-        ``safe_default.ini``'s) before the ``ValueError``."""
-        def reject(name, default, message):
-            setattr(self, name, default)
-            raise ValueError(message)
+    def read_config(self, path_to_ini_file, path_to_safe_data=None):
+        """The package defaults, then the user INI (``safe.py:259-269``)."""
+        cfg, defaults = _config.read_config(path_to_ini_file,
+                                            path_to_safe_data)
+        self.default_config = defaults
+        for field in ("path_to_safe_data", "path_to_network_file",
+                      "path_to_attribute_file", "attribute_sign",
+                      "background", "layout_algorithm",
+                      "node_distance_metric", "neighborhood_radius_type",
+                      "neighborhood_radius", "random_seed",
+                      "attribute_unimodality_metric",
+                      "attribute_distance_metric",
+                      "attribute_distance_threshold", "output_dir"):
+            setattr(self, field, getattr(cfg, field))
 
-        if self.background not in ("attribute_file", "network"):
-            reject("background", "attribute_file",
-                   f"{self.background} is not a valid setting for "
-                   "background. Valid options are: attribute_file, network.")
-        if self.node_distance_metric not in ("euclidean", "shortpath",
-                                             "shortpath_weighted_layout"):
-            reject("node_distance_metric", "shortpath_weighted_layout",
-                   f"{self.node_distance_metric} is not a valid setting for "
-                   "node_distance_metric. Valid options are: euclidean, "
-                   "shortpath, shortpath_weighted_layout")
-        if self.attribute_sign not in ("highest", "lowest", "both"):
-            reject("attribute_sign", "both",
-                   f"{self.attribute_sign} is not a valid setting for "
-                   "attribute_sign. Valid options are: highest, lowest, both")
-        if (not isinstance(self.num_permutations, int)
-                or self.num_permutations < 10):
-            reject("num_permutations", 1000, "num_permutations must be an "
-                   "integer equal or greater than 10.")
-        if (not isinstance(self.enrichment_threshold, float)
-                or not 0 < self.enrichment_threshold < 1):
-            reject("enrichment_threshold", 0.05,
-                   "enrichment_threshold must be in the (0,1) range.")
+    def validate_config(self):
+        """The settings checks of ``config.validate_config``
+        (``config.py:140-193``): an offending setting is restored to its
+        default before the ``ValueError``. Then the port's own check of
+        ``apsp_mode``, which JAX does not check."""
+        _config.validate_config(self, self.default_config)
         if self.apsp_mode not in ("auto", "full", "band"):
-            reject("apsp_mode", "auto", f"unknown apsp_mode: "
-                   f"{self.apsp_mode!r}")
-        if (not isinstance(self.attribute_enrichment_min_size, int)
-                or self.attribute_enrichment_min_size < 2):
-            reject("attribute_enrichment_min_size", 10,
-                   "attribute_enrichment_min_size must be an integer equal "
-                   "or greater than 2.")
-        if (not isinstance(self.attribute_distance_threshold, float)
-                or not 0 < self.attribute_distance_threshold < 1):
-            reject("attribute_distance_threshold", 0.75,
-                   "attribute_distance_threshold must be a float number in "
-                   "the (0,1) range.")
-        if self.cluster_engine not in ("auto", "gemm", "scipy"):
-            reject("cluster_engine", "auto",
-                   f"{self.cluster_engine} is not a valid setting for "
-                   "cluster_engine. Valid options are: auto, gemm, scipy.")
+            bad, self.apsp_mode = self.apsp_mode, "auto"
+            raise ValueError(f"unknown apsp_mode: {bad!r}")
+
+    _validate = validate_config
 
     # --------------------------------------------------------------- network
 
-    def load_network(self, *, network_file, node_key_attribute=None):
-        """Load a network: a networkx graph with nodes 0..N-1 carrying 'x',
-        'y' and the node key attribute, and 'length' on its edges, or the
-        tuple ``(coords, edges, lengths, weights)`` that the JAX facade
-        caches (``_graph_to_arrays_cached``, ``safe.py:666``)."""
-        if node_key_attribute is not None:
-            self.node_key_attribute = node_key_attribute
-        if isinstance(network_file, tuple):
-            coords, edges, lengths, weights = network_file
-            coords = None if coords is None else np.asarray(coords, np.float64)
-            edges = np.asarray(edges, np.int64).reshape(-1, 2)
-            lengths = None if lengths is None else np.asarray(lengths,
-                                                              np.float64)
-            weights = (np.ones(len(edges)) if weights is None
-                       else np.asarray(weights, np.float64))
+    def load_network(self, **kwargs):
+        """Load the network (``safe.py:282-352``): from the file of the INI's
+        ``networkfile`` or of ``network_file=`` (joined under
+        ``path_to_safe_data``), chosen by its first suffix (.txt / .tsv with
+        the ``layout_algorithm`` layout on the session's device, .mat,
+        .gpickle, .cys, .scatter); or from a networkx graph with nodes
+        0..N-1 carrying 'x', 'y' and the node key attribute, and 'length' on
+        its edges; or from the tuple ``(coords, edges, lengths, weights)``
+        that the JAX facade caches (``_graph_to_arrays_cached``,
+        ``safe.py:666``), which carries no node keys. ``view_name`` and
+        ``node_key_attribute`` override the settings of those names.
+
+        ``graph`` becomes an :class:`~safepy_tpu_torch.io.NetworkRecord`,
+        its key column copied into ``key``, and ``nodes`` the dict of the
+        ``id``, ``key`` and ``label`` arrays."""
+        if "network_file" in kwargs:
+            nf = kwargs.pop("network_file")
+            if self.path_to_safe_data is None or not isinstance(nf, str):
+                self.path_to_network_file = nf
+            else:
+                self.path_to_network_file = os.path.join(
+                    self.path_to_safe_data, nf)
+        if "view_name" in kwargs:
+            self.view_name = kwargs["view_name"]
+        if kwargs.get("node_key_attribute") is not None:
+            self.node_key_attribute = kwargs["node_key_attribute"]
+
+        self.validate_config()
+        source = self.path_to_network_file
+        self.graph_euclidean = None
+        if isinstance(source, tuple):
+            coords, edges, lengths, weights = source
             if coords is None:
                 raise ValueError("network arrays need node coordinates")
-            self._node_keys = None
-            self._num_nodes = len(coords)
-            self._graph_arrays = (coords, edges, lengths, weights)
+            coords = np.asarray(coords, np.float64)
+            edges = np.asarray(edges, np.int64).reshape(-1, 2)
+            edge_data = {"weight": (np.ones(len(edges)) if weights is None
+                                    else np.asarray(weights, np.float64))}
+            if lengths is not None:
+                edge_data["length"] = np.asarray(lengths, np.float64)
+            self.graph = NetworkRecord(len(coords), edges, {
+                "x": coords[:, 0].copy(), "y": coords[:, 1].copy()},
+                edge_data)
+            self.nodes = None
         else:
-            nx = sys.modules.get("networkx")
-            if nx is None or not isinstance(network_file, nx.Graph):
-                raise TypeError("network_file must be a networkx Graph or a "
-                                "(coords, edges, lengths, weights) tuple, got "
-                                f"{type(network_file).__name__}")
-            keys = nx.get_node_attributes(network_file,
-                                          self.node_key_attribute)
-            if not keys:
-                raise ValueError(f"The specified node key attribute "
-                                 f"({self.node_key_attribute}) does not exist "
-                                 "in this network.")
-            self._node_keys = list(keys.values())
-            self._num_nodes = network_file.number_of_nodes()
-            self._graph_arrays = graph_to_arrays(network_file)
+            if isinstance(source, NetworkRecord):
+                self.graph = source
+            elif isinstance(source, str):
+                self.graph = self._read_network_file(source)
+            else:
+                nx = sys.modules.get("networkx")
+                if nx is None or not isinstance(source, nx.Graph):
+                    raise TypeError(
+                        "network_file must be a path, a networkx Graph or a "
+                        "(coords, edges, lengths, weights) tuple, got "
+                        f"{type(source).__name__}")
+                self.graph = NetworkRecord.from_networkx(source)
+            keys = self.graph.node_attribute(self.node_key_attribute)
+            if keys is None:
+                raise ValueError(
+                    "The specified node key attribute (%s) does not exist in "
+                    "this network. These attributes exist instead: %s. Set "
+                    "node_key_attribute to one of these options."
+                    % (self.node_key_attribute,
+                       ", ".join(map(str, self.graph.nodes))))
+            self.graph.nodes["key"] = keys
+            self.nodes = {"id": np.arange(self.graph.num_nodes), "key": keys,
+                          "label": self.graph.nodes.get("label")}
+        self._num_nodes = self.graph.num_nodes
+        self._graph_arrays = graph_to_arrays(self.graph)
         self._d0_cache = {}
         self._banded_cache = {}
         self._bandstore_cache = {}
 
+    def _read_network_file(self, path):
+        """The record of a network file, by its first suffix."""
+        if not os.path.exists(path):
+            raise AssertionError(path)
+        ext = Path(path).suffixes[0]
+        if self.verbose:
+            logging.info("Loading network from %s" % path)
+        if ext == ".mat":
+            return _net_io.load_network_from_mat(path, verbose=self.verbose)
+        if ext == ".gpickle":
+            return _net_io.load_network_from_gpickle(path,
+                                                     verbose=self.verbose)
+        if ext in (".txt", ".tsv"):
+            return _net_io.load_network_from_txt(
+                path, layout=self.layout_algorithm,
+                node_key_attribute=self.node_key_attribute,
+                seed=self.random_seed, verbose=self.verbose,
+                device=self.device)
+        if ext == ".cys":
+            return _net_io.load_network_from_cys(
+                path, view_name=self.view_name, verbose=self.verbose)
+        if ext == ".scatter":
+            graph = _net_io.load_network_from_scatter(
+                path, node_key_attribute=self.node_key_attribute,
+                verbose=self.verbose)
+            self.graph_euclidean = self._build_graph_euclidean(graph)
+            return graph
+        raise ValueError(f"unsupported network file extension: {ext}")
+
+    def _build_graph_euclidean(self, graph):
+        """The pseudo-network linking the nodes closer than the
+        neighborhood radius, which the connectivity check of the top
+        attributes reads on an edgeless scatter input
+        (``safe.py:354-375``): the strict ``<`` of the dense distance
+        matrix on the device (self-loops included, as networkx builds it)
+        up to 20,000 nodes, a KD-tree radius query above."""
+        coords = get_node_coordinates(graph)
+        nr = self.neighborhood_radius * (coords.ravel().max()
+                                         - coords.ravel().min())
+        n = len(coords)
+        if n > 20000:
+            from scipy.spatial import cKDTree
+            pairs = cKDTree(coords).query_pairs(nr, output_type="ndarray")
+            d = np.hypot(coords[pairs[:, 0], 0] - coords[pairs[:, 1], 0],
+                         coords[pairs[:, 0], 1] - coords[pairs[:, 1], 1])
+            edges, _, _ = graph_edges(pairs[d < nr], n)
+        else:
+            dist = _nbr.euclidean_distance_matrix(torch.as_tensor(
+                coords, dtype=torch.float64, device=self.device))
+            pairs = torch.nonzero(dist < nr).cpu().numpy()
+            edges, _, _ = graph_edges(pairs, n)
+        return NetworkRecord(n, edges)
+
+    def save_network(self, **kwargs):
+        """Pickle the network record (``safe.py:377``)."""
+        output_file = kwargs.get(
+            "output_file",
+            os.path.join(os.getcwd(),
+                         str(self.path_to_network_file) + ".gpickle"))
+        with open(output_file, "wb") as f:
+            pickle.dump(self.graph, f)
+
     # ------------------------------------------------------------ attributes
 
-    def load_attributes(self, *, attribute_file):
-        """Load node attributes: an (N, A) or (N,) float array in node order
-        (NaN = unannotated), or a pandas DataFrame indexed by node key, which
-        is coerced to numbers, averaged over duplicate keys and aligned to the
-        node order with NaN fill (``io/attributes.py:29``). Then JAX's
-        checks (``safe.py:416-419``): a ``ValidationError`` (a
-        ``ValueError``) for +/-inf, a warning for all-NaN columns."""
+    def load_attributes(self, **kwargs):
+        """Load node attributes (``safe.py:386-419``): from the file of the
+        INI's ``annotationfile`` or of ``attribute_file=`` (joined under
+        ``path_to_safe_data``; .txt / .tsv / .gz / .mat), or from a pandas
+        DataFrame indexed by node key, both read and aligned to the node
+        keys by ``io.read_attributes`` (other keyword arguments go on to it,
+        e.g. ``mask_duplicates``); or from an (N, A) or (N,) float array in
+        node order (NaN = unannotated). Then JAX's checks
+        (``safe.py:416-419``): a ``ValidationError`` (a ``ValueError``) for
+        +/-inf, a warning for all-NaN columns."""
         if self._num_nodes is None:
             raise RuntimeError("load_network first")
+        if "attribute_file" in kwargs:
+            af = kwargs.pop("attribute_file")
+            if self.path_to_safe_data is None or not isinstance(af, str):
+                self.path_to_attribute_file = af
+            else:
+                self.path_to_attribute_file = os.path.join(
+                    self.path_to_safe_data, af)
+        source = self.path_to_attribute_file
+        if isinstance(source, str) and not os.path.exists(source):
+            raise AssertionError(source)
+        self.validate_config()
+
         pd = sys.modules.get("pandas")
-        if pd is not None and isinstance(attribute_file, pd.DataFrame):
-            if self._node_keys is None:
-                raise ValueError("a DataFrame needs node keys: load the "
-                                 "network as a networkx graph, or pass the "
-                                 "attributes as an array in node order")
-            df = attribute_file
-            if not all(pd.api.types.is_numeric_dtype(t) for t in df.dtypes):
-                df = df.apply(pd.to_numeric, errors="coerce")
-            if not df.index.is_unique:
-                df = df.groupby(df.index).mean()
-            names = [str(c) for c in df.columns]
-            values = df.reindex(index=self._node_keys,
-                                fill_value=np.nan).to_numpy(np.float64)
+        if isinstance(source, str) or (pd is not None
+                                       and isinstance(source, pd.DataFrame)):
+            keys = None if self.graph is None else self.graph.node_attribute(
+                self.node_key_attribute)
+            if keys is None:
+                raise ValueError("an attribute file or DataFrame needs node "
+                                 "keys: load the network from a file or a "
+                                 "networkx graph, or pass the attributes as "
+                                 "an array in node order")
+            if self.verbose and isinstance(source, str):
+                logging.info("Loading attributes from %s" % source)
+            attributes, _, values = _attr_io.read_attributes(
+                attribute_file=source, node_label_order=list(keys),
+                verbose=self.verbose, **kwargs)
         else:
-            values = np.asarray(attribute_file, dtype=np.float64)
+            values = np.asarray(source, dtype=np.float64)
             if values.ndim == 1:
                 values = values[:, None]
-            names = [f"attribute {j}" for j in range(values.shape[1])]
+            attributes = {"id": np.arange(values.shape[1]),
+                          "name": [f"attribute {j}"
+                                   for j in range(values.shape[1])]}
         if values.ndim != 2 or values.shape[0] != self._num_nodes:
             raise ValueError(f"attributes must be ({self._num_nodes}, A), got "
                              f"{values.shape}")
         self.node2attribute = values
-        self.attributes = {"id": np.arange(len(names)), "name": names}
+        self.attributes = attributes
         self._n2a_dev = None
         self._num_other_cache = None
         self._band_operands_cache = None
@@ -1566,9 +1698,13 @@ class SAFE:
         if (self.attributes is None
                 or "num_neighborhoods_enriched" not in self.attributes):
             raise RuntimeError("compute_pvalues (or run_pipeline) first")
+        # an edgeless scatter input: connectivity over the euclidean
+        # pseudo-network (domains.py:49-50)
+        edges = (self._graph_arrays[1] if self.graph_euclidean is None
+                 else self.graph_euclidean.edges)
         self.attributes = _domains.define_top_attributes(
-            self.attributes, self._nes_binary_for_top(),
-            self._graph_arrays[1], self._num_nodes,
+            self.attributes, self._nes_binary_for_top(), edges,
+            self._num_nodes,
             unimodality_metric=self.attribute_unimodality_metric,
             min_size=self.attribute_enrichment_min_size, verbose=self.verbose)
 
@@ -1611,3 +1747,10 @@ class SAFE:
                 self.attributes, self.node2domain,
                 min_size=self.attribute_enrichment_min_size,
                 verbose=self.verbose)
+
+    # ---------------------------------------------------------------- output
+
+    def print_output_files(self, **kwargs):
+        """The three TSV reports into ``output_dir`` (``safe.py:2309``,
+        ``output.py``)."""
+        _output.print_output_files(self, **kwargs)

@@ -1013,3 +1013,77 @@ def test_band_bf_on_the_card(dev, monkeypatch, budget):
             s0.cpu(), *(t.cpu() for t in plan["bf_slots"]), r, bt=bt)
         assert torch.equal(got[0].cpu(), want_s[0])
         assert got[1:] == want_s[1:]
+
+
+# --------------------------------------------- the file-driven workflow (A9)
+
+def _knn_edges(n, k=6, seed=2):
+    from scipy.spatial import cKDTree
+
+    rng = np.random.default_rng(seed)
+    coords = rng.uniform(-1, 1, (n, 2))
+    _, nn = cKDTree(coords).query(coords, k=k)
+    return np.asarray(sorted({(min(i, int(j)), max(i, int(j)))
+                              for i in range(n) for j in nn[i, 1:]}),
+                      np.int64)
+
+
+@pytest.mark.parametrize("engine", ["dense", "energy"])
+def test_layouts_run_on_the_card_by_default(dev, monkeypatch, engine):
+    """The device spring layouts default to the card, and after a few
+    iterations agree with the CPU run within 2e-5 (float32 reductions
+    round differently on the two; tests/test_torch_layout.py holds the CPU
+    run against JAX's)."""
+    from safepy_tpu_torch.io import layout as L
+
+    n = 300
+    edges = _knn_edges(n)
+    fn = (L._spring_dense if engine == "dense"
+          else L.spring_layout_energy_device)
+    seen = []
+    orig = torch.as_tensor
+
+    def spy(x, *a, **kw):
+        out = orig(x, *a, **kw)
+        seen.append(out.device.type)
+        return out
+
+    monkeypatch.setattr(L.torch, "as_tensor", spy)
+    got = fn(n, edges, k=0.2, iterations=3, seed=4)
+    monkeypatch.setattr(L.torch, "as_tensor", orig)
+    assert seen and set(seen) == {"cuda"}
+    want = fn(n, edges, k=0.2, iterations=3, seed=4, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+
+
+def test_file_session_on_the_card_matches_cpu(dev, tmp_path):
+    """SAFE(path_to_ini_file=...) on the card: the spring_tpu layout on
+    the card, then the stages; neighborhoods and indicator equal a CPU
+    session's handed the card's coordinates."""
+    n = 600
+    edges = _knn_edges(n, seed=5)
+    net = tmp_path / "net.txt"
+    net.write_text("".join(f"g{u}\tg{v}\t1.0\n" for u, v in edges))
+    rng = np.random.default_rng(6)
+    attrs = tmp_path / "attrs.txt"
+    attrs.write_text("gene\tt0\tt1\n" + "".join(
+        f"g{i}\t{int(rng.random() < 0.2)}\t{int(rng.random() < 0.3)}\n"
+        for i in range(n)))
+    ini = tmp_path / "run.ini"
+    ini.write_text(f"[Input files]\nnetworkfile = {net}\nannotationfile = "
+                   f"{attrs}\nlayoutAlgorithm = spring_tpu\n"
+                   "[Analysis parameters]\nrandomSeed = 3\n")
+    gpu = SAFE(path_to_ini_file=str(ini), verbose=False)
+    assert gpu.device.type == "cuda"
+    gpu.load_network(node_key_attribute="key")
+    gpu.load_attributes()
+    assert gpu.graph.nodes["x"].dtype == np.float32
+    gpu.define_neighborhoods()
+    gpu.compute_pvalues()
+    cpu = SAFE(device="cpu", verbose=False)
+    cpu.load_network(network_file=gpu.graph, node_key_attribute="key")
+    cpu.load_attributes(attribute_file=str(attrs))
+    cpu.define_neighborhoods()
+    cpu.compute_pvalues()
+    np.testing.assert_array_equal(gpu.neighborhoods, cpu.neighborhoods)
+    np.testing.assert_array_equal(gpu.nes_binary, cpu.nes_binary)

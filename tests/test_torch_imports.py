@@ -1,5 +1,6 @@
-"""Importing the port pulls in no jax, triton, networkx or pandas and builds
-nothing; a CUDA session never falls back to the CPU; the kernel loader raises
+"""Importing the port (the file-driven modules included: config, io,
+output, cli) pulls in no jax, triton, networkx, pandas or matplotlib and
+builds nothing; a CUDA session never falls back to the CPU; the kernel loader raises
 instead of falling back."""
 
 import ast
@@ -26,7 +27,13 @@ def test_import_is_light_and_builds_nothing():
             "safepy_tpu_torch.ops.hypergeom, "
             "safepy_tpu_torch.ops.hypergeom_table, "
             "safepy_tpu_torch.parallel, "
-            "safepy_tpu_torch.parallel.band_sharded\n"
+            "safepy_tpu_torch.parallel.band_sharded, "
+            "safepy_tpu_torch.config, safepy_tpu_torch.output, "
+            "safepy_tpu_torch.cli, safepy_tpu_torch.io, "
+            "safepy_tpu_torch.io.network, safepy_tpu_torch.io.layout, "
+            "safepy_tpu_torch.io.attributes, safepy_tpu_torch.io.table, "
+            "safepy_tpu_torch.io.record, safepy_tpu_torch.io.edgelist, "
+            "safepy_tpu_torch.io.matlab\n"
             "from safepy_tpu_torch import ops\n"
             "assert callable(ops.apsp) and callable(ops.min_plus_product)\n"
             "assert callable(ops.hypergeom_sf)\n"
@@ -34,7 +41,7 @@ def test_import_is_light_and_builds_nothing():
             "from safepy_tpu_torch.parallel import make_mesh\n"
             "assert callable(make_mesh)\n"
             "bad = [m for m in ('jax', 'triton', 'networkx', 'pandas', "
-            "'safepy_tpu') if m in sys.modules]\n"
+            "'matplotlib', 'safepy_tpu') if m in sys.modules]\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
