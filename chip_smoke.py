@@ -155,7 +155,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     GO file's parse (min of 2), the steady wall, the indicator against
     scipy Dijkstra's on the layout, and the layout's neighborhood
     preservation against the port's CPU layout of the same graph and seed
-    (computed on a host thread meanwhile; within 0.05). The ``.mat`` twin
+    (computed on a host thread during phases 14 and 15, compared after
+    phase 15; within 0.05). The ``.mat`` twin
     with phase 4's attribute and seed gives phase 4's arrays,
     neighborhoods, scores and counts. GO matrix A from its file on the
     twin equals phase 10's matrix; ``compute_pvalues``, the domain stage
@@ -164,19 +165,48 @@ Phases, in order; any failure raises and the script exits non-zero:
     the NES of a facade run of the same INI. (b) the sampled energy layout
     (2,048 repulsors) of phase 6's 49,920-node network on the card: its
     time and preservation statistic;
+15. the host extras (run after phase 14, before phase 9's report) on the
+    sessions of phases 4 (Example_1), 11 (GO matrix A with its domains)
+    and 12 (the band GO session, 49,920 x 4,373), each time and size
+    printed beside the card: (a) ``SAFE.save`` of each, unpickled here:
+    no tensor in the pickle, every public array bitwise equal (the band's
+    bytes for the band session, whose file must stay within 10% of its
+    band, f32 log-survival, int8 indicator and attribute matrix, with no
+    dense N x N); a process started with ``CUDA_VISIBLE_DEVICES=""``
+    unpickles phase 11's file and its ``nes``, ``nes_binary``,
+    ``_nes_column`` and ``node2domain`` equal the card session's; the
+    unpickled phase 11 session re-clustered at 0.5 and trimmed equals the
+    original so treated. (b) ``save_session`` / ``load_session(...,
+    device='cuda')`` of each: arrays bitwise (the band in its dtype),
+    tables equal (node2domain's NES as its JSON rounds it),
+    ``define_top_attributes`` resumed with the original's top terms and no
+    launch. (c) ``plot_data.domain_mixture_colors`` of phase 11's session
+    within 1e-12 of the host formula on the downloaded indicator; every
+    97th band NES and indicator column equal to the full device matrices,
+    an out-of-range column refused. (d) one steady Example_1 run as its
+    stages under ``StageTimer`` inside ``profiling.trace``: 32/64/32
+    launches, and the Chrome trace's kernel events of each kernel. (e)
+    ``utils.make_go`` on a seeded ontology of 12,000 biological-process
+    terms (depth 12, one to three parents, 2,000 other-namespace and 200
+    obsolete terms) and 3,971 loci of phase 4's keys: the matrix equal to
+    a depth-first closure, then its TSV loaded into phase 4's session and
+    ``compute_pvalues`` (hypergeometric, no launch). (f)
+    ``tools/cuda_validate.py`` in-process: ``VERIFY OK``. chip_smoke
+    imports no matplotlib;
 9. print a JSON line of the kernels (times, bounds, launches of every
    path, phase 10's as ``go_binary_loop`` and ``go_binary_table``, phase
    12's as ``band_go_table`` and ``band_go_hostchunks``, phase 13's as
    ``band_bf``, ``band_bf_fallback``, ``band_packed``,
    ``band_packed_table`` and the ``euclid_band_*`` paths, phase 14's as
-   ``file_example1``, ``file_mat_twin`` and ``file_cli``), then the card,
-   then the result line. The domain stage runs no hand-written kernel:
+   ``file_example1``, ``file_mat_twin`` and ``file_cli``, phase 15's as
+   ``profiled_example1``, ``checkpoint_resume`` and ``make_go_binary``),
+   then the card, then the result line. The domain stage runs no hand-written kernel:
    its products are ``torch.matmul``; the layouts are plain torch, as JAX
    keeps them in ``jnp``.
 
 Imports torch, numpy, scipy and the port only; needs one card, nvcc, g++
 (the host edge-list parser) and nvidia-smi. Phase 8 starts two processes
-and joins them; phase 14 one host thread.
+and joins them; phase 14 one host thread; phase 15 one process.
 """
 
 from __future__ import annotations
@@ -189,6 +219,7 @@ import pickle
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -208,6 +239,7 @@ from scipy.stats import hypergeom
 from torch.profiler import ProfilerActivity, profile
 
 from safepy_tpu_torch import SAFE, cli, native, ops
+from safepy_tpu_torch import checkpoint as ck
 from safepy_tpu_torch import domains as domains_mod
 from safepy_tpu_torch import pipeline as pipe
 from safepy_tpu_torch.io import attributes as attr_io
@@ -1921,7 +1953,8 @@ def run_domain_stage(device, sf, net, steady=3, samples=DOMAIN_SAMPLES):
                                  int(per_primary.max())),
                largest_label=sf.domains["label"][list(sf.domains["id"]).index(
                    int(np.argmax(np.bincount(kept)[1:])) + 1)],
-               phase_s=time.perf_counter() - t_phase)
+               phase_s=time.perf_counter() - t_phase,
+               session=sf)  # phase 15 saves it
     return out
 
 
@@ -2936,17 +2969,505 @@ def run_file_workflow(device, net, vals, ref, band_edges, tmp, steady=3):
     out["band_nodes"], out["band_edges"] = bn, len(band_edges)
     out["band_preservation"] = preservation(out.pop("band_xy"), band_edges)
 
+    out["phase_s"] = time.perf_counter() - t_phase
+
+    def finish():
+        """Join the CPU layout and compare the two layouts' preservation
+        statistics; ``main`` calls it after phase 15, which runs while the
+        CPU layout does."""
+        t0 = time.perf_counter()
+        worker.join()
+        res = dict(cpu_layout_s=cpu_layout["s"],
+                   join_wait_s=time.perf_counter() - t0,
+                   preservation=preservation(np.column_stack(
+                       [graph.nodes["x"], graph.nodes["y"]]), graph.edges),
+                   preservation_cpu=preservation(cpu_layout["xy"],
+                                                 graph.edges))
+        if abs(res["preservation"] - res["preservation_cpu"]) \
+                > PRESERVATION_MARGIN:
+            raise AssertionError(f"card layout preservation "
+                                 f"{res['preservation']} vs the CPU "
+                                 f"layout's {res['preservation_cpu']}")
+        return res
+
+    out["finish"] = finish
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the host extras (save and checkpoints on the card, the plot
+# data, profiling, make_go at GO scale, the validation battery)
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+PUBLIC = ("node2attribute", "ns", "pvalues_neg", "pvalues_pos", "nes",
+          "nes_binary")
+# make_go's synthetic ontology: the GO biological-process branch's size
+SEED_MAKE_GO = 27
+MAKE_GO_BP, MAKE_GO_OTHER, MAKE_GO_OBSOLETE = 12000, 2000, 200
+MAKE_GO_DEPTH, MAKE_GO_PER_LOCUS, MAKE_GO_ORPHANS = 12, 8, 40
+
+
+def bitwise(x, y) -> bool:
+    """The same shape, dtype and bits (NaN payloads included)."""
+    x, y = np.asarray(x), np.asarray(y)
+    if x.shape != y.shape or x.dtype != y.dtype:
+        return False
+    if x.dtype.kind == "f":
+        kind = f"i{x.dtype.itemsize}"
+        return np.array_equal(np.ascontiguousarray(x).view(kind),
+                              np.ascontiguousarray(y).view(kind))
+    if x.dtype == object:
+        return all(np.array_equal(a, b) for a, b in zip(x, y))
+    return np.array_equal(x, y)
+
+
+def same_session(a, b, band: bool, what: str):
+    """Raise unless the public arrays of two sessions are bitwise equal
+    (the band's bytes and frame for a band session, which has no dense
+    view at this scale)."""
+    names = PUBLIC + (() if band else ("neighborhoods", "node_distances"))
+    for k in names:
+        x, y = getattr(a, k), getattr(b, k)
+        if (x is None) != (y is None) or (x is not None
+                                          and not bitwise(x, y)):
+            raise AssertionError(f"{what}: {k} differs")
+    if band:
+        bx, by = a._neighborhoods_dev, b._neighborhoods_dev
+        if not (bitwise(bst._host(bx.data), bst._host(by.data))
+                and np.array_equal(bx.rank, by.rank)
+                and (bx.n, bx.band, bx.block) == (by.n, by.band, by.block)):
+            raise AssertionError(f"{what}: the band differs")
+
+
+def no_tensor(state) -> bool:
+    """No torch tensor in a session's state (band wrappers included)."""
+    for v in state.values():
+        if isinstance(v, torch.Tensor) or (isinstance(v, bst.BandedMatrix)
+                                           and isinstance(v.data,
+                                                          torch.Tensor)):
+            return False
+        if isinstance(v, (dict, list, tuple)) and any(
+                isinstance(x, torch.Tensor)
+                for x in (v.values() if isinstance(v, dict) else v)):
+            return False
+    return True
+
+
+def drop_host_views(sf):
+    """Forget the host copies a session derives from its device results
+    (the f64 views, the int8 download, the deferred device NES), as a new
+    run leaves it."""
+    sf._nes_np = sf._pvalues_pos_np = None
+    sf._nes_binary_np = sf._nes_binary_i8_np = None
+    if sf._nes_from_logsf:
+        sf._nes_dev = None
+
+
+WORKSTATION = """
+import pickle, sys
+import numpy as np, torch
+sys.path.insert(0, {repo!r})
+assert not torch.cuda.is_available()
+with open({path!r}, "rb") as f:
+    sf = pickle.load(f)
+n2d = sf.node2domain
+np.savez({out!r}, nes=sf.nes, nes_binary=sf.nes_binary,
+         column=sf._nes_column({j}), counts=n2d.counts, domains=n2d.domains,
+         primary_domain=n2d.primary_domain, primary_nes=n2d.primary_nes,
+         device=np.array(str(sf.device)))
+"""
+
+
+def run_saves(device, sessions, tmp):
+    """Phase 15 (a): ``save`` of each session on the card, unpickled in
+    this process: no tensor, every public array bitwise; the band session's
+    file within 10% of its band and compact statistics (and attribute
+    matrix); the domain session read by a process that sees no card, then
+    re-clustered at 0.5 beside the original."""
+    out = {}
+    for name, (sf, band) in sessions.items():
+        path = os.path.join(tmp, f"{name}.p")
+        t0 = time.perf_counter()
+        sf.save(output_file=path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with open(path, "rb") as f:
+            back = pickle.load(f)
+        load_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        if not no_tensor(back.__dict__) or back.device != sf.device:
+            raise AssertionError(f"{name}: the pickle holds a tensor, or "
+                                 f"its device is {back.device}")
+        row = dict(bytes=size, save_s=save_s, load_s=load_s)
+        if band:
+            n = sf._num_nodes
+            if any(isinstance(v, np.ndarray) and v.size >= n * n
+                   for v in back.__dict__.values()):
+                raise AssertionError(f"{name}: a dense N x N was pickled")
+            compact = (back._neighborhoods_dev.data.nbytes
+                       + back._logsf_np.nbytes
+                       + back._nes_binary_i8_np.nbytes
+                       + back.node2attribute.nbytes)
+            row["budget_bytes"] = int(1.1 * compact)
+            if size > 1.1 * compact:
+                raise AssertionError(f"{name}: {size} bytes pickled, over "
+                                     f"1.1 x {compact}")
+        t0 = time.perf_counter()
+        same_session(back, sf, band, f"{name} pickle")
+        row["compare_s"] = time.perf_counter() - t0
+        if name == "domains":
+            j = int(np.flatnonzero(sf.attributes["top"])[0])
+            res = os.path.join(tmp, "workstation.npz")
+            t0 = time.perf_counter()
+            subprocess.run(
+                [sys.executable, "-c", WORKSTATION.format(
+                    repo=REPO, path=path, out=res, j=j)],
+                env={**os.environ, "CUDA_VISIBLE_DEVICES": ""}, cwd=REPO,
+                check=True, timeout=600)
+            row["workstation_s"] = time.perf_counter() - t0
+            with np.load(res) as w:
+                n2d = sf.node2domain
+                ok = (bitwise(w["nes"], sf.nes)
+                      and bitwise(w["nes_binary"], sf.nes_binary)
+                      and bitwise(w["column"], sf.nes[:, j])
+                      and bitwise(w["counts"], n2d.counts)
+                      and bitwise(w["domains"], n2d.domains)
+                      and bitwise(w["primary_domain"], n2d.primary_domain)
+                      and bitwise(w["primary_nes"], n2d.primary_nes)
+                      and str(w["device"]) == str(sf.device))
+            if not ok:
+                raise AssertionError("the workstation's views differ")
+            os.remove(res)
+            for s in (sf, back):
+                s.define_domains(attribute_distance_threshold=0.5)
+                s.trim_domains()
+            if not (bitwise(back.node2domain.counts, sf.node2domain.counts)
+                    and bitwise(back.node2domain.primary_nes,
+                                sf.node2domain.primary_nes)
+                    and bitwise(back.attributes["domain"],
+                                sf.attributes["domain"])
+                    and back.domains["label"] == sf.domains["label"]):
+                raise AssertionError("re-clustering the unpickled session "
+                                     "differs from the original's")
+            row["domains_050"] = len(sf.domains["id"])
+        os.remove(path)
+        del back
+        out[name] = row
+    return out
+
+
+def json_rounded(values):
+    """What a checkpoint's JSON gives back for f64 values (ten decimals,
+    read as read_json reads them)."""
+    return np.array([ck._ujson_float(ck._json_float(v)) for v in values])
+
+
+def same_tables(back, sf, what):
+    for col in ("name", "top", "domain", "num_neighborhoods_enriched"):
+        if col in sf.attributes and not np.array_equal(
+                np.asarray(back.attributes[col]),
+                np.asarray(sf.attributes[col])):
+            raise AssertionError(f"{what}: attributes[{col!r}] differs")
+    if sf.node2domain is not None:
+        a, b = back.node2domain, sf.node2domain
+        if not (bitwise(a.counts, b.counts) and bitwise(a.domains, b.domains)
+                and bitwise(a.primary_domain, b.primary_domain)
+                and bitwise(a.primary_nes, json_rounded(b.primary_nes))):
+            raise AssertionError(f"{what}: node2domain differs")
+    if sf.domains is not None and not (
+            np.array_equal(back.domains["id"], sf.domains["id"])
+            and list(back.domains["label"]) == list(sf.domains["label"])):
+        raise AssertionError(f"{what}: domains differ")
+
+
+def run_checkpoints(device, sessions, tmp):
+    """Phase 15 (b): ``save_session`` / ``load_session(device='cuda')`` of
+    each session: its arrays bitwise (a band in its dtype), its tables
+    equal (the NES of node2domain as its JSON rounds it), and
+    ``define_top_attributes`` resumes on the loaded session with the
+    original's result, launching no kernel."""
+    out, resume = {}, {name: 0 for name in K.LAUNCHES}
+    for name, (sf, band) in sessions.items():
+        base = os.path.join(tmp, f"{name}_ck")
+        t0 = time.perf_counter()
+        ck.save_session(sf, base)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(base + ext)
+                   for ext in (".npz", ".meta.json"))
+        K.reset_launches()
+        t0 = time.perf_counter()
+        back = ck.load_session(base, graph=sf.graph, verbose=False,
+                               device=device.type)
+        load_s = time.perf_counter() - t0
+        if band:
+            dtype = bst._host(sf._neighborhoods_dev.data).dtype
+            if back._neighborhoods_dev.data.dtype != dtype:
+                raise AssertionError(f"{name}: the band came back "
+                                     f"{back._neighborhoods_dev.data.dtype}")
+        same_session(back, sf, band, f"{name} checkpoint")
+        same_tables(back, sf, f"{name} checkpoint")
+        if "top" not in sf.attributes:
+            sf.define_top_attributes()
+        t0 = time.perf_counter()
+        back.define_top_attributes()
+        resume_s = time.perf_counter() - t0
+        for k, v in K.LAUNCHES.items():
+            resume[k] += v
+        if not np.array_equal(back.attributes["top"], sf.attributes["top"]):
+            raise AssertionError(f"{name}: the resumed top attributes "
+                                 "differ")
+        for ext in (".npz", ".meta.json"):
+            os.remove(base + ext)
+        del back
+        out[name] = dict(bytes=size, save_s=save_s, load_s=load_s,
+                         resume_s=resume_s)
+    check_launches(device, resume)
+    return out, resume
+
+
+def host_mixture(b, domain_of_attr, rgb):
+    """The domain-mixture colors written out on the host from an indicator
+    (reference safe.py:884-904)."""
+    ids = np.unique(domain_of_attr)
+    counts = np.stack([b[:, domain_of_attr == d].sum(axis=1) for d in ids],
+                      axis=1).astype(np.float64)
+    total = counts.sum(axis=1, keepdims=True)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        mix = counts @ rgb[:len(ids)] / total
+    bright = mix.sum(axis=1)
+    mix[~np.isfinite(bright)] = 0.0
+    mean = np.nanmean(mix[:, :-1])
+    gain = 0.1 / mean if mean else 1.0
+    return np.clip(mix * gain if gain > 1 else mix, None, 1)
+
+
+def run_plot_data(dom, band_go):
+    """Phase 15 (c): the plot data, no matplotlib imported."""
+    from safepy_tpu_torch.plot_data import domain_mixture_colors
+
+    dom_of_attr = np.asarray(dom.attributes["domain"])
+    rgb = np.random.default_rng(SEED_MAKE_GO).random(
+        (len(np.unique(dom_of_attr)), 4))
+    got = domain_mixture_colors(dom, rgb)
+    want = host_mixture(dom._nes_binary_dev.cpu().numpy(), dom_of_attr, rgb)
+    err = float(np.abs(got - want).max())
+    if err > 1e-12:
+        raise AssertionError(f"domain mixture colors differ by {err}")
+    drop_host_views(band_go)
+    full_nes = band_go._nes_device().cpu().numpy().astype(np.float64)
+    full_bin = band_go._nes_binary_dev.cpu().numpy()
+    drop_host_views(band_go)
+    a = full_bin.shape[1]
+    cols = range(0, a, 97)
     t0 = time.perf_counter()
-    worker.join()
-    out["cpu_layout_s"], out["join_wait_s"] = (cpu_layout["s"],
-                                               time.perf_counter() - t0)
-    out["preservation"] = preservation(
-        np.column_stack([graph.nodes["x"], graph.nodes["y"]]), graph.edges)
-    out["preservation_cpu"] = preservation(cpu_layout["xy"], graph.edges)
-    if abs(out["preservation"] - out["preservation_cpu"]) > PRESERVATION_MARGIN:
-        raise AssertionError(f"card layout preservation "
-                             f"{out['preservation']} vs the CPU layout's "
-                             f"{out['preservation_cpu']}")
+    for j in cols:
+        if not (bitwise(band_go._nes_column(j), full_nes[:, j])
+                and bitwise(band_go._nes_binary_column(j), full_bin[:, j])):
+            raise AssertionError(f"column {j} differs from the full matrix")
+    columns_s = time.perf_counter() - t0
+    if band_go._nes_np is not None or band_go._nes_binary_np is not None:
+        raise AssertionError("a column view made the (N, A) host matrix")
+    for view in (band_go._nes_column, band_go._nes_binary_column):
+        try:
+            view(a)
+        except IndexError:
+            continue
+        raise AssertionError("an out-of-range column did not raise")
+    return dict(mixture_err=err, columns=len(cols), columns_s=columns_s)
+
+
+def run_profiled_stages(device, sf, log_dir):
+    """Phase 15 (d): one steady Example_1 run as its two stages under
+    StageTimer (``sync=`` a device tensor) inside ``trace()``: the launch
+    counter's 32/64/32, and the Chrome trace's events of each kernel."""
+    from safepy_tpu_torch.profiling import StageTimer, trace
+
+    timer = StageTimer()
+    anchor = sf._node2attribute_device()
+    nb = -(-sf._num_nodes // BLOCK)
+    sf.define_neighborhoods()  # warm: the stages' first call
+    K.reset_launches()
+    with trace(log_dir) as prof:
+        with timer.stage("define_neighborhoods", sync=anchor):
+            sf.define_neighborhoods()
+        with timer.stage("compute_pvalues", sync=anchor):
+            sf.compute_pvalues(num_permutations=N_PERM)
+    launches = dict(K.LAUNCHES)
+    check_launches(device, launches, close_diag=nb, relax_panel=2 * nb,
+                   relax_window_sym=nb)
+    path = prof.trace_path
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events
+               if str(e.get("cat", "")).lower() == "kernel"]
+    counted = {k: sum(k in e.get("name", "") for e in kernels)
+               for k in ("relax_window_sym", "relax_panel", "close_diag")}
+    if device.type == "cuda" and not all(counted.values()):
+        raise AssertionError(f"the trace names no kernel of {counted}")
+    return dict(stages=dict(timer.stages), launches=launches,
+                trace_events=counted, trace_mb=os.path.getsize(path) / 1e6,
+                report=timer.report())
+
+
+def synthetic_ontology(keys, seed=SEED_MAKE_GO):
+    """A seeded OBO and GAF at the GO biological-process branch's size: a
+    DAG of MAKE_GO_BP terms in MAKE_GO_DEPTH levels under one root (one to
+    three parents a term, on the levels above), other-namespace and
+    obsolete terms (never a parent), ``MAKE_GO_PER_LOCUS`` direct
+    annotations a locus on average (some to other-namespace and obsolete
+    terms), a few loci with none. Returns (obo text, gaf text, the BP
+    parents by term, the direct annotations by locus)."""
+    rng = np.random.default_rng(seed)
+    bp = MAKE_GO_BP
+    level = np.concatenate([[0], 1 + (np.arange(bp - 1) * (MAKE_GO_DEPTH - 1)
+                                      // (bp - 1))])
+    ids = [f"GO:{i:07d}" for i in range(bp + MAKE_GO_OTHER
+                                        + MAKE_GO_OBSOLETE)]
+    parents = {}
+    lines = ["format-version: 1.2", ""]
+    for i in range(bp):
+        above = np.flatnonzero(level < level[i])
+        ps = (sorted(set(rng.choice(above, rng.integers(1, 4)).tolist()))
+              if level[i] else [])
+        parents[ids[i]] = [ids[p] for p in ps]
+        lines += ["[Term]", f"id: {ids[i]}", f"name: process {i}",
+                  "namespace: biological_process"]
+        lines += [f"is_a: {ids[p]} ! process {p}" for p in ps] + [""]
+    for i in range(bp, bp + MAKE_GO_OTHER):
+        lines += ["[Term]", f"id: {ids[i]}", f"name: component {i}",
+                  "namespace: cellular_component", ""]
+    for i in range(bp + MAKE_GO_OTHER, len(ids)):
+        lines += ["[Term]", f"id: {ids[i]}", f"name: obsolete process {i}",
+                  "namespace: biological_process",
+                  f"is_a: {ids[int(rng.integers(bp))]} ! process", ""]
+    lines += ["[Typedef]", "id: part_of", "name: part of"]
+    gaf = ["!gaf-version: 2.1"]
+    direct = {}
+    orphans = set(rng.choice(len(keys), MAKE_GO_ORPHANS, replace=False)
+                  .tolist())
+    for g, key in enumerate(keys):
+        if g in orphans:
+            terms = rng.integers(bp, len(ids), 2)  # none in the branch
+        else:
+            terms = rng.integers(0, len(ids), rng.integers(
+                1, 2 * MAKE_GO_PER_LOCUS))
+        direct[key] = [ids[t] for t in terms]
+        gaf += [f"SGD\t{key}\t{key}\t\t{ids[t]}\tREF\tIEA\t\tP\t\t\t"
+                "protein\ttaxon:4932\t20200101\tSGD" for t in terms]
+    return "\n".join(lines) + "\n", "\n".join(gaf) + "\n", parents, direct
+
+
+def plain_go_matrix(parents, direct):
+    """The propagated locus x term matrix by depth-first search up the
+    parents, empty terms dropped, orphan loci on the root."""
+    loci, terms = sorted(direct), sorted(parents)
+    col = {t: i for i, t in enumerate(terms)}
+    m = np.zeros((len(loci), len(terms)), np.int64)
+    memo = {}
+
+    def up(t):
+        if t not in memo:
+            seen, stack = {t}, [t]
+            while stack:
+                for p in parents[stack.pop()]:
+                    if p not in seen:
+                        seen.add(p)
+                        stack.append(p)
+            memo[t] = [col[x] for x in seen]
+        return memo[t]
+
+    for r, locus in enumerate(loci):
+        for t in direct[locus]:
+            if t in parents:
+                m[r, up(t)] = 1
+    keep = m.sum(axis=0) > 0
+    m, kept = m[:, keep], [t for t, k in zip(terms, keep) if k]
+    root = next(t for t in parents if not parents[t])
+    m[m.sum(axis=1) == 0, kept.index(root)] = 1
+    return m, loci, kept
+
+
+def run_make_go(device, sf, tmp):
+    """Phase 15 (e): make_go on a seeded ontology of the GO branch's size
+    against the depth-first closure, then its TSV through load_attributes
+    into phase 4's session and compute_pvalues (hypergeometric), which
+    launches no kernel."""
+    from safepy_tpu_torch.utils import make_go
+
+    keys = gene_keys(sf._num_nodes)
+    t0 = time.perf_counter()
+    obo_text, gaf_text, parents, direct = synthetic_ontology(keys)
+    obo, gaf = os.path.join(tmp, "go.obo"), os.path.join(tmp, "sgd.gaf")
+    with open(obo, "w") as f:
+        f.write(obo_text)
+    with open(gaf, "w") as f:
+        f.write(gaf_text)
+    out = dict(inputs_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    go = make_go.get_go_graph(obo)
+    annotations = make_go.read_annotations(gaf)
+    out["parse_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    matrix = make_go.make_go_matrix(path_to_obo=obo, path_to_annotations=gaf)
+    out["wall_s"] = time.perf_counter() - t0
+    tsv = os.path.join(tmp, "go_p_matrix.txt")
+    t0 = time.perf_counter()
+    make_go.write_matrix_tsv(tsv, matrix)
+    out["write_s"] = time.perf_counter() - t0
+    want, loci, terms = plain_go_matrix(parents, direct)
+    if not (matrix.index == loci and matrix.columns == terms
+            and bitwise(matrix.values, want)):
+        raise AssertionError("make_go's matrix differs from the depth-first "
+                             "closure")
+    out.update(terms=len(go["go_graph"]), rows=len(annotations[1]),
+               shape=matrix.values.shape, tsv_mb=os.path.getsize(tsv) / 1e6)
+    sf.graph.nodes[sf.node_key_attribute] = keys
+    t0 = time.perf_counter()
+    sf.load_attributes(attribute_file=tsv)
+    out["load_s"] = time.perf_counter() - t0
+    if not np.array_equal(sf.node2attribute, matrix.values):
+        raise AssertionError("the TSV loaded into the session differs")
+    K.reset_launches()
+    out["pvalues_s"] = timed_s(device, sf.compute_pvalues)
+    out["launches"] = dict(K.LAUNCHES)
+    check_launches(device, out["launches"])
+    out.update(engine=sf._hypergeom_engine_used,
+               enriched=int(np.sum(sf.attributes["num_neighborhoods_enriched"])))
+    return out
+
+
+def run_host_extras(device, example1, domains, band_go):
+    """Phase 15 (a)-(f) on the sessions of phases 4, 11 and 12."""
+    import importlib.util
+
+    t_phase = time.perf_counter()
+    sessions = {"example1": (example1, False), "domains": (domains, False),
+                "band_go": (band_go, True)}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out["saves"] = run_saves(device, sessions, tmp)
+        out["saves_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["checkpoints"], out["resume_launches"] = run_checkpoints(
+            device, sessions, tmp)
+        out["checkpoints_s"] = time.perf_counter() - t0
+        out["plot"] = run_plot_data(domains, band_go)
+        drop_host_views(band_go)
+        out["profile"] = run_profiled_stages(device, example1,
+                                             os.path.join(tmp, "trace"))
+        t0 = time.perf_counter()
+        out["make_go"] = run_make_go(device, example1, tmp)
+        out["make_go_s"] = time.perf_counter() - t0
+    spec = importlib.util.spec_from_file_location(
+        "cuda_validate", os.path.join(REPO, "tools", "cuda_validate.py"))
+    validate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(validate)
+    t0 = time.perf_counter()
+    if validate.validate(device.type) != "VERIFY OK":
+        raise AssertionError("tools/cuda_validate.py did not verify")
+    out["validate_s"] = time.perf_counter() - t0
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -3231,8 +3752,8 @@ def main():
           f"'bf->fw', run {bf['fallback_s']:.4f} s, launches "
           f"{bf['fallback_launches']}, band and counts equal to phase 6's; "
           f"phase 13 (c) took {bf['phase_s']:.1f} s", flush=True)
-    pk = run_band_packed(device, bs["session"], bg.pop("session"),
-                         bg.pop("matrix"))
+    band_go = bg.pop("session")  # phase 15 saves it
+    pk = run_band_packed(device, bs["session"], band_go, bg.pop("matrix"))
     print(f"band packed ({card}): band_indicator_bits=True, quantitative run "
           f"{pk['quant_s']:.4f} s (steady {pk['quant_steady_s']:.4f} s), "
           f"launches {pk['quant_launches']}, peak {pk['quant_peak_gb']:.3f} "
@@ -3298,6 +3819,11 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         fw = run_file_workflow(device, net, vals, s["session"], band_edges,
                                tmp)
+    # phase 15: the host extras on the sessions of phases 4, 11 and 12
+    torch.cuda.empty_cache()
+    hx = run_host_extras(device, s["session"], d.pop("session"), band_go)
+    del band_go
+    fw.update(fw.pop("finish")())  # phase 14's CPU layout ran meanwhile
     print(f"file workflow ({card}): SAFE(path_to_ini_file) + load_network "
           f"(native parse + exact energy layout on the card) "
           f"{fw['load_network_s']:.4f} s; parse alone {fw['parse_s']:.4f} s, "
@@ -3310,7 +3836,8 @@ def main():
           f"neighborhood {fw['mean_neighborhood']:.2f}; preservation "
           f"{fw['preservation']:.4f} (the CPU layout's "
           f"{fw['preservation_cpu']:.4f}, {fw['cpu_layout_s']:.1f} s on a host "
-          f"thread, {fw['join_wait_s']:.1f} s of it waited for at the end); "
+          f"thread during phases 14 and 15, {fw['join_wait_s']:.1f} s of it "
+          f"waited for after them); "
           f"inputs written in "
           f"{fw['write_s']:.1f} s", flush=True)
     print(f"file workflow checks ({card}): the .mat twin's arrays, "
@@ -3331,6 +3858,48 @@ def main():
           f"{fw['band_layout_s']:.4f} s; preservation "
           f"{fw['band_preservation']:.4f}; phase 14 took "
           f"{fw['phase_s']:.1f} s", flush=True)
+
+    for name, r in hx["saves"].items():
+        print(f"save {name} ({card}): SAFE.save pickle {r['bytes']} bytes"
+              + (f" (budget {r['budget_bytes']}: band + f32 log sf + int8 "
+                 f"indicator + attributes, + 10%)" if "budget_bytes" in r
+                 else "")
+              + f", save {r['save_s']:.3f} s, load {r['load_s']:.3f} s; no "
+              f"tensor in it, public arrays bitwise after loading on the card "
+              f"(compared in {r['compare_s']:.2f} s)"
+              + (f"; a process without the card read nes, nes_binary, a "
+                 f"column and node2domain bitwise in {r['workstation_s']:.2f}"
+                 f" s; re-clustered at 0.5 equal to the original "
+                 f"({r['domains_050']} domains)" if "workstation_s" in r
+                 else ""), flush=True)
+    for name, r in hx["checkpoints"].items():
+        print(f"checkpoint {name} ({card}): save_session {r['bytes']} bytes "
+              f"(.npz + .meta.json) in {r['save_s']:.3f} s, "
+              f"load_session(device='cuda') {r['load_s']:.3f} s, arrays "
+              f"bitwise and tables equal, define_top_attributes resumed in "
+              f"{r['resume_s']:.3f} s", flush=True)
+    pl, pr, mg = hx["plot"], hx["profile"], hx["make_go"]
+    print(f"plot data ({card}): domain mixture colors within "
+          f"{pl['mixture_err']:.3e} of the host formula; {pl['columns']} "
+          f"band NES and indicator columns equal to the full device "
+          f"matrices ({pl['columns_s']:.3f} s), out-of-range columns refused",
+          flush=True)
+    print(f"profiled Example_1 stages ({card}): StageTimer "
+          f"{ {k: round(v, 4) for k, v in pr['stages'].items()} } s; launch "
+          f"counter {pr['launches']}; the Chrome trace "
+          f"({pr['trace_mb']:.1f} MB) holds kernel events "
+          f"{pr['trace_events']}", flush=True)
+    print(f"make_go ({card}): {mg['terms']} terms, {mg['rows']} annotation "
+          f"rows -> {mg['shape']} matrix equal to the depth-first closure; "
+          f"parse {mg['parse_s']:.3f} s, make_go_matrix wall "
+          f"{mg['wall_s']:.3f} s, TSV write {mg['write_s']:.3f} s "
+          f"({mg['tsv_mb']:.1f} MB), load_attributes {mg['load_s']:.3f} s, "
+          f"compute_pvalues {mg['pvalues_s']:.3f} s ({mg['engine']}, "
+          f"{mg['enriched']} enriched cells, launches {mg['launches']}); "
+          f"tools/cuda_validate.py VERIFY OK in {hx['validate_s']:.1f} s; "
+          f"phase 15 took {hx['phase_s']:.1f} s (saves {hx['saves_s']:.1f} "
+          f"s, checkpoints {hx['checkpoints_s']:.1f} s, make_go "
+          f"{hx['make_go_s']:.1f} s)", flush=True)
 
     # phase 9: the report; launches from the run of each kernel's path
     replaces = {"relax_panel": "safepy_tpu/ops/apsp_pallas.py:95",
@@ -3370,7 +3939,10 @@ def main():
              "euclid_band_49920_go": ek["go_launches"],
              "euclid_band_1m_packed": e1["launches"],
              "euclid_band_1m_int8": e1["int8_launches"],
-             **fw["launches"]}
+             **fw["launches"],
+             "profiled_example1": pr["launches"],
+             "checkpoint_resume": hx["resume_launches"],
+             "make_go_binary": mg["launches"]}
     report = [{"name": name, "route": "cuda", "source": SRC,
                "replaces": replaces[name], "launches": launches[name],
                "launches_by_path": {path: counts[name]

@@ -199,3 +199,18 @@ def infer_column(strings: list[str]):
         return np.array([v for _, v, _ in parsed], np.float64)
     return np.array([np.nan if c == NA else s
                      for (c, _, _), s in zip(parsed, strings)], dtype=object)
+
+
+def read_table(filename: str) -> dict:
+    """A tab-separated file with a header line as the port's column table:
+    ``{name: column}`` in file order, each column typed by
+    :func:`infer_column`, as ``read_csv(sep="\\t")`` reads it. A short row
+    reads NA in its missing cells."""
+    rows = read_rows(filename)
+    header = dedup_header(rows[0])
+    width = len(header)
+    body = [r + [""] * (width - len(r)) for r in rows[1:]]
+    if any(len(r) > width for r in body):
+        raise ValueError(f"a row of {filename} has more than {width} fields")
+    return {name: infer_column([r[j] for r in body])
+            for j, name in enumerate(header)}

@@ -92,11 +92,56 @@ from safepy_tpu_torch.ops import fdr as _fdr
 from safepy_tpu_torch.ops import hypergeom as _hyper
 from safepy_tpu_torch.ops import hypergeom_table as _htab
 from safepy_tpu_torch.ops import neighborhoods as _nbr
+from safepy_tpu_torch.ops._device import on_device
 from safepy_tpu_torch.ops.apsp_bandstore import BandedMatrix
-from safepy_tpu_torch.ops.permutation import (default_batch_size,
-                                              run_permutations)
+# the module, not its run_permutations: this module defines the reference's
+# run_permutations(arg_tuple) below
+from safepy_tpu_torch.ops import permutation as _perm
 from safepy_tpu_torch.ops.score import (check_fp32_matmul,
                                         compute_neighborhood_score)
+
+
+def _nes_from_logsf_host(logsf32: np.ndarray) -> np.ndarray:
+    """NES from a host f32 log-survival as ``SAFE._nes_device()`` derives
+    it on the device: ``-logsf / ln 10`` in f64, rounded to f32, as f64
+    (``safe.py:72-77, 2174-2178``)."""
+    with np.errstate(invalid="ignore"):
+        return (-logsf32.astype(np.float64) / np.log(10.0)).astype(
+            np.float32).astype(np.float64)
+
+
+def _column_index(j, num_columns: int) -> int:
+    """``j`` checked against the columns on the host: a device slice out of
+    range raises a device assert, where the host matrix raises this
+    ``IndexError`` (``safe.py:2186-2199``)."""
+    j = int(j)
+    if not 0 <= j < num_columns:
+        raise IndexError(f"attribute index {j} out of range "
+                         f"[0, {num_columns})")
+    return j
+
+
+def _band_to_numpy(bm):
+    """A band wrapper with its data as numpy, through
+    :meth:`BandedMatrix.to_host`."""
+    if isinstance(bm.data, np.ndarray):
+        return bm
+    host = bm.to_host()
+    host.data = host.data.numpy()
+    return host
+
+
+# the defaults of what a session pickled before it existed lacks
+# (safe.py:1162-1182)
+_PICKLE_DEFAULTS = dict(
+    cluster_engine="auto", logsf_store="auto", band_bt_bucket=4,
+    keep_node_distances=True, band_relax="auto", band_indicator_bits="auto",
+    band_bits_min_bytes=4 * 10 ** 9, hypergeom_engine="auto",
+    matmul_precision="highest", mesh=None, graph_euclidean=None,
+    _domains_inter_cache=None, _nes_binary_i8_np=None, _nes_binary_csc=None,
+    _logsf_np=None, _nes_from_logsf=False, _band_operands_cache=None,
+    _attr_serial=0, _enrichment_serial=0, _node2domain_serial=None,
+    _band_relax_used=None, _hypergeom_engine_used=None)
 
 
 def _not_ported(what: str, item: str):
@@ -230,6 +275,9 @@ class SAFE:
         # or none, int8 indicator) until read: see the lazy views
         self._pvalues_pos_np = None
         self._logsf_dev = None
+        # the f32 log-survival on the host: what a pickle keeps of
+        # _logsf_dev, from which pvalues_pos and a deferred NES derive
+        self._logsf_np = None
         self._nes_np = None
         self._nes_dev = None
         self._nes_from_logsf = False
@@ -242,6 +290,10 @@ class SAFE:
         # (indicator, enriched counts) of a device run, for
         # _update_binary_enrichment
         self._nes_binary_pending = None
+        # bumped by each new indicator; define_domains stamps node2domain
+        # with it, so the plots know whether its counts are current
+        self._enrichment_serial = 0
+        self._node2domain_serial = None
 
         self.read_config(path_to_ini_file,
                          path_to_safe_data=self.path_to_safe_data)
@@ -405,6 +457,22 @@ class SAFE:
             edges, _, _ = graph_edges(pairs, n)
         return NetworkRecord(n, edges)
 
+    def _arrays(self):
+        """The graph's (coords, edges, lengths, weights), rebuilt from
+        ``graph`` where a pickle or a checkpoint left none."""
+        if self._graph_arrays is None and self.graph is not None:
+            self._graph_arrays = graph_to_arrays(self.graph)
+            self._num_nodes = self.graph.num_nodes
+        return self._graph_arrays
+
+    def save(self, output_file="", **kwargs):
+        """Pickle the session (``safe.py:274-278``); see
+        :meth:`__getstate__` for what the file holds."""
+        if not output_file:
+            output_file = os.path.join(os.getcwd(), "safe_output.p")
+        with open(output_file, "wb") as handle:
+            pickle.dump(self, handle)
+
     def save_network(self, **kwargs):
         """Pickle the network record (``safe.py:377``)."""
         output_file = kwargs.get(
@@ -555,8 +623,13 @@ class SAFE:
 
     @property
     def nes(self):
-        if self._nes_np is None and self._nes_device() is not None:
-            self._nes_np = self._nes_dev.cpu().numpy().astype(np.float64)
+        if self._nes_np is None:
+            if self._nes_device() is not None:
+                self._nes_np = self._nes_dev.cpu().numpy().astype(np.float64)
+            elif self._nes_from_logsf and self._logsf_np is not None:
+                # the pickled log-survival: the f64 divide and f32 round of
+                # _nes_device(), on the host (safe.py:607-614)
+                self._nes_np = _nes_from_logsf_host(self._logsf_np)
         return self._nes_np
 
     @nes.setter
@@ -577,20 +650,28 @@ class SAFE:
 
     @property
     def pvalues_pos(self):
-        if self._pvalues_pos_np is None and self._logsf_dev is not None:
-            log_sf = self._logsf_dev.cpu().numpy().astype(np.float64)
-            with np.errstate(over="ignore"):
-                self._pvalues_pos_np = np.exp(log_sf)
+        if self._pvalues_pos_np is None:
+            # f32 -> f64 is exact: the device and the pickled log-survival
+            # give the same p-values (safe.py:622-639)
+            log_sf = (self._logsf_np if self._logsf_np is not None
+                      else None if self._logsf_dev is None
+                      else self._logsf_dev.cpu().numpy())
+            if log_sf is not None:
+                with np.errstate(over="ignore"):
+                    self._pvalues_pos_np = np.exp(log_sf.astype(np.float64))
         return self._pvalues_pos_np
 
     @pvalues_pos.setter
     def pvalues_pos(self, value):
         self._pvalues_pos_np = value
         self._logsf_dev = None
+        self._logsf_np = None
 
     @property
     def nes_binary(self):
-        if self._nes_binary_np is None and self._nes_binary_dev is not None:
+        if self._nes_binary_np is None and (
+                self._nes_binary_dev is not None
+                or self._nes_binary_i8_np is not None):
             self._nes_binary_np = self._nes_binary_small().astype(float)
         return self._nes_binary_np
 
@@ -601,6 +682,7 @@ class SAFE:
         self._nes_binary_i8_np = None
         self._nes_binary_csc = None
         self._domains_inter_cache = None
+        self._enrichment_serial += 1
 
     def _neighborhoods_device(self) -> torch.Tensor:
         """(N, N) f32 device indicator, uploading a caller-set one
@@ -617,6 +699,14 @@ class SAFE:
                 device=self.device)
         return self._neighborhoods_dev
 
+    def _band_device(self) -> BandedMatrix:
+        """The indicator band on the session's device, uploaded once where
+        a pickle or a checkpoint left it on the host."""
+        bm = self._neighborhoods_dev
+        if not isinstance(bm.data, torch.Tensor):
+            bm.data = torch.as_tensor(bm.data, device=self.device)
+        return bm
+
     def _release_device_results(self):
         """Drop the previous run's device matrices before computing new ones
         (``safe.py:1392``): a stale band or (N, A) result would otherwise
@@ -624,6 +714,7 @@ class SAFE:
         self._neighborhoods_dev = self._node_distances_dev = None
         self._neighborhoods_np = self._node_distances_np = None
         self._nes_dev = self._logsf_dev = self._nes_binary_dev = None
+        self._logsf_np = None
         self._nes_from_logsf = False
         self._nes_binary_pending = None
         self._nes_binary_i8_np = self._nes_binary_csc = None
@@ -861,7 +952,7 @@ class SAFE:
         self._refuse_unported()
 
         num_nodes = self._num_nodes
-        coords, edges, lengths, edge_weights = self._graph_arrays
+        coords, edges, lengths, edge_weights = self._arrays()
         nr, weights = self._radius(coords, lengths, edge_weights)
         if self.node_distance_metric == "euclidean":
             eb_plan = self._euclidean_band_plan(coords, num_nodes, nr)
@@ -1021,7 +1112,7 @@ class SAFE:
                          "enrichment...")
         n2a = self.node2attribute
         if isinstance(self._neighborhoods_dev, BandedMatrix):
-            return self._hypergeom_bandstore(self._neighborhoods_dev, n2a)
+            return self._hypergeom_bandstore(self._band_device(), n2a)
         nodes_not_nan = np.any(~np.isnan(n2a), axis=1)
         n = int(np.sum(nodes_not_nan))
         N_in_group = np.nansum(n2a, axis=0, dtype=np.float64)  # totals (A,)
@@ -1092,6 +1183,7 @@ class SAFE:
             nes32 = None
         self._pvalues_pos_np = None
         self._nes_np = None
+        self._logsf_np = None
         self._logsf_dev = log_sf32
         self._nes_dev = nes32
         self._nes_from_logsf = nes32 is None
@@ -1128,7 +1220,7 @@ class SAFE:
         self._refuse_mesh("compute_pvalues_by_randomization")
 
         if isinstance(self._neighborhoods_dev, BandedMatrix):
-            return self._randomization_bandstore(self._neighborhoods_dev,
+            return self._randomization_bandstore(self._band_device(),
                                                  perm_idx)
         n2a = self.node2attribute
         n2a_dev = self._node2attribute_device()
@@ -1139,7 +1231,7 @@ class SAFE:
         valid_rows = np.flatnonzero(np.sum(~np.isnan(n2a), axis=1))
         valid_dev = (None if len(valid_rows) == n2a.shape[0]
                      else torch.as_tensor(valid_rows, device=self.device))
-        counts_neg, counts_pos = run_permutations(
+        counts_neg, counts_pos = _perm.run_permutations(
             nbr_dev, n2a_dev, valid_dev, obs_dev,
             generator=self._generator(perm_idx), perm_idx=perm_idx,
             score_type=self.neighborhood_score_type,
@@ -1208,6 +1300,7 @@ class SAFE:
             # go (the JAX facade drops them at the start of each run)
             self._nes_binary_np = self._nes_binary_i8_np = None
             self._nes_binary_csc = self._domains_inter_cache = None
+            self._enrichment_serial += 1
             counts = counts.cpu().numpy()
         else:
             idx = ~np.isnan(self.nes)
@@ -1246,7 +1339,7 @@ class SAFE:
             raise RuntimeError("load_attributes first")
 
         num_nodes = self._num_nodes
-        coords, edges, lengths, edge_weights = self._graph_arrays
+        coords, edges, lengths, edge_weights = self._arrays()
         self._refuse_unported()
         binary = self._binary()
         euclid = self.node_distance_metric == "euclidean"
@@ -1296,7 +1389,7 @@ class SAFE:
         valid_dev = (None if V == n2a.shape[0]  # every row valid: no gather
                      else torch.as_tensor(valid_rows, device=self.device))
         generator = self._generator(perm_idx)
-        batch = default_batch_size(V, A, int(self.num_permutations))
+        batch = _perm.default_batch_size(V, A, int(self.num_permutations))
         (dist, nbr, obs, counts_neg, counts_pos, mean, std) = \
             _pipe.fused_permutation_pipeline(
                 d0, self._node2attribute_device(), valid_dev, generator,
@@ -1424,8 +1517,8 @@ class SAFE:
                 torch.as_tensor(rank, device=dev), self._generator(perm_idx))
         kw = dict(score_type=self.neighborhood_score_type,
                   num_permutations=int(self.num_permutations),
-                  batch_size=default_batch_size(V, A,
-                                                int(self.num_permutations)),
+                  batch_size=_perm.default_batch_size(
+                      V, A, int(self.num_permutations)),
                   w_c=w_c, precision=self.matmul_precision,
                   perm_idx=perm_idx)
         return args, kw
@@ -1659,6 +1752,42 @@ class SAFE:
             return self._nes_binary_i8_np
         return self.nes_binary
 
+    def _nes_column(self, j):
+        """NES column ``j`` in f64, without the (N, A) host matrix
+        (``safe.py:2166-2199``): the host NES, else the pickled log-survival,
+        else one column of the deferred log-survival sliced on the device
+        (the f64 divide and f32 round of :meth:`_nes_device`), else one
+        column of the device NES. The plots read it. N values cross to the
+        host."""
+        if self._nes_np is not None:
+            return np.asarray(self._nes_np[:, j], dtype=np.float64)
+        if self._nes_from_logsf and self._logsf_np is not None:
+            return _nes_from_logsf_host(self._logsf_np[:, j])
+        if (self._nes_dev is None and self._nes_from_logsf
+                and self._logsf_dev is not None):
+            j = _column_index(j, self._logsf_dev.shape[1])
+            col = (-self._logsf_dev[:, j].to(torch.float64)
+                   / np.log(10.0)).to(torch.float32)
+            return col.cpu().numpy().astype(np.float64)
+        if self._nes_dev is not None:
+            j = _column_index(j, self._nes_dev.shape[1])
+            return self._nes_dev[:, j].cpu().numpy().astype(np.float64)
+        return np.asarray(self.nes[:, j], dtype=np.float64)
+
+    def _nes_binary_column(self, j):
+        """Indicator column ``j`` (``safe.py:2201-2219``): the host matrix,
+        else its int8 download, else one column sliced on the device."""
+        if self._nes_binary_np is not None:
+            return np.asarray(self._nes_binary_np[:, j])
+        if self._nes_binary_i8_np is not None:
+            return np.asarray(self._nes_binary_i8_np[:, j])
+        if self._nes_binary_pending is not None:
+            self._update_binary_enrichment()
+        if self._nes_binary_dev is not None:
+            j = _column_index(j, self._nes_binary_dev.shape[1])
+            return self._nes_binary_dev[:, j].cpu().numpy()
+        return np.asarray(self.nes_binary[:, j])
+
     def _nes_binary_for_top(self):
         """The indicator for define_top_attributes (``safe.py:2219-2241``):
         the CSC view of a device indicator of more than 3e7 cells, fewer
@@ -1700,7 +1829,7 @@ class SAFE:
             raise RuntimeError("compute_pvalues (or run_pipeline) first")
         # an edgeless scatter input: connectivity over the euclidean
         # pseudo-network (domains.py:49-50)
-        edges = (self._graph_arrays[1] if self.graph_euclidean is None
+        edges = (self._arrays()[1] if self.graph_euclidean is None
                  else self.graph_euclidean.edges)
         self.attributes = _domains.define_top_attributes(
             self.attributes, self._nes_binary_for_top(), edges,
@@ -1734,6 +1863,8 @@ class SAFE:
             intersections=self._domains_inter_cache,
             nes_binary_dev=self._nes_binary_dev, nes_dev=self._nes_device(),
             device=self.device)
+        # after the call, which resolves a pending indicator (safe.py:2282)
+        self._node2domain_serial = self._enrichment_serial
 
     def trim_domains(self, **kwargs):
         """Drop the domains that are primary for fewer than
@@ -1748,9 +1879,164 @@ class SAFE:
                 min_size=self.attribute_enrichment_min_size,
                 verbose=self.verbose)
 
+    # -------------------------------------------------------------- plotting
+    # matplotlib is imported on the first plot (safe.py:2291-2307)
+
+    def plot_network(self, **kwargs):
+        from safepy_tpu_torch import plotting
+        return plotting.plot_safe_network(self, **kwargs)
+
+    def plot_composite_network(self, **kwargs):
+        from safepy_tpu_torch import plotting
+        return plotting.plot_composite_network(self, **kwargs)
+
+    def plot_composite_network_contours(self, **kwargs):
+        from safepy_tpu_torch import plotting
+        return plotting.plot_composite_network_contours(self, **kwargs)
+
+    def plot_sample_attributes(self, **kwargs):
+        from safepy_tpu_torch import plotting
+        return plotting.plot_sample_attributes(self, **kwargs)
+
     # ---------------------------------------------------------------- output
 
     def print_output_files(self, **kwargs):
         """The three TSV reports into ``output_dir`` (``safe.py:2309``,
         ``output.py``)."""
         _output.print_output_files(self, **kwargs)
+
+    # ------------------------------------------------------------ pickling
+
+    def __getstate__(self):
+        """What ``save`` pickles (``safe.py:1122-1160``): numpy only, and
+        ``device`` as its string, so that a session saved on the card loads
+        where there is none.
+
+        - The statistics in their compact forms: the f32 log-survival and
+          the int8 indicator of a device run (``pvalues_pos``,
+          ``nes_binary`` and a deferred NES derive from them after loading,
+          bitwise as from the device); a device NES as its f64 download.
+        - Band-stored matrices as their bands (through
+          :meth:`BandedMatrix.to_host`), never dense; dense device matrices
+          as the host views.
+        - No device result, operand cache, plan or mesh: the stages rebuild
+          them on the session's device.
+        """
+        band_nbr = isinstance(self._neighborhoods_dev, BandedMatrix)
+        band_dist = isinstance(self._node_distances_dev, BandedMatrix)
+        if not band_nbr:
+            _ = self.neighborhoods, self.node_distances
+        if self._nes_binary_pending is not None:
+            self._update_binary_enrichment()
+        if not self._nes_from_logsf:
+            _ = self.nes
+        state = dict(self.__dict__)
+        if self._logsf_dev is not None:
+            state["_logsf_np"] = self._logsf_dev.cpu().numpy()
+            # derived from it, bitwise, after loading
+            state["_pvalues_pos_np"] = None
+            if self._nes_from_logsf:
+                state["_nes_np"] = None
+        if self._nes_binary_dev is not None:
+            state["_nes_binary_i8_np"] = (
+                self._nes_binary_i8_np if self._nes_binary_i8_np is not None
+                else self._nes_binary_dev.cpu().numpy())
+            state["_nes_binary_np"] = None
+        # a band's dense views derive from it (and may not fit a host)
+        if band_nbr:
+            state["_neighborhoods_np"] = None
+        if band_dist:
+            state["_node_distances_np"] = None
+        state["_neighborhoods_dev"] = (
+            _band_to_numpy(self._neighborhoods_dev) if band_nbr else None)
+        state["_node_distances_dev"] = (
+            _band_to_numpy(self._node_distances_dev) if band_dist else None)
+        state.update(_logsf_dev=None, _nes_dev=None, _nes_binary_dev=None,
+                     _n2a_dev=None, _band_operands_cache=None,
+                     _nes_binary_pending=None, _domains_inter_cache=None,
+                     _nes_binary_csc=None, _d0_cache={}, _banded_cache={},
+                     _bandstore_cache={}, _graph_arrays=None, mesh=None,
+                     device=str(self.device))
+        return state
+
+    def __setstate__(self, state):
+        """The pickled state, with the defaults of what it predates
+        (``safe.py:1162-1182``); ``device`` back to a ``torch.device``
+        without touching it: a stage that needs the card raises where
+        there is none, and the host views serve from the pickled arrays."""
+        self.__dict__.update(state)
+        for name, value in _PICKLE_DEFAULTS.items():
+            self.__dict__.setdefault(name, value)
+        for name in ("_d0_cache", "_banded_cache", "_bandstore_cache"):
+            self.__dict__.setdefault(name, {})
+        self.device = torch.device(self.device)
+
+
+def run_safe_batch(attribute_file):
+    """One worker of the batch CLI (``safe.py:2314-2323``): the whole
+    analysis of one attribute file on the card, from the default INI's
+    network; returns the NES. The CLI's own worker is
+    :func:`safepy_tpu_torch.cli.run_safe_batch`."""
+    sf = SAFE()
+    sf.load_network()
+    sf.define_neighborhoods()
+    sf.load_attributes(attribute_file=attribute_file)
+    sf.compute_pvalues(num_permutations=1000)
+    return sf.nes
+
+
+# The reference's namespace: its `safe` module star-imports its io, extras
+# and colormap helpers (safe.py:2326-2339), so user code reaches them as
+# `safe.<name>`. The plotting names and MidpointRangeNormalize import
+# matplotlib, so they resolve on first access (__getattr__ below).
+from safepy_tpu_torch.colormaps import get_colors  # noqa: E402,F401
+from safepy_tpu_torch.io import (apply_network_layout,  # noqa: E402,F401
+                                 calculate_edge_lengths, chop_and_filter,
+                                 load_mat, load_network_from_cys,
+                                 load_network_from_gpickle,
+                                 load_network_from_mat,
+                                 load_network_from_scatter,
+                                 load_network_from_txt, read_attributes)
+
+_PLOTTING_NAMES = ("mark_nodes", "plot_network", "plot_network_contour",
+                   "plot_costanzo2016_network_annotations")
+
+
+def __getattr__(name):
+    if name in _PLOTTING_NAMES:
+        from safepy_tpu_torch import plotting
+        return getattr(plotting, name)
+    if name == "MidpointRangeNormalize":
+        from safepy_tpu_torch import colormaps
+        return colormaps.MidpointRangeNormalize
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def run_permutations(arg_tuple, **kwargs):
+    """The reference's permutation worker (``safe.py:2342-2364``,
+    reference ``safe_extras.py:36-70``): takes the pool's argument tuple
+    ``(neighborhoods, node2attribute, score_type, num_permutations,
+    random_seed)`` and returns the two-sided counts as f64 numpy. The
+    operands compute where ``ops`` puts them: on the device of a tensor
+    ``neighborhoods``, else on the card. The torch random stream differs
+    from JAX's, as the reference's shuffles differ from both
+    (ops/permutation.py). Other keyword arguments are ignored, as in JAX."""
+    (neighborhood2node, node2attribute, neighborhood_score_type,
+     num_permutations, random_seed) = arg_tuple
+    n2a_np = np.asarray(node2attribute, dtype=np.float64)
+    nbr, n2a = on_device("run_permutations", neighborhood2node, n2a_np)
+    nbr = nbr.to(torch.float32)
+    obs = compute_neighborhood_score(nbr, n2a, neighborhood_score_type)
+    valid_rows = np.flatnonzero(np.sum(~np.isnan(n2a_np), axis=1))
+    valid = (None if len(valid_rows) == n2a_np.shape[0]
+             else torch.as_tensor(valid_rows, device=nbr.device))
+    if random_seed is None:
+        random_seed = int(np.random.default_rng().integers(2 ** 31 - 1))
+    generator = torch.Generator(device=nbr.device).manual_seed(
+        int(random_seed))
+    counts_neg, counts_pos = _perm.run_permutations(
+        nbr, n2a, valid, obs, generator=generator,
+        score_type=neighborhood_score_type,
+        num_permutations=int(num_permutations))
+    return (counts_neg.cpu().numpy().astype(np.float64),
+            counts_pos.cpu().numpy().astype(np.float64))

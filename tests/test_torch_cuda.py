@@ -1087,3 +1087,79 @@ def test_file_session_on_the_card_matches_cpu(dev, tmp_path):
     cpu.compute_pvalues()
     np.testing.assert_array_equal(gpu.neighborhoods, cpu.neighborhoods)
     np.testing.assert_array_equal(gpu.nes_binary, cpu.nes_binary)
+
+
+# --------------------------------------------------- save and checkpoints
+
+
+def _card_session(dev, apsp_mode, bits=False, n=900):
+    sf = SAFE(device=dev, verbose=False)
+    sf.apsp_mode = apsp_mode
+    sf.band_indicator_bits = bits
+    net = _network(n=n)
+    sf.load_network(network_file=net)
+    sf.load_attributes(attribute_file=_band_go_matrix(net[0]))
+    sf.run_pipeline()
+    return sf
+
+
+_PUBLIC = ("neighborhoods", "node2attribute", "pvalues_pos", "nes",
+           "nes_binary")
+
+
+@pytest.mark.parametrize("apsp_mode,bits", [("auto", False), ("band", False),
+                                            ("band", True)])
+def test_pickle_on_the_card(dev, apsp_mode, bits):
+    """A CUDA session pickles no tensor (numpy, device as its string), loads
+    bitwise, serves one column at a time and refuses an out-of-range
+    column on the host; a band session's band stays numpy until the
+    enrichment runs again on the card, with the same results."""
+    import pickle
+
+    sf = _card_session(dev, apsp_mode, bits)
+    blob = pickle.dumps(sf)
+    assert b"torch._utils" not in blob and b"_rebuild_tensor" not in blob
+    back = pickle.loads(blob)
+    assert back.device == torch.device(str(sf.device))
+    for name in _PUBLIC:
+        np.testing.assert_array_equal(getattr(back, name),
+                                      getattr(sf, name), err_msg=name)
+    a = sf._logsf_dev.shape[1]
+    for j in (0, a - 1):
+        np.testing.assert_array_equal(back._nes_column(j), sf.nes[:, j])
+    fresh = _card_session(dev, apsp_mode, bits)
+    with pytest.raises(IndexError, match="out of range"):
+        fresh._nes_binary_column(a)
+    np.testing.assert_array_equal(fresh._nes_column(3), sf.nes[:, 3])
+    if apsp_mode == "band":
+        assert isinstance(back._neighborhoods_dev.data, np.ndarray)
+        back.compute_pvalues()
+        assert back._neighborhoods_dev.data.device.type == "cuda"
+        np.testing.assert_array_equal(back.nes_binary, sf.nes_binary)
+
+
+@pytest.mark.parametrize("bits", [False, True])
+def test_checkpoint_on_the_card(dev, tmp_path, monkeypatch, bits):
+    """save_session of a CUDA band session (the dense guard lowered to this
+    scale) writes its band in its dtype; load_session(device='cuda')
+    resumes: the enrichment and the top attributes equal the original's."""
+    from safepy_tpu_torch import checkpoint
+    from safepy_tpu_torch.ops.apsp_bandstore import BandedMatrix
+
+    monkeypatch.setattr(BandedMatrix, "DENSE_MAX_BYTES", 1000)
+    sf = _card_session(dev, "band", bits)
+    sf.define_top_attributes(attribute_enrichment_min_size=3)
+    path = str(tmp_path / "s")
+    checkpoint.save_session(sf, path)
+    with np.load(path + ".npz") as data:
+        assert data["neighborhoods_band"].dtype == (np.uint8 if bits
+                                                    else np.int8)
+    back = checkpoint.load_session(path, graph=sf.graph, verbose=False,
+                                   device="cuda")
+    for name in _PUBLIC[1:]:
+        np.testing.assert_array_equal(getattr(back, name),
+                                      getattr(sf, name), err_msg=name)
+    back.compute_pvalues()
+    np.testing.assert_array_equal(back.nes_binary, sf.nes_binary)
+    back.define_top_attributes(attribute_enrichment_min_size=3)
+    np.testing.assert_array_equal(back.attributes["top"], sf.attributes["top"])
