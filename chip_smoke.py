@@ -193,25 +193,68 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``compute_pvalues`` (hypergeometric, no launch). (f)
     ``tools/cuda_validate.py`` in-process: ``VERIFY OK``. chip_smoke
     imports no matplotlib;
+16. the memory planner (``hbm.py``, run after phase 15) on phase 12's band
+    GO session: ``device_hbm_budget()``; cold runs (caches dropped) with
+    each residency forced ('device', 'f16', 'host'), the allocator sampled
+    at each phase end (``hbm.record_peak``): each phase's rise of
+    ``max_memory_allocated`` and of ``max_memory_reserved`` beside the
+    plan's modeled peak, none of the allocated rises above its model, one
+    launch of ``close_diag``, ``relax_panel`` and ``relax_skew_sym`` a FW
+    round; 'host' bitwise 'device', 'f16' the device values rounded to
+    f16, indicator and counts equal; 'auto' with ``hbm_budget_bytes``
+    between the modeled device and f16 census peaks takes f16, between f16
+    and host host, with the forced runs' results; a budget of 1e8 B raises
+    the plan's ``ValueError`` with no allocation and no launch; the
+    chunked operand prep bitwise the device prep, each peak beside its
+    model; each residency run again with the process capped
+    (``torch.cuda.set_per_process_memory_fraction``) at what it held
+    before plus the plan's largest phase peak, completing with the
+    uncapped run's results (the ``planner`` lines);
+17. the dense engines on a mesh at the Example_1 width (3,971 nodes, npad
+    4,096, 1,000 permutations, GO matrix A): the kernels at the sharded
+    FW's shapes, built as its rounds build their operands, bitwise their
+    plain versions, CUDA-event times beside the bound: ``relax_full`` at
+    the world-2 slab (2,048 x 4,096) and the 2 x 2 tile (2,048 x 2,048);
+    ``relax_panel``'s pivot rows at 128 x 4,096 and 128 x 2,048 and its
+    pivot columns at 4,096 x 128 and 2,048 x 128 (column views of the
+    world-1 and world-2 slabs) and 2,048 x 128 (the 2 x 2 mesh's reduced
+    panel); ``close_diag`` on a pivot tile viewed in a 128 x 4,096 panel
+    and on a 2 x 2 mesh's reduced tile; a one-rank 'data'
+    mesh over NCCL in this process, then one spawn of 2 gloo processes on
+    the card running the 'data', 'perm' and 'attr' meshes in turn, and
+    one of 4 for a 2 x 2 ('row', 'col') mesh: the sharded FW bitwise
+    ``ops.apsp(d0)`` (classic, ``relax_full``) with 32 launches of
+    ``close_diag`` and ``relax_full`` and 64 of ``relax_panel`` a rank;
+    every rank's neighborhoods identical to phase 4's; the null counts
+    equal to the ranks' seeded streams replayed on one device and summed,
+    999 permutations on the 'perm' mesh rounded to 1,000; the 'attr'
+    run's census, log sf, indicator and counts bitwise phase 10's run of
+    matrix A. The walls (min of 3), the sharded FW alone and the gloo
+    start-up per rank (the ``mesh`` lines);
 9. print a JSON line of the kernels (times, bounds, launches of every
    path, phase 10's as ``go_binary_loop`` and ``go_binary_table``, phase
    12's as ``band_go_table`` and ``band_go_hostchunks``, phase 13's as
    ``band_bf``, ``band_bf_fallback``, ``band_packed``,
    ``band_packed_table`` and the ``euclid_band_*`` paths, phase 14's as
    ``file_example1``, ``file_mat_twin`` and ``file_cli``, phase 15's as
-   ``profiled_example1``, ``checkpoint_resume`` and ``make_go_binary``),
-   then the card, then the result line. The domain stage runs no hand-written kernel:
+   ``profiled_example1``, ``checkpoint_resume`` and ``make_go_binary``,
+   phase 16's as ``planner_*``, phase 17's as ``mesh_*``, and the
+   phase-17 shapes of ``relax_full``, ``relax_panel`` and ``close_diag``
+   as their ``mesh_shapes``), then the
+   card, then the result line. The domain stage runs no hand-written kernel:
    its products are ``torch.matmul``; the layouts are plain torch, as JAX
    keeps them in ``jnp``.
 
 Imports torch, numpy, scipy and the port only; needs one card, nvcc, g++
 (the host edge-list parser) and nvidia-smi. Phase 8 starts two processes
-and joins them; phase 14 one host thread; phase 15 one process.
+and joins them; phase 14 one host thread; phase 15 one process; phase 17
+two, then four, and joins them.
 """
 
 from __future__ import annotations
 
 import csv
+import gc
 import hashlib
 import json
 import os
@@ -238,7 +281,7 @@ from scipy.spatial.distance import pdist
 from scipy.stats import hypergeom
 from torch.profiler import ProfilerActivity, profile
 
-from safepy_tpu_torch import SAFE, cli, native, ops
+from safepy_tpu_torch import SAFE, cli, hbm, native, ops
 from safepy_tpu_torch import checkpoint as ck
 from safepy_tpu_torch import domains as domains_mod
 from safepy_tpu_torch import pipeline as pipe
@@ -263,11 +306,14 @@ from safepy_tpu_torch.ops.apsp_banded import (apsp_banded_fw,
                                               banded_order, window_width)
 from safepy_tpu_torch.ops.neighborhoods import (_initial_distances,
                                                 dense_initial_distances,
-                                                inclusive_radius)
+                                                inclusive_radius,
+                                                initial_distances_device)
 from safepy_tpu_torch.ops.permutation import (default_batch_size,
                                               prepare_valid, scan_counts)
 from safepy_tpu_torch.parallel import band_sharded as bsh
-from safepy_tpu_torch.parallel import make_mesh
+from safepy_tpu_torch.parallel import (apsp_sharded, apsp_sharded_2d,
+                                       hypergeom_counts_sharded, make_mesh)
+from safepy_tpu_torch.parallel.permutation_sharded import rank_seed
 
 N_NODES, KNN, N_EDGES = 3971, 16, 28202   # bench.py:23-24,60
 SEED_GRAPH, SEED_ATTR, SEED_NULL = 0, 1, 1885  # bench.py:65,145,152
@@ -3472,6 +3518,651 @@ def run_host_extras(device, example1, domains, band_go):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the memory planner on phase 12's band GO session
+# ---------------------------------------------------------------------------
+
+PLAN_PHASES = ("prep", "relax", "census")
+
+
+def _cold(sf):
+    """Drop the session's device results and caches (the f32 upload, the
+    operands), so that the next run builds everything again."""
+    sf._release_device_results()
+    sf._band_operands_cache = None
+    sf._n2a_dev = None
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _planned_run(device, sf, cap=None):
+    """One cold band GO run with the allocator sampled at each phase end
+    (``hbm.record_peak``): (wall s, {phase: (modeled, measured allocated
+    rise, measured reserved rise)}), the rises counted from the run's
+    start. ``cap``: bytes the run may reserve beyond what the process
+    holds at its start and cannot give back (reserved less
+    ``hbm.releasable_cache_bytes``), as if ``device_hbm_budget()`` read
+    exactly ``cap`` (``torch.cuda.set_per_process_memory_fraction``, lifted
+    after the run); the allocator releases its free segments and retries
+    before it raises ``torch.OutOfMemoryError``."""
+    _cold(sf)
+    hbm.HBM_TRACE.clear()
+    start = hbm.record_peak("start", device)
+    capped = cap is not None and device.type == "cuda"
+    if capped:
+        total = torch.cuda.get_device_properties(device).total_memory
+        held = (torch.cuda.memory_reserved(device)
+                - hbm.releasable_cache_bytes(device))
+        torch.cuda.set_per_process_memory_fraction((held + cap) / total,
+                                                   device)
+    t0 = time.perf_counter()
+    try:
+        sf.run_pipeline()
+        sync(device)
+    finally:
+        if capped:
+            torch.cuda.set_per_process_memory_fraction(1.0, device)
+    wall = time.perf_counter() - t0
+    trace = {r["tag"]: r for r in hbm.HBM_TRACE}
+    plan = sf._hbm_plan_last
+    modeled = dict(prep=plan["prep_peak"], relax=plan["relax_peak"],
+                   census=plan["census_final"]["census_peak"])
+    peaks = {}
+    for ph in PLAN_PHASES:
+        rec = trace[ph]
+        if rec.get("unavailable"):
+            peaks[ph] = (modeled[ph], None, None)
+        else:
+            peaks[ph] = (modeled[ph],
+                         rec["peak_allocated"] - start["allocated"],
+                         rec["peak_reserved"] - start["reserved"])
+    return wall, peaks
+
+
+def _results(sf):
+    """The band GO run's (log sf, indicator, enriched counts)."""
+    return (sf._logsf_dev, sf._nes_binary_dev,
+            np.asarray(sf.attributes["num_neighborhoods_enriched"]))
+
+
+def run_planner(device, sf, mat):
+    """Phase 16: ``hbm.py`` on phase 12's band GO session ``sf`` (the
+    ``table-band`` session, 49,920 x 4,373) and its matrix ``mat``; the
+    checks and numbers of the module doc."""
+    t_phase = time.perf_counter()
+    old_trace = os.environ.get("SAFEPY_TPU_HBM_TRACE")
+    os.environ["SAFEPY_TPU_HBM_TRACE"] = "1"
+    cuda = device.type == "cuda"
+    out = dict(budget=hbm.device_hbm_budget(device), runs={})
+    over = []  # (what, measured, modeled) above the model: raised at the end
+    try:
+        res = {}
+        nb = -(-sf._neighborhoods_dev.n // BLOCK)
+        for store in ("device", "f16", "host"):
+            sf.logsf_store, sf.hbm_budget_bytes = store, None
+            K.reset_launches()
+            wall, peaks = _planned_run(device, sf)
+            launches = dict(K.LAUNCHES)
+            check_launches(device, launches, close_diag=nb, relax_panel=nb,
+                           relax_skew_sym=nb)
+            if sf._hypergeom_engine_used != "table-band":
+                raise AssertionError(f"{store}: {sf._hypergeom_engine_used}")
+            if sf._hbm_plan_last["logsf_out"] != store:
+                raise AssertionError(f"{store}: the plan took "
+                                     f"{sf._hbm_plan_last['logsf_out']}")
+            over += [(f"{store} {ph}", alloc, model)
+                     for ph, (model, alloc, _) in peaks.items()
+                     if alloc is not None and alloc > model]
+            res[store] = _results(sf)
+            out["runs"][store] = dict(wall_s=wall, peaks=peaks,
+                                      launches=launches,
+                                      plan=dict(sf._hbm_plan_last))
+        (ld, bd, cd), (lf, bf, cf), (lh, bh, ch) = (
+            res[s] for s in ("device", "f16", "host"))
+        if not (ld.dtype == torch.float32 and lf.dtype == torch.float16
+                and lh.device.type == "cpu"):
+            raise AssertionError("the residencies' dtypes or devices")
+        if not torch.equal(lh, ld.cpu()):
+            raise AssertionError("'host' log sf differs from 'device'")
+        if not torch.equal(lf, ld.half()):
+            raise AssertionError("'f16' log sf is not 'device' rounded")
+        if not (torch.equal(bf, bd) and torch.equal(bh.to(bd.device), bd)
+                and np.array_equal(cf, cd) and np.array_equal(ch, cd)):
+            raise AssertionError("the residencies' indicators or counts")
+
+        # each residency again, the process capped at what it holds plus
+        # the plan's largest phase peak: the model's admission must hold
+        # with the allocator's segments and cache, not only its tensors
+        out["capped"] = {}
+        for store in ("device", "f16", "host"):
+            cap = max(m for m, _, _ in out["runs"][store]["peaks"].values())
+            sf.logsf_store, sf.hbm_budget_bytes = store, None
+            wall, peaks = _planned_run(device, sf, cap=cap)
+            lc, bc, cc = _results(sf)
+            if not (torch.equal(lc, res[store][0])
+                    and torch.equal(bc.to(bd.device), bd)
+                    and np.array_equal(cc, cd)):
+                raise AssertionError(f"{store}: the capped run differs from "
+                                     "the uncapped one")
+            out["capped"][store] = dict(cap=cap, wall_s=wall, peaks=peaks)
+
+        # 'auto' under set budgets: between the modeled device and f16
+        # census peaks f16, between f16 and host host
+        census = {s: out["runs"][s]["peaks"]["census"][0]
+                  for s in ("device", "f16", "host")}
+        out["auto"] = {}
+        for want, hi, lo in (("f16", "device", "f16"),
+                             ("host", "f16", "host")):
+            budget = (census[hi] + census[lo]) // 2
+            sf.logsf_store, sf.hbm_budget_bytes = "auto", budget
+            t0 = time.perf_counter()
+            sf.run_pipeline()
+            sync(device)
+            got = sf._hbm_plan_last["logsf_out"]
+            if got != want:
+                raise AssertionError(f"'auto' at {budget} B took {got}, "
+                                     f"{want} expected")
+            lg, bg_, cg = _results(sf)
+            if not (torch.equal(lg, res[want][0])
+                    and torch.equal(bg_.to(bd.device), bd)
+                    and np.array_equal(cg, cd)):
+                raise AssertionError(f"'auto' ({want}) differs from the "
+                                     "forced run")
+            out["auto"][want] = dict(budget=budget,
+                                     wall_s=time.perf_counter() - t0)
+
+        # a budget below every mode: the ValueError before any allocation
+        # or launch (the previous results held here, so that the run's
+        # release of them frees nothing)
+        order = np.argsort(sf._neighborhoods_dev.rank)
+        held = (sf._neighborhoods_dev, sf._logsf_dev, sf._nes_binary_dev,
+                sf._nes_dev, sf._node_distances_dev)
+        sf.logsf_store, sf.hbm_budget_bytes = "auto", 10 ** 8
+        sync(device)
+        before = torch.cuda.memory_allocated(device) if cuda else None
+        launches = dict(K.LAUNCHES)
+        try:
+            sf.run_pipeline()
+        except ValueError as e:
+            out["refusal"] = str(e)
+        else:
+            raise AssertionError("a budget below every mode was admitted")
+        sync(device)
+        if cuda and torch.cuda.memory_allocated(device) != before:
+            raise AssertionError("the refused run allocated")
+        if dict(K.LAUNCHES) != launches:
+            raise AssertionError("the refused run launched a kernel")
+        del held
+        sf.logsf_store, sf.hbm_budget_bytes = "auto", None
+
+        # the chunked prep against the device prep, each with its measured
+        # peak beside the modeled one
+        n, a = mat.shape
+        _cold(sf)
+
+        def prep(chunked):
+            if cuda:
+                sync(device)
+                base = torch.cuda.memory_allocated(device)
+                torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            if chunked:
+                got = eb.band_hyper_operands_chunked(mat, order,
+                                                     device=device)
+            else:
+                up = torch.as_tensor(np.asarray(mat, np.float32),
+                                     device=device)
+                got = eb.band_hyper_operands_device(up, order)
+                del up
+            sync(device)
+            wall = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated(device) - base
+                    if cuda else None)
+            return got, wall, peak
+
+        full, full_s, full_peak = prep(False)
+        chunk, chunk_s, chunk_peak = prep(True)
+        for i in (0, 1, 2):
+            if not torch.equal(full[i], chunk[i]):
+                raise AssertionError(f"chunked prep output {i} differs")
+        if full[3] is not True or chunk[3] is not True:
+            raise AssertionError("the binary flag")
+        out["prep"] = dict(
+            device_s=full_s, chunked_s=chunk_s,
+            device_peak=(hbm.prep_peak(n, a, chunked=False), full_peak),
+            chunked_peak=(hbm.prep_peak(n, a, chunked=True), chunk_peak))
+        for name in ("device_peak", "chunked_peak"):
+            model, got = out["prep"][name]
+            if got is not None and got > model:
+                over.append((name, got, model))
+        del full, chunk
+        _cold(sf)
+    finally:
+        if old_trace is None:
+            os.environ.pop("SAFEPY_TPU_HBM_TRACE", None)
+        else:
+            os.environ["SAFEPY_TPU_HBM_TRACE"] = old_trace
+    if over:
+        raise AssertionError(f"measured peaks above the model (what, "
+                             f"measured B, modeled B): {over}; {out}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the dense engines on a mesh at the Example_1 width
+# ---------------------------------------------------------------------------
+
+MESH_FW_PATHS = ("data", "row_col")  # the meshes that shard the FW
+
+
+def nbr_digest(t) -> str:
+    return band_digest(t.to(torch.int8))
+
+
+def _mesh_work(device, mesh, tag, net, vals, go, steady=3):
+    """What each rank of ``mesh`` runs in phase 17: on a mesh that shards
+    the FW, the sharded FW alone (launches, digest, min of ``steady``)
+    and the fused quantitative run (phase 4's inputs; 999 permutations on
+    a 'perm' mesh, which round up); on an 'attr' mesh the fused binary run
+    of GO matrix A and the sharded census. Returns the numbers and
+    digests, prefixed with ``tag``."""
+    coords, edges, lengths, _ = net
+    n = len(coords)
+    out = {}
+
+    def timed(fn):
+        sync(device)
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        return time.perf_counter() - t0
+
+    if tag in MESH_FW_PATHS:
+        d0 = initial_distances_device(n, edges, lengths, device=device)
+        fw = (apsp_sharded if tag == "data" else apsp_sharded_2d)
+        K.reset_launches()
+        dist_m = fw(d0, mesh)
+        sync(device)
+        out[f"{tag}_fw_launches"] = json.dumps(dict(K.LAUNCHES))
+        out[f"{tag}_fw_digest"] = band_digest(dist_m)
+        del dist_m
+        out[f"{tag}_fw_s"] = min(timed(lambda: fw(d0, mesh))
+                                 for _ in range(steady))
+    if tag == "attr":
+        sf = SAFE(device=device, verbose=False)
+        sf.mesh = mesh
+        sf.load_network(network_file=net)
+        sf.load_attributes(attribute_file=go)
+        K.reset_launches()
+        out[f"{tag}_warm_s"] = timed(sf.run_pipeline)
+        out[f"{tag}_launches"] = json.dumps(dict(K.LAUNCHES))
+        out[f"{tag}_engine"] = (f"{sf.apsp_engine_used}/"
+                                f"{sf._hypergeom_engine_used}")
+        out[f"{tag}_logsf"] = band_digest(sf._logsf_dev)
+        out[f"{tag}_nbin"] = band_digest(sf._nes_binary_dev)
+        out[f"{tag}_enriched"] = np.asarray(
+            sf.attributes["num_neighborhoods_enriched"])
+        out[f"{tag}_nbr"] = nbr_digest(sf._neighborhoods_dev)
+        counts, _ = hypergeom_counts_sharded(sf._neighborhoods_dev, go,
+                                             mesh=mesh)
+        out[f"{tag}_census"] = band_digest(counts)
+        del counts
+    else:
+        sf = SAFE(device=device, verbose=False)
+        sf.random_seed = SEED_NULL
+        sf.mesh = mesh
+        sf.load_network(network_file=net)
+        sf.load_attributes(attribute_file=vals)
+        perms = 999 if tag == "perm" else N_PERM
+        K.reset_launches()
+        out[f"{tag}_warm_s"] = timed(lambda: sf.run_pipeline(
+            num_permutations=perms))
+        out[f"{tag}_launches"] = json.dumps(dict(K.LAUNCHES))
+        out[f"{tag}_engine"] = sf.apsp_engine_used
+        out[f"{tag}_num_permutations"] = sf.num_permutations
+        out[f"{tag}_nbr"] = nbr_digest(sf._neighborhoods_dev)
+        out[f"{tag}_ns"] = sf.ns
+        out[f"{tag}_counts_neg"] = sf.counts_neg
+        out[f"{tag}_counts_pos"] = sf.counts_pos
+    out[f"{tag}_steady_s"] = min(timed(sf.run_pipeline if tag == "attr"
+                                       else lambda: sf.run_pipeline(
+                                           num_permutations=perms))
+                                 for _ in range(steady))
+    return out
+
+
+def _mesh_rank(rank, world, case_dir, device_type, spawned):
+    """One gloo rank of phase 17 on card 0: every mesh of its world in
+    turn; the results go to ``case_dir``."""
+    entered = time.time()
+    device = torch.device(device_type, 0)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{case_dir}/rendezvous", rank=rank,
+        world_size=world)
+    try:
+        out = dict(entered=entered - spawned, ready=time.time() - spawned)
+        d = np.load(os.path.join(case_dir, "inputs.npz"))
+        net = tuple(d[k] for k in ("coords", "edges", "lengths", "weights"))
+        meshes = ({"data": world}, {"perm": world}, {"attr": world}) \
+            if world == 2 else ({"row": 2, "col": world // 2},)
+        for axes in meshes:
+            out.update(_mesh_work(device, make_mesh(
+                axes, device_type=device.type), "_".join(axes), net,
+                d["vals"], d["go"]))
+        np.savez(os.path.join(case_dir, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _replay(device, nbr, vals, ns, counts, world, perms):
+    """Each of ``world`` ranks' seeded streams (``rank_seed``) replayed on
+    one device over phase 4's neighborhoods ``nbr`` and attribute ``vals``
+    and summed: the counts a sharded null must give (JAX's exact-replay
+    test)."""
+    n2a = torch.as_tensor(np.asarray(vals, np.float32), device=device)
+    valid_rows = np.flatnonzero(np.isfinite(vals).any(axis=1))
+    nv, v, m = prepare_valid(nbr, n2a,
+                             torch.as_tensor(valid_rows, device=device))
+    per_dev = -(-perms // world)
+    batch = default_batch_size(len(valid_rows), 1, per_dev)
+    obs = torch.as_tensor(ns, dtype=torch.float32, device=device)
+    total = [0, 0]
+    for r in range(world):
+        g = torch.Generator(device=device).manual_seed(
+            rank_seed(SEED_NULL, r))
+        cn, cp = scan_counts(nv, v, m, obs, score_type="sum",
+                             num_permutations=per_dev, batch_size=batch,
+                             generator=g)
+        total[0] = total[0] + cn.cpu().numpy()
+        total[1] = total[1] + cp.cpu().numpy()
+    return (np.array_equal(total[0], counts[0])
+            and np.array_equal(total[1], counts[1])), per_dev * world
+
+
+def check_mesh_kernels(device, npad=4096):
+    """The kernels of the sharded FW at its shapes, each operand built as
+    its rounds build it, bitwise against the plain version, with CUDA-event
+    times beside the bound: {kernel: [row a shape]}.
+
+    ``relax_full`` on the world-2 slab (2,048 x 4,096) and the 2 x 2 tile
+    (2,048 x 2,048); ``relax_panel``'s pivot rows (128 x npad on a 'data'
+    axis, 128 x npad/2 on the 2 x 2 mesh) and pivot columns (a column view
+    of the world-1 and world-2 slabs, whose row stride is npad, and the
+    2 x 2 mesh's reduced, contiguous panel); ``close_diag`` on a pivot tile
+    viewed in the row panel (row stride npad) and on the 2 x 2 mesh's
+    reduced tile."""
+    gen = torch.Generator(device=device).manual_seed(17)
+    b, half = BLOCK, npad // 2
+    out = {"relax_full": [], "relax_panel": [], "close_diag": []}
+
+    def row(kernel, shape, form, fn, plain, work, got, want):
+        err = max_abs_err(got, want)
+        b_ms, b_by = bound(*work)
+        out[kernel].append(dict(
+            shape=shape, form=form, ms=time_ms(fn, device),
+            plain_ms=time_ms(plain, device, inner=1, reps=3),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
+
+    for m, n in ((half, npad), (half, half)):
+        q = inf_laced(gen, (m, b), device)
+        p = inf_laced(gen, (b, n), device)
+        d = inf_laced(gen, (m, n), device)
+        got, want = d.clone(), d.clone()
+        K.relax_full(q, p, got)
+        K.relax_full_plain(q, p, want)
+        work = d.clone()
+        row("relax_full", [m, n, b], "slab" if n == npad else "tile",
+            lambda: K.relax_full(q, p, work),
+            lambda: K.relax_full_plain(q, p, work), relax_work(m, n, b),
+            got, want)
+
+    # the pivot tiles: a view at column offset half of a (128, npad)
+    # panel (the 'data' rounds), and a contiguous reduced tile (2 x 2)
+    panel = inf_laced(gen, (b, npad), device)
+    panel[:, half:half + b].diagonal().zero_()
+    tile = inf_laced(gen, (b, b), device)
+    tile.diagonal().zero_()
+    diags = {}
+    for form, t in (("view_of_128x4096", panel[:, half:half + b]),
+                    ("reduced_tile", tile)):
+        diags[form] = K.close_diag_plain(t)
+        row("close_diag", [b, b], form, lambda: K.close_diag(t),
+            lambda: K.close_diag_plain(t), (b ** 3, 2 * b * b * F32),
+            K.close_diag(t), diags[form])
+
+    # pivot rows min(P, diag (x) P), pivot columns min(Q, Q (x) diag)
+    p2 = inf_laced(gen, (b, half), device)
+    slab1 = inf_laced(gen, (npad, npad), device)
+    slab2 = inf_laced(gen, (half, npad), device)
+    q2 = inf_laced(gen, (half, b), device)
+    diag = diags["view_of_128x4096"]
+    for form, p in (("rows_data", panel), ("rows_2x2", p2)):
+        row("relax_panel", [b, p.shape[1], b], form,
+            lambda: K.relax_panel(p, diag, p),
+            lambda: K.relax_panel_plain(p, diag, p),
+            relax_work(b, p.shape[1], b), K.relax_panel(p, diag, p),
+            K.relax_panel_plain(p, diag, p))
+    for form, q in (("cols_world1_view", slab1[:, half:half + b]),
+                    ("cols_world2_view", slab2[:, half:half + b]),
+                    ("cols_2x2", q2)):
+        row("relax_panel", [q.shape[0], b, b], form,
+            lambda: K.relax_panel(q, q, diag),
+            lambda: K.relax_panel_plain(q, q, diag),
+            relax_work(q.shape[0], b, b), K.relax_panel(q, q, diag),
+            K.relax_panel_plain(q, q, diag))
+    return out
+
+
+def run_dense_mesh(device, ref, net, vals, go_a, go_ref):
+    """Phase 17: the dense engines on a mesh at the Example_1 width; the
+    checks and numbers of the module doc. ``ref``: phase 4's session (its
+    neighborhoods; phase 15 loads other attributes into it); ``vals``:
+    phase 4's attribute; ``go_a``: GO matrix A; ``go_ref``: digests of
+    phase 10's single-device run of A."""
+    t_phase = time.perf_counter()
+    coords, edges, lengths, _ = net
+    n = len(coords)
+    nb = -(-n // BLOCK)
+    d0 = initial_distances_device(n, edges, lengths, device=device)
+    classic = band_digest(ops.apsp(d0))
+    del d0
+    ref_dev = ref._neighborhoods_device()
+    ref_nbr = nbr_digest(ref_dev)
+    fw_counts = dict(close_diag=nb, relax_panel=2 * nb, relax_full=nb)
+    out = dict(kernels=check_mesh_kernels(device), runs={})
+    census = band_digest(ref_dev.to(torch.float32)
+                         @ torch.as_tensor(np.nan_to_num(go_a),
+                                           dtype=torch.float32,
+                                           device=device))
+
+    def check(tag, r, world):
+        """Every check of one rank's results on mesh ``tag``."""
+        if tag in MESH_FW_PATHS:
+            if str(r[f"{tag}_fw_digest"]) != classic:
+                raise AssertionError(f"{tag}: the sharded FW differs from "
+                                     "the classic FW")
+            for key in ("fw_launches", "launches"):
+                check_launches(device, json.loads(str(r[f"{tag}_{key}"])),
+                               **fw_counts)
+        if str(r[f"{tag}_nbr"]) != ref_nbr:
+            raise AssertionError(f"{tag}: neighborhoods differ from phase "
+                                 "4's")
+        if tag == "attr":
+            if not (str(r["attr_logsf"]) == go_ref["logsf"]
+                    and str(r["attr_nbin"]) == go_ref["nbin"]
+                    and np.array_equal(r["attr_enriched"],
+                                       go_ref["enriched"])
+                    and str(r["attr_census"]) == census):
+                raise AssertionError("attr: the census or the log sf "
+                                     "differs from phase 10's run of A")
+            return
+        perms = 999 if tag == "perm" else N_PERM
+        ok, total = _replay(device, ref_dev, vals, r[f"{tag}_ns"],
+                            (r[f"{tag}_counts_neg"], r[f"{tag}_counts_pos"]),
+                            world, perms)
+        if not ok:
+            raise AssertionError(f"{tag}: the counts are not the ranks' "
+                                 "streams replayed")
+        if int(r[f"{tag}_num_permutations"]) != total:
+            raise AssertionError(f"{tag}: num_permutations "
+                                 f"{r[f'{tag}_num_permutations']}, {total} "
+                                 "expected")
+
+    # world 1 over NCCL in this process
+    rdv = native.BUILD_DIR / "chip_smoke_mesh1_rendezvous"
+    native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    rdv.unlink(missing_ok=True)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    t0 = time.time()
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"file://{rdv}", rank=0,
+                            world_size=1)
+    try:
+        ready = time.time() - t0
+        w1 = _mesh_work(device, make_mesh({"data": 1},
+                                          device_type=device.type),
+                        "data", net, vals, go_a)
+    finally:
+        dist.destroy_process_group()
+    check("data", w1, 1)
+    out["runs"]["world1"] = dict(w1, ready=ready)
+
+    # worlds 2 and 4 over gloo, every rank on this card
+    case_dir = native.BUILD_DIR / "chip_smoke_mesh"
+    for world in (2, 4):
+        shutil.rmtree(case_dir, ignore_errors=True)
+        case_dir.mkdir(parents=True)
+        np.savez(case_dir / "inputs.npz", coords=coords, edges=edges,
+                 lengths=lengths, weights=net[3], vals=vals, go=go_a)
+        t0 = time.time()
+        mp.spawn(_mesh_rank, args=(world, str(case_dir), device.type, t0),
+                 nprocs=world, join=True)
+        wall = time.time() - t0
+        ranks = [dict(np.load(case_dir / f"rank{r}.npz"))
+                 for r in range(world)]
+        tags = ("data", "perm", "attr") if world == 2 else ("row_col",)
+        for r in ranks:
+            for tag in tags:
+                check(tag, r, world)
+        out["runs"][f"world{world}"] = dict(spawn_s=wall, ranks=ranks)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def mesh_summary(runs, world, tags, key):
+    """Per rank, ``key`` of each mesh of a world (seconds rounded to
+    0.1 ms, for the printed lines)."""
+    rs = runs[f"world{world}"]["ranks"] if world > 1 else [runs["world1"]]
+    return {tag: [round(float(r[f"{tag}_{key}"]), 4) for r in rs]
+            for tag in tags if f"{tag}_{key}" in rs[0]}
+
+
+def mesh_launches(ms):
+    """Phase 17's facade runs' launches, by path name."""
+    out = {"mesh_data_world1": json.loads(ms["runs"]["world1"][
+        "data_launches"])}
+    for world, tags in ((2, ("data", "perm", "attr")), (4, ("row_col",))):
+        for r, rank in enumerate(ms["runs"][f"world{world}"]["ranks"]):
+            for tag in tags:
+                out[f"mesh_{tag}_world{world}_rank{r}"] = json.loads(
+                    str(rank[f"{tag}_launches"]))
+    return out
+
+
+def print_planner(pl, card):
+    gb = 1e9
+
+    def ratio(model, got):
+        return f"{model / got:.3f}" if got and got > 0 else "n/a"
+
+    print(f"planner ({card}): device_hbm_budget() {pl['budget']} B "
+          f"({pl['budget'] / gb:.3f} GB); phase 12's band GO session, cold "
+          f"runs with the allocator sampled at each phase end", flush=True)
+    for store, r in pl["runs"].items():
+        parts = "; ".join(
+            f"{ph} modeled {m / gb:.4f} GB, measured rise allocated "
+            f"{(a or 0) / gb:.4f} GB (modeled/measured {ratio(m, a)}), "
+            f"reserved {(rr or 0) / gb:.4f} GB ({ratio(m, rr)})"
+            for ph, (m, a, rr) in r["peaks"].items())
+        print(f"planner {store} ({card}): run {r['wall_s']:.4f} s, launches "
+              f"{r['launches']}; {parts}; no phase above its model",
+              flush=True)
+    def top(peaks, i):
+        return max(p[i] or 0 for p in peaks.values()) / gb
+
+    caps = "; ".join(
+        f"{store} capped at {c['cap'] / gb:.4f} GB above its start: "
+        f"{c['wall_s']:.4f} s, largest rise allocated "
+        f"{top(c['peaks'], 1):.4f} GB, reserved {top(c['peaks'], 2):.4f} GB"
+        for store, c in pl["capped"].items())
+    print(f"planner capped ({card}): each residency again under "
+          f"set_per_process_memory_fraction at the plan's largest phase "
+          f"peak, no OutOfMemoryError, results equal to the uncapped run's: "
+          f"{caps}", flush=True)
+    a = pl["auto"]
+    print(f"planner auto ({card}): budget {a['f16']['budget']} B -> f16 "
+          f"({a['f16']['wall_s']:.4f} s), {a['host']['budget']} B -> host "
+          f"({a['host']['wall_s']:.4f} s), each equal to the forced run; "
+          f"'host' bitwise 'device', 'f16' the device values rounded, "
+          f"indicator and counts equal; a budget of 1e8 B raised before any "
+          f"allocation or launch: {pl['refusal'][:160]}...", flush=True)
+    p = pl["prep"]
+    print(f"planner prep ({card}): device prep {p['device_s']:.4f} s, peak "
+          f"modeled {p['device_peak'][0] / gb:.4f} GB, measured "
+          f"{(p['device_peak'][1] or 0) / gb:.4f} GB; chunked prep "
+          f"{p['chunked_s']:.4f} s, peak modeled "
+          f"{p['chunked_peak'][0] / gb:.4f} GB, measured "
+          f"{(p['chunked_peak'][1] or 0) / gb:.4f} GB; operands bitwise "
+          f"equal; phase 16 took {pl['phase_s']:.1f} s", flush=True)
+
+
+def print_dense_mesh(ms, card):
+    runs = ms["runs"]
+    for name, kernel_rows in ms["kernels"].items():
+        rows = ", ".join(
+            f"{r['form']} {' x '.join(map(str, r['shape']))}: "
+            f"{r['ms'] * 1e3:.2f} us a call (plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']})"
+            for r in kernel_rows)
+        print(f"mesh {name} ({card}): bitwise equal to plain at the sharded "
+              f"FW's shapes: {rows}", flush=True)
+    w1 = runs["world1"]
+    print(f"mesh world 1 ({card}; NCCL, 'data'): process group "
+          f"{w1['ready']:.2f} s; sharded FW alone (min of 3) "
+          f"{w1['data_fw_s']:.4f} s, launches {w1['data_fw_launches']}; "
+          f"run_pipeline ({w1['data_engine']}) warm {w1['data_warm_s']:.4f} "
+          f"s, steady min {w1['data_steady_s']:.4f} s, launches "
+          f"{w1['data_launches']}", flush=True)
+    for world, tags in ((2, ("data", "perm", "attr")), (4, ("row_col",))):
+        w = runs[f"world{world}"]
+        ready = [round(float(r["ready"]), 2) for r in w["ranks"]]
+        entered = [round(float(r["entered"]), 2) for r in w["ranks"]]
+        engines = {t: str(w["ranks"][0][f"{t}_engine"]) for t in tags}
+        print(f"mesh world {world} ({card}; gloo, {world} processes on the "
+              f"card): spawn wall {w['spawn_s']:.2f} s; gloo start-up per "
+              f"rank: process up {entered} s, process group ready {ready} s "
+              f"after the spawn; engines {engines}; per rank (min of 3): "
+              f"FW alone {mesh_summary(runs, world, tags, 'fw_s')} s, "
+              f"warm {mesh_summary(runs, world, tags, 'warm_s')} s, steady "
+              f"{mesh_summary(runs, world, tags, 'steady_s')} s; rank 0 "
+              f"launches {[str(w['ranks'][0][f'{t}_launches']) for t in tags]}",
+              flush=True)
+    print(f"mesh checks ({card}): every sharded FW bitwise ops.apsp(d0) "
+          f"(classic, relax_full); every rank's neighborhoods identical to "
+          f"phase 4's; every null the ranks' streams replayed on one device "
+          f"and summed; 999 permutations on the 'perm' mesh rounded to "
+          f"{int(runs['world2']['ranks'][0]['perm_num_permutations'])}; the "
+          f"'attr' census, log sf, indicator and counts bitwise phase 10's "
+          f"run of matrix A; launches 32 close_diag, 64 relax_panel, 32 "
+          f"relax_full a rank on the FW meshes; phase 17 took "
+          f"{ms['phase_s']:.1f} s", flush=True)
+
+
 def main():
     started = time.perf_counter()
     # phase 1: the card
@@ -3664,6 +4355,12 @@ def main():
           f"{go['fdr_s']:.4f} s; phase 10 took {go['phase_s']:.1f} s",
           flush=True)
 
+    # phase 17 holds its attr-sharded run against phase 10's run of A
+    go_ref = dict(logsf=band_digest(go["A_session"]._logsf_dev),
+                  nbin=band_digest(go["A_session"]._nes_binary_dev),
+                  enriched=np.asarray(go["A_session"].attributes[
+                      "num_neighborhoods_enriched"]))
+
     # phase 11: the domain stage on phase 10's matrix A session
     d = run_domain_stage(device, go.pop("A_session"), net)
     dp = d["profile"]
@@ -3752,8 +4449,9 @@ def main():
           f"'bf->fw', run {bf['fallback_s']:.4f} s, launches "
           f"{bf['fallback_launches']}, band and counts equal to phase 6's; "
           f"phase 13 (c) took {bf['phase_s']:.1f} s", flush=True)
-    band_go = bg.pop("session")  # phase 15 saves it
-    pk = run_band_packed(device, bs["session"], band_go, bg.pop("matrix"))
+    band_go = bg.pop("session")  # phase 15 saves it, phase 16 plans it
+    band_go_matrix = bg.pop("matrix")
+    pk = run_band_packed(device, bs["session"], band_go, band_go_matrix)
     print(f"band packed ({card}): band_indicator_bits=True, quantitative run "
           f"{pk['quant_s']:.4f} s (steady {pk['quant_steady_s']:.4f} s), "
           f"launches {pk['quant_launches']}, peak {pk['quant_peak_gb']:.3f} "
@@ -3822,7 +4520,14 @@ def main():
     # phase 15: the host extras on the sessions of phases 4, 11 and 12
     torch.cuda.empty_cache()
     hx = run_host_extras(device, s["session"], d.pop("session"), band_go)
-    del band_go
+    # phase 16: the memory planner on phase 12's band GO session
+    torch.cuda.empty_cache()
+    planned = run_planner(device, band_go, band_go_matrix)
+    del band_go, band_go_matrix
+    torch.cuda.empty_cache()
+    # phase 17: the dense engines on a mesh at the Example_1 width
+    meshed = run_dense_mesh(device, s["session"], net, vals,
+                            go_matrices(net[0])[0], go_ref)
     fw.update(fw.pop("finish")())  # phase 14's CPU layout ran meanwhile
     print(f"file workflow ({card}): SAFE(path_to_ini_file) + load_network "
           f"(native parse + exact energy layout on the card) "
@@ -3900,6 +4605,8 @@ def main():
           f"phase 15 took {hx['phase_s']:.1f} s (saves {hx['saves_s']:.1f} "
           f"s, checkpoints {hx['checkpoints_s']:.1f} s, make_go "
           f"{hx['make_go_s']:.1f} s)", flush=True)
+    print_planner(planned, card)
+    print_dense_mesh(meshed, card)
 
     # phase 9: the report; launches from the run of each kernel's path
     replaces = {"relax_panel": "safepy_tpu/ops/apsp_pallas.py:95",
@@ -3942,7 +4649,10 @@ def main():
              **fw["launches"],
              "profiled_example1": pr["launches"],
              "checkpoint_resume": hx["resume_launches"],
-             "make_go_binary": mg["launches"]}
+             "make_go_binary": mg["launches"],
+             **{f"planner_{store}": r["launches"]
+                for store, r in planned["runs"].items()},
+             **mesh_launches(meshed)}
     report = [{"name": name, "route": "cuda", "source": SRC,
                "replaces": replaces[name], "launches": launches[name],
                "launches_by_path": {path: counts[name]
@@ -3957,6 +4667,10 @@ def main():
               for name, k in kernels.items()]
     report[[r["name"] for r in report].index("relax_panel")][
         "also_replaces"] = "safepy_tpu/ops/apsp_pallas.py:128"
+    # the sharded FW's shapes (phase 17)
+    for name, rows in meshed["kernels"].items():
+        report[[r["name"] for r in report].index(name)][
+            "mesh_shapes"] = rows
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": report}))

@@ -11,10 +11,10 @@ Usage::
         [--mesh data=1]
 
 ``--mesh`` builds a DeviceMesh over an initialized process group (the
-caller runs ``torchrun`` or ``init_process_group``); the facade runs what
-it supports on it and refuses the rest naming the ROADMAP item (A10) that
-brings it. The ``'auto'`` spec and the ``'attr'`` and ``'perm'`` axes of
-the JAX package are not ported.
+caller runs ``torchrun`` or ``init_process_group``, one device a rank):
+``'auto'`` puts every rank on an ``attr`` axis (the attribute columns
+sharded, the reference CLI's parallelism), ``'data=2,attr=4'`` builds the
+named axes (``cli.py:25-40``).
 """
 
 from __future__ import annotations
@@ -26,13 +26,19 @@ import time
 
 
 def parse_mesh(spec: str, device_type: str = "cuda"):
-    """--mesh spec ('data=2' or 'name=size,...') -> DeviceMesh."""
+    """--mesh spec -> DeviceMesh: 'auto' puts every rank of the process
+    group on an 'attr' axis; 'data=2,attr=4' builds the named axes."""
+    import torch.distributed as dist
+
     from safepy_tpu_torch.parallel import make_mesh
 
     if spec == "auto":
-        raise NotImplementedError(
-            "--mesh auto (every device on an 'attr' axis) is not ported to "
-            "safepy_tpu_torch yet: ROADMAP A10 remainder")
+        if not dist.is_initialized():
+            raise RuntimeError("--mesh auto needs an initialized process "
+                               "group: run under torchrun or call "
+                               "torch.distributed.init_process_group first")
+        return make_mesh({"attr": dist.get_world_size()},
+                         device_type=device_type)
     axes = {}
     for part in spec.split(","):
         name, _, size = part.partition("=")
@@ -66,9 +72,9 @@ def main(argv=None) -> int:
                         help="Path to a SAFE INI configuration file")
     parser.add_argument("--num-permutations", type=int, default=1000)
     parser.add_argument("--mesh", type=str, default=None,
-                        help="Device mesh over an initialized process group, "
-                             "e.g. 'data=2' (a 'data' axis shards the "
-                             "band-storage engine)")
+                        help="Device mesh over an initialized process group: "
+                             "'auto' (every rank on an 'attr' axis) or "
+                             "'data=2,attr=4'")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device of the session (default cuda)")
     parser.add_argument("--output", type=str, default=None,

@@ -34,7 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from safepy_tpu_torch.ops import hypergeom_table as htab
-from safepy_tpu_torch.ops.apsp_bandstore import (band_count_batch,
+from safepy_tpu_torch.ops.apsp_bandstore import (_GROUP_ELEMS,
+                                                 band_count_batch,
                                                  band_matmul,
                                                  band_matmul_batch,
                                                  band_width)
@@ -324,21 +325,88 @@ def hypergeom_band_hostchunks(s_ind, nan0_np, nodes_not_nan_np, lgt, M,
     return logsf, nbin, nbin.sum(dim=0, dtype=torch.int32)
 
 
+def _finite_mask(x):
+    """``torch.isfinite(x)`` of a 2-D tensor, made row chunk by row chunk:
+    isfinite takes an f32 ``|x|`` and two bool temporaries, which stay
+    chunk-sized (64 MB of f32) here."""
+    out = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    step = max(1, _GROUP_ELEMS // max(1, x.shape[1]))
+    for r0 in range(0, x.shape[0], step):
+        out[r0:r0 + step] = torch.isfinite(x[r0:r0 + step])
+    return out
+
+
 def band_hyper_operands_device(n2a_dev, order):
     """(nan0 int8, nodes_not_nan f32, K f32, binary_ok) from the device
     annotation upload, rows gathered into the permuted frame by ``order``
     (permuted position -> original row) (``:322``).
 
     nan0 is stored int8: callers read it only when ``binary_ok`` (every
-    finite value 0 or 1), where the cast is exact."""
-    finite = torch.isfinite(n2a_dev)
-    nan0 = torch.where(finite, n2a_dev, torch.zeros_like(n2a_dev))
-    K = nan0.sum(dim=0)
-    nnn = finite.any(dim=1).to(torch.float32)
+    finite value 0 or 1), where the cast is exact. The steps are ordered so
+    that at most 9 bytes a cell are live with the f32 upload (the binary
+    check's bool temporaries before the f32 copy; the copy freed before
+    the gather; the finite mask made by row chunks): ``hbm.prep_peak``
+    counts them."""
+    finite = _finite_mask(n2a_dev)
     binary_ok = bool(((n2a_dev == 0.0) | (n2a_dev == 1.0) | ~finite).all())
+    nan0 = torch.where(finite, n2a_dev, 0.0)
+    nnn = finite.any(dim=1).to(torch.float32)
+    del finite
+    K = nan0.sum(dim=0)
+    nan0_i8 = nan0.to(torch.int8)
+    del nan0
     order = torch.as_tensor(order, device=n2a_dev.device)
-    return (nan0.to(torch.int8).index_select(0, order),
-            nnn.index_select(0, order), K, binary_ok)
+    return (nan0_i8.index_select(0, order), nnn.index_select(0, order), K,
+            binary_ok)
+
+
+def _host_chunks(n2a_np, chunk_cols: int, device):
+    """(first column, f32 device upload) of each column chunk of the host
+    matrix: one chunk on the device at a time."""
+    for j in range(0, n2a_np.shape[1], chunk_cols):
+        with np.errstate(over="ignore"):  # as the host count casts
+            x = np.asarray(n2a_np[:, j:j + chunk_cols], np.float32)
+        yield j, torch.as_tensor(x, device=device)
+
+
+def band_hyper_operands_chunked(n2a_np, order, chunk_cols: int = 512, *,
+                                device):
+    """:func:`band_hyper_operands_device` built from column-chunked uploads
+    of the host matrix (``:365``): the int8 operands are written into one
+    (n, A) buffer chunk by chunk, and the f32 (n, A) upload never exists;
+    the rows are gathered once at the end. The int8 operands, the row
+    validity and the flag equal the full-device build's; K too wherever
+    it is read (integer totals of binary columns, exact in any order)."""
+    n, a = n2a_np.shape
+    buf = torch.empty((n, a), dtype=torch.int8, device=device)
+    nnn_any = torch.zeros(n, dtype=torch.bool, device=device)
+    K_parts, ok = [], True
+    for j, x in _host_chunks(n2a_np, chunk_cols, device):
+        finite = torch.isfinite(x)
+        ok = ok and bool(((x == 0.0) | (x == 1.0) | ~finite).all())
+        nan0 = torch.where(finite, x, 0.0)
+        nnn_any |= finite.any(dim=1)
+        del finite, x
+        K_parts.append(nan0.sum(dim=0))
+        buf[:, j:j + nan0.shape[1]] = nan0  # the int8 cast on the copy
+        del nan0
+    order = torch.as_tensor(order, device=device)
+    return (buf.index_select(0, order),
+            nnn_any.to(torch.float32).index_select(0, order),
+            torch.cat(K_parts) if K_parts else torch.zeros(0, device=device),
+            ok)
+
+
+def count_other_values_chunked(n2a_np, chunk_cols: int = 512, *,
+                               device) -> int:
+    """Count of finite non-0/1 values of the f32 matrix (the reference's
+    binary detection, reference safe.py:454-456) from column-chunked
+    uploads (``:396``), never staging the whole f32 (n, A) on the
+    device."""
+    total = 0
+    for _, x in _host_chunks(n2a_np, chunk_cols, device):
+        total += int((torch.isfinite(x) & (x != 0.0) & (x != 1.0)).sum())
+    return total
 
 
 def _column_sums_chunked(nan0_dev, chunk_cols: int = 1024) -> np.ndarray:
@@ -355,7 +423,10 @@ def hypergeom_band_table(s_ind, nan0, nodes_not_nan, M,
                          enrichment_threshold, *, bt: int, block: int = 128,
                          rank_np, precision: str = "highest",
                          chunk_cols: int = 512, plan=None,
-                         logsf_out: str = "device", K_np=None):
+                         logsf_out: str = "device", K_np=None,
+                         budget: int | None = None,
+                         extra_resident_bytes: int = 0,
+                         select_out: dict | None = None):
     """Hypergeometric enrichment of binary annotations by the class-table
     engine, column chunk by column chunk (``:431``).
 
@@ -368,16 +439,26 @@ def hypergeom_band_table(s_ind, nan0, nodes_not_nan, M,
     ``logsf_out``: where the (n, A) outputs live. ``'device'``: f32 log sf
     and int8 indicator on the device; ``'f16'``: the log sf stored f16 (the
     indicator and counts are decided in f64 before, so they stay exact);
-    ``'host'``: numpy buffers filled chunk by chunk, equal to ``'device'``.
-    JAX's ``'auto'`` chooses among them by its memory planner
-    (``hbm.census_select``), which is not ported (ROADMAP A8): here it is
-    ``'device'``.
+    ``'host'``: numpy buffers filled chunk by chunk, equal to ``'device'``;
+    ``'auto'``: the first of the three whose census peak fits ``budget``,
+    chosen by ``hbm.census_select`` with the exact class-table bytes once
+    the plan exists (the facade's pre-prep plan could not know them).
+
+    Every mode is checked against ``budget`` (None: the device's,
+    ``hbm.device_hbm_budget``, with the indicator band, the annotations
+    already on the device and ``extra_resident_bytes`` counted as the
+    run's own); nothing fitting raises ``ValueError`` before any (n, A)
+    allocation. ``extra_resident_bytes``: caller-owned device residents to
+    count (a kept f32 distance band, the f32 upload); ``select_out``, where
+    given, is filled with the selection (JAX's out-parameter).
 
     Returns (log sf, indicator, enriched counts int32 (A,) on the device),
     the (n, A) matrices in the original node frame, or None when the plan
     is ineligible (non-integer totals, or a table over budget).
     """
     dev = s_ind.device
+    ann_resident = (nan0.nbytes if isinstance(nan0, torch.Tensor)
+                    and nan0.device == dev else 0)
     nan0_dev = torch.as_tensor(nan0, device=dev)
     if K_np is None:
         K_np = _column_sums_chunked(nan0_dev)
@@ -394,8 +475,29 @@ def hypergeom_band_table(s_ind, nan0, nodes_not_nan, M,
         return None
     if logsf_out not in ("device", "f16", "host", "auto"):
         raise ValueError(f"unknown logsf_out: {logsf_out!r}")
-    if logsf_out == "auto":
-        logsf_out = "device"
+    from safepy_tpu_torch import hbm
+    if budget is None:
+        budget = hbm.device_hbm_budget(
+            dev, own_bytes=s_ind.nbytes + ann_resident + extra_resident_bytes)
+    sel = hbm.census_select(
+        n=len(rank_np), n_attrs=nan0_dev.shape[1], rows=s_ind.shape[0],
+        chunk_w=max(ch["width"] for ch in plan["chunks"]),
+        ind_bytes=s_ind.nbytes, ann_bytes=nan0_dev.nbytes,
+        table_bytes=4 * max(ch["R"] * ch["S_max"] * ch["C"]
+                            for ch in plan["chunks"]),
+        table_cr=max(ch["R"] * ch["C"] for ch in plan["chunks"]),
+        window=s_ind.shape[1] * (8 if s_ind.dtype == torch.uint8 else 1),
+        extra_resident=extra_resident_bytes, budget=budget, device=dev,
+        modes=(("device", "f16", "host") if logsf_out == "auto"
+               else (logsf_out,)))
+    if select_out is not None:
+        select_out.update(sel)
+    if not sel["fits"]:
+        raise ValueError(
+            "the census phase does not fit the device memory budget: "
+            f"peak {sel['census_peak'] / 1e9:.2f} GB vs "
+            f"{sel['budget'] / 1e9:.2f} GB (logsf_out={logsf_out!r})")
+    logsf_out = sel["logsf_out"]
 
     log_thr64 = float(np.log(enrichment_threshold))
     rank_dev = torch.as_tensor(rank_np, dtype=torch.int64, device=dev)

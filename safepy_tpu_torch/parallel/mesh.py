@@ -48,22 +48,42 @@ def make_mesh(axes: dict[str, int] | None = None,
                             mesh_dim_names=tuple(axes.keys()))
 
 
+def mesh_names(mesh) -> tuple:
+    """The mesh's axis names; () without a mesh."""
+    return tuple(getattr(mesh, "mesh_dim_names", None) or ())
+
+
+def fw_sharding(mesh) -> str | None:
+    """How ``mesh`` shards the dense Floyd-Warshall (``pipeline.py:43-84``,
+    ``safe.py:488-531``): ``'2d'`` over ``row`` and ``col`` axes, else
+    ``'data'`` over a ``data`` axis, else None (one device)."""
+    names = mesh_names(mesh)
+    if "row" in names and "col" in names:
+        return "2d"
+    return "data" if "data" in names else None
+
+
 def mesh_axis(mesh, axis: str = "data"):
     """(process group, size, this rank's index) of a named mesh axis."""
-    names = getattr(mesh, "mesh_dim_names", None) or ()
+    names = mesh_names(mesh)
     if axis not in names:
         raise ValueError(f"mesh has no {axis!r} axis: {names}")
     return (mesh.get_group(axis), mesh.size(names.index(axis)),
             mesh.get_local_rank(axis))
 
 
-def shared_seed(seed: int, mesh, axis: str, device) -> int:
-    """The first rank's ``seed`` of a mesh axis, on every rank of it.
+def shared_seed(seed: int, mesh, axis: str | None, device) -> int:
+    """The first rank's ``seed`` of a mesh axis (``axis=None``: of the whole
+    mesh), on every rank of it.
 
     The JAX facade draws a fresh null seed once, in its single controller
     (``safe.py:2055-2058``); under SPMD every rank draws its own, so the
-    first rank's is broadcast (a tensor on ``device``, as NCCL needs)."""
-    group, _, _ = mesh_axis(mesh, axis)
+    first rank's is broadcast (a tensor on ``device``, as NCCL needs); over
+    the whole mesh, axis by axis."""
+    axes = (tuple(mesh.mesh_dim_names) if axis is None else (axis,))
     t = torch.tensor([int(seed)], dtype=torch.int64, device=device)
-    dist.broadcast(t, src=dist.get_process_group_ranks(group)[0], group=group)
+    for a in axes:
+        group, _, _ = mesh_axis(mesh, a)
+        dist.broadcast(t, src=dist.get_process_group_ranks(group)[0],
+                       group=group)
     return int(t.item())

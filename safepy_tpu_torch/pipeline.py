@@ -10,6 +10,15 @@ banded-window distances (:func:`fused_hypergeom_pipeline`) or over band
 storage (:func:`fused_hypergeom_pipeline_band`). The JAX package compiles
 each into one program; here it is eager torch, and the tensors stay on the
 device of the inputs.
+
+With a ``mesh`` (a DeviceMesh over ``torch.distributed``, every rank running
+the same call on its own device), the dense pipelines run the JAX package's
+multi-device branches: the FW row-sharded over a ``data`` axis or 2-D over
+(``row``, ``col``) (``parallel.apsp_sharded``, ``parallel.apsp_sharded_2d``),
+the permutation batch split over every mesh axis
+(``parallel.permutation_sharded``) and the hypergeometric columns over an
+``attr`` axis (``parallel.hypergeom_sharded``); every rank returns the same
+global results.
 """
 
 from __future__ import annotations
@@ -29,19 +38,25 @@ from safepy_tpu_torch.ops.neighborhoods import threshold_and_stats
 from safepy_tpu_torch.ops.permutation import prepare_valid, scan_counts
 from safepy_tpu_torch.ops.score import (check_fp32_matmul,
                                         compute_neighborhood_score)
+from safepy_tpu_torch.parallel.mesh import fw_sharding, mesh_names
 
 
 def _apsp_inline(d0, block, mesh=None, window=None, inv_rank=None,
                  radius=None):
     """FW distances (``pipeline.py:43``): the certified banded window when the
-    caller passes one, else the dense blocked FW on one device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device dense APSP (apsp_sharded, apsp_sharded_2d) is not "
-            "ported: ROADMAP A10 remainder")
-    if window is not None:
+    caller passes one and the mesh shards no FW, else 2-D block-sharded over
+    a (``row``, ``col``) mesh, row-sharded over a ``data`` axis, or the
+    dense blocked FW on one device."""
+    sharding = fw_sharding(mesh)
+    if window is not None and sharding is None:
         return apsp_banded_unpermuted(d0, inv_rank, radius, window=window,
                                       block=block)
+    if sharding == "2d":
+        from safepy_tpu_torch.parallel.apsp_sharded_2d import apsp_sharded_2d
+        return apsp_sharded_2d(d0, mesh, block=block)
+    if sharding == "data":
+        from safepy_tpu_torch.parallel.apsp_sharded import apsp_sharded
+        return apsp_sharded(d0, mesh, block=block)
     # the facade only reaches here with undirected-graph distances
     return apsp_blocked_fw(d0, block=block, symmetric=True)
 
@@ -59,6 +74,11 @@ def fused_permutation_pipeline(d0, vals, valid_rows, generator, radius, *,
     d0: dense (N, N) initialization, or with ``window`` the banded-order
     edge tuple ``(u, v, w)``; vals: (N, A) with NaNs; valid_rows: (V,) or
     None; generator: the null's ``torch.Generator`` (or ``perm_idx`` (P, V)).
+    With a mesh, ``num_permutations`` is the per-device count (the facade
+    rounds the total up to a multiple of the device count), ``generator``
+    this rank's (``permutation_sharded.rank_generator``) and ``perm_idx``
+    every rank's rows, (ndev num_permutations, V); the counts are summed
+    over the mesh (``_sharded_null`` :87).
     Returns (dist, nbr, obs, counts_neg, counts_pos, mean_size, std_size).
     """
     dist = _apsp_inline(d0, block, mesh, window=window, inv_rank=inv_rank,
@@ -66,30 +86,61 @@ def fused_permutation_pipeline(d0, vals, valid_rows, generator, radius, *,
     nbr, mean, std = threshold_and_stats(dist, radius, strict=strict)
     obs = compute_neighborhood_score(nbr, vals, score_type, precision)
     nbr_valid, v, m = prepare_valid(nbr, vals, valid_rows)
-    counts_neg, counts_pos = scan_counts(
-        nbr_valid, v, m, obs, score_type=score_type,
-        num_permutations=num_permutations, batch_size=batch_size,
-        generator=generator, perm_idx=perm_idx, precision=precision)
+    if mesh is None:
+        counts_neg, counts_pos = scan_counts(
+            nbr_valid, v, m, obs, score_type=score_type,
+            num_permutations=num_permutations, batch_size=batch_size,
+            generator=generator, perm_idx=perm_idx, precision=precision)
+    else:
+        from safepy_tpu_torch.parallel.permutation_sharded import (
+            sharded_counts)
+        counts_neg, counts_pos = sharded_counts(
+            nbr_valid, v, m, obs, mesh=mesh, score_type=score_type,
+            per_device=num_permutations, batch_size=batch_size,
+            generator=generator, perm_idx=perm_idx, precision=precision)
     return dist, nbr, obs, counts_neg, counts_pos, mean, std
 
 
 def _hypergeom_tail(nbr, vals, lgt, M: int, enrichment_threshold, *,
-                    iterations: int, table_K_dist=None, table_colc=None,
-                    table_spec=None):
-    """Census GEMMs + survival + device finalization (``pipeline.py:144``,
-    one device; the ``attr`` mesh branch is ROADMAP A10 remainder).
+                    iterations: int, mesh=None, attr_axis: str = "attr",
+                    table_K_dist=None, table_colc=None, table_spec=None):
+    """Census GEMMs + survival + device finalization (``pipeline.py:144``).
 
     The census (neighborhood sizes and per-attribute counts) is two f32
     GEMMs at full f32, so that the counts are exact integers. With
     ``table_spec = (R, S_max, C)`` and the matching ``table_K_dist`` /
     ``table_colc`` the survival values come from the class table, else
-    from the per-cell f64 tail loop. Returns (nes f32, log sf f32,
-    indicator int8)."""
+    from the per-cell f64 tail loop. With a mesh that has ``attr_axis``,
+    each rank computes its slice of the columns, zero-padded to a multiple
+    of the axis (``parallel.hypergeom_sharded``), and the slices are
+    shared. Returns (nes f32, log sf f32, indicator int8)."""
     check_fp32_matmul("highest")
     finite = torch.isfinite(vals)
     nan0 = torch.where(finite, vals, torch.zeros_like(vals)).to(torch.float32)
     nodes_not_nan = finite.any(dim=1).to(torch.float32)
     nbr = nbr.to(torch.float32)
+    if attr_axis in mesh_names(mesh):
+        from safepy_tpu_torch.parallel import hypergeom_sharded as hs
+        n_attrs = nan0.shape[1]
+        group, ndev, my, width = hs.column_slice(n_attrs, mesh, attr_axis)
+        del finite
+        nan0 = hs.my_columns(nan0, width, my)
+        if table_colc is not None:
+            table_colc = hs.my_columns(table_colc[None, :], width, my)[0]
+        out = _tail_columns(nbr, nan0, nodes_not_nan, lgt, M,
+                            enrichment_threshold, iterations, table_K_dist,
+                            table_colc, table_spec)
+        return tuple(hs.gather_columns(x, n_attrs, group, ndev, my)
+                     for x in out)
+    return _tail_columns(nbr, nan0, nodes_not_nan, lgt, M,
+                         enrichment_threshold, iterations, table_K_dist,
+                         table_colc, table_spec)
+
+
+def _tail_columns(nbr, nan0, nodes_not_nan, lgt, M, enrichment_threshold,
+                  iterations, table_K_dist, table_colc, table_spec):
+    """:func:`_hypergeom_tail` over the columns of ``nan0`` (JAX's ``tail``
+    :160)."""
     nsize = nbr @ nodes_not_nan
     counts = nbr @ nan0
     if table_spec is not None:
@@ -129,7 +180,7 @@ def fused_hypergeom_pipeline(d0, vals, lgt, M: int, radius,
     nbr, mean, std = threshold_and_stats(dist, radius, strict=strict)
     nes32, log_sf32, nes_binary = _hypergeom_tail(
         nbr, vals, lgt, M, enrichment_threshold, iterations=iterations,
-        table_K_dist=table_K_dist, table_colc=table_colc,
+        mesh=mesh, table_K_dist=table_K_dist, table_colc=table_colc,
         table_spec=table_spec)
     enriched_counts = nes_binary.sum(dim=0, dtype=torch.int32)
     return (dist, nbr, nes32, log_sf32, nes_binary, enriched_counts, mean,

@@ -35,15 +35,26 @@ the counts of the permutation null) as the JAX facade does.
   attributes into domains (``domains.py``); the jaccard intersections, the
   node-to-domain counts and the per-domain NES maxima are computed on the
   session's device (``ops/domains_device.py``).
-- With ``mesh`` set to a DeviceMesh of one ``"data"`` axis
-  (``parallel.make_mesh({"data": world})``, one device per rank, every rank
-  running the same calls), a quantitative run that takes band storage goes
-  through the row-sharded band engine (``parallel.band_sharded``,
-  ``safe.py:2073``) and every rank gets the same global results.
+- With ``mesh`` set to a DeviceMesh (``parallel.make_mesh``, one device a
+  rank, every rank running the same calls; ``safe.py:488-531, 1252-1266,
+  1616-1624, 1700-1785``): a ``data`` axis row-shards the dense FW, a
+  (``row``, ``col``) mesh shards it 2-D, and then no banded window is
+  taken; the permutation null splits over every mesh axis (the stages on
+  a ``perm`` axis), its count rounded up to a multiple of the device
+  count; the hypergeometric columns split over an ``attr`` axis. Band
+  storage takes only a mesh of one ``data`` axis (the row-sharded band
+  engine, ``parallel.band_sharded``, for a quantitative run), and never in
+  the stages. Every rank gets the same global results.
+- Band GO runs are planned before they allocate (``hbm.py``): the
+  log-survival's residency (``logsf_store``: device f32, f16 or host;
+  'auto' the first that fits ``hbm_budget_bytes``, or the device), the
+  column-chunked operand prep past the budget, and a ``ValueError``
+  carrying the plan when nothing fits (``_hbm_plan_last``).
 
-Everything else the JAX facade offers raises ``NotImplementedError`` naming
-the ROADMAP item that brings it, before anything is computed; nothing
-quietly takes another path.
+What the JAX facade offers beyond this (band GO, the euclidean band
+pipeline and a bit-packed band on a mesh) raises ``NotImplementedError``
+naming the ROADMAP item that brings it, before anything is computed;
+nothing quietly takes another path.
 
 The session is built as JAX's is (``safe.py:80-272``): the package
 defaults of ``safe_default.ini``, then the user INI (``config.py``); the
@@ -76,6 +87,7 @@ import torch
 
 from safepy_tpu_torch import config as _config
 from safepy_tpu_torch import domains as _domains
+from safepy_tpu_torch import hbm as _hbm
 from safepy_tpu_torch import output as _output
 from safepy_tpu_torch import pipeline as _pipe
 from safepy_tpu_torch.debug import validate_attributes
@@ -94,6 +106,7 @@ from safepy_tpu_torch.ops import hypergeom_table as _htab
 from safepy_tpu_torch.ops import neighborhoods as _nbr
 from safepy_tpu_torch.ops._device import on_device
 from safepy_tpu_torch.ops.apsp_bandstore import BandedMatrix
+from safepy_tpu_torch.parallel.mesh import fw_sharding, mesh_names
 # the module, not its run_permutations: this module defines the reference's
 # run_permutations(arg_tuple) below
 from safepy_tpu_torch.ops import permutation as _perm
@@ -141,7 +154,8 @@ _PICKLE_DEFAULTS = dict(
     _domains_inter_cache=None, _nes_binary_i8_np=None, _nes_binary_csc=None,
     _logsf_np=None, _nes_from_logsf=False, _band_operands_cache=None,
     _attr_serial=0, _enrichment_serial=0, _node2domain_serial=None,
-    _band_relax_used=None, _hypergeom_engine_used=None)
+    _band_relax_used=None, _hypergeom_engine_used=None,
+    hbm_budget_bytes=None, _hbm_plan_last=None)
 
 
 def _not_ported(what: str, item: str):
@@ -216,9 +230,16 @@ class SAFE:
         # 'loop' force one (safe.py:194-197)
         self.hypergeom_engine = "auto"
         # where the band class table keeps its (N, A) log-survival
-        # (safe.py:161): 'auto' and 'device' keep f32 on the device; the
-        # f16 and host residencies wait for the memory planner (ROADMAP A8)
+        # (safe.py:161): 'device' f32, 'f16' (indicator and counts decided
+        # in f64 before the rounding, so exact), 'host' (numpy, bitwise
+        # 'device'); 'auto' takes the first that the memory plan admits
+        # (hbm.py). A forced mode the plan refuses raises.
         self.logsf_store = "auto"
+        # the memory plan's budget in bytes; None = ask the device
+        # (hbm.device_hbm_budget). The band GO runs raise a ValueError
+        # carrying the plan before the operand prep when nothing fits.
+        self.hbm_budget_bytes = None
+        self._hbm_plan_last = None  # the last plan, for the caller to read
         self.enrichment_threshold = 0.05
         self.enrichment_max_log10 = 16
         self.attribute_enrichment_min_size = 10
@@ -551,12 +572,19 @@ class SAFE:
         """Count of finite non-0/1 annotation values (``safe.py:1087``),
         counted on the f32 values the device gets, as the JAX facade counts
         on its f32 upload (``:1102-1105``): 1 + 1e-9 rounds to 1 and 1e39
-        overflows to inf. Cached until the attributes change."""
+        overflows to inf. Where the band GO prep is chunked
+        (:meth:`_prep_chunked_selected`), counted on the device from
+        column-chunked uploads (``:1096-1099``), else on the host. Cached
+        until the attributes change."""
         if self._num_other_cache is None:
-            with np.errstate(over="ignore"):
-                v = np.asarray(self.node2attribute, np.float32)
-            self._num_other_cache = int(np.count_nonzero(
-                np.isfinite(v) & (v != 0) & (v != 1)))
+            if self._prep_chunked_selected():
+                self._num_other_cache = _eb.count_other_values_chunked(
+                    self.node2attribute, device=self.device)
+            else:
+                with np.errstate(over="ignore"):
+                    v = np.asarray(self.node2attribute, np.float32)
+                self._num_other_cache = int(np.count_nonzero(
+                    np.isfinite(v) & (v != 0) & (v != 1)))
         return self._num_other_cache
 
     def _binary(self) -> bool:
@@ -852,20 +880,31 @@ class SAFE:
         return bool(self.band_indicator_bits)
 
     def _data_mesh(self) -> bool:
-        """Is ``mesh`` a DeviceMesh of exactly one axis, named "data"?"""
-        return (getattr(self.mesh, "mesh_dim_names", None) == ("data",)
-                and self.mesh.ndim == 1)
+        """Is ``mesh`` a DeviceMesh of exactly one axis, named "data" (the
+        only mesh band storage takes, ``safe.py:1711-1714``)?"""
+        return mesh_names(self.mesh) == ("data",)
 
-    def _refuse_unported(self):
-        if self.mesh is not None and not self._data_mesh():
-            raise _not_ported("a mesh other than one 'data' axis (the "
-                              "'perm' and 'attr' axes, 2-D meshes)",
-                              "A10 remainder")
+    def _sharded_fw(self) -> bool:
+        """Does the mesh shard the dense FW (a ``data`` axis, or ``row`` and
+        ``col``)? Then no banded window is taken (``safe.py:490-491``)."""
+        return fw_sharding(self.mesh) is not None
 
-    def _refuse_mesh(self, what: str):
+    def _refuse_on_mesh(self, what: str):
+        """The branches JAX sends to the row-sharded band engine beyond its
+        quantitative run wait for the next part of A10."""
         if self.mesh is not None:
-            raise _not_ported(f"{what} on a mesh (the sharded dense and "
-                              "hypergeometric engines)", "A10 remainder")
+            raise _not_ported(f"{what} on a mesh", "A10 remainder")
+
+    def _mesh_seed(self) -> int:
+        """The null's seed: ``random_seed``, else a fresh one, which on a
+        mesh its first rank draws and shares (``mesh.shared_seed``)."""
+        seed = self.random_seed
+        if seed is None:
+            seed = int(np.random.default_rng().integers(2 ** 31 - 1))
+            if self.mesh is not None:
+                from safepy_tpu_torch.parallel.mesh import shared_seed
+                seed = shared_seed(seed, self.mesh, None, self.device)
+        return int(seed)
 
     def _band_bf_args(self, plan):
         """(bf_slots, bf_max_iters) keyword arguments of the band pipelines
@@ -948,8 +987,6 @@ class SAFE:
         self._validate()
         if self._num_nodes is None:
             raise RuntimeError("load_network first")
-        self._refuse_mesh("define_neighborhoods")
-        self._refuse_unported()
 
         num_nodes = self._num_nodes
         coords, edges, lengths, edge_weights = self._arrays()
@@ -981,8 +1018,9 @@ class SAFE:
             return self._store_neighborhoods(nbr, dist, mean, std)
 
         radius = _nbr.inclusive_radius(nr)
-        bs_plan = self._band_storage_plan(coords, edges, weights, num_nodes,
-                                          nr)
+        # no band storage on a mesh (safe.py:491-492)
+        bs_plan = (None if self.mesh is not None else self._band_storage_plan(
+            coords, edges, weights, num_nodes, nr))
         if bs_plan is not None:
             # drop the previous bands before building new ones
             self._neighborhoods_dev = self._node_distances_dev = None
@@ -993,16 +1031,19 @@ class SAFE:
                 s_ind, dist_band, bs_plan["rank"], bs_plan["band"], mean, std)
         d0, inv_rank, window = self._dense_front(coords, edges, weights,
                                                  num_nodes, nr)
-        dist = _pipe._apsp_inline(d0, 128, window=window, inv_rank=inv_rank,
-                                  radius=radius)
+        dist = _pipe._apsp_inline(d0, 128, mesh=self.mesh, window=window,
+                                  inv_rank=inv_rank, radius=radius)
         nbr, mean, std = _nbr.threshold_and_stats(dist, radius, strict=False)
         self._store_neighborhoods(nbr, dist, mean, std)
 
     def _dense_front(self, coords, edges, weights, num_nodes, nr):
-        """(d0, inv_rank, window) of the banded window when its plan holds,
-        else the cached dense FW initialization (inv_rank, window None), and
-        the engine recorded."""
-        plan = self._banded_plan(coords, edges, weights, num_nodes, nr)
+        """(d0, inv_rank, window) of the banded window when its plan holds
+        and the mesh shards no FW, else the cached dense FW initialization
+        (inv_rank, window None), and the engine recorded: on a mesh that
+        shards the FW, ``dense-sharded`` (a ``data`` axis) or
+        ``dense-sharded-2d`` (``row`` and ``col``)."""
+        plan = (None if self._sharded_fw() else self._banded_plan(
+            coords, edges, weights, num_nodes, nr))
         if plan is not None:
             d0, inv_rank, window = plan
             self.apsp_engine_used, self.window_used = "banded-window", window
@@ -1012,7 +1053,10 @@ class SAFE:
             d0 = _nbr.initial_distances_device(num_nodes, edges, weights,
                                                device=self.device)
             self._d0_cache[self.node_distance_metric] = d0
-        self.apsp_engine_used, self.window_used = "dense", None
+        self.apsp_engine_used = {"2d": "dense-sharded-2d",
+                                 "data": "dense-sharded",
+                                 None: "dense"}[fw_sharding(self.mesh)]
+        self.window_used = None
         return d0, None, None
 
     def _store_band_neighborhoods(self, s_ind, dist_band, rank, band, mean,
@@ -1062,7 +1106,6 @@ class SAFE:
         self._validate()
         if self.node2attribute is None:
             raise RuntimeError("load_attributes first")
-        self._refuse_mesh("compute_pvalues")
         binary = self._binary()  # NaN -> 0 below does not change it
 
         if self.background == "network":
@@ -1106,13 +1149,23 @@ class SAFE:
         in JAX. Over band storage: :meth:`_hypergeom_bandstore`."""
         self._log_kwargs(kwargs, "Overwriting global settings:")
         self._validate()
-        self._refuse_mesh("compute_pvalues_by_hypergeom")
         if self.verbose:
             logging.info("Using the hypergeometric test to calculate "
                          "enrichment...")
         n2a = self.node2attribute
         if isinstance(self._neighborhoods_dev, BandedMatrix):
             return self._hypergeom_bandstore(self._band_device(), n2a)
+        if "attr" in mesh_names(self.mesh):
+            # the columns sharded over the 'attr' axis, census and f64 tail
+            # on each rank (safe.py:1252-1266)
+            from safepy_tpu_torch.parallel.hypergeom_sharded import (
+                hypergeom_enrichment_sharded)
+            out = hypergeom_enrichment_sharded(
+                self._neighborhoods_device(), n2a, mesh=self.mesh,
+                enrichment_threshold=self.enrichment_threshold,
+                node2attribute_device=self._node2attribute_device())
+            self._hypergeom_engine_used = "loop-dense-attr-sharded"
+            return self._store_hypergeom_results(*out)
         nodes_not_nan = np.any(~np.isnan(n2a), axis=1)
         n = int(np.sum(nodes_not_nan))
         N_in_group = np.nansum(n2a, axis=0, dtype=np.float64)  # totals (A,)
@@ -1173,14 +1226,26 @@ class SAFE:
         """The fused binary results, left on the device (``safe.py:1408``).
         With ``multiple_testing`` the log-survival is BH-adjusted on the
         device in log space (``fdr_bh_logsf``) and replaces the stored one;
-        the NES then derives from it on first read."""
+        the NES then derives from it on first read. The host residency's
+        numpy matrices (``logsf_store='host'``) are adjusted on the host
+        (``fdr_bh_logsf_np``, ``safe.py:1426-1428``) and kept as host
+        tensors, from which every view serves."""
+        host_mode = isinstance(log_sf32, np.ndarray)
         if self.multiple_testing:
             if self.verbose:
                 logging.info("Running FDR-adjustment of p-values...")
-            log_sf32, nes_binary8, counts = _fdr.fdr_bh_logsf(
-                log_sf32, np.log(self.enrichment_threshold),
-                row_chunk=self._fdr_row_chunk(tuple(log_sf32.shape)))
+            if host_mode:
+                log_sf32, nes_binary8, counts = _fdr.fdr_bh_logsf_np(
+                    log_sf32, np.log(self.enrichment_threshold))
+            else:
+                log_sf32, nes_binary8, counts = _fdr.fdr_bh_logsf(
+                    log_sf32, np.log(self.enrichment_threshold),
+                    row_chunk=self._fdr_row_chunk(tuple(log_sf32.shape)))
             nes32 = None
+        if host_mode:
+            log_sf32 = torch.from_numpy(log_sf32)
+            nes_binary8 = torch.from_numpy(nes_binary8)
+            counts = torch.as_tensor(counts)
         self._pvalues_pos_np = None
         self._nes_np = None
         self._logsf_np = None
@@ -1203,7 +1268,11 @@ class SAFE:
         """Two-sided permutation null over the defined neighborhoods
         (``safe.py:1573``), dense or band-stored. ``perm_idx`` (P, V):
         explicit permutations of the V annotated rows (original order)
-        instead of the session's generator."""
+        instead of the session's generator. On a mesh with a ``perm`` axis
+        the permutations split over every axis of the mesh
+        (``parallel.permutation_sharded``, ``safe.py:1616-1624``) and
+        ``num_permutations`` is rounded up to a multiple of the device
+        count."""
         self._log_kwargs(kwargs, "Current settings (possibly overwriting "
                                  "global ones):")
         if self.verbose:
@@ -1217,7 +1286,6 @@ class SAFE:
         if perm_idx is not None:
             self.num_permutations = len(perm_idx)
         self._validate()
-        self._refuse_mesh("compute_pvalues_by_randomization")
 
         if isinstance(self._neighborhoods_dev, BandedMatrix):
             return self._randomization_bandstore(self._band_device(),
@@ -1231,12 +1299,25 @@ class SAFE:
         valid_rows = np.flatnonzero(np.sum(~np.isnan(n2a), axis=1))
         valid_dev = (None if len(valid_rows) == n2a.shape[0]
                      else torch.as_tensor(valid_rows, device=self.device))
-        counts_neg, counts_pos = _perm.run_permutations(
-            nbr_dev, n2a_dev, valid_dev, obs_dev,
-            generator=self._generator(perm_idx), perm_idx=perm_idx,
-            score_type=self.neighborhood_score_type,
-            num_permutations=int(self.num_permutations),
-            precision=self.matmul_precision)
+        if "perm" in mesh_names(self.mesh):
+            from safepy_tpu_torch.parallel.permutation_sharded import (
+                run_permutations_sharded)
+            counts_neg, counts_pos, total = run_permutations_sharded(
+                nbr_dev, n2a_dev, valid_dev, obs_dev,
+                None if perm_idx is not None else self._mesh_seed(),
+                mesh=self.mesh, score_type=self.neighborhood_score_type,
+                num_permutations=int(self.num_permutations),
+                precision=self.matmul_precision, perm_idx=perm_idx)
+            # rounded up to a multiple of the device count, as the
+            # reference rounds to its worker count (safe.py:503-504)
+            self.num_permutations = total
+        else:
+            counts_neg, counts_pos = _perm.run_permutations(
+                nbr_dev, n2a_dev, valid_dev, obs_dev,
+                generator=self._generator(perm_idx), perm_idx=perm_idx,
+                score_type=self.neighborhood_score_type,
+                num_permutations=int(self.num_permutations),
+                precision=self.matmul_precision)
         self._store_null(obs_dev, counts_neg, counts_pos)
 
     def _randomization_bandstore(self, bm, perm_idx):
@@ -1340,25 +1421,24 @@ class SAFE:
 
         num_nodes = self._num_nodes
         coords, edges, lengths, edge_weights = self._arrays()
-        self._refuse_unported()
         binary = self._binary()
         euclid = self.node_distance_metric == "euclidean"
         staged = euclid or self.background == "network"
-        if euclid and self.mesh is not None:
-            raise _not_ported("the euclidean metric on a mesh (the sharded "
-                              "euclidean band pipeline)", "A10 remainder")
-        if staged or binary:
-            self._refuse_mesh("binary (hypergeometric) enrichment and the "
-                              "stage methods")
         nr, weights = self._radius(coords, lengths, edge_weights)
         bs_plan = None
         if euclid:
+            # fused over the euclidean band without a mesh or on one 'data'
+            # axis (safe.py:1663-1680), the stages otherwise
             eb_plan = (None if binary or self.background == "network"
+                       or not (self.mesh is None or self._data_mesh())
                        else self._euclidean_band_plan(coords, num_nodes, nr))
             if eb_plan is not None:
+                self._refuse_on_mesh("the euclidean band pipeline "
+                                     "(band_sharded's euclidean engine)")
                 return self._run_pipeline_band_euclid(eb_plan, coords, nr,
                                                       perm_idx)
-        else:
+        elif self.mesh is None or self._data_mesh():
+            # band storage takes no mesh but one 'data' axis (safe.py:1712)
             bs_plan = self._band_storage_plan(coords, edges, weights,
                                               num_nodes, nr)
         if staged:
@@ -1366,13 +1446,11 @@ class SAFE:
             self.compute_pvalues(perm_idx=perm_idx)
             return
         if bs_plan is not None and binary:
+            self._refuse_on_mesh("binary enrichment over band storage (the "
+                                 "sharded band GO engine)")
             return self._run_pipeline_band_hypergeom(bs_plan, nr)
         if bs_plan is not None:
             return self._run_pipeline_bandstore(bs_plan, nr, perm_idx)
-        if self.mesh is not None:
-            raise _not_ported("a mesh where no band-storage plan is taken "
-                              "(the sharded dense engines apsp_sharded, "
-                              "apsp_sharded_2d)", "A10 remainder")
         d0, inv_rank, window = self._dense_front(coords, edges, weights,
                                                  num_nodes, nr)
         radius = _nbr.inclusive_radius(nr)
@@ -1388,13 +1466,25 @@ class SAFE:
         V, A = len(valid_rows), n2a.shape[1]
         valid_dev = (None if V == n2a.shape[0]  # every row valid: no gather
                      else torch.as_tensor(valid_rows, device=self.device))
-        generator = self._generator(perm_idx)
-        batch = _perm.default_batch_size(V, A, int(self.num_permutations))
+        per_device = int(self.num_permutations)
+        if self.mesh is None:
+            generator = self._generator(perm_idx)
+        else:
+            # the batch splits over every mesh axis, rounded up to a
+            # multiple of the device count (safe.py:1759-1766); each rank
+            # draws its own permutations
+            from safepy_tpu_torch.parallel import permutation_sharded as ps
+            ndev, _ = ps.split_index(self.mesh)
+            per_device = -(-per_device // ndev)
+            self.num_permutations = per_device * ndev
+            generator = (None if perm_idx is not None else ps.rank_generator(
+                self._mesh_seed(), self.mesh, self.device))
+        batch = _perm.default_batch_size(V, A, per_device)
         (dist, nbr, obs, counts_neg, counts_pos, mean, std) = \
             _pipe.fused_permutation_pipeline(
                 d0, self._node2attribute_device(), valid_dev, generator,
                 radius, score_type=self.neighborhood_score_type,
-                num_permutations=int(self.num_permutations),
+                num_permutations=per_device,
                 batch_size=batch, precision=self.matmul_precision,
                 mesh=self.mesh, window=window, inv_rank=inv_rank,
                 perm_idx=perm_idx)
@@ -1418,24 +1508,21 @@ class SAFE:
             _pipe.fused_hypergeom_pipeline(
                 d0, self._node2attribute_device(), lgt, M, radius,
                 np.float64(self.enrichment_threshold), iterations=iters,
-                window=window, inv_rank=inv_rank, **table_kw)
+                mesh=self.mesh, window=window, inv_rank=inv_rank,
+                **table_kw)
         self._store_hypergeom_results(nes32, log_sf32, nesbin8, counts_dev)
         return dist, nbr, mean, std
 
     def _generator(self, perm_idx):
         """The null's torch.Generator from ``random_seed`` (a fresh seed
         when None), or None when explicit permutations are given. On a mesh
-        a fresh seed is drawn by the axis' first rank and shared, so that
-        every rank draws the same permutations."""
+        a fresh seed is drawn by the mesh's first rank and shared, so that
+        every rank draws the same permutations (the row-sharded band
+        engine's null)."""
         if perm_idx is not None:
             return None
-        seed = self.random_seed
-        if seed is None:
-            seed = int(np.random.default_rng().integers(2 ** 31 - 1))
-            if self.mesh is not None:
-                from safepy_tpu_torch.parallel.mesh import shared_seed
-                seed = shared_seed(seed, self.mesh, "data", self.device)
-        return torch.Generator(device=self.device).manual_seed(int(seed))
+        return torch.Generator(device=self.device).manual_seed(
+            self._mesh_seed())
 
     def _store_results(self, obs, counts_neg, counts_pos, nbr, dist, mean,
                        std):
@@ -1574,33 +1661,126 @@ class SAFE:
     def _band_hyper_operands_cached(self, order):
         """(nan0 int8, nodes_not_nan, K, binary_ok, M) of the band class
         table, built on the device from the annotation upload
-        (``enrich_band.band_hyper_operands_device``) and cached across runs
-        on the attribute load and a sha1 of ``order`` (``safe.py:1018``).
-        Where the values are not all 0/1 only the scalars are kept."""
+        (``enrich_band.band_hyper_operands_device``), or from column-chunked
+        uploads where :meth:`_prep_chunked_selected`
+        (``band_hyper_operands_chunked``; the same int8 operands), and
+        cached across runs on the attribute load and a sha1 of ``order``
+        (``safe.py:1018``). Where the values are not all 0/1 only the
+        scalars are kept."""
         key = (self._attr_serial, order.shape[0],
                hashlib.sha1(order.tobytes()).digest())
         c = self._band_operands_cache
         if c is not None and c[0] == key:
             return c[1]
-        nan0, nnn, K, binary_ok = _eb.band_hyper_operands_device(
-            self._node2attribute_device(), order)
+        if self._prep_chunked_selected():
+            nan0, nnn, K, binary_ok = _eb.band_hyper_operands_chunked(
+                self.node2attribute, order, device=self.device)
+        else:
+            nan0, nnn, K, binary_ok = _eb.band_hyper_operands_device(
+                self._node2attribute_device(), order)
         M = int(nnn.sum())
         out = (nan0 if binary_ok else None, nnn, K, binary_ok, M)
         self._band_operands_cache = (key, out)
         return out
 
-    def _table_logsf_out(self) -> str:
-        """The class table's ``logsf_out`` for ``logsf_store``: 'auto' and
-        'device' keep the log-survival on the device. JAX's 'auto' chooses
-        the residency by its memory planner, and 'f16' / 'host' are that
-        planner's levers (ROADMAP A8)."""
-        if self.logsf_store in ("f16", "host"):
-            raise _not_ported(f"logsf_store={self.logsf_store!r} in the "
-                              "facade (the memory planner's residencies)",
-                              "A8")
-        if self.logsf_store not in ("auto", "device"):
+    # ------------------------------------------------------- memory planner
+
+    def _planned_resident_bytes(self) -> int:
+        """Bytes of the session's live device tensors that a band GO plan
+        counts among its peaks: the cached f32 upload, the cached int8
+        operands, a stored indicator band and a kept distance band (each
+        storage once)."""
+        cache = self._band_operands_cache
+        held = [self._n2a_dev, *(cache[1] if cache is not None else ())]
+        for bm in (self._neighborhoods_dev, self._node_distances_dev):
+            if isinstance(bm, BandedMatrix):
+                held.append(bm.data)
+        storages = {}
+        for t in held:
+            if isinstance(t, torch.Tensor) and t.device == self.device:
+                st = t.untyped_storage()
+                storages[st.data_ptr()] = st.nbytes()
+        return sum(storages.values())
+
+    def _hbm_budget(self) -> int:
+        """The budget of a band GO plan: ``hbm_budget_bytes``, or the
+        device's (``hbm.device_hbm_budget``) with the session's planned
+        residents counted as its own."""
+        if self.hbm_budget_bytes is not None:
+            return int(self.hbm_budget_bytes)
+        return _hbm.device_hbm_budget(
+            self.device, own_bytes=self._planned_resident_bytes())
+
+    def _prep_chunked_selected(self) -> bool:
+        """Build the band GO operands (and count the non-0/1 values) from
+        column-chunked uploads? Where the full-device prep's modeled peak
+        (``hbm.prep_peak``) crosses :meth:`_hbm_budget` and the f32 upload
+        is not already on the device. JAX keys this on
+        ``annotation_release_min_bytes`` (``safe.py:1077``), a 16 GB
+        chip's threshold; both preps give the same int8 operands."""
+        n2a = self.node2attribute
+        if self._n2a_dev is not None or n2a is None:
+            return False
+        return _hbm.prep_peak(*n2a.shape, chunked=False) > self._hbm_budget()
+
+    def _band_go_hbm_guard(self, num_nodes, band, n_attrs):
+        """The memory plan of a band GO run (``safe.py:916``), made before
+        the operand prep: stored in ``_hbm_plan_last``, and a
+        ``ValueError`` carrying it when no residency fits. The census
+        residency is chosen again with the exact class table inside
+        ``hypergeom_band_table`` (:meth:`_record_census_select`) against
+        the same budget, ``plan["budget"]``, read here before the run
+        allocates."""
+        if self.logsf_store not in ("auto", "device", "f16", "host"):
             raise ValueError(f"unknown logsf_out: {self.logsf_store!r}")
-        return "device"
+        budget = self._hbm_budget()
+        plan = _hbm.band_go_hbm_plan(
+            num_nodes, band, n_attrs,
+            packed=self._band_bits_selected(num_nodes, band),
+            keep_distances=bool(self.keep_node_distances),
+            logsf_out=self.logsf_store,
+            prep_chunked=self._prep_chunked_selected(),
+            budget=budget, edges=len(self._arrays()[1]),
+            device=self.device)
+        self._hbm_plan_last = plan
+        if not plan["fits"]:
+            raise ValueError(
+                "refusing to run a band GO pipeline that does not fit the "
+                "device: " + _hbm.explain(plan) + ". Levers: "
+                "keep_node_distances=False, band_indicator_bits=True, "
+                "logsf_store='f16'/'host', or a larger hbm_budget_bytes.")
+        return plan
+
+    def _kept_band_bytes(self) -> int:
+        """Bytes of a kept f32 distance band on the device
+        (``safe.py:945``)."""
+        bm = self._node_distances_dev
+        if isinstance(bm, BandedMatrix) and isinstance(bm.data, torch.Tensor):
+            return int(bm.data.nbytes)
+        return 0
+
+    def _census_residents(self, dist_band=None) -> int:
+        """Device bytes the session holds through the census besides the
+        indicator band and the int8 operands: a kept f32 distance band (the
+        run's, or the stored one) and the cached f32 upload."""
+        kept = (int(dist_band.nbytes) if dist_band is not None
+                else self._kept_band_bytes())
+        return kept + (int(self._n2a_dev.nbytes)
+                       if self._n2a_dev is not None else 0)
+
+    def _record_census_select(self, sel):
+        """Merge the census selection (the exact table's) into
+        ``_hbm_plan_last`` (``safe.py:954``)."""
+        if not sel:
+            return
+        if isinstance(self._hbm_plan_last, dict):
+            self._hbm_plan_last = dict(self._hbm_plan_last, census_final=sel,
+                                       logsf_out=sel["logsf_out"],
+                                       census_peak=sel["census_peak"])
+        if self.verbose and sel["logsf_out"] != "device":
+            logging.info("memory plan: log-survival residency %s (census "
+                         "peak %.2f GB of %.2f GB)", sel["logsf_out"],
+                         sel["census_peak"] / 1e9, sel["budget"] / 1e9)
 
     def _band_tail_operands(self, n2a, order):
         """(nan0, nnn, K, M, iterations, lgt) of the band tail-loop engines:
@@ -1637,15 +1817,25 @@ class SAFE:
 
         table_out = done = None
         if self.hypergeom_engine in ("auto", "table"):
-            logsf_out = self._table_logsf_out()
+            # the memory plan before the operand prep (safe.py:1897-1904)
+            hbm_plan = self._band_go_hbm_guard(num_nodes, band,
+                                               n2a.shape[1])
             nan0, nnn, K, binary_ok, M = \
                 self._band_hyper_operands_cached(order)
+            _hbm.record_peak("prep", self.device)
             if binary_ok:
                 done = front()
+                _hbm.record_peak("relax", self.device)
+                sel = {}
                 table_out = _eb.hypergeom_band_table(
                     done[1], nan0, nnn, M, thr, bt=bt, rank_np=rank,
-                    precision=self.matmul_precision, logsf_out=logsf_out,
-                    K_np=K.cpu().numpy())
+                    precision=self.matmul_precision,
+                    logsf_out=self.logsf_store, K_np=K.cpu().numpy(),
+                    budget=hbm_plan["budget"],
+                    extra_resident_bytes=self._census_residents(done[0]),
+                    select_out=sel)
+                self._record_census_select(sel)
+                _hbm.record_peak("census", self.device)
         attr_chunk = self._hypergeom_attr_chunk(num_nodes, n2a.shape[1])
         if table_out is not None:
             self._hypergeom_engine_used = "table-band"
@@ -1702,13 +1892,19 @@ class SAFE:
         kw = dict(bt=bm.bt, block=bm.block, precision=self.matmul_precision)
         table_out = None
         if self.hypergeom_engine in ("auto", "table"):
-            logsf_out = self._table_logsf_out()
+            # the memory plan before the operand prep (safe.py:1339-1341)
+            hbm_plan = self._band_go_hbm_guard(bm.n, bm.band, n2a.shape[1])
             nan0, nnn, K, binary_ok, M = \
                 self._band_hyper_operands_cached(order)
             if binary_ok:
+                sel = {}
                 table_out = _eb.hypergeom_band_table(
                     bm.data, nan0, nnn, M, thr, rank_np=bm.rank,
-                    logsf_out=logsf_out, K_np=K.cpu().numpy(), **kw)
+                    logsf_out=self.logsf_store, K_np=K.cpu().numpy(),
+                    budget=hbm_plan["budget"],
+                    extra_resident_bytes=self._census_residents(),
+                    select_out=sel, **kw)
+                self._record_census_select(sel)
         if table_out is not None:
             self._hypergeom_engine_used = "table-band-staged"
             return self._store_hypergeom_results(None, *table_out)

@@ -20,10 +20,11 @@ ENRICHMENT_SETTINGS = ("enrichment_type", "enrichment_threshold",
 DOMAIN_SETTINGS = ("attribute_enrichment_min_size",
                    "attribute_unimodality_metric", "attribute_distance_metric",
                    "attribute_distance_threshold", "cluster_engine")
-# the band-storage engine's settings, each with SAFE's default
+# the band-storage engine's settings, each with SAFE's default, and the
+# memory planner's (logsf_store is an enrichment setting too)
 BAND_SETTINGS = ("apsp_mode", "band_storage_min_nodes", "band_bt_bucket",
                  "keep_node_distances", "band_relax", "band_indicator_bits",
-                 "band_bits_min_bytes")
+                 "band_bits_min_bytes", "logsf_store", "hbm_budget_bytes")
 
 
 def from_numpy_state(graph_arrays, node2attribute, *, neighborhood_radius,

@@ -422,17 +422,22 @@ def test_non_binary_values_take_the_loop_and_table_raises_as_in_jax(net):
 
 
 def test_logsf_store_and_the_operand_cache(net):
-    """'f16' and 'host' wait for the memory planner (A8) where the table
-    would be taken; the loop engine never reads the setting, as in JAX.
-    The table's operands are cached across runs and dropped on a new
-    load."""
+    """'f16' and 'host', refused until the memory planner was ported, run
+    where the table is taken: 'host' bitwise 'device', 'f16' its values
+    rounded to f16 (tests/test_torch_hbm.py holds them against JAX's); the
+    loop engine never reads the setting, as in JAX. The table's operands
+    are cached across runs and dropped on a new load."""
     jsf = _jax_session(net)
     psf = _port_session(jsf)
-    for store in ("f16", "host"):
+    psf.logsf_store = "device"
+    psf.run_pipeline()
+    want = psf._logsf_dev.clone()
+    for store, dtype in (("f16", torch.float16), ("host", torch.float32)):
         psf.logsf_store = store
-        with pytest.raises(NotImplementedError,
-                           match=re.escape("ROADMAP A8")):
-            psf.run_pipeline()
+        psf.run_pipeline()
+        assert psf._hypergeom_engine_used == "table-band"
+        assert psf._logsf_dev.dtype == dtype
+        assert torch.equal(psf._logsf_dev, want.to(dtype))
     psf.logsf_store = "bogus"
     with pytest.raises(ValueError, match="unknown logsf_out"):
         psf.run_pipeline()

@@ -9,6 +9,7 @@ binomial tolerance of tests/test_reference_parity.py:193.
 """
 
 import re
+from types import SimpleNamespace
 
 import networkx as nx
 import numpy as np
@@ -282,9 +283,16 @@ def _small_band_session(**settings):
                     **settings)
 
 
-@pytest.mark.parametrize("setting,value,item", [("mesh", object(), "A10")])
+@pytest.mark.parametrize("setting,value,item", [
+    ("mesh", SimpleNamespace(mesh_dim_names=("data",)), "A10")])
 def test_still_refused_band_options_raise(setting, value, item):
-    sf = _small_band_session(**{setting: value})
+    """A bit-packed indicator band on a 'data' mesh (the row-sharded band
+    engine packs no band) waits for the next part of A10; the band session
+    on other meshes, refused until the dense engines on a mesh were
+    ported, takes them (tests/test_torch_mesh_dense.py). The stand-in mesh
+    has a DeviceMesh's axis names: the refusal comes before any
+    collective."""
+    sf = _small_band_session(band_indicator_bits=True, **{setting: value})
     with pytest.raises(NotImplementedError,
                        match=re.escape(f"ROADMAP {item}")):
         sf.run_pipeline(num_permutations=20)

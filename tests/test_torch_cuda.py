@@ -1163,3 +1163,29 @@ def test_checkpoint_on_the_card(dev, tmp_path, monkeypatch, bits):
     np.testing.assert_array_equal(back.nes_binary, sf.nes_binary)
     back.define_top_attributes(attribute_enrichment_min_size=3)
     np.testing.assert_array_equal(back.attributes["top"], sf.attributes["top"])
+
+
+def test_device_budget_counts_free_cache_and_own_bytes(dev):
+    """``hbm.device_hbm_budget`` on the card: what CUDA reports free,
+    plus the allocator's whole free segments (not the free remainders of
+    segments a live tensor holds), plus the caller's own residents; a live
+    tensor that is not the caller's is out of it."""
+    from safepy_tpu_torch import hbm
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    big = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    del big  # a free 96 MiB block: its segment is releasable
+    other = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    # the 64 MiB tensor takes the cached block: the 32 MiB remainder is a
+    # split no longer releasable
+    free, _ = torch.cuda.mem_get_info(dev)
+    stats = torch.cuda.memory_stats(dev)
+    split = stats["inactive_split_bytes.all.current"]
+    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    assert split > 0
+    assert hbm.releasable_cache_bytes(dev) == cached - split
+    assert hbm.device_hbm_budget(dev) == free + cached - split
+    assert hbm.device_hbm_budget(dev, own_bytes=other.nbytes) \
+        == free + cached - split + other.nbytes
+    del other

@@ -339,11 +339,22 @@ def test_from_numpy_state_carries_the_enrichment_settings(net):
                          device="cpu", band_split_min_bytes=1)
 
 
-def _data_mesh():
-    """A stand-in with a one-axis "data" DeviceMesh's names: the facade
-    refuses on it before any collective."""
-    from types import SimpleNamespace
-    return SimpleNamespace(mesh_dim_names=("data",), ndim=1)
+@pytest.fixture(scope="module")
+def world1_mesh(tmp_path_factory):
+    """One-rank gloo meshes in this process: {"data": 1} and {"data": 1,
+    "attr": 1}."""
+    import torch.distributed as dist
+    from safepy_tpu_torch.parallel import make_mesh
+
+    rdv = tmp_path_factory.mktemp("world1") / "rendezvous"
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=0,
+                            world_size=1)
+    try:
+        yield {"data": make_mesh({"data": 1}, device_type="cpu"),
+               "data_attr": make_mesh({"data": 1, "attr": 1},
+                                      device_type="cpu")}
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("case,item", [
@@ -355,14 +366,22 @@ def _data_mesh():
     ("euclidean on a mesh", "A10 remainder"),
     ("define_neighborhoods on a mesh", "A10 remainder"),
     ("compute_pvalues on a mesh", "A10 remainder")])
-def test_unported_cases_raise_before_anything_is_computed(net, case, item):
+def test_unported_cases_raise_before_anything_is_computed(net, case, item,
+                                                         request):
     """Each refusal names its ROADMAP item and leaves no result behind;
     nothing quietly takes another path. Binary enrichment over band
     storage, fused and staged (with ``background='network'``), was refused
     until the band GO engines were ported, and the euclidean band form,
-    fused and staged, until it was: those cases now run and equal the JAX
-    package's runs (tests/test_torch_band_go.py holds every band GO engine,
-    tests/test_torch_euclid_band.py the euclidean band)."""
+    fused and staged, until it was; the mesh cases until the dense engines
+    on a mesh were: those cases now run and equal the JAX package's runs
+    (tests/test_torch_band_go.py holds every band GO engine,
+    tests/test_torch_euclid_band.py the euclidean band,
+    tests/test_torch_mesh_dense.py the meshes of several ranks). The mesh
+    cases run on a one-rank gloo mesh in this process: the dense FW
+    row-sharded (``data``) and the census sharded (``attr``) over one
+    rank, the stages and the fused binary run against JAX's unsharded
+    runs, the euclidean run against the port's own run without a mesh
+    with the same permutations (integer values: exact sums)."""
     binary = "binary" in case or "compute_pvalues" in case
     vals = _go_matrix(net[1]) if binary else _integers(N_NODES)
     jsf = _jax(net, vals)
@@ -406,10 +425,51 @@ def test_unported_cases_raise_before_anything_is_computed(net, case, item):
         np.testing.assert_array_equal(psf.counts_pos, cp)
         return
     if "mesh" in case:
-        psf.mesh = _data_mesh()
-    call = {"define_neighborhoods on a mesh": psf.define_neighborhoods,
-            "compute_pvalues on a mesh": psf.compute_pvalues}.get(
-                case, psf.run_pipeline)
+        mesh = request.getfixturevalue("world1_mesh")
+        if case == "binary on a mesh":
+            psf.mesh = mesh["data"]
+            jsf.run_pipeline()
+            psf.run_pipeline()
+            assert psf.apsp_engine_used == "dense-sharded"
+            assert psf._hypergeom_engine_used == jsf._hypergeom_engine_used
+            _assert_binary_equal(psf, jsf, fused=True)
+        elif case == "euclidean on a mesh":
+            psf.random_seed = 3
+            ref = _port(jsf, node_distance_metric="euclidean",
+                        random_seed=3)
+            psf.mesh = mesh["data"]
+            perm_idx = _perm_idx(vals)
+            psf.run_pipeline(perm_idx=perm_idx)
+            ref.run_pipeline(perm_idx=perm_idx)
+            jsf.node_distance_metric = "euclidean"
+            jsf.define_neighborhoods()
+            np.testing.assert_array_equal(psf.neighborhoods,
+                                          jsf.neighborhoods)
+            for name in ("ns", "counts_neg", "counts_pos", "nes"):
+                np.testing.assert_array_equal(getattr(psf, name),
+                                              getattr(ref, name))
+        elif case == "define_neighborhoods on a mesh":
+            psf.mesh = mesh["data"]
+            psf.define_neighborhoods()
+            jsf.define_neighborhoods()
+            assert psf.apsp_engine_used == "dense-sharded"
+            np.testing.assert_array_equal(psf.neighborhoods,
+                                          jsf.neighborhoods)
+        else:
+            psf.mesh = mesh["data_attr"]
+            for sf in (psf, jsf):
+                sf.define_neighborhoods()
+                sf.compute_pvalues()
+            assert psf._hypergeom_engine_used == "loop-dense-attr-sharded"
+            np.testing.assert_array_equal(psf.neighborhoods,
+                                          jsf.neighborhoods)
+            np.testing.assert_array_equal(psf.nes_binary, jsf.nes_binary)
+            # the sharded engine finalizes on the device in f32, the staged
+            # single-device one on the host in f64 (as JAX's
+            # tests/test_facade_mesh.py:123-132 holds them)
+            assert np.nanmax(np.abs(psf.pvalues_pos - jsf.pvalues_pos)) \
+                <= 1e-6
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        call()
+        psf.run_pipeline()
     assert psf._neighborhoods_dev is None and psf.nes is None

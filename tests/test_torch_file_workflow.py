@@ -262,6 +262,23 @@ def test_cli_on_a_quantitative_file(tmp_path):
     psf.compute_pvalues(num_permutations=50)
     np.testing.assert_array_equal(psf.neighborhoods, jsf.neighborhoods)
     np.testing.assert_allclose(psf.ns, jsf.ns, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="A10"):
+    # --mesh auto (every rank on an 'attr' axis, refused until the dense
+    # engines on a mesh were ported) needs a process group; on one gloo
+    # rank the quantitative null runs unsharded: the same NES
+    with pytest.raises(RuntimeError, match="init_process_group"):
         cli.main([str(attrs), "--ini", ini, "--mesh", "auto",
                   "--device", "cpu"])
+    import torch.distributed as dist
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0,
+        world_size=1)
+    try:
+        mesh_out = tmp_path / "nes_mesh.p"
+        assert cli.main([str(attrs), "--ini", ini, "--num-permutations", "50",
+                         "--mesh", "auto", "--output", str(mesh_out),
+                         "--device", "cpu"]) == 0
+        assert cli.parse_mesh("auto", "cpu").mesh_dim_names == ("attr",)
+    finally:
+        dist.destroy_process_group()
+    with open(mesh_out, "rb") as f:
+        np.testing.assert_array_equal(pickle.load(f), nes)
