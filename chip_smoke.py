@@ -230,7 +230,30 @@ Phases, in order; any failure raises and the script exits non-zero:
     999 permutations on the 'perm' mesh rounded to 1,000; the 'attr'
     run's census, log sf, indicator and counts bitwise phase 10's run of
     matrix A. The walls (min of 3), the sharded FW alone and the gloo
-    start-up per rank (the ``mesh`` lines);
+    start-up per rank (the ``mesh`` lines), and each kernel's device time
+    (profiler) at those shapes;
+18. the rest of the row-sharded band engine (run after phase 17) at full
+    width: ``relax_band_rows`` at every window cut the world-2 ranks
+    launch on phase 6's band (bitwise plain, device time, bound, and each
+    rank's B3 time over the FW); then on a one-rank 'data' mesh over NCCL
+    in this process and on two gloo processes on the card: band GO of
+    phase 12's matrix (49,920 x 4,373) by the sharded class table
+    (``table-band-sharded``; walls min of 3, of 2 a rank at world 2) and
+    the sharded f64 tail loop (``hypergeom_engine='loop'``,
+    ``loop-band-sharded``; one run), each with
+    one ``close_diag`` and ``relax_panel`` a FW round and
+    ``relax_band_row`` as phase 8 counts it, the indicator band,
+    nes_binary and counts equal to phase 12's ``table-band`` run (the
+    class table's log sf bitwise), and each rank's allocated rise printed
+    beside the per-rank plan (``hbm.band_go_shard_hbm_plan``), which it
+    must not exceed; the bit-packed band of phase 6's attribute
+    (``band_indicator_bits=True``): phase 13 (d)'s bytes, its scores within
+    1e-5 and its counts (exactly at world 1, within near-tie flips at
+    world 2, as phase 8); the packed euclidean band at 1,000,000 points at
+    world 1 (phase 13 (a)'s bytes, scores, counts) and at 49,920 points on
+    the two ranks (a single-device run's); then
+    ``safepy_tpu_torch.dryrun.dryrun(2, device="cuda")``, its six legs on
+    two gloo ranks on the card (the ``band mesh`` lines);
 9. print a JSON line of the kernels (times, bounds, launches of every
    path, phase 10's as ``go_binary_loop`` and ``go_binary_table``, phase
    12's as ``band_go_table`` and ``band_go_hostchunks``, phase 13's as
@@ -238,9 +261,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``band_packed_table`` and the ``euclid_band_*`` paths, phase 14's as
    ``file_example1``, ``file_mat_twin`` and ``file_cli``, phase 15's as
    ``profiled_example1``, ``checkpoint_resume`` and ``make_go_binary``,
-   phase 16's as ``planner_*``, phase 17's as ``mesh_*``, and the
+   phase 16's as ``planner_*``, phase 17's as ``mesh_*``, phase 18's as
+   ``band_go_table_sharded_*``, ``band_go_loop_sharded_*``,
+   ``band_packed_sharded_*`` and ``euclid_band_packed_sharded_*``, the
    phase-17 shapes of ``relax_full``, ``relax_panel`` and ``close_diag``
-   as their ``mesh_shapes``), then the
+   as their ``mesh_shapes`` and phase 18's window cuts of
+   ``relax_band_row`` as its ``window_cuts_world2``), then the
    card, then the result line. The domain stage runs no hand-written kernel:
    its products are ``torch.matmul``; the layouts are plain torch, as JAX
    keeps them in ``jnp``.
@@ -248,7 +274,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 Imports torch, numpy, scipy and the port only; needs one card, nvcc, g++
 (the host edge-list parser) and nvidia-smi. Phase 8 starts two processes
 and joins them; phase 14 one host thread; phase 15 one process; phase 17
-two, then four, and joins them.
+two, then four, and joins them; phase 18 two, then two more (the dry
+run), and joins them.
 """
 
 from __future__ import annotations
@@ -428,6 +455,14 @@ def device_ms(fn, symbol, calls=10) -> float | None:
         torch.cuda.synchronize()
     total = sum(_device_us(e) for e in prof.key_averages() if symbol in e.key)
     return total / calls / 1e3 if total else None
+
+
+def device_ms_max(fn, symbol, tries=3) -> float | None:
+    """:func:`device_ms`, the largest of ``tries`` readings: the profiler
+    drops events at times (PERF.md section 7), which lowers or empties a
+    reading and never raises one."""
+    reads = [x for x in (device_ms(fn, symbol) for _ in range(tries)) if x]
+    return max(reads) if reads else None
 
 
 def _device_us(event) -> float:
@@ -1518,13 +1553,26 @@ def _gloo_rank(rank, world, case_dir, device_type):
         dist.destroy_process_group()
 
 
-def window_rounds(nb, bt, world):
-    """Per rank, the FW rounds in which it holds a row of the pivot window
-    (one ``relax_band_rows`` launch each), for ``world`` equal row slabs of
+def window_cuts(nb, bt, world):
+    """Per rank, {(o_lo, o_hi): rounds}: the window rows each of its
+    ``relax_band_rows`` launches relaxes over the FW rounds
+    (``band_sharded._band_fw_rounds``), for ``world`` equal row slabs of
     the ghosted band (``band_sharded.sharded_band_geometry``)."""
     local_rows = -(-(nb + 2 * bt) // world)
-    return [sum(kb < (my + 1) * local_rows and kb + 2 * bt >= my * local_rows
-                for kb in range(nb)) for my in range(world)]
+    cuts = [{} for _ in range(world)]
+    for kb in range(nb):
+        for my in range(world):
+            o_lo = max(my * local_rows - kb, 0)
+            o_hi = min((my + 1) * local_rows - kb, 2 * bt + 1)
+            if o_lo < o_hi:
+                cuts[my][(o_lo, o_hi)] = cuts[my].get((o_lo, o_hi), 0) + 1
+    return cuts
+
+
+def window_rounds(nb, bt, world):
+    """Per rank, the FW rounds in which it holds a row of the pivot window
+    (one ``relax_band_rows`` launch each)."""
+    return [sum(c.values()) for c in window_cuts(nb, bt, world)]
 
 
 def run_sharded_world2(device, ref, w1, world=2):
@@ -2015,6 +2063,26 @@ def f32_ulps_dev(got, want) -> float:
     return float(torch.where(got == w, 0.0, diff / ulp).max())
 
 
+LOGSF_ROW_STRIDE = 16  # phase 18 holds every 16th row of the loop's log sf
+
+
+def logsf_rows(logsf) -> np.ndarray:
+    """Every ``LOGSF_ROW_STRIDE``-th row of an (n, A) log sf, on the host:
+    what phase 18 holds the sharded tail loop's log sf to."""
+    return logsf[::LOGSF_ROW_STRIDE].cpu().numpy()
+
+
+def f32_ulps_np(got, want) -> float:
+    """Largest |got - want| in f32 ulps of ``want`` (equal values count
+    0), on the host."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    same = (got == want) | (np.isnan(got) & np.isnan(want))
+    with np.errstate(invalid="ignore"):
+        diff = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    return float(np.where(same, 0.0, diff / np.spacing(np.abs(want))).max())
+
+
 def band_census(sf, mat):
     """The census of a band session on the host: (counts (N, A), sizes
     (N,), K (A,), M) from a scipy.sparse product of ``neighborhoods_sparse``
@@ -2047,6 +2115,14 @@ def band_device_census(sf, cols=512):
     return out
 
 
+def phase12_matrix(coords, attrs=GO_ATTRS):
+    """Phase 12's binary matrix: ``attrs`` terms of matrix A's size law
+    (log-uniform on 3-300) from ``SEED_BAND_GO``."""
+    rng = np.random.default_rng(SEED_BAND_GO)
+    sizes = np.rint(np.exp(rng.uniform(np.log(3), np.log(300), attrs)))
+    return build_go_matrix(coords, sizes, SEED_BAND_GO)
+
+
 def run_band_go(device, ref, attrs=GO_ATTRS, steady=3, fdr_rows=512,
                 samples=GO_SAMPLES):
     """Phase 12: the band GO path on phase 6's network (session ``ref``) with
@@ -2057,10 +2133,8 @@ def run_band_go(device, ref, attrs=GO_ATTRS, steady=3, fdr_rows=512,
     coords = net[0]
     n = len(coords)
     nb = -(-n // BLOCK)
-    rng = np.random.default_rng(SEED_BAND_GO)
-    sizes = np.rint(np.exp(rng.uniform(np.log(3), np.log(300), attrs)))
     t0 = time.perf_counter()
-    mat = build_go_matrix(coords, sizes, SEED_BAND_GO)
+    mat = phase12_matrix(coords, attrs)
     out = dict(nodes=n, attrs=attrs, matrix_s=time.perf_counter() - t0)
     cuda = device.type == "cuda"
 
@@ -2148,6 +2222,7 @@ def run_band_go(device, ref, attrs=GO_ATTRS, steady=3, fdr_rows=512,
                                    .abs().max())
     out["loop_vs_table_ulps"] = f32_ulps_dev(loop._logsf_dev,
                                              table._logsf_dev)
+    loop_logsf = logsf_rows(loop._logsf_dev)  # phase 18's f64 tail reference
     # p is held; the log sf's ulps are reported: the loop's complement
     # branch rounds log pmf to f32 before its exp, an error that grows with
     # |log pmf|, where the table rounds an f64 value once
@@ -2272,7 +2347,8 @@ def run_band_go(device, ref, attrs=GO_ATTRS, steady=3, fdr_rows=512,
     out.update(top=int(top.sum()),
                domains=len(table.domains["id"]) - (0 in table.domains["id"]),
                phase_s=time.perf_counter() - t_phase,
-               session=table, matrix=mat)  # phase 13 (d) compares with them
+               session=table, matrix=mat,  # phase 13 (d) compares with them
+               loop_logsf=loop_logsf)
     return out
 
 
@@ -2477,6 +2553,8 @@ def run_euclid_1m(device, n=EUCLID_NODES, steady=3, rows=EUCLID_ROWS,
         out["profile_s"] = time.perf_counter() - t0
     packed = bm.data
     ns, cn, cp = sf.ns.copy(), sf.counts_neg.copy(), sf.counts_pos.copy()
+    out["mesh_ref"] = dict(band=band_digest(packed), ns=ns, counts_neg=cn,
+                           counts_pos=cp)
 
     # the same session with the int8 band: equal bytes, scores and counts
     sf.band_indicator_bits = False
@@ -3905,7 +3983,9 @@ def check_mesh_kernels(device, npad=4096):
         out[kernel].append(dict(
             shape=shape, form=form, ms=time_ms(fn, device),
             plain_ms=time_ms(plain, device, inner=1, reps=3),
-            bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            device_ms=(device_ms_max(fn, f"{kernel}_kernel")
+                       if device.type == "cuda" else None)))
 
     for m, n in ((half, npad), (half, half)):
         q = inf_laced(gen, (m, b), device)
@@ -4074,6 +4154,380 @@ def mesh_launches(ms):
     return out
 
 
+# ------------------------------------------------------------------ phase 18
+
+SEED_EUCLID_MESH = SEED_EUCLID + 3  # phase 18's 49,920 scatter points
+
+
+def check_band_row_cuts(device, nb, bt, world=2):
+    """``relax_band_rows`` at each window cut the world-``world`` ranks
+    launch (phase 6's geometry), bitwise against its plain version, with
+    its device time (profiler) and bound; and each rank's B3 device time
+    over the FW's rounds, summed from them."""
+    gen = torch.Generator(device=device).manual_seed(18)
+    b, nt = BLOCK, 2 * bt + 1
+    w = nt * b
+    p_ext = inf_laced(gen, (b, w + 2 * bt * b), device)
+    cuts = window_cuts(nb, bt, world)
+    rows_out = {}
+    for lo, hi in sorted({c for r in cuts for c in r}):
+        slab = inf_laced(gen, ((hi - lo + 2) * b, w), device)
+        got, want = slab.clone(), slab.clone()
+        K.relax_band_rows(got[b:-b], p_ext, lo, hi)
+        K.relax_band_rows_plain(want[b:-b], p_ext, lo, hi)
+        err = max_abs_err(got, want)
+        rows = got[b:-b]
+        k = hi - lo
+        b_ms, b_by = bound(k * b * w * b, (2 * k * b * w + b * w) * F32)
+        rows_out[f"{lo}-{hi}"] = dict(
+            rows=k, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            device_ms=(device_ms_max(
+                lambda: K.relax_band_rows(rows, p_ext, lo, hi),
+                "relax_band_row_kernel") if device.type == "cuda" else None))
+    per_rank = []
+    for r in cuts:
+        dev = [rows_out[f"{lo}-{hi}"]["device_ms"] for lo, hi in r]
+        per_rank.append(None if None in dev else sum(
+            rows_out[f"{lo}-{hi}"]["device_ms"] * c
+            for (lo, hi), c in r.items()))
+    return dict(cuts=rows_out, launches=window_rounds(nb, bt, world),
+                rank_device_ms=per_rank)
+
+
+def _band_go_session(device, ref, mat, mesh=None, **settings):
+    """Phase 12's band GO session (``ref``'s settings and network, the GO
+    matrix ``mat``), on ``mesh`` when given."""
+    sf = SAFE(device=device, verbose=False)
+    for k in ("apsp_mode", "keep_node_distances", "neighborhood_radius"):
+        setattr(sf, k, ref[k])
+    for k, v in settings.items():
+        setattr(sf, k, v)
+    sf.mesh = mesh
+    sf.load_network(network_file=ref["net"])
+    sf.load_attributes(attribute_file=mat)
+    return sf
+
+
+def _mesh_band_go(device, sf, engine, steady):
+    """One sharded band GO engine: the warm run's launches and allocated
+    rise (beside the per-rank plan, which it must not exceed, for the
+    planned class table), then ``steady`` more runs. Returns the numbers
+    and the digests the checks compare."""
+    base = peak_reset(device)
+    K.reset_launches()
+    warm = timed_s(device, sf.run_pipeline)
+    out = dict(launches=json.dumps(dict(K.LAUNCHES)), warm_s=warm,
+               engine=f"{sf._hypergeom_engine_used}/{sf._band_relax_used}")
+    if sf._hypergeom_engine_used != engine or sf._band_relax_used != "fw":
+        raise AssertionError(f"{out['engine']} taken, {engine} expected")
+    if base is not None:
+        out["rise"] = torch.cuda.max_memory_allocated(device) - base
+    if engine == "table-band-sharded":
+        plan = sf._hbm_plan_last
+        out["plan_peak"] = plan["per_rank_peak"]
+        out["plan_shard_peak"] = plan["per_shard_peak"]
+        if base is not None and out["rise"] > plan["per_rank_peak"]:
+            raise AssertionError(
+                f"{engine}: allocated rise {out['rise']} B above the "
+                f"per-rank plan's {plan['per_rank_peak']} B")
+    out["steady_s"] = [timed_s(device, sf.run_pipeline)
+                       for _ in range(steady)]
+    out.update(band=band_digest(sf._neighborhoods_dev.data),
+               nbin=band_digest(sf._nes_binary_dev),
+               logsf=band_digest(sf._logsf_dev),
+               enriched=np.asarray(
+                   sf.attributes["num_neighborhoods_enriched"]))
+    if engine == "loop-band-sharded":
+        out["logsf_rows"] = logsf_rows(sf._logsf_dev)
+    return out
+
+
+def _check_band_go(tag, r, go_ref, engine):
+    """A mesh band GO run against phase 12: the indicator band,
+    nes_binary and the counts equal to its table-band run's, the class
+    table's log sf too; the tail loop's log sf within 4 f32 ulps of its
+    hostchunks-band run's (the f64 tail) on every ``LOGSF_ROW_STRIDE``-th
+    row, the largest gap kept in ``r["logsf_ulps"]``."""
+    if str(r["band"]) != go_ref["band"]:
+        raise AssertionError(f"{tag}: the indicator band differs from "
+                             "phase 12's")
+    if not (str(r["nbin"]) == go_ref["nbin"]
+            and np.array_equal(r["enriched"], go_ref["enriched"])):
+        raise AssertionError(f"{tag}: nes_binary or the counts differ from "
+                             "phase 12's table-band run")
+    if engine == "table-band-sharded" and str(r["logsf"]) != go_ref["logsf"]:
+        raise AssertionError(f"{tag}: the log sf differs from phase 12's")
+    if engine == "loop-band-sharded":
+        got = r.pop("logsf_rows")
+        if got.shape != go_ref["loop_logsf"].shape:
+            raise AssertionError(f"{tag}: log sf rows {got.shape}, phase "
+                                 f"12's {go_ref['loop_logsf'].shape}")
+        r["logsf_ulps"] = f32_ulps_np(got, go_ref["loop_logsf"])
+        if not r["logsf_ulps"] <= 4:
+            raise AssertionError(f"{tag}: the log sf is {r['logsf_ulps']} "
+                                 "f32 ulps from phase 12's hostchunks-band")
+
+
+def _mesh_quant(device, sf, perms):
+    """One run of a quantitative session on the mesh: wall, launches, the
+    band's digest, scores and counts."""
+    K.reset_launches()
+    wall = timed_s(device, lambda: sf.run_pipeline(num_permutations=perms))
+    data = sf._neighborhoods_dev.data
+    if sf.apsp_engine_used != "band-storage" or data.dtype != torch.uint8:
+        raise AssertionError(f"the packed band was not taken: "
+                             f"{sf.apsp_engine_used}, {data.dtype}")
+    return dict(wall_s=wall, launches=json.dumps(dict(K.LAUNCHES)),
+                band=band_digest(data), ns=sf.ns, counts_neg=sf.counts_neg,
+                counts_pos=sf.counts_pos)
+
+
+def _check_quant(tag, r, want, exact):
+    """The band bytes equal, the scores within 1e-5, the counts exactly
+    (``exact``) or within near-tie flips (phase 8's rule: the rows are
+    contracted in other groups); returns the count difference."""
+    if str(r["band"]) != want["band"]:
+        raise AssertionError(f"{tag}: the band's bytes differ")
+    if not np.allclose(r["ns"], want["ns"], rtol=1e-5, atol=1e-5,
+                       equal_nan=True):
+        raise AssertionError(f"{tag}: the scores differ beyond 1e-5")
+    delta = int(np.abs(r["counts_neg"] - want["counts_neg"]).sum()
+                + np.abs(r["counts_pos"] - want["counts_pos"]).sum())
+    if delta > (0 if exact else 1e-5 * want["ns"].size * N_PERM):
+        raise AssertionError(f"{tag}: the counts differ by {delta}")
+    return delta
+
+
+def _band_mesh_work(device, mesh, world, ref, go_mat, euclid, steady):
+    """What each rank runs in phase 18 on a ``data`` mesh of ``world``
+    ranks: band GO by both engines, the packed band of phase 6's
+    attribute; at world 1 the packed euclidean band at 1 M points, at
+    world 2 at 49,920."""
+    out = {}
+    for engine, settings, reps in (("table-band-sharded", {}, steady),
+                                   ("loop-band-sharded",
+                                    dict(hypergeom_engine="loop"), 0)):
+        sf = _band_go_session(device, ref, go_mat, mesh, **settings)
+        out[engine] = _mesh_band_go(device, sf, engine, reps)
+        del sf
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    sf = SAFE(device=device, verbose=False)
+    for k in ("apsp_mode", "keep_node_distances", "random_seed",
+              "neighborhood_radius"):
+        setattr(sf, k, ref[k])
+    sf.band_indicator_bits = True
+    sf.mesh = mesh
+    sf.load_network(network_file=ref["net"])
+    sf.load_attributes(attribute_file=ref["vals"])
+    out["packed"] = _mesh_quant(device, sf, N_PERM)
+    del sf
+    coords, vals = euclid_points(*euclid["points"])
+    sf = euclid_session(device, coords, vals, keep_node_distances=False,
+                        **euclid["settings"])
+    sf.mesh = mesh
+    out["euclid"] = _mesh_quant(device, sf, N_PERM)
+    out["euclid"]["steady_s"] = timed_s(
+        device, lambda: sf.run_pipeline(num_permutations=N_PERM))
+    del sf
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _band_mesh_rank(rank, world, case_dir, device_type, spawned):
+    """One gloo rank of phase 18's world 2 on card 0: the band mesh work
+    (phase 12's GO matrix rebuilt from its seed); results to
+    ``case_dir``."""
+    entered = time.time()
+    device = torch.device(device_type, 0)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    else:  # the CPU rehearsal: two ranks' thread pools share the cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // (2 * world)))
+    dist.init_process_group(
+        "gloo", init_method=f"file://{case_dir}/rendezvous", rank=rank,
+        world_size=world)
+    try:
+        ready = time.time() - spawned
+        with open(os.path.join(case_dir, "inputs.pkl"), "rb") as f:
+            ref, euclid = pickle.load(f)
+        go_mat = phase12_matrix(ref["net"][0], ref["go_attrs"])
+        out = _band_mesh_work(device, make_mesh({"data": world},
+                                                device_type=device.type),
+                              world, ref, go_mat, euclid, steady=2)
+        with open(os.path.join(case_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(dict(out, entered=entered - spawned, ready=ready), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_band_mesh(device, ref, go_mat, go_ref, euclid_ref, steady=3,
+                  euclid_nodes=EUCLID_NODES, euclid_settings=None):
+    """Phase 18: the rest of the row-sharded band engine at full width, on
+    a one-rank 'data' mesh over NCCL in this process and on two gloo
+    processes on the card, then ``dryrun(2, device='cuda')``; the checks
+    and numbers of the module doc. ``ref``: phase 6's network, attribute,
+    settings and digests (its int8 and packed bands, scores and counts);
+    ``go_mat``, ``go_ref``: phase 12's GO matrix and its table-band run's
+    digests; ``euclid_ref``: phase 13 (a)'s packed 1 M-point run
+    (``euclid_nodes`` points, its ``euclid_settings``: the CPU rehearsal
+    forces the band and the packing at small n)."""
+    from safepy_tpu_torch.dryrun import dryrun
+
+    t_phase = time.perf_counter()
+    n = len(ref["net"][0])
+    nb = -(-n // BLOCK)
+    bt = ref["bt"]
+    out = dict(band_rows=check_band_row_cuts(device, nb, bt))
+    fw = dict(close_diag=nb, relax_panel=nb)
+    euclid_1m = dict(points=(euclid_nodes,), settings=euclid_settings or {})
+
+    # world 1 over NCCL in this process
+    rdv = native.BUILD_DIR / "chip_smoke_bandmesh1_rendezvous"
+    native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    rdv.unlink(missing_ok=True)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    t0 = time.time()
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"file://{rdv}", rank=0,
+                            world_size=1)
+    try:
+        ready = time.time() - t0
+        w1 = _band_mesh_work(device, make_mesh({"data": 1},
+                                               device_type=device.type),
+                             1, ref, go_mat, euclid_1m, steady)
+    finally:
+        dist.destroy_process_group()
+    for engine in ("table-band-sharded", "loop-band-sharded"):
+        _check_band_go(f"world 1 {engine}", w1[engine], go_ref, engine)
+        check_launches(device, json.loads(w1[engine]["launches"]),
+                       relax_band_row=nb, **fw)
+    check_launches(device, json.loads(w1["packed"]["launches"]),
+                   relax_band_row=nb, **fw)
+    _check_quant("world 1 packed", w1["packed"], ref["packed"], exact=True)
+    check_launches(device, json.loads(w1["euclid"]["launches"]))
+    _check_quant("world 1 euclid 1M", w1["euclid"], euclid_ref, exact=True)
+    out["world1"] = dict(w1, ready=ready)
+
+    # the single-device packed euclidean band at 49,920 points
+    euclid_2 = dict(points=(n, SEED_EUCLID_MESH),
+                    settings=dict(apsp_mode="band", band_indicator_bits=True))
+    coords, vals = euclid_points(*euclid_2["points"])
+    sf = euclid_session(device, coords, vals, keep_node_distances=False,
+                        **euclid_2["settings"])
+    single = _mesh_quant(device, sf, N_PERM)
+    del sf
+
+    # world 2 over gloo, both ranks on this card
+    case_dir = native.BUILD_DIR / "chip_smoke_bandmesh"
+    shutil.rmtree(case_dir, ignore_errors=True)
+    case_dir.mkdir(parents=True)
+    with open(case_dir / "inputs.pkl", "wb") as f:
+        pickle.dump((ref, euclid_2), f)
+    t0 = time.time()
+    mp.spawn(_band_mesh_rank, args=(2, str(case_dir), device.type, t0),
+             nprocs=2, join=True)
+    spawn_s = time.time() - t0
+    ranks = []
+    for r in range(2):
+        with open(case_dir / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    cuts = out["band_rows"]["launches"]
+    deltas = []
+    for r, got in enumerate(ranks):
+        for engine in ("table-band-sharded", "loop-band-sharded"):
+            _check_band_go(f"world 2 rank {r} {engine}", got[engine],
+                           go_ref, engine)
+            check_launches(device, json.loads(got[engine]["launches"]),
+                           relax_band_row=cuts[r], **fw)
+        check_launches(device, json.loads(got["packed"]["launches"]),
+                       relax_band_row=cuts[r], **fw)
+        deltas.append(_check_quant(f"world 2 rank {r} packed", got["packed"],
+                                   ref["packed"], exact=False))
+        deltas.append(_check_quant(f"world 2 rank {r} euclid", got["euclid"],
+                                   single, exact=False))
+    out["world2"] = dict(spawn_s=spawn_s, ranks=ranks, count_deltas=deltas,
+                         euclid_single_s=single["wall_s"])
+
+    # the six legs of the dry run, two gloo ranks on the card
+    t0 = time.perf_counter()
+    legs = dryrun(2, device=device.type)
+    out["dryrun_s"] = time.perf_counter() - t0
+    out["dryrun_engines"] = [str(x) for x in legs[0]["engines"]]
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def band_mesh_launches(bm):
+    """Phase 18's runs' launches, by path name."""
+    out = {}
+    runs = [("world1", bm["world1"])] + [
+        (f"world2_rank{r}", x) for r, x in enumerate(bm["world2"]["ranks"])]
+    for tag, x in runs:
+        for key, path in (("table-band-sharded", "band_go_table_sharded"),
+                          ("loop-band-sharded", "band_go_loop_sharded"),
+                          ("packed", "band_packed_sharded"),
+                          ("euclid", "euclid_band_packed_sharded")):
+            out[f"{path}_{tag}"] = json.loads(x[key]["launches"])
+    return out
+
+
+def print_band_mesh(bm, card):
+    gb = 1e9
+    cuts = bm["band_rows"]
+    rows = ", ".join(
+        f"rows {k} ({c['rows']}): device "
+        f"{(c['device_ms'] or 0) * 1e3:.2f} us (bound "
+        f"{c['bound_ms'] * 1e3:.2f} us by {c['bound_by']})"
+        for k, c in cuts["cuts"].items())
+    print(f"band mesh relax_band_rows ({card}): bitwise equal to plain at "
+          f"each window cut of the world-2 ranks: {rows}; launches a rank "
+          f"{cuts['launches']}, B3 device time a rank over the FW "
+          f"{[None if x is None else round(x, 3) for x in cuts['rank_device_ms']]}"
+          f" ms", flush=True)
+    w1 = bm["world1"]
+    for tag, x, extra in [("world 1 (NCCL)", w1, f"process group "
+                           f"{w1['ready']:.2f} s")] + [
+            (f"world 2 rank {r} (gloo)", x, f"process up {x['entered']:.2f} "
+             f"s, process group ready {x['ready']:.2f} s after the spawn")
+            for r, x in enumerate(bm["world2"]["ranks"])]:
+        t, lp = x["table-band-sharded"], x["loop-band-sharded"]
+        print(f"band mesh {tag} ({card}): {extra}; table-band-sharded warm "
+              f"{t['warm_s']:.4f} s, steady {[round(s, 4) for s in t['steady_s']]}"
+              f" s, allocated rise {(t.get('rise') or 0) / gb:.4f} GB, per-rank "
+              f"plan {t['plan_peak'] / gb:.4f} GB (JAX's per-shard terms "
+              f"{t['plan_shard_peak'] / gb:.4f} GB), launches {t['launches']}; "
+              f"loop-band-sharded warm {lp['warm_s']:.4f} s, steady "
+              f"{[round(s, 4) for s in lp['steady_s']]} s, allocated rise "
+              f"{(lp.get('rise') or 0) / gb:.4f} GB; packed band run "
+              f"{x['packed']['wall_s']:.4f} s; packed euclidean band run "
+              f"{x['euclid']['wall_s']:.4f} s, again "
+              f"{x['euclid']['steady_s']:.4f} s", flush=True)
+    w2 = bm["world2"]
+    print(f"band mesh checks ({card}): both band GO engines' indicator band, "
+          f"nes_binary and counts equal phase 12's table-band run at world 1 "
+          f"and on both world-2 ranks, the class table's log sf bitwise, the "
+          f"tail loop's within 4 f32 ulps of phase 12's hostchunks-band on "
+          f"every {LOGSF_ROW_STRIDE}th row (largest gap world 1 "
+          f"{bm['world1']['loop-band-sharded']['logsf_ulps']}, world 2 "
+          f"{[x['loop-band-sharded']['logsf_ulps'] for x in w2['ranks']]} "
+          f"ulps); "
+          f"every allocated rise within its per-rank plan; the packed band "
+          f"of phase 6's attribute phase 13's bytes, scores and counts "
+          f"(world 1 exactly; world 2 count deltas {w2['count_deltas'][0::2]});"
+          f" the packed euclidean band at 1 M points phase 13's bytes, "
+          f"scores and counts; at 49,920 points on the world-2 ranks the "
+          f"single-device run's bytes (its run {w2['euclid_single_s']:.4f} "
+          f"s; count deltas {w2['count_deltas'][1::2]}); launches 390 "
+          f"close_diag and relax_panel a rank and relax_band_row "
+          f"{cuts['launches']}; spawn wall {w2['spawn_s']:.2f} s; "
+          f"dryrun(2, device='cuda') six legs passed in "
+          f"{bm['dryrun_s']:.1f} s (engines {bm['dryrun_engines']}); phase "
+          f"18 took {bm['phase_s']:.1f} s", flush=True)
+
+
 def print_planner(pl, card):
     gb = 1e9
 
@@ -4126,8 +4580,10 @@ def print_dense_mesh(ms, card):
     for name, kernel_rows in ms["kernels"].items():
         rows = ", ".join(
             f"{r['form']} {' x '.join(map(str, r['shape']))}: "
-            f"{r['ms'] * 1e3:.2f} us a call (plain {r['plain_ms']:.3f} ms, "
-            f"bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']})"
+            f"{r['ms'] * 1e3:.2f} us a call, device "
+            f"{(r.get('device_ms') or 0) * 1e3:.2f} us (plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms'] * 1e3:.2f} us by "
+            f"{r['bound_by']})"
             for r in kernel_rows)
         print(f"mesh {name} ({card}): bitwise equal to plain at the sharded "
               f"FW's shapes: {rows}", flush=True)
@@ -4451,6 +4907,25 @@ def main():
           f"phase 13 (c) took {bf['phase_s']:.1f} s", flush=True)
     band_go = bg.pop("session")  # phase 15 saves it, phase 16 plans it
     band_go_matrix = bg.pop("matrix")
+    # what phase 18 holds its mesh runs to: phase 12's table-band run, and
+    # phase 6's session (its packed band is phase 13 (d)'s)
+    go_mesh_ref = dict(band=band_digest(band_go._neighborhoods_dev.data),
+                       nbin=band_digest(band_go._nes_binary_dev),
+                       logsf=band_digest(band_go._logsf_dev),
+                       enriched=np.asarray(band_go.attributes[
+                           "num_neighborhoods_enriched"]),
+                       loop_logsf=bg.pop("loop_logsf"))
+    ref6 = bs["session"]
+    band_mesh_ref = dict(
+        net=ref6._graph_arrays, vals=ref6.node2attribute,
+        bt=ref6._neighborhoods_dev.bt, go_attrs=band_go_matrix.shape[1],
+        packed=dict(band=band_digest(bst.pack_band_bits(
+            ref6._neighborhoods_dev.data)), ns=ref6.ns,
+            counts_neg=ref6.counts_neg, counts_pos=ref6.counts_pos),
+        **{k: getattr(ref6, k) for k in ("apsp_mode", "keep_node_distances",
+                                         "random_seed",
+                                         "neighborhood_radius")})
+    del ref6
     pk = run_band_packed(device, bs["session"], band_go, band_go_matrix)
     print(f"band packed ({card}): band_indicator_bits=True, quantitative run "
           f"{pk['quant_s']:.4f} s (steady {pk['quant_steady_s']:.4f} s), "
@@ -4523,11 +4998,17 @@ def main():
     # phase 16: the memory planner on phase 12's band GO session
     torch.cuda.empty_cache()
     planned = run_planner(device, band_go, band_go_matrix)
-    del band_go, band_go_matrix
+    del band_go
     torch.cuda.empty_cache()
     # phase 17: the dense engines on a mesh at the Example_1 width
     meshed = run_dense_mesh(device, s["session"], net, vals,
                             go_matrices(net[0])[0], go_ref)
+    # phase 18: the rest of the row-sharded band engine at full width
+    torch.cuda.empty_cache()
+    band_meshed = run_band_mesh(device, band_mesh_ref, band_go_matrix,
+                                go_mesh_ref, e1.pop("mesh_ref"))
+    del band_go_matrix
+    torch.cuda.empty_cache()
     fw.update(fw.pop("finish")())  # phase 14's CPU layout ran meanwhile
     print(f"file workflow ({card}): SAFE(path_to_ini_file) + load_network "
           f"(native parse + exact energy layout on the card) "
@@ -4607,6 +5088,7 @@ def main():
           f"{hx['make_go_s']:.1f} s)", flush=True)
     print_planner(planned, card)
     print_dense_mesh(meshed, card)
+    print_band_mesh(band_meshed, card)
 
     # phase 9: the report; launches from the run of each kernel's path
     replaces = {"relax_panel": "safepy_tpu/ops/apsp_pallas.py:95",
@@ -4652,7 +5134,8 @@ def main():
              "make_go_binary": mg["launches"],
              **{f"planner_{store}": r["launches"]
                 for store, r in planned["runs"].items()},
-             **mesh_launches(meshed)}
+             **mesh_launches(meshed),
+             **band_mesh_launches(band_meshed)}
     report = [{"name": name, "route": "cuda", "source": SRC,
                "replaces": replaces[name], "launches": launches[name],
                "launches_by_path": {path: counts[name]
@@ -4671,6 +5154,8 @@ def main():
     for name, rows in meshed["kernels"].items():
         report[[r["name"] for r in report].index(name)][
             "mesh_shapes"] = rows
+    report[[r["name"] for r in report].index("relax_band_row")][
+        "window_cuts_world2"] = band_meshed["band_rows"]["cuts"]
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": report}))

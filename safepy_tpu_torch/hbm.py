@@ -300,17 +300,36 @@ def band_go_hbm_plan(n: int, band: int, n_attrs: int, *, packed: bool,
 def band_go_shard_hbm_plan(n: int, band: int, n_attrs: int, ndev: int, *,
                            packed: bool = True, budget: int | None = None,
                            block: int = 128, chunk_cols: int = 1024,
-                           device=None):
+                           keep_distances: bool = True,
+                           prep_chunked: bool = True, device=None):
     """Per-rank peak of the row-sharded band GO engine over a ``data`` axis
     of ``ndev`` ranks (``hbm.py:227``; the engine is
     ``parallel/band_sharded.py``'s layout: equal slabs of ghosted
     block-rows).
 
-    Resident per rank: the f32 FW slab with its 2 bt ghost block-rows, the
-    (packed) indicator slab, the rank's rows of the int8 annotations and
-    of the two (n, A) outputs; plus one census chunk over the slab's rows
-    (:func:`census_chunk_bytes`; the replicated class table, known only
-    after the relax, is not counted, as in :func:`band_go_hbm_plan`).
+    JAX's terms, kept as they are: the f32 FW slab with its 2 bt ghost
+    block-rows, the (packed) indicator slab, the rank's rows of the int8
+    annotations and of the two (n, A) outputs; plus one census chunk over
+    the slab's rows (:func:`census_chunk_bytes`; the replicated class
+    table, known only after the relax, is not counted, as in
+    :func:`band_go_hbm_plan`). Their sum is ``per_shard_peak``.
+
+    The port assembles its outputs on every rank (JAX keeps them
+    row-sharded), so every rank also holds what these terms name:
+    ``assembled_band`` (the global indicator band), ``assembled_distances``
+    (the global f32 band, with ``keep_distances``), ``assembled_outputs``
+    (the rest of the (n, A) log sf and indicator), ``replicated_annotations``
+    (the rest of the int8 operands, which every rank builds whole),
+    ``chunk_assembly`` (a census chunk's rows assembled in the permuted
+    frame and gathered into the node frame, f32 and int8) and ``upload``
+    (the f32 annotation upload the session keeps, unless ``prep_chunked``).
+    ``per_rank_peak`` is the larger of the operand prep's peak
+    (:func:`prep_peak`) and ``per_shard_peak`` plus these terms; ``fits``
+    compares it with the budget, so the port's guard may refuse where
+    JAX's would not, for these bytes. Their sum, ``replicated_floor``,
+    rises as ranks are added (each rank's own share, which JAX's terms
+    count, shrinks), so a run whose floor is over the budget fits on no
+    mesh.
     """
     budget = _budget(budget, device)
     bt, rows, window = band_geometry(n, band, block)
@@ -321,16 +340,32 @@ def band_go_shard_hbm_plan(n: int, band: int, n_attrs: int, ndev: int, *,
                  else slab_rows * window)
     ann8 = rows * n_attrs // ndev
     out_bytes = 5 * (n * n_attrs // ndev)  # f32 log sf + int8 indicator
-    transient = census_chunk_bytes(slab_rows, min(chunk_cols, n_attrs), 0,
-                                   0, window)
+    w = min(chunk_cols, n_attrs)
+    transient = census_chunk_bytes(slab_rows, w, 0, 0, window)
     per_shard = fw_slab + ind_bytes + ann8 + out_bytes + transient \
         + _SMALL_BYTES
+    # the global frame: the ghosted block-rows padded to a multiple of ndev
+    g_rows = -(-rows // (block * ndev)) * ndev * block
+    npad = -(-n // block) * block
+    port = dict(
+        assembled_band=(g_rows * window // 8 if packed
+                        else g_rows * window),
+        assembled_distances=4 * g_rows * window if keep_distances else 0,
+        assembled_outputs=max(0, 5 * n * n_attrs - out_bytes),
+        replicated_annotations=max(0, n * n_attrs - ann8),
+        chunk_assembly=10 * npad * w,
+        upload=0 if prep_chunked else 4 * n * n_attrs)
+    floor = sum(port.values())
+    prep = prep_peak(n, n_attrs, chunked=prep_chunked)
+    per_rank = max(prep, per_shard + floor)
     return dict(n=n, band=band, n_attrs=n_attrs, ndev=ndev, bt=bt,
                 rows=rows, window=window, packed=packed, fw_slab=fw_slab,
                 indicator_bytes=ind_bytes, annotations_int8=ann8,
                 out_bytes=out_bytes, census_transient=transient,
-                per_shard_peak=per_shard, budget=budget,
-                fits=per_shard <= budget, sharded=True)
+                per_shard_peak=per_shard, keep_distances=keep_distances,
+                prep_chunked=prep_chunked, prep_peak=prep, **port,
+                replicated_floor=floor, per_rank_peak=per_rank, budget=budget,
+                fits=per_rank <= budget, sharded=True)
 
 
 def explain(plan: dict) -> str:
@@ -341,7 +376,9 @@ def explain(plan: dict) -> str:
         return (f"sharded band GO memory plan at {plan['n']:,} x "
                 f"{plan['n_attrs']:,} over {plan['ndev']} devices (band "
                 f"{plan['band']}, packed={plan['packed']}): per-shard peak "
-                f"{plan['per_shard_peak'] / gb:.2f} GB vs a budget of "
+                f"{plan['per_shard_peak'] / gb:.2f} GB, per-rank peak with "
+                f"the outputs assembled on every rank "
+                f"{plan['per_rank_peak'] / gb:.2f} GB vs a budget of "
                 f"{plan['budget'] / gb:.2f} GB")
     return (f"band GO memory plan at {plan['n']:,} x {plan['n_attrs']:,} "
             f"(band {plan['band']}, packed={plan['packed']}, "

@@ -194,7 +194,8 @@ def _tail(counts, nsize, K, lgt, M, enrichment_threshold, iterations):
 def hypergeom_core_band(s_ind, nan0, nodes_not_nan, K, lgt, M,
                         enrichment_threshold, *, iterations: int, bt: int,
                         block: int = 128, precision: str = "highest",
-                        attr_chunk: int | None = None, rank=None):
+                        attr_chunk: int | None = None, rank=None,
+                        blocks=None, row_block_offset: int = 0):
     """Census + survival tail over the banded indicator from NaN-zeroed
     operands (``:138``).
 
@@ -206,15 +207,19 @@ def hypergeom_core_band(s_ind, nan0, nodes_not_nan, K, lgt, M,
     so that one chunk's f64 intermediates are live at a time; the last chunk
     clamps its start to ``A - attr_chunk`` and recomputes a few columns
     identically. Returns (log sf f32, indicator int8), (n, A) with ``rank``
-    else (npad, A).
+    else (npad, A). A row shard of the band (``blocks``,
+    ``row_block_offset``: ``ops.apsp_bandstore._block_range``) gets the
+    rows of its real block-rows and passes no ``rank``
+    (``band_sharded.py:515``).
     """
-    npad = _npad(s_ind, bt, block)
     dev = s_ind.device
     nan0 = torch.as_tensor(nan0, device=dev).to(torch.float32)
+    npad = -(-nan0.shape[0] // block) * block
     nnn = torch.as_tensor(nodes_not_nan, device=dev).to(torch.float32)
     K = torch.as_tensor(K, device=dev)
     A = nan0.shape[1]
-    kw = dict(bt=bt, block=block, precision=precision)
+    kw = dict(bt=bt, block=block, precision=precision, blocks=blocks,
+              row_block_offset=row_block_offset)
 
     def gather(x):
         return x if rank is None else x.index_select(0, rank)
@@ -228,7 +233,7 @@ def hypergeom_core_band(s_ind, nan0, nodes_not_nan, K, lgt, M,
 
     nsize = band_matmul(s_ind, _pad_rows_to(nnn[:, None], npad), **kw)[:, 0]
     nan0_r = _pad_rows_to(nan0, npad)
-    out_rows = npad if rank is None else rank.shape[0]
+    out_rows = nsize.shape[0] if rank is None else rank.shape[0]
     logsf_b = torch.empty((out_rows, A), dtype=torch.float32, device=dev)
     bin_b = torch.empty((out_rows, A), dtype=torch.int8, device=dev)
     for ci in range(-(-A // attr_chunk)):

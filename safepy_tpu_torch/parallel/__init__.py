@@ -15,10 +15,9 @@ Port of ``safepy_tpu/parallel``:
   * :mod:`safepy_tpu_torch.parallel.hypergeom_sharded` -- the attribute
     columns split over an ``attr`` axis for the census and survival tail;
   * :mod:`safepy_tpu_torch.parallel.band_sharded` -- the row-sharded
-    band-storage Floyd-Warshall and its quantitative permutation pipeline.
-
-Not ported yet (ROADMAP A10 remainder): the band engine's euclidean and
-hypergeometric pipelines and the bit-packed band on a mesh.
+    band-storage Floyd-Warshall and its pipelines: the quantitative and
+    euclidean permutation pipelines and band GO (the class table and the
+    f64 tail loop), the indicator int8 or bit-packed.
 """
 
 from safepy_tpu_torch.parallel.mesh import make_mesh, mesh_axis

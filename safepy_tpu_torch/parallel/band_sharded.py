@@ -1,7 +1,7 @@
 """Row-sharded band-STORAGE Floyd-Warshall + banded enrichment over a mesh.
 
-Port of ``safepy_tpu/parallel/band_sharded.py`` (the FW engine and the
-quantitative permutation pipeline). The JAX package runs one program over
+Port of ``safepy_tpu/parallel/band_sharded.py``: the FW engine and every
+pipeline over it. The JAX package runs one program over
 the mesh (``shard_map``); here every rank of the mesh's ``data`` axis runs
 these functions on its own device (SPMD over ``torch.distributed``), and the
 ghosted skewed band of ``ops.apsp_bandstore`` is split into equal row slabs
@@ -32,19 +32,30 @@ padding of ``_ghost_pad_cols`` :413 is ``band_matmul``'s own). Every rank
 draws the same permutations (the same generator seed, or the same
 ``perm_idx``), so no collective is needed until the outputs are assembled.
 
+The binary engines run the census the same way: the class table
+(:func:`hypergeom_band_table_sharded`, ``:701``) one K-sorted column chunk
+at a time (each rank's census, the same table built on every rank, the
+rank's lookup), and the f64 tail loop
+(:func:`fused_hypergeom_pipeline_band_sharded`, ``:515``) over each rank's
+real rows. The euclidean pipeline
+(:func:`fused_permutation_pipeline_band_euclid_sharded`, ``:787``) builds
+each rank's slab straight from the coordinates (``_euclid_band_local``
+:362, ``_euclid_band_ind_local`` :381) and has no FW. ``packed=True``
+stores each rank's indicator slab bit-packed (LSB-first, as
+``ops.apsp_bandstore.pack_bits_tile``): a slab is a whole number of
+block-rows and the packing runs along each row, so the shards hold the
+rows of the single-device packed band.
+
 Outputs: the JAX functions return global arrays whose rows stay sharded;
 these return them assembled on every rank (each rank's rows broadcast to
 the others, exact for any dtype), so every rank holds the same global band,
 scores and counts. ``all_reduce`` and ``broadcast`` are the only collectives,
 so the gloo backend works on CUDA tensors too (two ranks on one card).
-
-Not ported (ROADMAP A10 remainder): the euclidean pipeline (:332-406, :784),
-the hypergeometric and class-table engines (:512-580, :656-781) and the
-bit-packed indicator.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -73,6 +84,14 @@ def real_blocks(my: int, *, nb: int, bt: int, local_rows: int):
     lo = min(max(my * local_rows - bt, 0), nb)
     hi = min(max((my + 1) * local_rows - bt, lo), nb)
     return lo, hi
+
+
+def _shard_rows(my, geom):
+    """Rank ``my``'s real block-rows and the first ghosted block-row of its
+    slab, as the row-shard forms of the banded products take them."""
+    bt, nb, _, _, local_rows = geom
+    return dict(blocks=real_blocks(my, nb=nb, bt=bt, local_rows=local_rows),
+                row_block_offset=my * local_rows)
 
 
 def band_init_local(u, v, w, my: int, *, n: int, bt: int, local_rows: int,
@@ -206,9 +225,13 @@ def apsp_band_fw_sharded(s_ghosted: torch.Tensor, *, mesh, axis: str = "data",
     return s_ghosted
 
 
-def _sharded_front(u, v, w, radius, *, mesh, axis, n, band, block):
-    """Init -> FW -> indicator on this rank's slab. Returns (slab, ind, my,
-    group, ndev, geometry of :func:`sharded_band_geometry`)."""
+def _sharded_front(u, v, w, radius, *, mesh, axis, n, band, block,
+                   packed, keep_distances):
+    """Init -> FW -> indicator (bit-packed with ``packed``) on this rank's
+    slab. Returns (slab, ind, my, group, ndev, geometry of
+    :func:`sharded_band_geometry`): with ``keep_distances`` the slab's
+    entries beyond the radius +inf (JAX's ``where(slab <= radius, slab,
+    inf)``), else None, the f32 slab freed once thresholded."""
     group, ndev, my = mesh_axis(mesh, axis)
     geom = sharded_band_geometry(n, band, ndev, block)
     bt, nb, width, g_pad, local_rows = geom
@@ -216,26 +239,51 @@ def _sharded_front(u, v, w, radius, *, mesh, axis, n, band, block):
                            width=width, block=block)
     _band_fw_rounds(slab, my, group, nb=nb, bt=bt, local_rows=local_rows,
                     block=block)
-    return slab, bst.band_threshold(slab, radius), my, group, ndev, geom
+    ind = bst.band_threshold(slab, radius, packed=packed, block=block)
+    if not keep_distances:
+        return None, ind, my, group, ndev, geom
+    r = torch.as_tensor(radius, dtype=slab.dtype, device=slab.device)
+    slab.masked_fill_(slab > r, _INF)
+    return slab, ind, my, group, ndev, geom
 
 
 def _band_segments(ndev: int, rows_per_rank: int):
     return [(r * rows_per_rank, (r + 1) * rows_per_rank) for r in range(ndev)]
 
 
+def _real_segments(ndev: int, *, nb: int, bt: int, local_rows: int,
+                   block: int):
+    """Each rank's rows of the (npad, ...) real-row frame."""
+    return [tuple(b * block for b in real_blocks(r, nb=nb, bt=bt,
+                                                 local_rows=local_rows))
+            for r in range(ndev)]
+
+
+def _assemble_bands(ind, slab, my, group, ndev, geom, block):
+    """(ind_g, dist_g or None): every rank's slabs assembled into the
+    global ghost-padded frame (g_pad b rows) on every rank."""
+    _, _, _, g_pad, local_rows = geom
+    segs = _band_segments(ndev, local_rows * block)
+    ind_g = _assemble(ind, g_pad * block, segs, my, group)
+    dist_g = (None if slab is None
+              else _assemble(slab, g_pad * block, segs, my, group))
+    return ind_g, dist_g
+
+
 def band_neighborhoods_sharded(u, v, w, radius, *, mesh, axis: str = "data",
-                               n: int, band: int, block: int = 128):
+                               n: int, band: int, block: int = 128,
+                               packed: bool = False,
+                               keep_distances: bool = True):
     """Row-sharded band FW front half (``:589``): (dist_g, ind_g, sizes_g,
     mean, std), the bands in the global ghost-padded permuted frame
-    (g_pad b rows) on every rank, distances beyond the radius +inf."""
+    (g_pad b rows) on every rank, distances beyond the radius +inf.
+    ``packed``: the indicator bit-packed; ``keep_distances=False`` frees
+    each rank's f32 slab once thresholded and returns None for dist_g."""
     slab, ind, my, group, ndev, geom = _sharded_front(
-        u, v, w, radius, mesh=mesh, axis=axis, n=n, band=band, block=block)
-    bt, _, _, g_pad, local_rows = geom
-    segs = _band_segments(ndev, local_rows * block)
-    slab.masked_fill_(ind == 0, _INF)
-    dist_g = _assemble(slab, g_pad * block, segs, my, group)
-    ind_g = _assemble(ind, g_pad * block, segs, my, group)
-    _, mean, std = bst.band_row_stats(ind_g, n=n, bt=bt, block=block)
+        u, v, w, radius, mesh=mesh, axis=axis, n=n, band=band, block=block,
+        packed=packed, keep_distances=keep_distances)
+    ind_g, dist_g = _assemble_bands(ind, slab, my, group, ndev, geom, block)
+    _, mean, std = bst.band_row_stats(ind_g, n=n, bt=geom[0], block=block)
     return dist_g, ind_g, bst.band_row_sizes(ind_g), mean, std
 
 
@@ -244,8 +292,8 @@ def band_matmul_sharded(ind_g, x, *, mesh, axis: str = "data", n: int,
                         precision: str = "highest") -> torch.Tensor:
     """(row-sharded banded indicator) @ x for a replicated (n, A) operand
     (``:633``): the ghosted (g_pad b, A) global product on every rank, each
-    rank contracting its own real block-rows of the global band ``ind_g``;
-    ghost and pad rows are 0."""
+    rank contracting its own real block-rows of the global band ``ind_g``
+    (int8 or bit-packed); ghost and pad rows are 0."""
     group, ndev, my = mesh_axis(mesh, axis)
     bt, nb, width, g_pad, local_rows = sharded_band_geometry(
         n, band, ndev, block)
@@ -258,9 +306,8 @@ def band_matmul_sharded(ind_g, x, *, mesh, axis: str = "data", n: int,
     xg[:x.shape[0]] = x
     prod = bst.band_matmul(ind, xg, bt=bt, block=block, precision=precision,
                            blocks=(lo, hi), row_block_offset=my * local_rows)
-    segs = [tuple(b * block for b in real_blocks(r, nb=nb, bt=bt,
-                                                 local_rows=local_rows))
-            for r in range(ndev)]
+    segs = _real_segments(ndev, nb=nb, bt=bt, local_rows=local_rows,
+                          block=block)
     out = torch.zeros((g_pad * block, x.shape[1]), dtype=torch.float32,
                       device=ind.device)
     out[bt * block:bt * block + npad] = _assemble(prod, npad, segs, my,
@@ -268,12 +315,36 @@ def band_matmul_sharded(ind_g, x, *, mesh, axis: str = "data", n: int,
     return out
 
 
+def _sharded_null(slab, ind, vals, vals_valid, valid, starts, rank,
+                  generator, my, group, ndev, geom, *, n, block, score_type,
+                  num_permutations, batch_size, w_c, precision, perm_idx):
+    """Scores and permutation counts of this rank's real rows, then every
+    output assembled on every rank: (dist_g or None, ind_g, obs,
+    counts_neg, counts_pos, mean, std), as the quantitative pipelines
+    return them. ``slab``: the masked distance slab to assemble, or
+    None."""
+    bt, nb, width, g_pad, local_rows = geom
+    obs, counts_neg, counts_pos = _band_null(
+        ind, vals, vals_valid, valid, starts, rank, generator, bt=bt,
+        block=block, score_type=score_type,
+        num_permutations=num_permutations, batch_size=batch_size, w_c=w_c,
+        precision=precision, perm_idx=perm_idx, **_shard_rows(my, geom))
+    row_segs = _real_segments(ndev, nb=nb, bt=bt, local_rows=local_rows,
+                              block=block)
+    obs, counts_neg, counts_pos = (
+        _assemble(x, nb * block, row_segs, my, group)[rank]
+        for x in (obs, counts_neg, counts_pos))
+    ind_g, dist_g = _assemble_bands(ind, slab, my, group, ndev, geom, block)
+    _, mean, std = bst.band_row_stats(ind_g, n=n, bt=bt, block=block)
+    return dist_g, ind_g, obs, counts_neg, counts_pos, mean, std
+
+
 def fused_permutation_pipeline_band_sharded(
         u, v, w, vals, vals_valid, valid, starts, rank, generator, radius, *,
         mesh, axis: str = "data", n: int, band: int, block: int = 128,
         score_type: str = "sum", num_permutations: int = 1000,
         batch_size: int = 1000, w_c: int, precision: str = "highest",
-        keep_distances: bool = True, perm_idx=None):
+        keep_distances: bool = True, perm_idx=None, packed: bool = False):
     """Row-sharded band pipeline (``:419``): init, FW, threshold, scores,
     null, every band-shaped array split over the ranks of ``axis``.
 
@@ -284,32 +355,213 @@ def fused_permutation_pipeline_band_sharded(
     counts_pos, mean, std) on every rank: the bands in the global
     ghost-padded permuted frame (g_pad b rows), the (n, A) matrices in the
     original node frame. ``keep_distances=False`` frees each rank's f32 slab
-    after thresholding and returns None for the distances.
+    after thresholding and returns None for the distances; ``packed``
+    stores the indicator bit-packed (``:477``).
     """
     slab, ind, my, group, ndev, geom = _sharded_front(
-        u, v, w, radius, mesh=mesh, axis=axis, n=n, band=band, block=block)
-    bt, nb, width, g_pad, local_rows = geom
-    if keep_distances:
-        slab.masked_fill_(ind == 0, _INF)
-    else:
-        del slab
-    blocks = real_blocks(my, nb=nb, bt=bt, local_rows=local_rows)
-    obs, counts_neg, counts_pos = _band_null(
-        ind, vals, vals_valid, valid, starts, rank, generator, bt=bt,
-        block=block, score_type=score_type,
+        u, v, w, radius, mesh=mesh, axis=axis, n=n, band=band, block=block,
+        packed=packed, keep_distances=keep_distances)
+    return _sharded_null(
+        slab, ind, vals, vals_valid, valid, starts, rank, generator, my,
+        group, ndev, geom, n=n, block=block, score_type=score_type,
         num_permutations=num_permutations, batch_size=batch_size, w_c=w_c,
-        precision=precision, perm_idx=perm_idx, blocks=blocks,
-        row_block_offset=my * local_rows)
+        precision=precision, perm_idx=perm_idx)
 
+
+def _euclid_local(coords_perm, radius, my, *, n: int, band: int, geom,
+                  block: int, keep_distances: bool, packed: bool):
+    """(slab or None, ind): rank ``my``'s rows of the euclidean band,
+    built straight from the coordinates (``_euclid_band_local`` :362,
+    ``_euclid_band_ind_local`` :381) a group of its real block-rows at a
+    time with the single-device blocks' arithmetic
+    (``ops.apsp_bandstore._euclid_distances``); ghost and pad rows are
+    +inf (0 in the indicator). With ``keep_distances`` the f32 slab is
+    built, its entries from the radius on set to +inf, and the indicator is
+    strict ``dist < radius``; without, the indicator (bit-packed with
+    ``packed``) is built directly and no f32 slab exists."""
+    bt, nb, width, _, local_rows = geom
+    cg, *_ = bst._euclid_ghosted(coords_perm, n=n, band=band, block=block)
+    dev = cg.device
+    lrows = local_rows * block
+    r = torch.as_tensor(radius, dtype=torch.float32, device=dev)
+    if keep_distances:
+        out = torch.full((lrows, width), _INF, dtype=torch.float32,
+                         device=dev)
+    else:
+        out = torch.zeros((lrows, width // 8 if packed else width),
+                          dtype=torch.uint8 if packed else torch.int8,
+                          device=dev)
+    lo, hi = real_blocks(my, nb=nb, bt=bt, local_rows=local_rows)
+    off = bt - my * local_rows  # real block-row i is local block-row i + off
+    for i0, i1 in bst._groups(lo, hi, block * width):
+        d = bst._euclid_distances(cg, i0, i1, n=n, bt=bt, block=block,
+                                  width=width).view(-1, width)
+        rows = slice((i0 + off) * block, (i1 + off) * block)
+        if keep_distances:
+            out[rows] = d
+        else:
+            out[rows] = bst.pack_bits_tile(d < r) if packed else d < r
+    if not keep_distances:
+        return None, out
+    beyond = out >= r
+    ind = (~beyond).to(torch.int8)
+    out.masked_fill_(beyond, _INF)
+    return out, ind
+
+
+def fused_permutation_pipeline_band_euclid_sharded(
+        coords_perm, vals, vals_valid, valid, starts, rank, generator,
+        radius, *, mesh, axis: str = "data", n: int, band: int,
+        block: int = 128, score_type: str = "sum",
+        num_permutations: int = 1000, batch_size: int = 1000, w_c: int,
+        precision: str = "highest", keep_distances: bool = True,
+        packed: bool = False, perm_idx=None):
+    """Row-sharded euclidean band pipeline (``:787``): each rank's rows of
+    the banded coordinate distances (strict ``dist < r``, reference
+    safe.py:389-399), then the sharded permutation null; no graph
+    algorithm, so no FW.
+
+    Inputs and outputs as
+    ``pipeline.fused_permutation_pipeline_band_euclid``, replicated on
+    every rank (the (n, 2) coordinates in the banded order); outputs as
+    :func:`fused_permutation_pipeline_band_sharded`. ``packed`` needs
+    ``keep_distances=False``."""
+    if keep_distances and packed:
+        raise ValueError("a bit-packed indicator needs keep_distances=False")
+    group, ndev, my = mesh_axis(mesh, axis)
+    geom = sharded_band_geometry(n, band, ndev, block)
+    slab, ind = _euclid_local(coords_perm, radius, my, n=n, band=band,
+                              geom=geom, block=block,
+                              keep_distances=keep_distances, packed=packed)
+    return _sharded_null(
+        slab, ind, vals, vals_valid, valid, starts, rank, generator, my,
+        group, ndev, geom, n=n, block=block, score_type=score_type,
+        num_permutations=num_permutations, batch_size=batch_size, w_c=w_c,
+        precision=precision, perm_idx=perm_idx)
+
+
+# ---------------------------------------------------------------------------
+# Band GO (binary annotations): the class table and the f64 tail loop
+# ---------------------------------------------------------------------------
+
+def _to_node_frame(local, rank, my, group, ndev, geom, block):
+    """A rank's (real rows, w) block in the permuted frame -> the (n, w)
+    global block in the original node frame, on every rank."""
+    bt, nb, _, _, local_rows = geom
+    segs = _real_segments(ndev, nb=nb, bt=bt, local_rows=local_rows,
+                          block=block)
+    return _assemble(local, nb * block, segs, my, group).index_select(0, rank)
+
+
+def hypergeom_band_table_sharded(ind_g, nan0, nodes_not_nan, M,
+                                 enrichment_threshold, *, mesh,
+                                 axis: str = "data", n: int, band: int,
+                                 block: int = 128, rank_np,
+                                 precision: str = "highest",
+                                 chunk_cols: int = 1024, K_np=None):
+    """Sharded counterpart of ``ops.enrich_band.hypergeom_band_table``
+    (``:701``), over the global band ``ind_g`` (int8 or bit-packed) of
+    :func:`band_neighborhoods_sharded`.
+
+    nsize from one banded product over each rank's real rows and one
+    ``all_reduce(MAX)`` for the class table's row bound (``htab.plan``, in
+    chunks of ``chunk_cols`` = 1024 as in JAX); then a K-sorted column
+    chunk at a time (``_band_table_chunk_sharded`` :659): the rank's
+    census of the chunk, the chunk's table (the same on every rank), the
+    rank's lookup; each chunk's rows are assembled on every rank, put in
+    the node frame and copied into the outputs, a chunk's leading
+    ``overlap`` columns dropped from the counts. The lookup is the port's
+    one gather (no ``lookup_group``).
+
+    nan0: (n, A) int8 or f32 annotations with NaN set to 0, rows in the
+    permuted frame. Returns (log sf f32, indicator int8, enriched counts
+    int32 (A,)) on every rank's device, the (n, A) matrices in the original
+    node frame, or None when the plan is ineligible (the caller takes the
+    f64 tail loop)."""
+    from safepy_tpu_torch.ops import hypergeom_table as htab
+    from safepy_tpu_torch.ops.enrich_band import (_column_sums_chunked,
+                                                  _pad_rows_to, _place_chunk)
+
+    group, ndev, my = mesh_axis(mesh, axis)
+    geom = sharded_band_geometry(n, band, ndev, block)
+    bt, nb, _, _, _ = geom
     npad = nb * block
-    row_segs = [tuple(b * block for b in real_blocks(
-        r, nb=nb, bt=bt, local_rows=local_rows)) for r in range(ndev)]
-    obs, counts_neg, counts_pos = (
-        _assemble(x, npad, row_segs, my, group)[rank]
-        for x in (obs, counts_neg, counts_pos))
-    band_segs = _band_segments(ndev, local_rows * block)
-    ind_g = _assemble(ind, g_pad * block, band_segs, my, group)
-    dist_g = (_assemble(slab, g_pad * block, band_segs, my, group)
-              if keep_distances else None)
+    lrows = geom[4] * block
+    ind = ind_g[my * lrows:(my + 1) * lrows]
+    dev = ind.device
+    kw = dict(bt=bt, block=block, precision=precision,
+              **_shard_rows(my, geom))
+    nan0_dev = torch.as_tensor(nan0, device=dev)
+    K_np = (_column_sums_chunked(nan0_dev) if K_np is None
+            else np.asarray(K_np))
+    nnn = torch.as_tensor(nodes_not_nan, device=dev).to(torch.float32)
+    nsize = bst.band_matmul(ind, _pad_rows_to(nnn[:, None], npad),
+                            **kw)[:, 0]
+    n_max = torch.zeros(1, dtype=torch.float32, device=dev)
+    if nsize.numel():
+        n_max[0] = nsize.max()
+    dist.all_reduce(n_max, op=dist.ReduceOp.MAX, group=group)
+    plan = htab.plan(K_np, float(n_max), int(M), chunk_cols=chunk_cols)
+    if plan is None:
+        return None
+
+    log_thr64 = float(np.log(enrichment_threshold))
+    rank = torch.as_tensor(rank_np, dtype=torch.int64, device=dev)
+    n_attrs = nan0_dev.shape[1]
+    logsf = torch.empty((n, n_attrs), dtype=torch.float32, device=dev)
+    nbin = torch.empty((n, n_attrs), dtype=torch.int8, device=dev)
+    counts = []
+    for ch in plan["chunks"]:
+        start, width = ch["start"], ch["width"]
+        census = bst.band_matmul(
+            ind, _pad_rows_to(nan0_dev[:, start:start + width]
+                              .to(torch.float32), npad), **kw)
+        table = htab.build_logsf_table(
+            torch.as_tensor(ch["K_dist"], device=dev), M, log_thr64,
+            R=ch["R"], S_max=ch["S_max"], C=ch["C"])
+        _nes, logsf_c, bin_c = htab.table_lookup(
+            table, census, nsize, torch.as_tensor(ch["colc"], device=dev),
+            float(np.float32(log_thr64)), S_max=ch["S_max"], R=ch["R"],
+            C=ch["C"])
+        del census, table, _nes
+        logsf_c, bin_c = (_to_node_frame(x, rank, my, group, ndev, geom,
+                                         block) for x in (logsf_c, bin_c))
+        counts.append(bin_c.sum(dim=0, dtype=torch.int32)[ch["overlap"]:])
+        _place_chunk(logsf, nbin, logsf_c, bin_c, start)
+        del logsf_c, bin_c
+    return logsf, nbin, torch.cat(counts)
+
+
+def fused_hypergeom_pipeline_band_sharded(
+        u, v, w, nan0, nodes_not_nan, K, lgt, M, radius,
+        enrichment_threshold, rank, *, mesh, axis: str = "data", n: int,
+        band: int, block: int = 128, iterations: int,
+        precision: str = "highest", keep_distances: bool = True,
+        packed: bool = False, attr_chunk: int | None = None):
+    """Row-sharded band pipeline, f64 tail-loop engine (``:515``): the FW
+    front, then each rank's census over its real block-rows, the survival
+    tail and its finalization (``ops.enrich_band.hypergeom_core_band`` on
+    the rank's rows, in columns of ``attr_chunk`` when given: the tail is
+    elementwise, so the chunking changes no bit), the rows assembled on
+    every rank. Operands as ``pipeline.fused_hypergeom_pipeline_band``'s,
+    replicated. Returns (dist_g or None, ind_g, log sf f32, indicator int8,
+    enriched counts int32 (A,), mean, std) on every rank, the (n, A)
+    matrices in the original node frame; the NES derives from the log sf
+    in the facade."""
+    from safepy_tpu_torch.ops.enrich_band import hypergeom_core_band
+
+    slab, ind, my, group, ndev, geom = _sharded_front(
+        u, v, w, radius, mesh=mesh, axis=axis, n=n, band=band, block=block,
+        packed=packed, keep_distances=keep_distances)
+    bt = geom[0]
+    log_sf, nbin = hypergeom_core_band(
+        ind, nan0, nodes_not_nan, K, lgt, M, enrichment_threshold,
+        iterations=iterations, bt=bt, block=block, precision=precision,
+        attr_chunk=attr_chunk, **_shard_rows(my, geom))
+    rank = torch.as_tensor(rank, dtype=torch.int64, device=ind.device)
+    log_sf, nbin = (_to_node_frame(x, rank, my, group, ndev, geom, block)
+                    for x in (log_sf, nbin))
+    ind_g, dist_g = _assemble_bands(ind, slab, my, group, ndev, geom, block)
     _, mean, std = bst.band_row_stats(ind_g, n=n, bt=bt, block=block)
-    return dist_g, ind_g, obs, counts_neg, counts_pos, mean, std
+    return (dist_g, ind_g, log_sf, nbin, nbin.sum(dim=0, dtype=torch.int32),
+            mean, std)

@@ -42,19 +42,18 @@ the counts of the permutation null) as the JAX facade does.
   taken; the permutation null splits over every mesh axis (the stages on
   a ``perm`` axis), its count rounded up to a multiple of the device
   count; the hypergeometric columns split over an ``attr`` axis. Band
-  storage takes only a mesh of one ``data`` axis (the row-sharded band
-  engine, ``parallel.band_sharded``, for a quantitative run), and never in
-  the stages. Every rank gets the same global results.
+  storage takes only a mesh of one ``data`` axis, and never in the
+  stages: the row-sharded band engine (``parallel.band_sharded``) runs
+  the quantitative run (the band bit-packed where selected), band GO
+  (``table-band-sharded``, or the f64 tail loop ``loop-band-sharded``,
+  planned per rank first, ``hbm.band_go_shard_hbm_plan``) and the
+  euclidean band pipeline (``safe.py:1831-1843, 1974-2082``). Every rank
+  gets the same global results.
 - Band GO runs are planned before they allocate (``hbm.py``): the
   log-survival's residency (``logsf_store``: device f32, f16 or host;
   'auto' the first that fits ``hbm_budget_bytes``, or the device), the
   column-chunked operand prep past the budget, and a ``ValueError``
   carrying the plan when nothing fits (``_hbm_plan_last``).
-
-What the JAX facade offers beyond this (band GO, the euclidean band
-pipeline and a bit-packed band on a mesh) raises ``NotImplementedError``
-naming the ROADMAP item that brings it, before anything is computed;
-nothing quietly takes another path.
 
 The session is built as JAX's is (``safe.py:80-272``): the package
 defaults of ``safe_default.ini``, then the user INI (``config.py``); the
@@ -156,11 +155,6 @@ _PICKLE_DEFAULTS = dict(
     _attr_serial=0, _enrichment_serial=0, _node2domain_serial=None,
     _band_relax_used=None, _hypergeom_engine_used=None,
     hbm_budget_bytes=None, _hbm_plan_last=None)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to safepy_tpu_torch "
-                               f"yet: ROADMAP {item}")
 
 
 class SAFE:
@@ -889,12 +883,6 @@ class SAFE:
         ``col``)? Then no banded window is taken (``safe.py:490-491``)."""
         return fw_sharding(self.mesh) is not None
 
-    def _refuse_on_mesh(self, what: str):
-        """The branches JAX sends to the row-sharded band engine beyond its
-        quantitative run wait for the next part of A10."""
-        if self.mesh is not None:
-            raise _not_ported(f"{what} on a mesh", "A10 remainder")
-
     def _mesh_seed(self) -> int:
         """The null's seed: ``random_seed``, else a fresh one, which on a
         mesh its first rank draws and shares (``mesh.shared_seed``)."""
@@ -1433,8 +1421,6 @@ class SAFE:
                        or not (self.mesh is None or self._data_mesh())
                        else self._euclidean_band_plan(coords, num_nodes, nr))
             if eb_plan is not None:
-                self._refuse_on_mesh("the euclidean band pipeline "
-                                     "(band_sharded's euclidean engine)")
                 return self._run_pipeline_band_euclid(eb_plan, coords, nr,
                                                       perm_idx)
         elif self.mesh is None or self._data_mesh():
@@ -1446,8 +1432,8 @@ class SAFE:
             self.compute_pvalues(perm_idx=perm_idx)
             return
         if bs_plan is not None and binary:
-            self._refuse_on_mesh("binary enrichment over band storage (the "
-                                 "sharded band GO engine)")
+            if self.mesh is not None:
+                return self._run_pipeline_band_hypergeom_sharded(bs_plan, nr)
             return self._run_pipeline_band_hypergeom(bs_plan, nr)
         if bs_plan is not None:
             return self._run_pipeline_bandstore(bs_plan, nr, perm_idx)
@@ -1543,10 +1529,6 @@ class SAFE:
         num_nodes = self._num_nodes
         band, rank = plan["band"], plan["rank"]
         packed = self._band_bits_selected(num_nodes, band)
-        if self.mesh is not None and packed:
-            raise _not_ported("a bit-packed indicator band on a mesh (the "
-                              "sharded band engine packs no band)",
-                              "A10 remainder")
         self._release_device_results()
         bt = band // 128 + 1
         tail_args, kw = self._band_null_operands(rank, bt, perm_idx)
@@ -1573,18 +1555,23 @@ class SAFE:
             from safepy_tpu_torch.parallel.band_sharded import (
                 fused_permutation_pipeline_band_sharded)
             (dist_band, s_ind, obs, counts_neg, counts_pos, mean, std) = \
-                fused_permutation_pipeline_band_sharded(*args, mesh=self.mesh,
-                                                        **kw)
-            g_rows = (-(-num_nodes // 128) + 2 * bt) * 128
-            s_ind = s_ind[:g_rows]
-            if dist_band is not None:
-                dist_band = dist_band[:g_rows]
+                fused_permutation_pipeline_band_sharded(
+                    *args, mesh=self.mesh, packed=packed, **kw)
+            s_ind, dist_band = self._trim_sharded(s_ind, dist_band, bt)
             self._band_relax_used = "fw"  # the sharded engine relaxes by FW
         self.apsp_engine_used, self.window_used = "band-storage", None
         self._store_null(obs, counts_neg, counts_pos)
         self._store_band_neighborhoods(s_ind, dist_band, rank, band, mean,
                                        std)
         self._update_binary_enrichment()
+
+    def _trim_sharded(self, s_ind, dist_band, bt):
+        """The bands of a sharded run without the rows that pad the ghosted
+        block-rows to a multiple of the rank count (``safe.py:2122-2127``):
+        (s_ind, dist_band or None) in the single-device frame."""
+        g_rows = (-(-self._num_nodes // 128) + 2 * bt) * 128
+        return s_ind[:g_rows], (None if dist_band is None
+                                else dist_band[:g_rows])
 
     def _band_null_operands(self, rank, bt, perm_idx):
         """The permutation null's operands over a band in the permuted frame
@@ -1615,21 +1602,32 @@ class SAFE:
         band-storage scale (``safe.py:1795``): the band straight from the
         coordinates, then the scores and the permutation null over it, with
         no graph algorithm. Without kept distances the indicator is built
-        directly, bit-packed when ``_band_bits_selected``."""
+        directly, bit-packed when ``_band_bits_selected``. On a "data" mesh
+        each rank builds its rows of the band (``safe.py:1831-1843``), and
+        the assembled bands lose their device-padding rows
+        (``safe.py:1855-1859``)."""
         num_nodes = self._num_nodes
         band, rank = plan["band"], plan["rank"]
         self._release_device_results()
         bt = band // 128 + 1
         keep = bool(self.keep_node_distances)
         tail_args, kw = self._band_null_operands(rank, bt, perm_idx)
-        (dist_band, s_ind, obs, counts_neg, counts_pos, mean, std) = \
-            _pipe.fused_permutation_pipeline_band_euclid(
-                torch.as_tensor(coords[np.argsort(rank)],
-                                dtype=torch.float32, device=self.device),
-                *tail_args, np.float32(nr), n=num_nodes, band=band,
-                keep_distances=keep,
-                packed=not keep and self._band_bits_selected(num_nodes, band),
-                **kw)
+        args = ((torch.as_tensor(coords[np.argsort(rank)],
+                                 dtype=torch.float32, device=self.device),)
+                + tail_args + (np.float32(nr),))
+        kw.update(n=num_nodes, band=band, keep_distances=keep,
+                  packed=not keep and self._band_bits_selected(num_nodes,
+                                                               band))
+        if self.mesh is None:
+            (dist_band, s_ind, obs, counts_neg, counts_pos, mean, std) = \
+                _pipe.fused_permutation_pipeline_band_euclid(*args, **kw)
+        else:
+            from safepy_tpu_torch.parallel.band_sharded import (
+                fused_permutation_pipeline_band_euclid_sharded)
+            (dist_band, s_ind, obs, counts_neg, counts_pos, mean, std) = \
+                fused_permutation_pipeline_band_euclid_sharded(
+                    *args, mesh=self.mesh, **kw)
+            s_ind, dist_band = self._trim_sharded(s_ind, dist_band, bt)
         self.apsp_engine_used, self.window_used = "band-storage", None
         self._store_null(obs, counts_neg, counts_pos)
         self._store_band_neighborhoods(s_ind, dist_band, rank, band, mean,
@@ -1874,6 +1872,103 @@ class SAFE:
                     self._band_relax_used = "bf" if bf else "fw"
                 (dist_band, s_ind, log_sf32, nesbin8, counts, mean,
                  std) = out[:7]
+        self.apsp_engine_used, self.window_used = "band-storage", None
+        self._store_hypergeom_results(None, log_sf32, nesbin8, counts)
+        self._store_band_neighborhoods(s_ind, dist_band, rank, band, mean,
+                                       std)
+        self._update_binary_enrichment()
+
+    def _band_go_shard_guard(self, num_nodes, band, n_attrs):
+        """The per-rank memory plan of the row-sharded band GO engine
+        (``safe.py:972-988``), made before the operand prep: stored in
+        ``_hbm_plan_last``, and a ``ValueError`` carrying it when a rank's
+        peak, with the outputs the port assembles on every rank, does not
+        fit :meth:`_hbm_budget`."""
+        from safepy_tpu_torch.parallel.mesh import mesh_axis
+        splan = _hbm.band_go_shard_hbm_plan(
+            num_nodes, band, n_attrs, mesh_axis(self.mesh, "data")[1],
+            packed=self._band_bits_selected(num_nodes, band),
+            keep_distances=bool(self.keep_node_distances),
+            prep_chunked=self._prep_chunked_selected(),
+            budget=self._hbm_budget(), device=self.device)
+        self._hbm_plan_last = splan
+        if not splan["fits"]:
+            raise ValueError(
+                "refusing to run a sharded band GO pipeline that does not "
+                "fit per rank: " + _hbm.explain(splan) + ". Every rank "
+                "holds the assembled outputs, bands and operands, "
+                f"{splan['replicated_floor'] / 1e9:.2f} GB whatever the "
+                "rank count, so more 'data' ranks do not make it fit: "
+                "lower the radius or the attribute count, or run on one "
+                "device, where logsf_store='f16'/'host' shrinks the "
+                "outputs.")
+        return splan
+
+    def _run_pipeline_band_hypergeom_sharded(self, plan, nr):
+        """run_pipeline's binary branch over band storage on a "data" mesh
+        (``safe.py:1893-2031``): the row-sharded FW front, then the class
+        table (``table-band-sharded``) for binary annotations, else the
+        f64 tail loop fused with its own front (``loop-band-sharded``:
+        ``hypergeom_engine='loop'``, values that are not 0/1, or a table
+        over its budget). As in JAX the FW always relaxes the band and
+        ``logsf_store`` is not read; the per-rank plan
+        (:meth:`_band_go_shard_guard`) comes before the operand prep. The
+        results, the same on every rank, stay on the device."""
+        from safepy_tpu_torch.parallel import band_sharded as _bsh
+        from safepy_tpu_torch.parallel.mesh import mesh_axis
+        num_nodes = self._num_nodes
+        band, rank = plan["band"], plan["rank"]
+        self._release_device_results()
+        order = np.argsort(rank)  # permuted position -> original node
+        bt = band // 128 + 1
+        n2a = self.node2attribute
+        radius = _nbr.inclusive_radius(nr)
+        thr = np.float64(self.enrichment_threshold)
+        kw = dict(mesh=self.mesh, n=num_nodes, band=band)
+        packed = self._band_bits_selected(num_nodes, band)
+        keep = bool(self.keep_node_distances)
+        edges = (plan["u"], plan["v"], plan["w"])
+        self._band_relax_used = "fw"
+
+        table_out = None
+        if self.hypergeom_engine in ("auto", "table"):
+            self._band_go_shard_guard(num_nodes, band, n2a.shape[1])
+            nan0, nnn, K, binary_ok, M = \
+                self._band_hyper_operands_cached(order)
+            _hbm.record_peak("prep", self.device)
+            if binary_ok:
+                dist_band, s_ind, _sizes, mean, std = \
+                    _bsh.band_neighborhoods_sharded(
+                        *edges, radius, keep_distances=keep, packed=packed,
+                        **kw)
+                _hbm.record_peak("relax", self.device)
+                table_out = _bsh.hypergeom_band_table_sharded(
+                    s_ind, nan0, nnn, M, thr, rank_np=rank,
+                    precision=self.matmul_precision, K_np=K.cpu().numpy(),
+                    **kw)
+                _hbm.record_peak("census", self.device)
+        if table_out is not None:
+            self._hypergeom_engine_used = "table-band-sharded"
+            log_sf32, nesbin8, counts = table_out
+        else:
+            self._hypergeom_engine_used = "loop-band-sharded"
+            dist_band = s_ind = None  # the loop runs its own front
+            nan0, nnn, K, M, iters, lgt = self._band_tail_operands(n2a,
+                                                                   order)
+            dev = self.device
+            rows = -(-num_nodes // mesh_axis(self.mesh, "data")[1])
+            (dist_band, s_ind, log_sf32, nesbin8, counts, mean, std) = \
+                _bsh.fused_hypergeom_pipeline_band_sharded(
+                    *edges, torch.as_tensor(nan0, device=dev),
+                    torch.as_tensor(nnn, device=dev),
+                    torch.as_tensor(K, device=dev), lgt, M, radius, thr,
+                    plan["rank_dev"], iterations=iters,
+                    precision=self.matmul_precision, keep_distances=keep,
+                    packed=packed,
+                    attr_chunk=self._hypergeom_attr_chunk(rows,
+                                                          n2a.shape[1]),
+                    **kw)
+        s_ind, dist_band = self._trim_sharded(s_ind, dist_band, bt)
         self.apsp_engine_used, self.window_used = "band-storage", None
         self._store_hypergeom_results(None, log_sf32, nesbin8, counts)
         self._store_band_neighborhoods(s_ind, dist_band, rank, band, mean,

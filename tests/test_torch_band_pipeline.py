@@ -8,8 +8,6 @@ sums in any order); with each package's own RNG, p-values within the
 binomial tolerance of tests/test_reference_parity.py:193.
 """
 
-import re
-from types import SimpleNamespace
 
 import networkx as nx
 import numpy as np
@@ -284,18 +282,37 @@ def _small_band_session(**settings):
 
 
 @pytest.mark.parametrize("setting,value,item", [
-    ("mesh", SimpleNamespace(mesh_dim_names=("data",)), "A10")])
-def test_still_refused_band_options_raise(setting, value, item):
-    """A bit-packed indicator band on a 'data' mesh (the row-sharded band
-    engine packs no band) waits for the next part of A10; the band session
-    on other meshes, refused until the dense engines on a mesh were
-    ported, takes them (tests/test_torch_mesh_dense.py). The stand-in mesh
-    has a DeviceMesh's axis names: the refusal comes before any
-    collective."""
-    sf = _small_band_session(band_indicator_bits=True, **{setting: value})
-    with pytest.raises(NotImplementedError,
-                       match=re.escape(f"ROADMAP {item}")):
-        sf.run_pipeline(num_permutations=20)
+    ("mesh", {"data": 1}, "A10")])
+def test_still_refused_band_options_raise(setting, value, item, tmp_path):
+    """A bit-packed indicator band on a 'data' mesh was refused, naming
+    ROADMAP ``item``, until the rest of the row-sharded band engine was
+    ported. Now, on a one-rank 'data' mesh (gloo in this process), a packed
+    band session runs the sharded engine and gives the single-device
+    packed run's band bytes, scores and counts with the same
+    permutations."""
+    import torch.distributed as dist
+    from safepy_tpu_torch.parallel import make_mesh
+
+    perm_idx = np.stack([np.random.default_rng(60 + i).permutation(200)
+                         for i in range(20)])
+    single = _small_band_session(band_indicator_bits=True)
+    single.run_pipeline(perm_idx=perm_idx)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0,
+        world_size=1)
+    try:
+        sf = _small_band_session(band_indicator_bits=True, **{
+            setting: make_mesh(value, device_type="cpu")})
+        sf.run_pipeline(perm_idx=perm_idx)
+    finally:
+        dist.destroy_process_group()
+    assert item == "A10" and sf.apsp_engine_used == "band-storage"
+    assert sf._neighborhoods_dev.data.dtype == torch.uint8
+    np.testing.assert_array_equal(sf._neighborhoods_dev.data.numpy(),
+                                  single._neighborhoods_dev.data.numpy())
+    for name in ("ns", "counts_neg", "counts_pos"):
+        np.testing.assert_array_equal(getattr(sf, name),
+                                      getattr(single, name))
 
 
 @pytest.mark.parametrize("setting,value", [

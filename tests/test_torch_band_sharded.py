@@ -22,8 +22,6 @@ tests/test_reference_parity.py:193.
 """
 
 import os
-import re
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -190,6 +188,10 @@ def _world_job(mesh, world, case_dir):
             out[f"{case}-num_permutations"] = np.array(sf.num_permutations)
             for name in ("neighborhoods", "ns", "counts_neg", "counts_pos"):
                 out[f"{case}-{name}"] = np.asarray(getattr(sf, name))
+        for case, settings in BAND_CASES.items():
+            sf = _session(mesh=mesh, **settings)
+            sf.run_pipeline(perm_idx=MESH_PERM_IDX_V)
+            out.update(_band_case_results(case, sf))
     return out
 
 
@@ -571,13 +573,7 @@ def test_facade_fresh_seed_is_shared(world_runs):
                               ranks[0]["facade-9-counts_neg"])
 
 
-# ---------------------------------------------------------------- refusals
-
-def _data_mesh(*names):
-    """A stand-in with a DeviceMesh's axis names: the facade refuses these
-    meshes before any collective."""
-    return SimpleNamespace(mesh_dim_names=names, ndim=len(names))
-
+# ------------------------------------------------- the cases once refused
 
 def _session(vals=None, mode="band", **settings):
     coords, edges, lengths, weights = _arrays(200, 6, 51)
@@ -607,6 +603,29 @@ MESH_PERM_IDX = np.stack([np.random.default_rng(60 + i).permutation(200)
                           for i in range(20)])
 
 
+# the band runs on a 'data' mesh that were refused until the rest of the
+# band engine was ported (world 2): band GO on binary attributes, and a
+# bit-packed band under the same permutations as one device
+BAND_CASES = {"binary attributes": dict(vals=(np.arange(200) % 2)
+                                        .astype(float)),
+              "bit-packed band": dict(vals=MESH_VALS,
+                                      band_indicator_bits=True)}
+MESH_PERM_IDX_V = np.stack([np.random.default_rng(70 + i).permutation(
+    int(np.isfinite(MESH_VALS).any(axis=1).sum())) for i in range(20)])
+
+
+def _band_case_results(case, sf):
+    """The results of a BAND_CASES run that the test compares."""
+    out = {f"{case}-engine": np.array([sf.apsp_engine_used,
+                                       str(sf._hypergeom_engine_used)]),
+           f"{case}-band": sf._neighborhoods_dev.data.numpy()}
+    names = (("nes_binary", "pvalues_pos") if case == "binary attributes"
+             else ("ns", "counts_neg", "counts_pos"))
+    for name in names:
+        out[f"{case}-{name}"] = np.asarray(getattr(sf, name))
+    return out
+
+
 @pytest.mark.parametrize("case,item", [
     ("perm axis", "A10 remainder"),
     ("data and perm axes", "A10 remainder"),
@@ -615,15 +634,16 @@ MESH_PERM_IDX = np.stack([np.random.default_rng(60 + i).permutation(200)
     ("binary attributes", "A10 remainder"),
     ("bit-packed band", "A10 remainder")])
 def test_unported_mesh_cases_raise(world_runs, case, item):
-    """Binary attributes over band storage and a bit-packed band on a
-    'data' mesh wait for the next part of A10, and are refused before any
-    collective (on a stand-in mesh). The other cases were refused until
-    the dense engines on a mesh were ported: a band session on a 'perm'
-    mesh, on 'data' and 'perm' axes, or on a 'data' mesh where no band plan
-    is taken, now runs on two gloo ranks (no band storage on such meshes,
-    and no banded window where the FW is sharded) and gives every rank the
-    single-device dense run's neighborhoods, scores and counts with the
-    same permutations."""
+    """Each case was refused, naming ROADMAP ``item``, until the part of
+    A10 that runs it was ported; each now runs on two gloo ranks. A band
+    session on a 'perm' mesh, on 'data' and 'perm' axes, or on a 'data'
+    mesh where no band plan is taken (the dense engines on a mesh: no band
+    storage on such meshes, and no banded window where the FW is sharded)
+    gives every rank the single-device dense run's neighborhoods, scores
+    and counts with the same permutations. Binary attributes over band
+    storage on a 'data' mesh take the sharded class table and give the
+    single-device band GO run's band, indicator and p-values; a bit-packed
+    band gives the single-device packed run's bytes, scores and counts."""
     if case in MESH_CASES:
         single = _session(vals=MESH_VALS, mode="full")
         single.run_pipeline(perm_idx=MESH_PERM_IDX)
@@ -634,13 +654,16 @@ def test_unported_mesh_cases_raise(world_runs, case, item):
                 np.testing.assert_array_equal(got[f"{case}-{name}"],
                                               getattr(single, name))
         return
-    mesh = _data_mesh("data")
-    kw = {}
-    if case == "binary attributes":
-        kw["vals"] = (np.arange(200) % 2).astype(float)
-    else:
-        kw["band_indicator_bits"] = True
-    sf = _session(mesh=mesh, **kw)
-    with pytest.raises(NotImplementedError,
-                       match=re.escape(f"ROADMAP {item}")):
-        sf.run_pipeline(num_permutations=20)
+    assert item == "A10 remainder"
+    single = _session(**BAND_CASES[case])
+    single.run_pipeline(perm_idx=MESH_PERM_IDX_V)
+    want = _band_case_results(case, single)
+    engine = ("table-band-sharded" if case == "binary attributes"
+              else "None")
+    for got in world_runs(2):
+        assert list(got[f"{case}-engine"]) == ["band-storage", engine]
+        for key, value in want.items():
+            if not key.endswith("-engine"):
+                np.testing.assert_array_equal(got[key], value, err_msg=key)
+    assert (want[f"{case}-band"].dtype == np.uint8) == (
+        case == "bit-packed band")

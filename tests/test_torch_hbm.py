@@ -206,21 +206,63 @@ def test_jax_and_port_plans_agree_far_from_edges(n, band, a):
 
 
 def test_shard_plan_scales_with_devices():
-    """The per-rank plan of the row-sharded band GO engine (wired into the
-    facade with that engine): the per-shard peak falls with the rank count
-    and fits where one device does not."""
+    """The per-rank plan of the row-sharded band GO engine (the facade's
+    guard on a 'data' mesh): JAX's per-shard peak falls with the rank
+    count and is within the budget where one device's plan is not; its
+    terms are JAX's. The port's per-rank peak adds what it assembles on
+    every rank (the outputs, the global bands), so it falls more slowly
+    and, at this budget, does not fit 8 ranks: the port's guard refuses
+    earlier than JAX's, for those bytes."""
     one = _plan(399_360, 3583, budget=10 ** 10)
     plans = [hbm.band_go_shard_hbm_plan(399_360, 3583, 4373, d,
                                         budget=10 ** 10)
              for d in (1, 2, 4, 8)]
     peaks = [p["per_shard_peak"] for p in plans]
     assert peaks == sorted(peaks, reverse=True)
-    assert not one["fits"] and plans[-1]["fits"] and plans[-1]["sharded"]
+    assert not one["fits"] and plans[-1]["per_shard_peak"] <= 10 ** 10
+    assert plans[-1]["sharded"] and not plans[-1]["fits"]
+    ranks = [p["per_rank_peak"] for p in plans]
+    assert ranks == sorted(ranks, reverse=True)
+    assert all(r > p for r, p in zip(ranks, peaks))
+    floors = [p["replicated_floor"] for p in plans]
+    assert floors == sorted(floors) and floors[-1] > 10 ** 10
     assert "per-shard peak" in hbm.explain(plans[-1])
     j = jhbm.band_go_shard_hbm_plan(399_360, 3583, 4373, 8)
-    for key in ("bt", "rows", "window", "annotations_int8", "out_bytes",
-                "indicator_bytes"):
+    for key in ("bt", "rows", "window", "fw_slab", "annotations_int8",
+                "out_bytes", "indicator_bytes"):
         assert plans[-1][key] == j[key], key
+
+
+@pytest.mark.parametrize("packed,keep,chunked", [
+    (True, True, True), (False, False, True), (False, True, False)])
+def test_shard_plan_port_terms(packed, keep, chunked):
+    """Each term of what the port holds on every rank besides JAX's: the
+    global indicator band (packed or int8) and f32 band (kept distances)
+    in the frame padded to a multiple of the rank count, the (n, A)
+    outputs and int8 operands beyond the rank's share, a census chunk's
+    assembly, the f32 upload of a full-device prep; the per-rank peak is
+    the larger of the prep's and the rest's sum."""
+    n, band, a, ndev = 49_920, 1535, 4373, 2
+    p = hbm.band_go_shard_hbm_plan(n, band, a, ndev, packed=packed,
+                                   keep_distances=keep, prep_chunked=chunked,
+                                   budget=10 ** 12)
+    bt, rows, window = hbm.band_geometry(n, band)
+    g_rows = -(-rows // (128 * ndev)) * ndev * 128
+    assert g_rows >= rows and g_rows % (128 * ndev) == 0
+    assert p["assembled_band"] == g_rows * window // (8 if packed else 1)
+    assert p["assembled_distances"] == (4 * g_rows * window if keep else 0)
+    assert p["assembled_outputs"] == 5 * n * a - p["out_bytes"]
+    assert p["replicated_annotations"] == n * a - p["annotations_int8"]
+    assert p["chunk_assembly"] == 10 * (-(-n // 128) * 128) * 1024
+    assert p["upload"] == (0 if chunked else 4 * n * a)
+    terms = sum(p[k] for k in ("assembled_band", "assembled_distances",
+                               "assembled_outputs", "replicated_annotations",
+                               "chunk_assembly", "upload"))
+    assert p["replicated_floor"] == terms
+    assert p["per_rank_peak"] == max(
+        p["prep_peak"], p["per_shard_peak"] + terms)
+    assert p["prep_peak"] == hbm.prep_peak(n, a, chunked=chunked)
+    assert p["fits"]
 
 
 def test_device_budget_on_the_host():

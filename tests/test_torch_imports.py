@@ -28,6 +28,7 @@ def test_import_is_light_and_builds_nothing():
             "safepy_tpu_torch.ops.hypergeom_table, "
             "safepy_tpu_torch.parallel, "
             "safepy_tpu_torch.parallel.band_sharded, "
+            "safepy_tpu_torch.dryrun, "
             "safepy_tpu_torch.config, safepy_tpu_torch.output, "
             "safepy_tpu_torch.cli, safepy_tpu_torch.io, "
             "safepy_tpu_torch.io.network, safepy_tpu_torch.io.layout, "

@@ -27,7 +27,6 @@ tests/test_facade_mesh.py holds them.
 
 import os
 import pickle
-import re
 from types import SimpleNamespace
 
 import numpy as np
@@ -180,6 +179,9 @@ def _world_job(world):
             out[f"{tag}-logsf"] = sf._logsf_dev.numpy()
             out[f"{tag}-enriched"] = np.asarray(
                 sf.attributes["num_neighborhoods_enriched"])
+        # the band runs on a 'data' mesh: the row-sharded band engine
+        for case in BAND_CASES:
+            out.update(_band_case(case, data))
     else:
         grid = make_mesh({"row": 2, "col": world // 2}, device_type="cpu")
         out["fw_2d"] = apsp_sharded_2d(_d0(), grid, block=BLOCK).numpy()
@@ -461,13 +463,7 @@ def test_attr_mesh_binary_runs(world_runs, single):
                                 - staged.pvalues_pos)) <= 1e-6
 
 
-# ------------------------------------------------------------- refusals
-
-def _stand_in(*names):
-    """A stand-in with a DeviceMesh's axis names: the facade refuses on it
-    before any collective."""
-    return SimpleNamespace(mesh_dim_names=names)
-
+# ------------------------------------------- the FW rule and the band runs
 
 @pytest.mark.parametrize("names,want", [
     ((), None), (("perm",), None), (("attr",), None), (("data",), "data"),
@@ -484,22 +480,46 @@ def test_fw_sharding_rule(names, want):
     assert sf._sharded_fw() == (want is not None)
 
 
+BAND_CASES = {"band GO": (GO, {}),
+              "euclidean band": (VALS, dict(node_distance_metric="euclidean")),
+              "bit-packed band": (VALS, dict(band_indicator_bits=True))}
+
+
+def _band_case(case, mesh=None):
+    """One BAND_CASES run over band storage (on ``mesh``, or one device):
+    its engines, indicator band and results, keyed by the case."""
+    vals, settings = BAND_CASES[case]
+    sf = _session(vals, mesh=mesh, apsp_mode="band", **settings)
+    if case == "band GO":
+        sf.run_pipeline()
+        names = ("nes_binary", "pvalues_pos")
+    else:
+        sf.run_pipeline(perm_idx=PERM_IDX)
+        names = ("ns", "counts_neg", "counts_pos")
+    out = {f"{case}-engine": np.array([sf.apsp_engine_used,
+                                       str(sf._hypergeom_engine_used)]),
+           f"{case}-band": sf._neighborhoods_dev.data.numpy()}
+    for name in names:
+        out[f"{case}-{name}"] = np.asarray(getattr(sf, name))
+    return out
+
+
 @pytest.mark.parametrize("case", ["band GO", "euclidean band",
                                   "bit-packed band"])
-def test_band_branches_on_a_data_mesh_still_refused(case):
+def test_band_branches_on_a_data_mesh_still_refused(world_runs, case):
     """What JAX sends to the row-sharded band engine beyond its
     quantitative run (band GO, the euclidean band pipeline, a packed band)
-    raises naming ROADMAP A10 remainder, before anything is computed."""
-    kw = dict(apsp_mode="band")
-    vals = VALS
-    if case == "band GO":
-        vals = GO
-    elif case == "euclidean band":
-        kw["node_distance_metric"] = "euclidean"
-    else:
-        kw["band_indicator_bits"] = True
-    sf = _session(vals, mesh=_stand_in("data"), **kw)
-    with pytest.raises(NotImplementedError,
-                       match=re.escape("ROADMAP A10 remainder")):
-        sf.run_pipeline()
-    assert sf._neighborhoods_dev is None and sf.nes is None
+    was refused, naming ROADMAP A10 remainder, until the rest of the band
+    engine was ported. On a 2-rank 'data' mesh each now runs over band
+    storage and gives every rank the single-device run's indicator band
+    and results: band GO by the sharded class table, the others with the
+    same permutations (dyadic values: exact counts)."""
+    want = _band_case(case)
+    engine = "table-band-sharded" if case == "band GO" else "None"
+    for got in world_runs(2):
+        assert list(got[f"{case}-engine"]) == ["band-storage", engine]
+        for key, value in want.items():
+            if not key.endswith("-engine"):
+                np.testing.assert_array_equal(got[key], value, err_msg=key)
+    assert (want[f"{case}-band"].dtype == np.uint8) == (
+        case == "bit-packed band")

@@ -8,7 +8,6 @@ exact f32 sums); with each package's own RNG, p-values within the binomial
 tolerance of tests/test_reference_parity.py:193.
 """
 
-from types import SimpleNamespace
 
 import networkx as nx
 import numpy as np
@@ -240,39 +239,54 @@ def _assert_matches_jax_run(jsf, psf, perm_idx):
     ("multiple_testing", True, "A4"), ("background", "network", "A4"),
     ("node_distance_metric", "euclidean", "A4"),
     ("band_relax", "bf", "A7"), ("band_indicator_bits", True, "A7"),
-    ("mesh", SimpleNamespace(mesh_dim_names=("data",)), "A10"),
+    ("mesh", {"data": 1}, "A10"),
     ("enrichment_type", "hypergeometric", "A5")])
-def test_unported_paths_raise(setting, value, item):
-    """The options of the JAX facade by the ROADMAP item that brings them.
-    The A4, A5 and A7 cases (FDR, background='network', the euclidean
-    metric, the hypergeometric test; the sparse Bellman-Ford relax and the
-    bit-packed indicator, run over band storage), refused until this port
-    had them, run and are held against the JAX facade. A mesh raises,
-    naming its item, where its engine is not ported yet: a bit-packed band
-    on a 'data' mesh (a stand-in with a DeviceMesh's axis names: the
-    refusal comes before any collective); the dense engines on a mesh,
-    refused until they were ported, run (tests/test_torch_mesh_dense.py)."""
-    if item == "A10":
-        _, sf = _small_port_session(apsp_mode="band",
-                                    band_indicator_bits=True)
-        setattr(sf, setting, value)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            sf.run_pipeline(num_permutations=20)
-        return
+def test_unported_paths_raise(setting, value, item, tmp_path):
+    """The options of the JAX facade by the ROADMAP item that brings them,
+    each refused until this port had it, now run and are held against the
+    JAX facade: FDR, background='network', the euclidean metric and the
+    hypergeometric test (A4, A5); the sparse Bellman-Ford relax and the
+    bit-packed indicator over band storage (A7); and a bit-packed band on a
+    'data' mesh (A10): the port on a one-rank gloo mesh in this process,
+    JAX's sharded band engine on a one-device mesh."""
     rng = np.random.default_rng(0)
     vals = rng.integers(-3, 4, (60, 1)).astype(float)  # exact f32 sums
     vals[rng.random(60) < 0.2] = np.nan
     if item == "A5":
         vals = (np.nan_to_num(vals) > 0).astype(float)
-    band = {"apsp_mode": "band"} if item == "A7" else {}
-    jsf, psf = _small_port_session(vals, **{setting: value}, **band)
+    band = {"apsp_mode": "band"} if item in ("A7", "A10") else {}
+    if setting == "mesh":
+        import jax
+        from jax.sharding import Mesh
+
+        jsf, psf = _small_port_session(vals, band_indicator_bits=True,
+                                       **band)
+        jsf.mesh = Mesh(np.array(jax.devices()[:1]), tuple(value))
+    else:
+        jsf, psf = _small_port_session(vals, **{setting: value}, **band)
     jsf.random_seed = 1
     jsf.run_pipeline(num_permutations=20)
     perm_idx = np.stack([np.random.default_rng(s).permutation(
         int(np.isfinite(jsf.node2attribute).any(axis=1).sum()))
         for s in range(20)])
-    psf.run_pipeline(perm_idx=perm_idx)
-    assert getattr(psf, setting) == value
+    if setting == "mesh":
+        import torch.distributed as dist
+        from safepy_tpu_torch.parallel import make_mesh
+
+        dist.init_process_group(
+            "gloo", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0,
+            world_size=1)
+        try:
+            psf.mesh = make_mesh(value, device_type="cpu")
+            psf.run_pipeline(perm_idx=perm_idx)
+        finally:
+            dist.destroy_process_group()
+        assert psf._neighborhoods_dev.data.dtype == torch.uint8
+        np.testing.assert_array_equal(psf._neighborhoods_dev.data.numpy(),
+                                      np.asarray(jsf._neighborhoods_dev.data))
+    else:
+        psf.run_pipeline(perm_idx=perm_idx)
+        assert getattr(psf, setting) == value
     assert psf._band_relax_used == jsf._band_relax_used
     _assert_matches_jax_run(jsf, psf, perm_idx)
 
