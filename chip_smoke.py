@@ -244,9 +244,15 @@ Phases, in order; any failure raises and the script exits non-zero:
     one ``close_diag`` and ``relax_panel`` a FW round and
     ``relax_band_row`` as phase 8 counts it, the indicator band,
     nes_binary and counts equal to phase 12's ``table-band`` run (the
-    class table's log sf bitwise), and each rank's allocated rise printed
-    beside the per-rank plan (``hbm.band_go_shard_hbm_plan``), which it
-    must not exceed; the bit-packed band of phase 6's attribute
+    class table's log sf bitwise), the stored results in host memory,
+    and each rank's allocated rise printed beside the per-rank plan
+    (``hbm.band_go_shard_hbm_plan``: JAX's per-shard terms and the port's
+    transients) and the host bytes a rank, which the rise must not exceed,
+    each world-2 rank's rise below world 1's; at world 2 the class table
+    again under ``hbm_budget_bytes`` 3.0 GB, between the world-2 plan and
+    the 4.555 GB that the plan counted while every rank assembled the
+    results on its card, with phase 12's results (the ``band mesh
+    capped`` line); the bit-packed band of phase 6's attribute
     (``band_indicator_bits=True``): phase 13 (d)'s bytes, its scores within
     1e-5 and its counts (exactly at world 1, within near-tie flips at
     world 2, as phase 8); the packed euclidean band at 1,000,000 points at
@@ -1478,7 +1484,7 @@ def _sharded_world1(device, ref, mesh, steady):
                    relax_band_row=nb)  # one launch for a round's rows
     steady_s = [timed_run() for _ in range(steady)]
     peak_bytes = torch.cuda.max_memory_allocated(device)
-    if not torch.equal(band_m.data, ref._neighborhoods_dev.data):
+    if not torch.equal(band_m.data.cpu(), ref._neighborhoods_dev.data.cpu()):
         raise AssertionError("sharded indicator band differs from phase 6's")
     if not np.allclose(sf.ns, ref.ns, rtol=1e-5, atol=1e-5):
         raise AssertionError("sharded scores differ from phase 6's beyond "
@@ -4157,13 +4163,20 @@ def mesh_launches(ms):
 # ------------------------------------------------------------------ phase 18
 
 SEED_EUCLID_MESH = SEED_EUCLID + 3  # phase 18's 49,920 scatter points
+# phase 18's capped world-2 band GO run: its hbm_budget_bytes, above the
+# per-rank plan at world 2 and below that plan as it stood while every rank
+# assembled the bands, outputs and operands on its card (4.555 GB at
+# 49,920 x 4,373, PERF.md section 5), which refused such a budget
+CAPPED_BUDGET = 3_000_000_000
+ASSEMBLED_WORLD2_PLAN = 4_555_000_000
 
 
 def check_band_row_cuts(device, nb, bt, world=2):
     """``relax_band_rows`` at each window cut the world-``world`` ranks
     launch (phase 6's geometry), bitwise against its plain version, with
-    its device time (profiler) and bound; and each rank's B3 device time
-    over the FW's rounds, summed from them."""
+    its device time (profiler), per-call time (CUDA events), the plain
+    version's time and its bound; and each rank's B3 device time over the
+    FW's rounds, summed from them."""
     gen = torch.Generator(device=device).manual_seed(18)
     b, nt = BLOCK, 2 * bt + 1
     w = nt * b
@@ -4181,6 +4194,11 @@ def check_band_row_cuts(device, nb, bt, world=2):
         b_ms, b_by = bound(k * b * w * b, (2 * k * b * w + b * w) * F32)
         rows_out[f"{lo}-{hi}"] = dict(
             rows=k, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            ms=time_ms(lambda: K.relax_band_rows(rows, p_ext, lo, hi),
+                       device),
+            plain_ms=time_ms(
+                lambda: K.relax_band_rows_plain(rows, p_ext, lo, hi), device,
+                inner=1, reps=3),
             device_ms=(device_ms_max(
                 lambda: K.relax_band_rows(rows, p_ext, lo, hi),
                 "relax_band_row_kernel") if device.type == "cuda" else None))
@@ -4226,6 +4244,16 @@ def _mesh_band_go(device, sf, engine, steady):
         plan = sf._hbm_plan_last
         out["plan_peak"] = plan["per_rank_peak"]
         out["plan_shard_peak"] = plan["per_shard_peak"]
+        out["plan_host"] = (plan["host_outputs"] + plan["host_bands"]
+                            + plan["host_operands"])
+        out["plan_transients"] = (plan["stage_buffer"]
+                                  + plan["ghost_operands"]
+                                  + plan["prep_chunk"])
+        results = (sf._logsf_dev, sf._nes_binary_dev,
+                   sf._neighborhoods_dev.data)
+        if any(t.device.type != "cpu" for t in results):
+            raise AssertionError(f"{engine}: the stored results are not in "
+                                 "host memory")
         if base is not None and out["rise"] > plan["per_rank_peak"]:
             raise AssertionError(
                 f"{engine}: allocated rise {out['rise']} B above the "
@@ -4300,15 +4328,20 @@ def _check_quant(tag, r, want, exact):
 
 def _band_mesh_work(device, mesh, world, ref, go_mat, euclid, steady):
     """What each rank runs in phase 18 on a ``data`` mesh of ``world``
-    ranks: band GO by both engines, the packed band of phase 6's
+    ranks: band GO by both engines (at world 2 the class table also under
+    ``hbm_budget_bytes=CAPPED_BUDGET``), the packed band of phase 6's
     attribute; at world 1 the packed euclidean band at 1 M points, at
     world 2 at 49,920."""
     out = {}
-    for engine, settings, reps in (("table-band-sharded", {}, steady),
-                                   ("loop-band-sharded",
-                                    dict(hypergeom_engine="loop"), 0)):
+    runs = [("table-band-sharded", "table-band-sharded", {}, steady),
+            ("loop-band-sharded", "loop-band-sharded",
+             dict(hypergeom_engine="loop"), 0)]
+    if world == 2:  # a budget the per-rank plan must now admit
+        runs.append(("capped", "table-band-sharded",
+                     dict(hbm_budget_bytes=CAPPED_BUDGET), 0))
+    for tag, engine, settings, reps in runs:
         sf = _band_go_session(device, ref, go_mat, mesh, **settings)
-        out[engine] = _mesh_band_go(device, sf, engine, reps)
+        out[tag] = _mesh_band_go(device, sf, engine, reps)
         del sf
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -4436,12 +4469,31 @@ def run_band_mesh(device, ref, go_mat, go_ref, euclid_ref, steady=3,
             ranks.append(pickle.load(f))
     cuts = out["band_rows"]["launches"]
     deltas = []
+    if not out["world1"]["table-band-sharded"]["plan_peak"] > (
+            ranks[0]["table-band-sharded"]["plan_peak"]):
+        raise AssertionError("the per-rank plan does not fall from world 1 "
+                             "to world 2")
     for r, got in enumerate(ranks):
-        for engine in ("table-band-sharded", "loop-band-sharded"):
-            _check_band_go(f"world 2 rank {r} {engine}", got[engine],
-                           go_ref, engine)
-            check_launches(device, json.loads(got[engine]["launches"]),
+        for tag, engine in (("table-band-sharded", "table-band-sharded"),
+                            ("loop-band-sharded", "loop-band-sharded"),
+                            ("capped", "table-band-sharded")):
+            _check_band_go(f"world 2 rank {r} {tag}", got[tag], go_ref,
+                           engine)
+            check_launches(device, json.loads(got[tag]["launches"]),
                            relax_band_row=cuts[r], **fw)
+        cap = got["capped"]
+        if not cap["plan_peak"] <= CAPPED_BUDGET < ASSEMBLED_WORLD2_PLAN:
+            raise AssertionError(
+                f"world 2 rank {r}: the capped run's budget {CAPPED_BUDGET} "
+                f"B is not between its plan {cap['plan_peak']} B and "
+                f"{ASSEMBLED_WORLD2_PLAN} B")
+        rise1 = out["world1"]["table-band-sharded"].get("rise")
+        for tag in ("table-band-sharded", "capped"):
+            rise2 = got[tag].get("rise")
+            if rise1 is not None and not rise2 < rise1:
+                raise AssertionError(
+                    f"world 2 rank {r} {tag}: allocated rise {rise2} B not "
+                    f"below world 1's {rise1} B")
         check_launches(device, json.loads(got["packed"]["launches"]),
                        relax_band_row=cuts[r], **fw)
         deltas.append(_check_quant(f"world 2 rank {r} packed", got["packed"],
@@ -4468,9 +4520,11 @@ def band_mesh_launches(bm):
     for tag, x in runs:
         for key, path in (("table-band-sharded", "band_go_table_sharded"),
                           ("loop-band-sharded", "band_go_loop_sharded"),
+                          ("capped", "band_go_table_sharded_capped"),
                           ("packed", "band_packed_sharded"),
                           ("euclid", "euclid_band_packed_sharded")):
-            out[f"{path}_{tag}"] = json.loads(x[key]["launches"])
+            if key in x:
+                out[f"{path}_{tag}"] = json.loads(x[key]["launches"])
     return out
 
 
@@ -4479,7 +4533,8 @@ def print_band_mesh(bm, card):
     cuts = bm["band_rows"]
     rows = ", ".join(
         f"rows {k} ({c['rows']}): device "
-        f"{(c['device_ms'] or 0) * 1e3:.2f} us (bound "
+        f"{(c['device_ms'] or 0) * 1e3:.2f} us, per call "
+        f"{c['ms'] * 1e3:.2f} us, plain {c['plain_ms']:.3f} ms (bound "
         f"{c['bound_ms'] * 1e3:.2f} us by {c['bound_by']})"
         for k, c in cuts["cuts"].items())
     print(f"band mesh relax_band_rows ({card}): bitwise equal to plain at "
@@ -4498,7 +4553,9 @@ def print_band_mesh(bm, card):
               f"{t['warm_s']:.4f} s, steady {[round(s, 4) for s in t['steady_s']]}"
               f" s, allocated rise {(t.get('rise') or 0) / gb:.4f} GB, per-rank "
               f"plan {t['plan_peak'] / gb:.4f} GB (JAX's per-shard terms "
-              f"{t['plan_shard_peak'] / gb:.4f} GB), launches {t['launches']}; "
+              f"{t['plan_shard_peak'] / gb:.4f} GB + the port's transients "
+              f"{t['plan_transients'] / gb:.4f} GB), host memory a rank "
+              f"{t['plan_host'] / gb:.4f} GB, launches {t['launches']}; "
               f"loop-band-sharded warm {lp['warm_s']:.4f} s, steady "
               f"{[round(s, 4) for s in lp['steady_s']]} s, allocated rise "
               f"{(lp.get('rise') or 0) / gb:.4f} GB; packed band run "
@@ -4506,6 +4563,17 @@ def print_band_mesh(bm, card):
               f"{x['euclid']['wall_s']:.4f} s, again "
               f"{x['euclid']['steady_s']:.4f} s", flush=True)
     w2 = bm["world2"]
+    caps = [x["capped"] for x in w2["ranks"]]
+    rise1 = bm["world1"]["table-band-sharded"].get("rise") or 0
+    print(f"band mesh capped ({card}): table-band-sharded at world 2 under "
+          f"hbm_budget_bytes {CAPPED_BUDGET / gb:.3f} GB (a plan that counts "
+          f"the results on every rank's card: "
+          f"{ASSEMBLED_WORLD2_PLAN / gb:.3f} GB): per-rank plan "
+          f"{[round(c['plan_peak'] / gb, 4) for c in caps]} GB, allocated "
+          f"rise {[round((c.get('rise') or 0) / gb, 4) for c in caps]} GB "
+          f"(world 1's {rise1 / gb:.4f} GB), warm "
+          f"{[round(c['warm_s'], 4) for c in caps]} s; phase 12's results",
+          flush=True)
     print(f"band mesh checks ({card}): both band GO engines' indicator band, "
           f"nes_binary and counts equal phase 12's table-band run at world 1 "
           f"and on both world-2 ranks, the class table's log sf bitwise, the "
@@ -4514,7 +4582,10 @@ def print_band_mesh(bm, card):
           f"{bm['world1']['loop-band-sharded']['logsf_ulps']}, world 2 "
           f"{[x['loop-band-sharded']['logsf_ulps'] for x in w2['ranks']]} "
           f"ulps); "
-          f"every allocated rise within its per-rank plan; the packed band "
+          f"every allocated rise within its per-rank plan and each world-2 "
+          f"rank's below world 1's; the stored results in host memory; the "
+          f"capped world-2 run took the class table with phase 12's "
+          f"results; the packed band "
           f"of phase 6's attribute phase 13's bytes, scores and counts "
           f"(world 1 exactly; world 2 count deltas {w2['count_deltas'][0::2]});"
           f" the packed euclidean band at 1 M points phase 13's bytes, "

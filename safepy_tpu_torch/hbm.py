@@ -54,6 +54,10 @@ _DEFAULT_BUDGET = 16 * 10 ** 9
 _GROUP_ELEMS = 1 << 24
 # ops.apsp_bandstore.band_threshold's packed row chunk (256 block-rows)
 _PACK_CHUNK_ROWS = 256 * 128
+# the most bytes one piece of the sharded engines' host assembly moves
+# (parallel.band_sharded._assemble_host): a rank receiving another rank's
+# rows holds one such piece on its device
+SHARD_STAGE_BYTES = 1 << 28
 # the run's tensors of O(n + A + E) elements (ranks, sizes, totals, tile
 # lists, lgamma table, per-chunk class arrays): a bound, not a measurement
 _SMALL_BYTES = 64 << 20
@@ -300,8 +304,7 @@ def band_go_hbm_plan(n: int, band: int, n_attrs: int, *, packed: bool,
 def band_go_shard_hbm_plan(n: int, band: int, n_attrs: int, ndev: int, *,
                            packed: bool = True, budget: int | None = None,
                            block: int = 128, chunk_cols: int = 1024,
-                           keep_distances: bool = True,
-                           prep_chunked: bool = True, device=None):
+                           keep_distances: bool = True, device=None):
     """Per-rank peak of the row-sharded band GO engine over a ``data`` axis
     of ``ndev`` ranks (``hbm.py:227``; the engine is
     ``parallel/band_sharded.py``'s layout: equal slabs of ghosted
@@ -314,22 +317,34 @@ def band_go_shard_hbm_plan(n: int, band: int, n_attrs: int, ndev: int, *,
     table, known only after the relax, is not counted, as in
     :func:`band_go_hbm_plan`). Their sum is ``per_shard_peak``.
 
-    The port assembles its outputs on every rank (JAX keeps them
-    row-sharded), so every rank also holds what these terms name:
-    ``assembled_band`` (the global indicator band), ``assembled_distances``
-    (the global f32 band, with ``keep_distances``), ``assembled_outputs``
-    (the rest of the (n, A) log sf and indicator), ``replicated_annotations``
-    (the rest of the int8 operands, which every rank builds whole),
-    ``chunk_assembly`` (a census chunk's rows assembled in the permuted
-    frame and gathered into the node frame, f32 and int8) and ``upload``
-    (the f32 annotation upload the session keeps, unless ``prep_chunked``).
-    ``per_rank_peak`` is the larger of the operand prep's peak
-    (:func:`prep_peak`) and ``per_shard_peak`` plus these terms; ``fits``
-    compares it with the budget, so the port's guard may refuse where
-    JAX's would not, for these bytes. Their sum, ``replicated_floor``,
-    rises as ranks are added (each rank's own share, which JAX's terms
-    count, shrinks), so a run whose floor is over the budget fits on no
-    mesh.
+    The port assembles the bands and the (n, A) outputs in host memory and
+    builds each rank's window of the operands on its device, so its card
+    holds three more transients, none of which grows with the rank count:
+
+      * ``stage_buffer``: one piece of the host assembly
+        (``band_sharded._assemble_host``), a rank's band segment (the f32
+        distance slab with ``keep_distances``, else the indicator slab) or
+        a census chunk's rows of the f32 log sf, whichever is larger,
+        capped at :data:`SHARD_STAGE_BYTES`; one rank stages nothing (its
+        rows go straight to the host), but the term is counted at every
+        rank count alike;
+      * ``ghost_operands``: the rank's int8 operand window beyond JAX's
+        share, its ``bt`` ghost block-rows on each side and the rounding of
+        its rows to a block: at most (2 bt + 1) b rows
+        (``band_sharded.operand_window``);
+      * ``prep_chunk``: one column chunk of the per-rank prep
+        (``band_sharded.band_hyper_operands_sharded``) over the window's
+        rows: the f32 upload, ``isfinite``'s temporaries, the mask and the
+        copy, 12 B a cell of its 512 columns (the chunked term of
+        :func:`prep_peak`).
+
+    ``per_rank_peak`` is ``per_shard_peak`` plus these; ``fits`` compares
+    it with the budget. What each rank holds in host memory is reported
+    beside it and not compared with the device budget: ``host_outputs``
+    (the (n, A) f32 log sf and int8 indicator), ``host_bands`` (the global
+    indicator band and, with ``keep_distances``, the f32 band, in the frame
+    padded to a multiple of the rank count) and ``host_operands`` (one f32
+    column chunk of the window's rows, read from the session's matrix).
     """
     budget = _budget(budget, device)
     bt, rows, window = band_geometry(n, band, block)
@@ -344,27 +359,27 @@ def band_go_shard_hbm_plan(n: int, band: int, n_attrs: int, ndev: int, *,
     transient = census_chunk_bytes(slab_rows, w, 0, 0, window)
     per_shard = fw_slab + ind_bytes + ann8 + out_bytes + transient \
         + _SMALL_BYTES
+    band_cell = 4 if keep_distances else (1 / 8 if packed else 1)
+    pc = min(512, n_attrs)  # band_hyper_operands_sharded's chunk
+    port = dict(
+        stage_buffer=min(SHARD_STAGE_BYTES,
+                         int(local_rows * max(window * band_cell, 4 * w))),
+        ghost_operands=(2 * bt + 1) * block * n_attrs,
+        prep_chunk=12 * slab_rows * pc)
+    per_rank = per_shard + sum(port.values())
     # the global frame: the ghosted block-rows padded to a multiple of ndev
     g_rows = -(-rows // (block * ndev)) * ndev * block
-    npad = -(-n // block) * block
-    port = dict(
-        assembled_band=(g_rows * window // 8 if packed
-                        else g_rows * window),
-        assembled_distances=4 * g_rows * window if keep_distances else 0,
-        assembled_outputs=max(0, 5 * n * n_attrs - out_bytes),
-        replicated_annotations=max(0, n * n_attrs - ann8),
-        chunk_assembly=10 * npad * w,
-        upload=0 if prep_chunked else 4 * n * n_attrs)
-    floor = sum(port.values())
-    prep = prep_peak(n, n_attrs, chunked=prep_chunked)
-    per_rank = max(prep, per_shard + floor)
+    host = dict(
+        host_outputs=5 * n * n_attrs,
+        host_bands=((g_rows * window // 8 if packed else g_rows * window)
+                    + (4 * g_rows * window if keep_distances else 0)),
+        host_operands=4 * slab_rows * pc)
     return dict(n=n, band=band, n_attrs=n_attrs, ndev=ndev, bt=bt,
                 rows=rows, window=window, packed=packed, fw_slab=fw_slab,
                 indicator_bytes=ind_bytes, annotations_int8=ann8,
                 out_bytes=out_bytes, census_transient=transient,
                 per_shard_peak=per_shard, keep_distances=keep_distances,
-                prep_chunked=prep_chunked, prep_peak=prep, **port,
-                replicated_floor=floor, per_rank_peak=per_rank, budget=budget,
+                **port, per_rank_peak=per_rank, **host, budget=budget,
                 fits=per_rank <= budget, sharded=True)
 
 
@@ -373,13 +388,17 @@ def explain(plan: dict) -> str:
     (``hbm.py:277``)."""
     gb = 1e9
     if plan.get("sharded"):
+        host = (plan["host_outputs"] + plan["host_bands"]
+                + plan["host_operands"])
         return (f"sharded band GO memory plan at {plan['n']:,} x "
                 f"{plan['n_attrs']:,} over {plan['ndev']} devices (band "
-                f"{plan['band']}, packed={plan['packed']}): per-shard peak "
+                f"{plan['band']}, packed={plan['packed']}, "
+                f"keep_distances={plan['keep_distances']}): per-shard peak "
                 f"{plan['per_shard_peak'] / gb:.2f} GB, per-rank peak with "
-                f"the outputs assembled on every rank "
+                f"the staging, ghost operand rows and prep chunk "
                 f"{plan['per_rank_peak'] / gb:.2f} GB vs a budget of "
-                f"{plan['budget'] / gb:.2f} GB")
+                f"{plan['budget'] / gb:.2f} GB (host memory a rank "
+                f"{host / gb:.2f} GB)")
     return (f"band GO memory plan at {plan['n']:,} x {plan['n_attrs']:,} "
             f"(band {plan['band']}, packed={plan['packed']}, "
             f"keep_distances={plan['keep_distances']}, "

@@ -613,7 +613,8 @@ def _block_rows(s_rows, i0: int, i1: int, bt: int, block: int,
 
 def band_matmul(s_ind, x, *, bt: int, block: int = 128,
                 precision: str = "highest", blocks=None,
-                row_block_offset: int = 0) -> torch.Tensor:
+                row_block_offset: int = 0,
+                x_from_block: int | None = None) -> torch.Tensor:
     """(banded indicator) @ x without densifying (``:801``).
 
     s_ind: ((nb + 2 bt) b, W) int8, or bit-packed; x: (npad, A) in the same
@@ -623,20 +624,30 @@ def band_matmul(s_ind, x, *, bt: int, block: int = 128,
     groups of block-rows. Returns (npad, A) f32. A row shard passes
     ``blocks`` and ``row_block_offset`` (:func:`_block_range`) and gets the
     ((hi - lo) b, A) rows of its real block-rows
-    (``band_sharded._band_matmul_local`` :187).
+    (``band_sharded._band_matmul_local`` :187). With ``x_from_block`` = lo,
+    x is only the shard's window of the operand: the ((hi - lo + 2 bt) b,
+    A) rows [(lo - bt) b, (hi + bt) b), zero outside [0, npad)
+    (``band_sharded.operand_window``), which the slabs of real block-rows
+    lo .. hi - 1 read.
     """
     check_fp32_matmul(precision)
     width = band_width(s_ind)
     lo, hi = _block_range(s_ind, bt, block, blocks, row_block_offset)
     a_dim = x.shape[1]
-    xg = F.pad(x.to(torch.float32), (0, 0, bt * block, bt * block))
-    slabs = xg.unfold(0, width, block)  # (nb, A, W): slab i at row i * b
     out = torch.empty(((hi - lo) * block, a_dim), dtype=torch.float32,
                       device=x.device)
+    if hi <= lo:
+        return out  # a shard without real block-rows
+    if x_from_block is None:
+        xg, first = F.pad(x.to(torch.float32),
+                          (0, 0, bt * block, bt * block)), 0
+    else:
+        xg, first = x.to(torch.float32), x_from_block
+    slabs = xg.unfold(0, width, block)  # slab i - first at row (i - first) b
     for i0, i1 in _groups(lo, hi, block * width):
         prod = torch.bmm(
             _block_rows(s_ind, i0, i1, bt, block, row_block_offset),
-            slabs[i0:i1].transpose(1, 2))
+            slabs[i0 - first:i1 - first].transpose(1, 2))
         out[(i0 - lo) * block:(i1 - lo) * block] = prod.reshape(-1, a_dim)
     return out
 

@@ -195,7 +195,8 @@ def hypergeom_core_band(s_ind, nan0, nodes_not_nan, K, lgt, M,
                         enrichment_threshold, *, iterations: int, bt: int,
                         block: int = 128, precision: str = "highest",
                         attr_chunk: int | None = None, rank=None,
-                        blocks=None, row_block_offset: int = 0):
+                        blocks=None, row_block_offset: int = 0,
+                        x_from_block: int | None = None):
     """Census + survival tail over the banded indicator from NaN-zeroed
     operands (``:138``).
 
@@ -210,7 +211,8 @@ def hypergeom_core_band(s_ind, nan0, nodes_not_nan, K, lgt, M,
     else (npad, A). A row shard of the band (``blocks``,
     ``row_block_offset``: ``ops.apsp_bandstore._block_range``) gets the
     rows of its real block-rows and passes no ``rank``
-    (``band_sharded.py:515``).
+    (``band_sharded.py:515``); with ``x_from_block`` its operands are only
+    its window of rows (``ops.apsp_bandstore.band_matmul``).
     """
     dev = s_ind.device
     nan0 = torch.as_tensor(nan0, device=dev).to(torch.float32)
@@ -219,7 +221,7 @@ def hypergeom_core_band(s_ind, nan0, nodes_not_nan, K, lgt, M,
     K = torch.as_tensor(K, device=dev)
     A = nan0.shape[1]
     kw = dict(bt=bt, block=block, precision=precision, blocks=blocks,
-              row_block_offset=row_block_offset)
+              row_block_offset=row_block_offset, x_from_block=x_from_block)
 
     def gather(x):
         return x if rank is None else x.index_select(0, rank)

@@ -17,8 +17,7 @@ slabs, rank r holding rows [r N/ndev, (r + 1) N/ndev). Per pivot round kb
 Each step is JAX's, so every rank's rows come out bitwise equal to the
 classic single-device FW (``ops.apsp(d0)``): each candidate is one f32 add
 and ``min`` is exact. The relaxed slab is then shared: every rank gets the
-whole matrix (each rank's rows broadcast to the others), as this package's
-sharded engines return their results (``parallel/band_sharded.py``).
+whole matrix on its device (each rank's rows broadcast to the others).
 ``all_reduce`` and ``broadcast`` are the only collectives, so gloo carries
 CUDA tensors too (several ranks on one card).
 """

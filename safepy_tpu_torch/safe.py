@@ -48,7 +48,9 @@ the counts of the permutation null) as the JAX facade does.
   (``table-band-sharded``, or the f64 tail loop ``loop-band-sharded``,
   planned per rank first, ``hbm.band_go_shard_hbm_plan``) and the
   euclidean band pipeline (``safe.py:1831-1843, 1974-2082``). Every rank
-  gets the same global results.
+  gets the same global results, the bands and (n, A) matrices in host
+  memory (JAX keeps them row-sharded over the devices); a later stage that
+  computes on them uploads what it reads to ``device``.
 - Band GO runs are planned before they allocate (``hbm.py``): the
   log-survival's residency (``logsf_store``: device f32, f16 or host;
   'auto' the first that fits ``hbm_budget_bytes``, or the device), the
@@ -646,7 +648,13 @@ class SAFE:
     @property
     def nes(self):
         if self._nes_np is None:
-            if self._nes_device() is not None:
+            if (self._nes_dev is None and self._nes_from_logsf
+                    and self._logsf_dev is not None
+                    and not self._on_device(self._logsf_dev)):
+                # a log-survival left on the host (a mesh run, the 'host'
+                # residency): the host view, as for a pickle
+                self._nes_np = _nes_from_logsf_host(self._logsf_dev.numpy())
+            elif self._nes_device() is not None:
                 self._nes_np = self._nes_dev.cpu().numpy().astype(np.float64)
             elif self._nes_from_logsf and self._logsf_np is not None:
                 # the pickled log-survival: the f64 divide and f32 round of
@@ -669,6 +677,32 @@ class SAFE:
             self._nes_dev = (-self._logsf_dev.to(torch.float64)
                              / np.log(10.0)).to(torch.float32)
         return self._nes_dev
+
+    def _nes_on_device(self):
+        """The NES on ``device`` for a stage that computes on it. A
+        log-survival left on the host (a mesh run, the 'host' residency)
+        is uploaded 512 columns at a time and the NES derived on the
+        device as :meth:`_nes_device` derives it; that NES is not kept."""
+        chunk_cols = 512
+        logsf = self._logsf_dev
+        if (self._nes_dev is None and self._nes_from_logsf
+                and logsf is not None and not self._on_device(logsf)):
+            out = torch.empty(tuple(logsf.shape), dtype=torch.float32,
+                              device=self.device)
+            for j in range(0, logsf.shape[1], chunk_cols):
+                x = logsf[:, j:j + chunk_cols].to(self.device)
+                out[:, j:j + chunk_cols] = (-x.to(torch.float64)
+                                            / np.log(10.0)).to(torch.float32)
+            return out
+        nes = self._nes_device()
+        return None if nes is None else nes.to(self.device)
+
+    def _nes_binary_on_device(self):
+        """The int8 indicator on ``device`` for a stage that computes on
+        it, uploaded (not kept) where a mesh run or the 'host' residency
+        left it on the host."""
+        b = self._nes_binary_dev
+        return None if b is None else b.to(self.device)
 
     @property
     def pvalues_pos(self):
@@ -721,11 +755,24 @@ class SAFE:
                 device=self.device)
         return self._neighborhoods_dev
 
+    def _on_device(self, t: torch.Tensor) -> bool:
+        """Is ``t`` on the session's device? ``device="cuda"`` names the
+        current card, where its tensors say ``cuda:0``."""
+        d = self.device
+        if t.device.type != d.type:
+            return False
+        if d.type != "cuda":
+            return True
+        return t.device.index == (torch.cuda.current_device()
+                                  if d.index is None else d.index)
+
     def _band_device(self) -> BandedMatrix:
         """The indicator band on the session's device, uploaded once where
-        a pickle or a checkpoint left it on the host."""
+        a pickle, a checkpoint or a mesh run left it on the host: the
+        stages compute on the device."""
         bm = self._neighborhoods_dev
-        if not isinstance(bm.data, torch.Tensor):
+        if (not isinstance(bm.data, torch.Tensor)
+                or not self._on_device(bm.data)):
             bm.data = torch.as_tensor(bm.data, device=self.device)
         return bm
 
@@ -1524,8 +1571,8 @@ class SAFE:
         (``safe.py:2048-2145``): every matrix is O(N W); the neighborhoods
         and distances become :class:`BandedMatrix` results. On a "data" mesh
         the row-sharded engine runs (``safe.py:2073-2082``) and its bands,
-        assembled on every rank, lose their device-padding rows
-        (``safe.py:2122-2127``)."""
+        assembled in host memory on every rank, lose their device-padding
+        rows (``safe.py:2122-2127``)."""
         num_nodes = self._num_nodes
         band, rank = plan["band"], plan["rank"]
         packed = self._band_bits_selected(num_nodes, band)
@@ -1604,7 +1651,7 @@ class SAFE:
         no graph algorithm. Without kept distances the indicator is built
         directly, bit-packed when ``_band_bits_selected``. On a "data" mesh
         each rank builds its rows of the band (``safe.py:1831-1843``), and
-        the assembled bands lose their device-padding rows
+        the bands, assembled in host memory, lose their device-padding rows
         (``safe.py:1855-1859``)."""
         num_nodes = self._num_nodes
         band, rank = plan["band"], plan["rank"]
@@ -1656,7 +1703,7 @@ class SAFE:
             return None
         return int(max(64, budget_elems // max(1, n)))
 
-    def _band_hyper_operands_cached(self, order):
+    def _band_hyper_operands_cached(self, order, window_band=None):
         """(nan0 int8, nodes_not_nan, K, binary_ok, M) of the band class
         table, built on the device from the annotation upload
         (``enrich_band.band_hyper_operands_device``), or from column-chunked
@@ -1664,12 +1711,25 @@ class SAFE:
         (``band_hyper_operands_chunked``; the same int8 operands), and
         cached across runs on the attribute load and a sha1 of ``order``
         (``safe.py:1018``). Where the values are not all 0/1 only the
-        scalars are kept."""
+        scalars are kept. With ``window_band`` (the band of a run on the
+        "data" mesh) the rank's window of the operands is built instead
+        (``parallel.band_sharded.band_hyper_operands_sharded``). The cached
+        operands of another key are dropped before the build."""
         key = (self._attr_serial, order.shape[0],
-               hashlib.sha1(order.tobytes()).digest())
+               hashlib.sha1(order.tobytes()).digest(), window_band)
         c = self._band_operands_cache
         if c is not None and c[0] == key:
             return c[1]
+        self._band_operands_cache = None
+        if window_band is not None:
+            from safepy_tpu_torch.parallel.band_sharded import (
+                band_hyper_operands_sharded)
+            nan0, nnn, K, binary_ok, M = band_hyper_operands_sharded(
+                self.node2attribute, order, mesh=self.mesh,
+                n=order.shape[0], band=window_band, device=self.device)
+            out = (nan0 if binary_ok else None, nnn, K, binary_ok, M)
+            self._band_operands_cache = (key, out)
+            return out
         if self._prep_chunked_selected():
             nan0, nnn, K, binary_ok = _eb.band_hyper_operands_chunked(
                 self.node2attribute, order, device=self.device)
@@ -1695,7 +1755,7 @@ class SAFE:
                 held.append(bm.data)
         storages = {}
         for t in held:
-            if isinstance(t, torch.Tensor) and t.device == self.device:
+            if isinstance(t, torch.Tensor) and self._on_device(t):
                 st = t.untyped_storage()
                 storages[st.data_ptr()] = st.nbytes()
         return sum(storages.values())
@@ -1753,7 +1813,8 @@ class SAFE:
         """Bytes of a kept f32 distance band on the device
         (``safe.py:945``)."""
         bm = self._node_distances_dev
-        if isinstance(bm, BandedMatrix) and isinstance(bm.data, torch.Tensor):
+        if (isinstance(bm, BandedMatrix) and isinstance(bm.data, torch.Tensor)
+                and self._on_device(bm.data)):
             return int(bm.data.nbytes)
         return 0
 
@@ -1882,26 +1943,25 @@ class SAFE:
         """The per-rank memory plan of the row-sharded band GO engine
         (``safe.py:972-988``), made before the operand prep: stored in
         ``_hbm_plan_last``, and a ``ValueError`` carrying it when a rank's
-        peak, with the outputs the port assembles on every rank, does not
+        peak (JAX's per-shard terms and the port's transients) does not
         fit :meth:`_hbm_budget`."""
         from safepy_tpu_torch.parallel.mesh import mesh_axis
         splan = _hbm.band_go_shard_hbm_plan(
             num_nodes, band, n_attrs, mesh_axis(self.mesh, "data")[1],
             packed=self._band_bits_selected(num_nodes, band),
             keep_distances=bool(self.keep_node_distances),
-            prep_chunked=self._prep_chunked_selected(),
             budget=self._hbm_budget(), device=self.device)
         self._hbm_plan_last = splan
         if not splan["fits"]:
             raise ValueError(
                 "refusing to run a sharded band GO pipeline that does not "
-                "fit per rank: " + _hbm.explain(splan) + ". Every rank "
-                "holds the assembled outputs, bands and operands, "
-                f"{splan['replicated_floor'] / 1e9:.2f} GB whatever the "
-                "rank count, so more 'data' ranks do not make it fit: "
-                "lower the radius or the attribute count, or run on one "
-                "device, where logsf_store='f16'/'host' shrinks the "
-                "outputs.")
+                "fit per rank: " + _hbm.explain(splan) + ". A rank's "
+                "device holds its slabs, its rows of the operands and "
+                "outputs and one chunk's transients (the assembled bands "
+                "and outputs go to host memory), so more 'data' ranks "
+                "lower the peak: add ranks, set keep_node_distances=False "
+                "or band_indicator_bits=True, lower the radius, or give a "
+                "larger hbm_budget_bytes.")
         return splan
 
     def _run_pipeline_band_hypergeom_sharded(self, plan, nr):
@@ -1912,13 +1972,24 @@ class SAFE:
         ``hypergeom_engine='loop'``, values that are not 0/1, or a table
         over its budget). As in JAX the FW always relaxes the band and
         ``logsf_store`` is not read; the per-rank plan
-        (:meth:`_band_go_shard_guard`) comes before the operand prep. The
-        results, the same on every rank, stay on the device."""
+        (:meth:`_band_go_shard_guard`) comes before the operand prep, and
+        each rank builds only its window of the operands.
+
+        The results, the same on every rank, live in host memory: the
+        bands and the (n, A) log sf and indicator, assembled a rank's
+        segment at a time (JAX keeps them row-sharded over the devices,
+        ``safepy_tpu/parallel/band_sharded.py:742-784``), so that no card
+        holds more than its rank's share and adding ranks lowers each
+        rank's peak. They are stored as the 'host' residency stores them
+        (FDR on the host, ``fdr_bh_logsf_np``); a later stage that
+        computes on them uploads what it reads (:meth:`_band_device`,
+        :meth:`_nes_binary_on_device`, :meth:`_nes_on_device`)."""
         from safepy_tpu_torch.parallel import band_sharded as _bsh
         from safepy_tpu_torch.parallel.mesh import mesh_axis
         num_nodes = self._num_nodes
         band, rank = plan["band"], plan["rank"]
         self._release_device_results()
+        self._n2a_dev = None  # the mesh path reads the host matrix
         order = np.argsort(rank)  # permuted position -> original node
         bt = band // 128 + 1
         n2a = self.node2attribute
@@ -1934,7 +2005,7 @@ class SAFE:
         if self.hypergeom_engine in ("auto", "table"):
             self._band_go_shard_guard(num_nodes, band, n2a.shape[1])
             nan0, nnn, K, binary_ok, M = \
-                self._band_hyper_operands_cached(order)
+                self._band_hyper_operands_cached(order, window_band=band)
             _hbm.record_peak("prep", self.device)
             if binary_ok:
                 dist_band, s_ind, _sizes, mean, std = \
@@ -1955,13 +2026,10 @@ class SAFE:
             dist_band = s_ind = None  # the loop runs its own front
             nan0, nnn, K, M, iters, lgt = self._band_tail_operands(n2a,
                                                                    order)
-            dev = self.device
             rows = -(-num_nodes // mesh_axis(self.mesh, "data")[1])
             (dist_band, s_ind, log_sf32, nesbin8, counts, mean, std) = \
                 _bsh.fused_hypergeom_pipeline_band_sharded(
-                    *edges, torch.as_tensor(nan0, device=dev),
-                    torch.as_tensor(nnn, device=dev),
-                    torch.as_tensor(K, device=dev), lgt, M, radius, thr,
+                    *edges, nan0, nnn, K, lgt, M, radius, thr,
                     plan["rank_dev"], iterations=iters,
                     precision=self.matmul_precision, keep_distances=keep,
                     packed=packed,
@@ -1970,7 +2038,8 @@ class SAFE:
                     **kw)
         s_ind, dist_band = self._trim_sharded(s_ind, dist_band, bt)
         self.apsp_engine_used, self.window_used = "band-storage", None
-        self._store_hypergeom_results(None, log_sf32, nesbin8, counts)
+        self._store_hypergeom_results(None, log_sf32.numpy(),
+                                      nesbin8.numpy(), counts)
         self._store_band_neighborhoods(s_ind, dist_band, rank, band, mean,
                                        std)
         self._update_binary_enrichment()
@@ -2096,8 +2165,8 @@ class SAFE:
                 self.attributes["num_neighborhoods_enriched"], np.int64)
             if (n * a > 3e7 and 4 * int(counts.sum()) < n * a
                     and n * a < np.iinfo(np.int32).max):
-                self._nes_binary_csc = _dd.indicator_csc(self._nes_binary_dev,
-                                                         counts)
+                self._nes_binary_csc = _dd.indicator_csc(
+                    self._nes_binary_on_device(), counts)
                 return self._nes_binary_csc
         return self._nes_binary_small()
 
@@ -2139,20 +2208,21 @@ class SAFE:
             raise RuntimeError("define_top_attributes first")
         if self._nes_binary_pending is not None:
             self._update_binary_enrichment()
-        if (self._domains_inter_cache is None
-                and self._nes_binary_dev is not None
-                and self.attribute_distance_metric == "jaccard"
+        # the GEMM engine computes on the device: a host indicator or
+        # log-survival (a mesh run, the 'host' residency) is uploaded
+        gemm = (self.attribute_distance_metric == "jaccard"
                 and _domains.uses_gemm(self.cluster_engine, "jaccard",
-                                       int(np.sum(self.attributes["top"])))):
-            self._domains_inter_cache = _dd.enrichment_intersections(
-                self._nes_binary_dev)
+                                       int(np.sum(self.attributes["top"]))))
+        b_dev = self._nes_binary_on_device() if gemm else None
+        if self._domains_inter_cache is None and b_dev is not None:
+            self._domains_inter_cache = _dd.enrichment_intersections(b_dev)
         self.attributes, self.node2domain = _domains.define_domains(
             self.attributes, lambda: self.nes, self._nes_binary_small,
             distance_metric=self.attribute_distance_metric,
             distance_threshold=self.attribute_distance_threshold,
             verbose=self.verbose, cluster_engine=self.cluster_engine,
-            intersections=self._domains_inter_cache,
-            nes_binary_dev=self._nes_binary_dev, nes_dev=self._nes_device(),
+            intersections=self._domains_inter_cache, nes_binary_dev=b_dev,
+            nes_dev=self._nes_on_device() if gemm else None,
             device=self.device)
         # after the call, which resolves a pending indicator (safe.py:2282)
         self._node2domain_serial = self._enrichment_serial

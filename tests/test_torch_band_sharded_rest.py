@@ -20,6 +20,10 @@ Tolerances:
     the class table and 4 f32 ulps on the tail loop
     (tests/test_torch_band_go.py); the per-rank plan's JAX terms equal
     ``safepy_tpu.hbm.band_go_shard_hbm_plan``'s;
+  * the C10 pin: a run under a budget that only the per-rank plan without
+    the assembled outputs fits gives the same results as above, and its
+    stored bands and (n, A) outputs are the host buffers the engine
+    assembled, its device operands only the rank's window;
   * the packed band: its bytes equal ``pack_band_bits`` of the int8
     sharded band and JAX's bytes; scores within 1e-5 of JAX's; counts
     exactly the single-device packed run's with the same permutations;
@@ -148,11 +152,21 @@ def _keep_quant(out, tag, sf):
 SMALL_CHUNK = 3  # class-table chunks of 3, 3 and 2 of the TERMS columns
 
 
+def _whole_operands(rank_np):
+    """The (n, A) int8 operands and row validity in the permuted frame of
+    ``rank_np``, as the single-device prep builds them from GO."""
+    order = np.argsort(rank_np)
+    finite = np.isfinite(GO)
+    return (np.where(finite, GO, 0).astype(np.int8)[order],
+            finite.any(axis=1).astype(np.float32)[order])
+
+
 def _small_chunk_table(out):
-    """Wraps the sharded class table: the facade's call runs as it is, and
-    its inputs (the global band, the operands) go through the engine again
-    in chunks of ``SMALL_CHUNK`` columns, the inputs and outputs kept in
-    ``out`` under ``chunked-``."""
+    """Wraps the sharded class table: the facade's call (the rank's window
+    of the operands, built by the facade) runs as it is, and the global
+    band goes through the engine again with the rank's window of the whole
+    operands, in chunks of ``SMALL_CHUNK`` columns, the inputs and outputs
+    kept in ``out`` under ``chunked-``."""
     from safepy_tpu_torch.ops import hypergeom_table as htab
     from safepy_tpu_torch.parallel import band_sharded as bsh
 
@@ -166,16 +180,19 @@ def _small_chunk_table(out):
             plans.append(plan(*a, **k))
             return plans[-1]
 
+        whole = _whole_operands(kw["rank_np"])
+        window = bsh.operand_window(dist.get_rank(), bsh.sharded_band_geometry(
+            kw["n"], kw["band"], WORLD))
         htab.plan = kept_plan
         try:
-            logsf, nbin, counts = engine(ind_g, nan0, nnn, M, thr,
-                                         **dict(kw, chunk_cols=SMALL_CHUNK))
+            logsf, nbin, counts = engine(
+                ind_g, *(bsh._take_window(x, *window, "cpu") for x in whole),
+                M, thr, **dict(kw, chunk_cols=SMALL_CHUNK))
         finally:
             htab.plan = plan
         out.update({
             "chunked-ind": ind_g.numpy(),
-            "chunked-nan0": torch.as_tensor(nan0).numpy(),
-            "chunked-nnn": torch.as_tensor(nnn).numpy(),
+            "chunked-nan0": whole[0], "chunked-nnn": whole[1],
             "chunked-args": np.array([M, thr, kw["n"], kw["band"]],
                                      np.float64),
             "chunked-rank": np.asarray(kw["rank_np"]),
@@ -210,6 +227,8 @@ def _world_job(world):
             plan = sf._hbm_plan_last
             out["plan"] = np.array([plan[k] for k in PLAN_KEYS])
             out["plan-fields"] = np.array([plan[k] for k in PORT_FIELDS])
+            out["plan-band"] = np.array(plan["band"])
+    _c10_pin(out, mesh, world)
     # a budget below the per-rank plan: refused before the operand prep
     sf = _session(GO, mesh=mesh, hbm_budget_bytes=10 ** 6)
     try:
@@ -229,9 +248,97 @@ def _world_job(world):
 
 PLAN_KEYS = ("bt", "rows", "window", "fw_slab", "indicator_bytes",
              "annotations_int8", "out_bytes")
-PORT_FIELDS = ("assembled_band", "assembled_distances", "assembled_outputs",
-               "replicated_annotations", "chunk_assembly", "upload",
-               "replicated_floor", "per_shard_peak", "per_rank_peak")
+PORT_FIELDS = ("stage_buffer", "ghost_operands", "prep_chunk",
+               "host_outputs", "host_bands", "host_operands",
+               "per_shard_peak", "per_rank_peak")
+
+
+def _parent_per_rank_peak(p, n, a, ndev):
+    """The per-rank peak the port planned while every rank assembled the
+    results on its device (``replicated_floor``): JAX's terms plus the
+    global int8 band and f32 distance band, the rest of the (n, A) outputs
+    and int8 operands, a census chunk's assembly and the f32 upload of the
+    full-device prep, or that prep's peak if larger."""
+    g_rows = -(-p["rows"] // (128 * ndev)) * ndev * 128
+    npad = -(-n // 128) * 128
+    floor = (5 * g_rows * p["window"] + 5 * n * a - p["out_bytes"]
+             + n * a - p["annotations_int8"] + 10 * npad * min(1024, a)
+             + 4 * n * a)
+    from safepy_tpu_torch import hbm
+    return max(hbm.prep_peak(n, a, chunked=False),
+               p["per_shard_peak"] + floor)
+
+
+def _c10_pin(out, mesh, world):
+    """The table run under a budget between the per-rank plan and the
+    parent's (refused there): its results under ``c10-``; then the same
+    run with every host buffer the engine assembles tagged, and where its
+    results live under ``c10-host``."""
+    from safepy_tpu_torch import hbm
+    from safepy_tpu_torch.parallel import band_sharded as bsh
+
+    band = int(out["plan-band"])
+    plan = hbm.band_go_shard_hbm_plan(N, band, TERMS, world, packed=False,
+                                      budget=10 ** 12)
+    parent = _parent_per_rank_peak(plan, N, TERMS, world)
+    budget = (plan["per_rank_peak"] + parent) // 2
+    out["c10-budgets"] = np.array([plan["per_rank_peak"], budget, parent])
+    sf = _session(GO, mesh=mesh, hbm_budget_bytes=int(budget))
+    sf.run_pipeline()
+    _keep_band_go(out, "c10", sf)
+    # the same run again, every host buffer the engine makes tagged
+    made = set()
+    host_empty = bsh._host_empty
+
+    def tagged(*a, **k):
+        t = host_empty(*a, **k)
+        made.add(t.untyped_storage().data_ptr())
+        return t
+
+    bsh._host_empty = tagged
+    try:
+        sf.run_pipeline()
+    finally:
+        bsh._host_empty = host_empty
+
+    def host(t):
+        return (t.device.type == "cpu"
+                and t.untyped_storage().data_ptr() in made)
+
+    ops = sf._band_operands_cache[1][0]
+    geom = bsh.sharded_band_geometry(N, band, world)
+    p0, p1 = bsh.operand_window(dist.get_rank(), geom)
+    # every other tensor the session holds is smaller than one (n, A)
+    # result: the FW slab, the chunks and the staging are gone
+    big = [t for t in _session_tensors(sf) if t.numel() >= N * TERMS]
+    out["c10-host"] = np.array([
+        host(sf._logsf_dev), host(sf._nes_binary_dev),
+        host(sf._neighborhoods_dev.data), host(sf._node_distances_dev.data),
+        tuple(ops.shape) == (p1 - p0, TERMS),
+        p1 - p0 <= (geom[4] + 2 * geom[0]) * 128,
+        all(host(t) or t is ops for t in big), len(big) >= 5])
+
+
+def _session_tensors(sf):
+    """The tensors a session holds, one level into its tuples, lists,
+    dicts and band wrappers."""
+    seen = []
+
+    def walk(x, depth):
+        if isinstance(x, torch.Tensor):
+            seen.append(x)
+        elif depth and isinstance(x, (tuple, list)):
+            for y in x:
+                walk(y, depth - 1)
+        elif depth and isinstance(x, dict):
+            for y in x.values():
+                walk(y, depth - 1)
+        elif depth and isinstance(x, bs.BandedMatrix):
+            walk(x.data, depth - 1)
+
+    for v in vars(sf).values():
+        walk(v, 3)
+    return seen
 
 
 def _rank_main(rank, world, case_dir):
@@ -412,30 +519,49 @@ def test_band_table_small_chunks_match_jax_sharded(ranks):
 
 
 def test_shard_guard_fields_and_refusal(ranks):
-    """The per-rank plan: JAX's terms plus what the port assembles on
-    every rank (each term positive here, the distances kept); a budget
-    below it raises the plan's ValueError before the operand prep or the
-    front."""
+    """The per-rank plan: JAX's terms plus the port's transients (the
+    staging piece, the ghost operand rows, the prep chunk) and the host
+    fields, each by its formula at the run's band; a budget below it
+    raises the plan's ValueError before the operand prep or the front, and
+    the message no longer says that more ranks do not help."""
     from safepy_tpu_torch import hbm
 
     for got in ranks:
         fields = dict(zip(PORT_FIELDS, got["plan-fields"]))
-        want = hbm.band_go_shard_hbm_plan(N, int(got["plan"][0]) * 128 - 1,
-                                          TERMS, WORLD, packed=False)
-        assert fields["assembled_band"] == want["assembled_band"] > 0
-        assert fields["assembled_distances"] == 4 * fields["assembled_band"]
-        assert fields["assembled_outputs"] == 5 * N * TERMS - int(
-            got["plan"][PLAN_KEYS.index("out_bytes")])
-        assert fields["per_rank_peak"] >= (
-            fields["per_shard_peak"] + fields["assembled_band"]
-            + fields["assembled_outputs"])
-        assert fields["replicated_floor"] == sum(
-            fields[k] for k in PORT_FIELDS[:6])
+        want = hbm.band_go_shard_hbm_plan(N, int(got["plan-band"]), TERMS,
+                                          WORLD, packed=False)
+        for k in PORT_FIELDS:
+            assert fields[k] == want[k], k
+        assert fields["stage_buffer"] > 0 and fields["prep_chunk"] > 0
+        assert fields["per_rank_peak"] == (
+            fields["per_shard_peak"] + fields["stage_buffer"]
+            + fields["ghost_operands"] + fields["prep_chunk"])
+        assert fields["host_outputs"] == 5 * N * TERMS
         assert "does not fit per rank" in str(got["guard"])
-        assert (f"{fields['replicated_floor'] / 1e9:.2f} GB whatever the "
-                "rank count") in str(got["guard"])
-        assert "more 'data' ranks do not make it fit" in str(got["guard"])
+        assert "more 'data' ranks lower the peak" in str(got["guard"])
+        assert "do not make it fit" not in str(got["guard"])
         assert bool(got["guard-untouched"])
+
+
+def test_c10_per_rank_budget_runs_and_results_live_on_the_host(ranks,
+                                                               single):
+    """C10: a budget above the per-rank plan and below the parent's, whose
+    guard counted the bands, (n, A) outputs and operands every rank held:
+    the run is taken, its indicator band, nes_binary, counts and log sf
+    are the single-device table-band run's bit for bit, and what the
+    session keeps is the engine's host buffers, with only the rank's
+    window of the operands on its device."""
+    want = single["table"]
+    for got in ranks:
+        new, budget, parent = got["c10-budgets"]
+        assert new < budget < parent
+        assert list(got["c10-engine"]) == ["band-storage",
+                                           "table-band-sharded", "fw"]
+        for name in ("nes_binary", "logsf", "enriched", "band"):
+            np.testing.assert_array_equal(got[f"c10-{name}"],
+                                          want[f"s-{name}"], err_msg=name)
+        _assert_fw_distances(got["c10-dist"], want["s-dist"])
+        assert got["c10-host"].all(), got["c10-host"]
 
 
 # --------------------------------------------------------- packed and euclid

@@ -498,6 +498,73 @@ def test_sharded_band_fw_world_one_nccl(dev, tmp_path):
     assert K.LAUNCHES["relax_band_row"] == nb  # a round's rows in one launch
 
 
+def test_staged_pvalues_after_sharded_band_go_run_on_the_card(dev, tmp_path,
+                                                               monkeypatch):
+    """A band GO run on a one-rank NCCL 'data' mesh leaves its bands and
+    (n, A) outputs in host memory and only the rank's operand window on
+    the card. A staged compute_pvalues afterwards uploads the band and
+    computes on the card (``table-band-staged``), with the sharded run's
+    indicator, counts and log sf; the domain stage's device copies of the
+    host indicator and NES are on the card and equal the host's."""
+    import torch.distributed as dist
+    from safepy_tpu_torch.ops import enrich_band as eb
+    from safepy_tpu_torch.parallel import band_sharded as bsh
+    from safepy_tpu_torch.parallel import make_mesh
+    from safepy_tpu_torch.safe import _nes_from_logsf_host
+
+    net = _network(n=900)
+    vals = _band_go_matrix(net[0])
+    census_devices = []
+    table = eb.hypergeom_band_table
+
+    def recorded(s_ind, *a, **k):
+        census_devices.append(s_ind.device.type)
+        return table(s_ind, *a, **k)
+
+    monkeypatch.setattr(eb, "hypergeom_band_table", recorded)
+    before = torch.cuda.memory_allocated(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        sf = SAFE(device=dev, verbose=False)
+        sf.apsp_mode = "band"
+        sf.mesh = make_mesh({"data": 1}, device_type="cuda")
+        sf.load_network(network_file=net)
+        sf.load_attributes(attribute_file=vals)
+        sf.run_pipeline()
+        torch.cuda.synchronize()
+        assert sf._hypergeom_engine_used == "table-band-sharded"
+        held = torch.cuda.memory_allocated(dev) - before
+        band, logsf = sf._neighborhoods_dev.data, sf._logsf_dev
+        want = (sf.nes_binary, logsf.numpy().copy(),
+                np.asarray(sf.attributes["num_neighborhoods_enriched"]))
+        assert band.device.type == logsf.device.type == "cpu"
+        assert sf._nes_binary_dev.device.type == "cpu"
+        ops = sf._band_operands_cache[1][0]
+        p0, p1 = bsh.operand_window(0, bsh.sharded_band_geometry(
+            900, sf._hbm_plan_last["band"], 1))
+        assert ops.is_cuda and ops.shape[0] == p1 - p0
+        assert held <= ops.nbytes + (32 << 20)  # the operands, edges, ranks
+        nes_dev, b_dev = sf._nes_on_device(), sf._nes_binary_on_device()
+        assert nes_dev.is_cuda and b_dev.is_cuda
+        np.testing.assert_array_equal(nes_dev.cpu().numpy(),
+                                      _nes_from_logsf_host(want[1]))
+        np.testing.assert_array_equal(b_dev.cpu().numpy(), want[0])
+        sf.compute_pvalues()
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert sf._hypergeom_engine_used == "table-band-staged"
+    assert census_devices == ["cuda"]
+    assert sf._neighborhoods_dev.data.is_cuda and sf._logsf_dev.is_cuda
+    # the uploaded band now counts among the session's planned residents
+    assert sf._planned_resident_bytes() >= sf._neighborhoods_dev.data.nbytes
+    np.testing.assert_array_equal(sf.nes_binary, want[0])
+    np.testing.assert_array_equal(sf._logsf_dev.cpu().numpy(), want[1])
+    np.testing.assert_array_equal(
+        sf.attributes["num_neighborhoods_enriched"], want[2])
+
+
 def test_wrappers_refuse_rather_than_fall_back(dev):
     x = torch.zeros((100, 100), device=dev)
     with pytest.raises(ValueError, match="% 32"):

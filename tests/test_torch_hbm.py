@@ -209,10 +209,10 @@ def test_shard_plan_scales_with_devices():
     """The per-rank plan of the row-sharded band GO engine (the facade's
     guard on a 'data' mesh): JAX's per-shard peak falls with the rank
     count and is within the budget where one device's plan is not; its
-    terms are JAX's. The port's per-rank peak adds what it assembles on
-    every rank (the outputs, the global bands), so it falls more slowly
-    and, at this budget, does not fit 8 ranks: the port's guard refuses
-    earlier than JAX's, for those bytes."""
+    terms are JAX's. The port's per-rank peak adds only transients that do
+    not grow with the rank count (the assembled bands and outputs are in
+    host memory), so it falls with 1, 2, 4 and 8 ranks too and fits 10 GB
+    at 8, as JAX's per-shard peak does."""
     one = _plan(399_360, 3583, budget=10 ** 10)
     plans = [hbm.band_go_shard_hbm_plan(399_360, 3583, 4373, d,
                                         budget=10 ** 10)
@@ -220,48 +220,68 @@ def test_shard_plan_scales_with_devices():
     peaks = [p["per_shard_peak"] for p in plans]
     assert peaks == sorted(peaks, reverse=True)
     assert not one["fits"] and plans[-1]["per_shard_peak"] <= 10 ** 10
-    assert plans[-1]["sharded"] and not plans[-1]["fits"]
     ranks = [p["per_rank_peak"] for p in plans]
-    assert ranks == sorted(ranks, reverse=True)
+    assert ranks == sorted(ranks, reverse=True) and len(set(ranks)) == 4
     assert all(r > p for r, p in zip(ranks, peaks))
-    floors = [p["replicated_floor"] for p in plans]
-    assert floors == sorted(floors) and floors[-1] > 10 ** 10
+    assert [p["fits"] for p in plans] == [False, False, False, True]
+    assert plans[-1]["sharded"] and "replicated_floor" not in plans[-1]
+    for key in ("fw_slab", "indicator_bytes", "annotations_int8",
+                "out_bytes", "census_transient", "stage_buffer",
+                "ghost_operands", "prep_chunk"):
+        terms = [p[key] for p in plans]
+        assert terms == sorted(terms, reverse=True), key
+    # the host holds the whole results on every rank, whatever the count
+    assert len({p["host_outputs"] for p in plans}) == 1
     assert "per-shard peak" in hbm.explain(plans[-1])
-    j = jhbm.band_go_shard_hbm_plan(399_360, 3583, 4373, 8)
-    for key in ("bt", "rows", "window", "fw_slab", "annotations_int8",
-                "out_bytes", "indicator_bytes"):
-        assert plans[-1][key] == j[key], key
+    assert "host memory a rank" in hbm.explain(plans[-1])
+    for d, p in zip((1, 2, 4, 8), plans):
+        j = jhbm.band_go_shard_hbm_plan(399_360, 3583, 4373, d)
+        for key in ("bt", "rows", "window", "fw_slab", "annotations_int8",
+                    "out_bytes", "indicator_bytes"):
+            assert p[key] == j[key], (d, key)
 
 
-@pytest.mark.parametrize("packed,keep,chunked", [
-    (True, True, True), (False, False, True), (False, True, False)])
-def test_shard_plan_port_terms(packed, keep, chunked):
-    """Each term of what the port holds on every rank besides JAX's: the
-    global indicator band (packed or int8) and f32 band (kept distances)
-    in the frame padded to a multiple of the rank count, the (n, A)
-    outputs and int8 operands beyond the rank's share, a census chunk's
-    assembly, the f32 upload of a full-device prep; the per-rank peak is
-    the larger of the prep's and the rest's sum."""
-    n, band, a, ndev = 49_920, 1535, 4373, 2
+@pytest.mark.parametrize("packed,keep,ndev", [
+    (True, True, 2), (False, False, 2), (False, True, 1)])
+def test_shard_plan_port_terms(packed, keep, ndev):
+    """Each transient the port adds to JAX's terms, and each host field, by
+    its formula: the staging piece (a rank's band segment, f32 with kept
+    distances, or a census chunk's f32 rows, capped at
+    SHARD_STAGE_BYTES), the ghost operand rows ((2 bt + 1) b rows of int8
+    operands), the per-rank prep's column chunk (12 B a cell of 512
+    columns over the slab's rows); the host outputs, bands and operand
+    chunk; the per-rank peak is the per-shard peak plus the three, and the
+    rank's real operand window stays within JAX's share plus the ghost
+    term."""
+    from safepy_tpu_torch.parallel import band_sharded as bsh
+
+    n, band, a = 49_920, 1535, 4373
     p = hbm.band_go_shard_hbm_plan(n, band, a, ndev, packed=packed,
-                                   keep_distances=keep, prep_chunked=chunked,
-                                   budget=10 ** 12)
+                                   keep_distances=keep, budget=10 ** 12)
     bt, rows, window = hbm.band_geometry(n, band)
+    local_rows = -(-rows // (128 * ndev)) * 128
+    slab_rows = local_rows + 2 * bt * 128
     g_rows = -(-rows // (128 * ndev)) * ndev * 128
-    assert g_rows >= rows and g_rows % (128 * ndev) == 0
-    assert p["assembled_band"] == g_rows * window // (8 if packed else 1)
-    assert p["assembled_distances"] == (4 * g_rows * window if keep else 0)
-    assert p["assembled_outputs"] == 5 * n * a - p["out_bytes"]
-    assert p["replicated_annotations"] == n * a - p["annotations_int8"]
-    assert p["chunk_assembly"] == 10 * (-(-n // 128) * 128) * 1024
-    assert p["upload"] == (0 if chunked else 4 * n * a)
-    terms = sum(p[k] for k in ("assembled_band", "assembled_distances",
-                               "assembled_outputs", "replicated_annotations",
-                               "chunk_assembly", "upload"))
-    assert p["replicated_floor"] == terms
-    assert p["per_rank_peak"] == max(
-        p["prep_peak"], p["per_shard_peak"] + terms)
-    assert p["prep_peak"] == hbm.prep_peak(n, a, chunked=chunked)
+    seg = local_rows * (4 * window if keep
+                        else window // 8 if packed else window)
+    assert p["stage_buffer"] == min(hbm.SHARD_STAGE_BYTES,
+                                    max(seg, local_rows * 4 * 1024))
+    assert p["ghost_operands"] == (2 * bt + 1) * 128 * a
+    assert p["prep_chunk"] == 12 * slab_rows * 512
+    assert p["per_rank_peak"] == (p["per_shard_peak"] + p["stage_buffer"]
+                                  + p["ghost_operands"] + p["prep_chunk"])
+    assert p["host_outputs"] == 5 * n * a
+    assert p["host_bands"] == (g_rows * window // (8 if packed else 1)
+                               + (4 * g_rows * window if keep else 0))
+    assert p["host_operands"] == 4 * slab_rows * 512
+    for gone in ("assembled_band", "assembled_distances",
+                 "assembled_outputs", "replicated_annotations",
+                 "chunk_assembly", "replicated_floor", "upload"):
+        assert gone not in p
+    geom = bsh.sharded_band_geometry(n, band, ndev)
+    for my in range(ndev):
+        p0, p1 = bsh.operand_window(my, geom)
+        assert (p1 - p0) * a <= p["annotations_int8"] + p["ghost_operands"]
     assert p["fits"]
 
 
