@@ -22,6 +22,7 @@ import torch
 from safepy_tpu_torch.ops.apsp import pad_distances
 from safepy_tpu_torch.ops.apsp_cuda import fw_round
 from safepy_tpu_torch.ops.neighborhoods import _initial_distances
+from safepy_tpu_torch.profiling import span
 
 
 def hilbert_order(coords: np.ndarray, bits: int = 16) -> np.ndarray:
@@ -180,10 +181,12 @@ def apsp_banded_fw(dist: torch.Tensor, *, window: int, block: int = 128,
     # corner tiles with |i - j| beyond this are never read back as part of a
     # pivot panel and lie beyond the radius in the output (apsp_banded.py:237)
     band_tiles = half // block + 3
-    for kb in range(nb):
-        start = kb * block
-        lo = min(max(start - half, 0), npad - w)
-        fw_round(dist, start, lo, w, block, band_tiles, symmetric=symmetric)
+    with span("neighborhoods.relax"):
+        for kb in range(nb):
+            start = kb * block
+            lo = min(max(start - half, 0), npad - w)
+            fw_round(dist, start, lo, w, block, band_tiles,
+                     symmetric=symmetric)
     return dist
 
 

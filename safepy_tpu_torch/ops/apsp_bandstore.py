@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from safepy_tpu_torch.ops.apsp_cuda import (close_diag, relax_panel,
                                             relax_skew, relax_skew_sym)
 from safepy_tpu_torch.ops.score import check_fp32_matmul
+from safepy_tpu_torch.profiling import span
 
 _INF = float("inf")
 # elements of the largest transient a banded contraction builds per group of
@@ -314,8 +315,9 @@ def apsp_band_fw(s: torch.Tensor, *, bt: int, block: int = 128,
     if not s.is_contiguous():
         raise ValueError("apsp_band_fw needs a contiguous band")
     nb = s.shape[0] // block - 2 * bt
-    for kb in range(nb):
-        band_fw_round(s, kb, bt=bt, block=block, symmetric=symmetric)
+    with span("neighborhoods.relax"):
+        for kb in range(nb):
+            band_fw_round(s, kb, bt=bt, block=block, symmetric=symmetric)
     return s
 
 

@@ -55,6 +55,7 @@ import torch
 
 from safepy_tpu_torch.ops.apsp import (_apsp_torch, _min_plus_torch,
                                        min_plus_relax, pad_distances)
+from safepy_tpu_torch.profiling import span
 
 # Kernel launches since the last reset_launches(), by wrapper name;
 # relax_full counts its whole-matrix and its banded launches apart.
@@ -719,6 +720,7 @@ def apsp_blocked_fw(dist: torch.Tensor, *, block: int = 128,
     if d.data_ptr() == dist.data_ptr():
         d = d.clone()  # the rounds update d in place
     npad = d.shape[0]
-    for kb in range(npad // block):
-        fw_round(d, kb * block, 0, npad, block, symmetric=symmetric)
+    with span("neighborhoods.relax"):
+        for kb in range(npad // block):
+            fw_round(d, kb * block, 0, npad, block, symmetric=symmetric)
     return d[:n, :n]

@@ -44,6 +44,7 @@ from safepy_tpu_torch.ops.hypergeom import (_sf_parts, finalize_logsf_device,
 from safepy_tpu_torch.ops.permutation import count_scan, random_permutations
 from safepy_tpu_torch.ops.score import (zscore_from_contractions,
                                         zscore_shift)
+from safepy_tpu_torch.profiling import span
 
 
 def _pad_rows_to(x, rows: int):
@@ -89,7 +90,9 @@ def valid_frame_map(valid: torch.Tensor, rank: torch.Tensor):
     order = torch.empty_like(rank)
     order[rank] = torch.arange(n, device=rank.device)
     valid_rank = torch.cumsum(valid[rank].to(torch.int64), 0) - 1
-    sigma = valid_rank[order[valid]]
+    # a boolean index: the host waits for the device to size the result
+    with span("facade.wait", site="valid_frame_map"):
+        sigma = valid_rank[order[valid]]
     sigma_inv = torch.empty_like(sigma)
     sigma_inv[sigma] = torch.arange(sigma.shape[0], device=sigma.device)
     return sigma, sigma_inv
@@ -152,23 +155,26 @@ def scan_counts_band(compact, starts, vals, mask, obs, frame_map, *,
         return F.pad(Bp, (0, 0, 0, v_pad - V))  # (C, v_pad, A) or (.., 3A)
 
     if zscore:
-        def chunk_scores(start, count):
-            out = band_matmul_batch(compact, permuted(start, count), starts,
-                                    **kw)
+        def chunk_scores(Bp):
+            out = band_matmul_batch(compact, Bp, starts, **kw)
             AB, Np, EXX_sum = torch.chunk(out, 3, dim=-1)
             return zscore_from_contractions(AB, Np, EXX_sum, shift=shift)
 
-        return count_scan(chunk_scores, obs, num_permutations=num_permutations,
+        return count_scan((permuted, chunk_scores), obs,
+                          num_permutations=num_permutations,
                           batch_size=batch_size)
 
     counts_neg = torch.zeros(obs.shape, dtype=torch.int32, device=dev)
     counts_pos = torch.zeros_like(counts_neg)
     for start in range(0, num_permutations, batch_size):
         count = min(batch_size, num_permutations - start)
-        cn, cp = band_count_batch(compact, permuted(start, count), starts,
-                                  obs, **kw)
-        counts_neg += cn
-        counts_pos += cp
+        with span("enrichment.permute"):
+            Bp = permuted(start, count)
+        with span("enrichment.count"):
+            cn, cp = band_count_batch(compact, Bp, starts, obs, **kw)
+            del Bp
+            counts_neg += cn
+            counts_pos += cp
     return counts_neg, counts_pos
 
 

@@ -21,6 +21,7 @@ import torch
 from safepy_tpu_torch.ops._device import on_device
 from safepy_tpu_torch.ops.score import (check_fp32_matmul, zscore_shift,
                                         zscore_from_contractions)
+from safepy_tpu_torch.profiling import span
 
 
 def default_batch_size(num_valid: int, num_attributes: int,
@@ -68,20 +69,28 @@ def random_permutations(count: int, size: int,
     return keys.argsort(dim=1)
 
 
-def count_scan(chunk_scores, obs: torch.Tensor, *, num_permutations: int,
+def count_scan(chunk, obs: torch.Tensor, *, num_permutations: int,
                batch_size: int):
     """Two-sided count accumulator over permutation chunks (``:171``).
 
-    ``chunk_scores(start, count) -> (count, N, A)`` scores permutations
-    ``start .. start + count``. Returns int32 (counts_neg, counts_pos).
+    ``chunk = (permuted, chunk_scores)``: ``permuted(start, count)``
+    gathers the operands of permutations ``start .. start + count`` (an
+    ``enrichment.permute`` span) and ``chunk_scores(operands) -> (count, N,
+    A)`` scores them (with the counting, an ``enrichment.count`` span).
+    Returns int32 (counts_neg, counts_pos).
     """
+    permuted, chunk_scores = chunk
     counts_neg = torch.zeros(obs.shape, dtype=torch.int32, device=obs.device)
     counts_pos = torch.zeros_like(counts_neg)
     for start in range(0, num_permutations, batch_size):
         count = min(batch_size, num_permutations - start)
-        scores = chunk_scores(start, count)
-        counts_neg += (scores <= obs[None]).sum(dim=0, dtype=torch.int32)
-        counts_pos += (scores >= obs[None]).sum(dim=0, dtype=torch.int32)
+        with span("enrichment.permute"):
+            operands = permuted(start, count)
+        with span("enrichment.count"):
+            scores = chunk_scores(operands)
+            del operands
+            counts_neg += (scores <= obs[None]).sum(dim=0, dtype=torch.int32)
+            counts_pos += (scores >= obs[None]).sum(dim=0, dtype=torch.int32)
     return counts_neg, counts_pos
 
 
@@ -111,13 +120,17 @@ def scan_counts(nbr_valid, vals, mask, obs, *, score_type: str,
         shift = zscore_shift(vals, mask)
         vals = vals - mask * shift
 
-    def chunk_scores(start, count):
+    def permuted(start, count):
         idx = (perm_idx[start:start + count] if perm_idx is not None
                else random_permutations(count, V, generator))
-        return permutation_scores(nbr_valid, vals, mask, idx, score_type,
-                                  precision, shift=shift)
+        return vals[idx], (mask[idx] if score_type == "z-score" else None)
 
-    return count_scan(chunk_scores, obs, num_permutations=num_permutations,
+    def chunk_scores(operands):
+        return _scores_from_permuted(nbr_valid, *operands, score_type,
+                                     precision, shift=shift)
+
+    return count_scan((permuted, chunk_scores), obs,
+                      num_permutations=num_permutations,
                       batch_size=batch_size)
 
 

@@ -39,6 +39,7 @@ from safepy_tpu_torch.ops.permutation import prepare_valid, scan_counts
 from safepy_tpu_torch.ops.score import (check_fp32_matmul,
                                         compute_neighborhood_score)
 from safepy_tpu_torch.parallel.mesh import fw_sharding, mesh_names
+from safepy_tpu_torch.profiling import span
 
 
 def _apsp_inline(d0, block, mesh=None, window=None, inv_rank=None,
@@ -81,23 +82,25 @@ def fused_permutation_pipeline(d0, vals, valid_rows, generator, radius, *,
     over the mesh (``_sharded_null`` :87).
     Returns (dist, nbr, obs, counts_neg, counts_pos, mean_size, std_size).
     """
-    dist = _apsp_inline(d0, block, mesh, window=window, inv_rank=inv_rank,
-                        radius=radius)
-    nbr, mean, std = threshold_and_stats(dist, radius, strict=strict)
-    obs = compute_neighborhood_score(nbr, vals, score_type, precision)
-    nbr_valid, v, m = prepare_valid(nbr, vals, valid_rows)
-    if mesh is None:
-        counts_neg, counts_pos = scan_counts(
-            nbr_valid, v, m, obs, score_type=score_type,
-            num_permutations=num_permutations, batch_size=batch_size,
-            generator=generator, perm_idx=perm_idx, precision=precision)
-    else:
-        from safepy_tpu_torch.parallel.permutation_sharded import (
-            sharded_counts)
-        counts_neg, counts_pos = sharded_counts(
-            nbr_valid, v, m, obs, mesh=mesh, score_type=score_type,
-            per_device=num_permutations, batch_size=batch_size,
-            generator=generator, perm_idx=perm_idx, precision=precision)
+    with span("neighborhoods.front"):
+        dist = _apsp_inline(d0, block, mesh, window=window,
+                            inv_rank=inv_rank, radius=radius)
+        nbr, mean, std = threshold_and_stats(dist, radius, strict=strict)
+    with span("enrichment.null"):
+        obs = compute_neighborhood_score(nbr, vals, score_type, precision)
+        nbr_valid, v, m = prepare_valid(nbr, vals, valid_rows)
+        if mesh is None:
+            counts_neg, counts_pos = scan_counts(
+                nbr_valid, v, m, obs, score_type=score_type,
+                num_permutations=num_permutations, batch_size=batch_size,
+                generator=generator, perm_idx=perm_idx, precision=precision)
+        else:
+            from safepy_tpu_torch.parallel.permutation_sharded import (
+                sharded_counts)
+            counts_neg, counts_pos = sharded_counts(
+                nbr_valid, v, m, obs, mesh=mesh, score_type=score_type,
+                per_device=num_permutations, batch_size=batch_size,
+                generator=generator, perm_idx=perm_idx, precision=precision)
     return dist, nbr, obs, counts_neg, counts_pos, mean, std
 
 
@@ -209,19 +212,22 @@ def _band_front(u, v, w, radius, *, n: int, band: int, block: int = 128,
     ``packed`` makes the indicator bit-packed uint8.
     """
     bt = band // block + 1
-    s = bst.band_init_from_edges(u, v, w, n=n, band=band, block=block)
-    converged = True
-    if bf_slots is not None:
-        _, converged, _ = bst.apsp_band_bf(s, *bf_slots, radius, bt=bt,
-                                           block=block, max_iters=bf_max_iters)
-    else:
-        bst.apsp_band_fw(s, bt=bt, block=block)
-    s_ind = bst.band_threshold(s, radius, packed=packed, block=block)
-    _, mean, std = bst.band_row_stats(s_ind, n=n, bt=bt, block=block)
-    if not keep_distances:
-        return None, s_ind, mean, std, bt, converged
-    r = torch.as_tensor(radius, dtype=s.dtype, device=s.device)
-    s.masked_fill_(s > r, float("inf"))
+    with span("neighborhoods.front"):
+        s = bst.band_init_from_edges(u, v, w, n=n, band=band, block=block)
+        converged = True
+        if bf_slots is not None:
+            with span("neighborhoods.relax"):
+                _, converged, _ = bst.apsp_band_bf(
+                    s, *bf_slots, radius, bt=bt, block=block,
+                    max_iters=bf_max_iters)
+        else:
+            bst.apsp_band_fw(s, bt=bt, block=block)
+        s_ind = bst.band_threshold(s, radius, packed=packed, block=block)
+        _, mean, std = bst.band_row_stats(s_ind, n=n, bt=bt, block=block)
+        if not keep_distances:
+            return None, s_ind, mean, std, bt, converged
+        r = torch.as_tensor(radius, dtype=s.dtype, device=s.device)
+        s.masked_fill_(s > r, float("inf"))
     return s, s_ind, mean, std, bt, converged
 
 
@@ -299,12 +305,13 @@ def _band_perm_tail(s_ind, vals, vals_valid, valid, starts, rank, generator,
                     precision: str, perm_idx=None):
     """:func:`_band_null` with the (n, A) outputs un-permuted to the
     original frame by ``rank`` (``pipeline.py:369``)."""
-    obs, counts_neg, counts_pos = _band_null(
-        s_ind, vals, vals_valid, valid, starts, rank, generator, bt=bt,
-        block=block, score_type=score_type,
-        num_permutations=num_permutations, batch_size=batch_size, w_c=w_c,
-        precision=precision, perm_idx=perm_idx)
-    return obs[rank], counts_neg[rank], counts_pos[rank]
+    with span("enrichment.null"):
+        obs, counts_neg, counts_pos = _band_null(
+            s_ind, vals, vals_valid, valid, starts, rank, generator, bt=bt,
+            block=block, score_type=score_type,
+            num_permutations=num_permutations, batch_size=batch_size,
+            w_c=w_c, precision=precision, perm_idx=perm_idx)
+        return obs[rank], counts_neg[rank], counts_pos[rank]
 
 
 def fused_permutation_pipeline_band(u, v, w, vals, vals_valid, valid, starts,

@@ -91,6 +91,7 @@ from safepy_tpu_torch import domains as _domains
 from safepy_tpu_torch import hbm as _hbm
 from safepy_tpu_torch import output as _output
 from safepy_tpu_torch import pipeline as _pipe
+from safepy_tpu_torch import profiling as _prof
 from safepy_tpu_torch.debug import validate_attributes
 from safepy_tpu_torch.io import attributes as _attr_io
 from safepy_tpu_torch.io import network as _net_io
@@ -511,6 +512,10 @@ class SAFE:
         node order (NaN = unannotated). Then JAX's checks
         (``safe.py:416-419``): a ``ValidationError`` (a ``ValueError``) for
         +/-inf, a warning for all-NaN columns."""
+        with _prof.span("facade.load_attributes"):
+            self._load_attributes(kwargs)
+
+    def _load_attributes(self, kwargs):
         if self._num_nodes is None:
             raise RuntimeError("load_network first")
         if "attribute_file" in kwargs:
@@ -1366,9 +1371,12 @@ class SAFE:
 
     def _store_null(self, obs, counts_neg, counts_pos):
         """Scores and null counts to the host, then p-values and NES."""
-        self.ns = obs.cpu().numpy()
-        self.counts_neg = counts_neg.cpu().numpy()
-        self.counts_pos = counts_pos.cpu().numpy()
+        with _prof.span("facade.wait", site="store_null.obs"):
+            self.ns = obs.cpu().numpy()
+        with _prof.span("facade.wait", site="store_null.counts_neg"):
+            self.counts_neg = counts_neg.cpu().numpy()
+        with _prof.span("facade.wait", site="store_null.counts_pos"):
+            self.counts_pos = counts_pos.cpu().numpy()
         self._finalize_randomization(self.counts_neg, self.counts_pos,
                                      self.ns)
 
@@ -1441,6 +1449,12 @@ class SAFE:
         keyword arguments set the settings of those names; the rest are
         ignored, as in JAX (``safe.py:1646-1660``).
         """
+        with _prof.span("facade.run_pipeline") as sp:
+            self._run_pipeline(perm_idx, kwargs)
+            if sp is not None:
+                sp.attrs["engine"] = self.apsp_engine_used
+
+    def _run_pipeline(self, perm_idx, kwargs):
         for k in ("node_distance_metric", "neighborhood_radius_type",
                   "neighborhood_radius", "neighborhood_score_type",
                   "multiple_testing", "num_permutations", "background"):
