@@ -36,12 +36,16 @@ compaction runs in groups of block-rows for its transient's sake.
 
 from __future__ import annotations
 
+import functools
+from collections import OrderedDict
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from safepy_tpu_torch.ops.apsp_cuda import (close_diag, relax_panel,
-                                            relax_skew, relax_skew_sym)
+from safepy_tpu_torch.ops.apsp_cuda import (LAUNCHES, close_diag,
+                                            relax_panel, relax_skew,
+                                            relax_skew_sym)
 from safepy_tpu_torch.ops.score import check_fp32_matmul
 from safepy_tpu_torch.profiling import span
 
@@ -269,31 +273,141 @@ def band_init_from_edges(u, v, w, *, n: int, band: int,
 # Band-storage blocked Floyd-Warshall
 # ---------------------------------------------------------------------------
 
-def skew_pivot_column(win: torch.Tensor, bt: int, block: int) -> torch.Tensor:
+def skew_pivot_column(win: torch.Tensor, bt: int, block: int, *,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
     """(W, block) copy of the window's pivot-column tiles (o, 2 bt - o): the
     Q operand of every window row, snapshotted before the skew relax
-    rewrites them."""
+    rewrites them. Into a new tensor, or into the contiguous ``out``.
+
+    Tile (o, 2 bt - o) starts o (block ld - block) elements after tile
+    (0, 2 bt), ld being the window's row stride, so the tiles are one
+    strided view of the window and the snapshot is one copy: no index is
+    built and nothing is allocated with ``out``."""
     nt = 2 * bt + 1
-    o = torch.arange(nt, device=win.device)
-    return win.view(nt, block, nt, block)[o, :, 2 * bt - o, :].reshape(
-        nt * block, block)
+    ld = win.stride(0)
+    if win.stride(1) != 1:
+        raise ValueError("skew_pivot_column needs unit column stride")
+    tiles = win.as_strided((nt, block, block), (block * ld - block, ld, 1),
+                           win.storage_offset() + 2 * bt * block)
+    if out is None:
+        out = torch.empty((nt * block, block), dtype=win.dtype,
+                          device=win.device)
+    out.view(nt, block, block).copy_(tiles)
+    return out
+
+
+class _FwWork:
+    """The buffers one band FW reuses in every round: the closed pivot tile
+    (block, block), the relaxed pivot row (block, W) and the pivot-column
+    snapshot (W, block), on the band's device."""
+
+    __slots__ = ("diag", "p", "q")
+
+    def __init__(self, s: torch.Tensor, block: int):
+        width = s.shape[1]
+        new = functools.partial(torch.empty, dtype=torch.float32,
+                                device=s.device)
+        self.diag = new((block, block))
+        self.p = new((block, width))
+        self.q = new((width, block))
 
 
 def band_fw_round(s: torch.Tensor, kb: int, *, bt: int, block: int,
-                  symmetric: bool = True) -> None:
+                  symmetric: bool = True, work: _FwWork | None = None) -> None:
     """One round of :func:`apsp_band_fw` with pivot block-row ``kb``, in place
-    (``round_body``, ``apsp_bandstore.py:459``)."""
+    (``round_body``, ``apsp_bandstore.py:459``); ``work`` holds its
+    operands (fresh buffers without), so that a round allocates nothing."""
+    if work is None:
+        work = _FwWork(s, block)
     width = s.shape[1]
     kg = kb + bt
     row = s[kg * block:(kg + 1) * block]
     c0 = bt * block
-    diag = close_diag(row[:, c0:c0 + block])
-    row[:, c0:c0 + block] = diag
-    p = relax_panel(row, diag, row)  # the relaxed pivot row, kept apart
+    diag = close_diag(row[:, c0:c0 + block], out=work.diag)
+    row[:, c0:c0 + block].copy_(diag)
+    p = relax_panel(row, diag, row, out=work.p)  # the relaxed pivot row, apart
     row.copy_(p)
     win = s[(kg - bt) * block:(kg - bt) * block + width]
-    q = skew_pivot_column(win, bt, block)
+    q = skew_pivot_column(win, bt, block, out=work.q)
     (relax_skew_sym if symmetric else relax_skew)(win, q, p, bt)
+
+
+def _band_fw_rounds(s, nb, *, bt, block, symmetric, work) -> None:
+    for kb in range(nb):
+        band_fw_round(s, kb, bt=bt, block=block, symmetric=symmetric,
+                      work=work)
+
+
+# How apsp_band_fw's calls ran, since the process started: "eager" (the
+# round loop on the host), "captures" (the rounds captured into a CUDA graph,
+# then replayed once), "replays" (a graph captured before, replayed).
+FW_GRAPHS = {"eager": 0, "captures": 0, "replays": 0}
+# (device, data_ptr, shape, bt, block, symmetric) -> None (the band seen
+# once) or its _FwGraph; the newest FW_GRAPH_CACHE entries
+FW_GRAPH_CACHE = 2
+_fw_graphs: OrderedDict = OrderedDict()
+
+
+class _FwGraph:
+    """The nb rounds of one band, captured: the CUDA graph, the workspace
+    its kernels read and write, and the launches it replays."""
+
+    __slots__ = ("graph", "work", "launches")
+
+    def __init__(self, s, nb, *, bt, block, symmetric):
+        self.work = _FwWork(s, block)
+        stream = torch.cuda.current_stream(s.device)
+        side = torch.cuda.Stream(s.device)  # a graph is never captured on
+        side.wait_stream(stream)            # the legacy default stream
+        before = dict(LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                _band_fw_rounds(s, nb, bt=bt, block=block,
+                                symmetric=symmetric, work=self.work)
+            finally:
+                self.graph.capture_end()
+        stream.wait_stream(side)
+        # a capture launches nothing: its counts are the replay's
+        self.launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        for k, v in self.launches.items():
+            LAUNCHES[k] -= v
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, v in self.launches.items():
+            LAUNCHES[k] += v
+
+
+def _band_fw_run(s, nb, *, bt, block, symmetric) -> str:
+    """The rounds on ``s``, eagerly the first time a band is seen at its
+    address, then from a graph captured the second time and replayed
+    after (a session's analyses rebuild their band where the last one
+    was). A CPU band, or a call inside another capture, runs eagerly.
+    Returns how the rounds ran: "eager", "capture" or "replay"."""
+    key = None
+    if s.device.type == "cuda" and not torch.cuda.is_current_stream_capturing():
+        key = (s.device, s.data_ptr(), tuple(s.shape), bt, block, symmetric)
+    if key is None or key not in _fw_graphs:
+        if key is not None:
+            _fw_graphs[key] = None
+            while len(_fw_graphs) > FW_GRAPH_CACHE:
+                _fw_graphs.popitem(last=False)
+        _band_fw_rounds(s, nb, bt=bt, block=block, symmetric=symmetric,
+                        work=_FwWork(s, block))
+        FW_GRAPHS["eager"] += 1
+        return "eager"
+    _fw_graphs.move_to_end(key)
+    entry = _fw_graphs[key]
+    mode = "replay"
+    if entry is None:
+        entry = _fw_graphs[key] = _FwGraph(s, nb, bt=bt, block=block,
+                                           symmetric=symmetric)
+        mode = "capture"
+    entry.replay()
+    FW_GRAPHS["captures" if mode == "capture" else "replays"] += 1
+    return mode
 
 
 def apsp_band_fw(s: torch.Tensor, *, bt: int, block: int = 128,
@@ -307,7 +421,9 @@ def apsp_band_fw(s: torch.Tensor, *, bt: int, block: int = 128,
     symmetric matrices of undirected graphs) relaxes the window's upper
     wedge and mirrors the lower half (``relax_skew_sym``); ``False`` relaxes
     every in-band tile (``relax_skew``). Three kernel launches a round, nb
-    rounds; the host loop stands for the JAX ``fori_loop``.
+    rounds; the host loop stands for the JAX ``fori_loop``. On the card a
+    band met again at the same address runs the rounds as one CUDA graph
+    (:func:`_band_fw_run`, counted in :data:`FW_GRAPHS`), bitwise the same.
     """
     if s.dtype != torch.float32 or s.shape[1] != (2 * bt + 1) * block:
         raise ValueError(f"not a band of bt={bt}, block={block}: "
@@ -315,9 +431,10 @@ def apsp_band_fw(s: torch.Tensor, *, bt: int, block: int = 128,
     if not s.is_contiguous():
         raise ValueError("apsp_band_fw needs a contiguous band")
     nb = s.shape[0] // block - 2 * bt
-    with span("neighborhoods.relax"):
-        for kb in range(nb):
-            band_fw_round(s, kb, bt=bt, block=block, symmetric=symmetric)
+    with span("neighborhoods.relax") as rec:
+        mode = _band_fw_run(s, nb, bt=bt, block=block, symmetric=symmetric)
+        if rec is not None:
+            rec.attrs["graph"] = mode
     return s
 
 

@@ -127,21 +127,43 @@ def _check_panel(name: str, c: torch.Tensor, a: torch.Tensor,
     return True
 
 
-def relax_panel(c: torch.Tensor, a: torch.Tensor,
-                b: torch.Tensor) -> torch.Tensor:
-    """``min(C, A (x) B)`` into a new (m, n) tensor; C is not modified.
+def _check_out(name: str, out: torch.Tensor, shape, like: torch.Tensor):
+    """Raise unless ``out`` is an f32 buffer of ``shape`` on ``like``'s
+    device, apart from ``like``, with unit column stride."""
+    if (tuple(out.shape) != tuple(shape) or out.dtype != torch.float32
+            or out.device != like.device or out.stride(1) != 1):
+        raise ValueError(f"{name}: out must be a {tuple(shape)} float32 "
+                         f"tensor on {like.device} with unit column stride, "
+                         f"got {tuple(out.shape)} {out.dtype} on {out.device}")
+    if out.untyped_storage().data_ptr() == like.untyped_storage().data_ptr():
+        raise ValueError(f"{name}: out must lie apart from its operands")
+
+
+def relax_panel(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """``min(C, A (x) B)`` into a new (m, n) tensor, or into ``out``, which
+    is returned; C is not modified.
 
     a: (m, k), b: (k, n), c: (m, n) float32, any row stride. On CUDA, m, n
     and k must be multiples of 32, and each operand 16-byte aligned with a
-    row stride that is a multiple of 4.
+    row stride that is a multiple of 4; so must ``out`` be, which lies apart
+    from the operands (a workspace reused round after round).
     """
-    if not _check_panel("relax_panel", c, a, b):
-        return min_plus_relax(c, a, b)
-    from safepy_tpu_torch import native
-
     m, k = a.shape
     n = b.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=c.device)
+    if out is not None:
+        _check_out("relax_panel", out, (m, n), c)
+    if not _check_panel("relax_panel", c, a, b):
+        relaxed = min_plus_relax(c, a, b)
+        return relaxed if out is None else out.copy_(relaxed)
+    from safepy_tpu_torch import native
+
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.float32, device=c.device)
+    elif out.data_ptr() % 16 or out.stride(0) % 4:
+        raise ValueError("relax_panel kernel needs a 16-byte aligned out with "
+                         f"a row stride % 4 == 0, got stride {out.stride(0)} "
+                         f"at offset {out.data_ptr() % 16}")
     native.launch("relax_panel", _ptr(a), a.stride(0), _ptr(b), b.stride(0),
                   _ptr(c), c.stride(0), _ptr(out), out.stride(0), m, n, k,
                   _stream(c))
@@ -345,19 +367,28 @@ def relax_window_sym(q: torch.Tensor, p: torch.Tensor, d: torch.Tensor,
 close_diag_plain = _apsp_torch
 
 
-def close_diag(tile: torch.Tensor) -> torch.Tensor:
+def close_diag(tile: torch.Tensor, *,
+               out: torch.Tensor | None = None) -> torch.Tensor:
     """In-tile Floyd-Warshall closure of a (block, block) tile into a new
-    tensor; ``tile`` may be a view into the distance matrix."""
+    tensor, or into ``out`` (contiguous, apart from ``tile``), which is
+    returned; ``tile`` may be a view into the distance matrix."""
     if tile.shape[0] != tile.shape[1]:
         raise ValueError(f"close_diag needs a square tile, got {tuple(tile.shape)}")
+    if out is not None:
+        _check_out("close_diag", out, tile.shape, tile)
+        if not out.is_contiguous():
+            raise ValueError("close_diag needs a contiguous out")
     if not _use_kernel(tile):
-        return close_diag_plain(tile)
+        closed = close_diag_plain(tile)
+        return closed if out is None else out.copy_(closed)
     block = tile.shape[0]
     if block not in (64, 128):
         raise ValueError(f"close_diag kernel needs block 64 or 128, got {block}")
     from safepy_tpu_torch import native
 
-    out = torch.empty((block, block), dtype=torch.float32, device=tile.device)
+    if out is None:
+        out = torch.empty((block, block), dtype=torch.float32,
+                          device=tile.device)
     native.launch("close_diag", _ptr(tile), tile.stride(0), _ptr(out), block,
                   _stream(tile))
     LAUNCHES["close_diag"] += 1

@@ -354,3 +354,73 @@ def test_band_count_batch_exact_against_jax():
     all_live = bs.band_count_batch(compact, _t(xb), starts, _t(obs), bt=bt,
                                    block=block)
     assert (all_live[0] >= got[0]).all() and (all_live[1] >= got[1]).all()
+
+
+@pytest.mark.parametrize("block,k", [(32, 32), (64, 64)])
+def test_out_forms_equal_the_allocating_forms(block, k):
+    """close_diag and relax_panel into a reused buffer, as a band round
+    calls them, give what their allocating forms give, and refuse a buffer
+    of another shape or one that is an operand."""
+    rng = np.random.default_rng(block)
+    tile = _t(_inf_laced(rng, (block, block)))
+    tile.diagonal().zero_()
+    out = torch.full((block, block), -1.0)
+    assert K.close_diag(tile, out=out) is out
+    assert torch.equal(out, K.close_diag(tile))
+    row = _t(_inf_laced(rng, (k, 3 * block)))
+    diag = K.close_diag(row[:, block:block + k].contiguous())
+    out = torch.full((k, 3 * block), -1.0)
+    assert K.relax_panel(row, diag, row, out=out) is out
+    assert torch.equal(out, K.relax_panel(row, diag, row))
+    with pytest.raises(ValueError, match="out must be"):
+        K.relax_panel(row, diag, row, out=torch.empty((k, block)))
+    with pytest.raises(ValueError, match="apart from its operands"):
+        K.relax_panel(row, diag, row, out=row)
+    with pytest.raises(ValueError, match="out must be"):
+        K.close_diag(tile, out=torch.empty((block, block), dtype=torch.float64))
+
+
+@pytest.mark.parametrize("bt,extra", [(0, 0), (1, 0), (3, 0), (2, 40)],
+                         ids=["bt0", "bt1", "bt3", "bt2-wider-band"])
+def test_pivot_column_view_gives_the_gathered_tiles(bt, extra):
+    """skew_pivot_column's strided view, into a new tensor or a reused
+    buffer, holds tiles (o, 2 bt - o) of the window, as the advanced-index
+    gather of the same tiles does; also for a window that is a view at
+    column 8 of a wider band."""
+    block = 16
+    nt = 2 * bt + 1
+    w = nt * block
+    rng = np.random.default_rng(bt)
+    band = _t(_inf_laced(rng, (w + 2 * block, w + extra)))
+    c0 = 8 if extra else 0
+    win = band[block:block + w, c0:c0 + w]
+    o = torch.arange(nt)
+    want = win.reshape(nt, block, nt, block)[o, :, 2 * bt - o, :].reshape(
+        w, block)
+    assert torch.equal(bs.skew_pivot_column(win, bt, block), want)
+    out = torch.full((w, block), -1.0)
+    assert bs.skew_pivot_column(win, bt, block, out=out) is out
+    assert torch.equal(out, want)
+
+
+def test_cpu_band_fw_runs_eagerly_and_counts():
+    """A CPU band never reaches the CUDA graph path: every call runs the
+    rounds on the host, counts as eager and leaves no graph entry; the
+    workspace a call reuses changes no bit of the rounds' result."""
+    n, block = 384, 64
+    edges, w, nr, rank, band = _geometric(n, 6, 9)
+    s, _ = _init_both(n, edges, w, rank, band, block)
+    bt = band // block + 1
+    nb = s.shape[0] // block - 2 * bt
+    want = s.clone()
+    for kb in range(nb):  # a fresh workspace every round
+        bs.band_fw_round(want, kb, bt=bt, block=block)
+    before = dict(bs.FW_GRAPHS)
+    for _ in range(3):
+        got = s.clone()
+        bs.apsp_band_fw(got, bt=bt, block=block)
+        assert torch.equal(got, want)
+    assert bs.FW_GRAPHS["eager"] == before["eager"] + 3
+    assert bs.FW_GRAPHS["captures"] == before["captures"]
+    assert bs.FW_GRAPHS["replays"] == before["replays"]
+    assert not any(key[0].type == "cpu" for key in bs._fw_graphs)
