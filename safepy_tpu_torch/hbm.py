@@ -151,7 +151,8 @@ def _out_bytes(mode: str, n: int, n_attrs: int) -> int:
 
 def census_chunk_bytes(rows: int, chunk_w: int, table_bytes: int,
                        table_cr: int, window: int) -> int:
-    """One census chunk's live bytes (``enrich_band._band_table_chunk``):
+    """One census chunk's live bytes (a chunk of
+    ``enrich_band.hypergeom_band_table``):
     the class table plus the largest of its three steps, each over
     ``rows`` (at least the padded node rows) by ``chunk_w`` cells:
 

@@ -446,8 +446,13 @@ def hypergeom_band_table(s_ind, nan0, nodes_not_nan, M,
     nan0: (n, A) int8 or f32 annotations with NaN set to 0, rows in the
     permuted frame (host or device); ``K_np``: their column totals if the
     caller has them. Each chunk of ``htab.plan`` is one banded census, one
-    table build and one lookup with the row un-permute
-    (:func:`_band_table_chunk`); its columns are copied into the outputs.
+    table build and one lookup with the row un-permute; its columns are
+    copied into the outputs. While a profiler records, the spans
+    ``enrichment.go_census`` mark the neighborhood sizes' contraction and
+    each chunk's census, ``enrichment.go_table`` each table build (attrs
+    ``R``, ``S_max``, ``C``), ``enrichment.go_lookup`` each chunk's lookup,
+    un-permute, placement and count, and a ``facade.wait`` (site
+    ``go_n_max``) the read of the largest size.
 
     ``logsf_out``: where the (n, A) outputs live. ``'device'``: f32 log sf
     and int8 indicator on the device; ``'f16'``: the log sf stored f16 (the
@@ -479,11 +484,13 @@ def hypergeom_band_table(s_ind, nan0, nodes_not_nan, M,
     npad = _npad(s_ind, bt, block)
     kw = dict(bt=bt, block=block, precision=precision)
     nnn_dev = torch.as_tensor(nodes_not_nan, device=dev).to(torch.float32)
-    nsize_dev = band_matmul(s_ind, _pad_rows_to(nnn_dev[:, None], npad),
-                            **kw)[:, 0]
+    with span("enrichment.go_census"):
+        nsize_dev = band_matmul(s_ind, _pad_rows_to(nnn_dev[:, None], npad),
+                                **kw)[:, 0]
     if plan is None:
-        plan = htab.plan(K_np, float(nsize_dev.max()), int(M),
-                         chunk_cols=chunk_cols)
+        with span("facade.wait", site="go_n_max"):
+            n_max = float(nsize_dev.max())
+        plan = htab.plan(K_np, n_max, int(M), chunk_cols=chunk_cols)
     if plan is None:
         return None
     if logsf_out not in ("device", "f16", "host", "auto"):
@@ -523,22 +530,37 @@ def hypergeom_band_table(s_ind, nan0, nodes_not_nan, M,
         dtype = torch.float16 if logsf_out == "f16" else torch.float32
         logsf = torch.empty((n, n_attrs), dtype=dtype, device=dev)
         nbin = torch.empty((n, n_attrs), dtype=torch.int8, device=dev)
+    log_thr32 = float(np.float32(log_thr64))
     counts = []
     for ch in plan["chunks"]:
         start, width = ch["start"], ch["width"]
-        logsf_c, bin_c = _band_table_chunk(
-            s_ind, nan0_dev[:, start:start + width], nsize_dev,
-            torch.as_tensor(ch["K_dist"], device=dev),
-            torch.as_tensor(ch["colc"], device=dev), M, log_thr64, rank_dev,
-            R=ch["R"], S_max=ch["S_max"], C=ch["C"], npad=npad, **kw)
-        # a chunk's leading `overlap` columns repeat the previous chunk's
-        counts.append(bin_c.sum(dim=0, dtype=torch.int32)[ch["overlap"]:])
-        if host:
-            logsf[:, start:start + width] = logsf_c.cpu().numpy()
-            nbin[:, start:start + width] = bin_c.cpu().numpy()
-        else:
-            _place_chunk(logsf, nbin, logsf_c, bin_c, start)
-        del logsf_c, bin_c
+        R, S_max, C = ch["R"], ch["S_max"], ch["C"]
+        # the chunk's banded census (int8 cast to f32 here)
+        with span("enrichment.go_census"):
+            census = band_matmul(s_ind, _pad_rows_to(
+                nan0_dev[:, start:start + width].to(torch.float32), npad),
+                **kw)
+        with span("enrichment.go_table", R=R, S_max=S_max, C=C):
+            table = htab.build_logsf_table(
+                torch.as_tensor(ch["K_dist"], device=dev), M, log_thr64,
+                R=R, S_max=S_max, C=C)
+        # one lookup, the rows un-permuted by rank, the columns placed
+        with span("enrichment.go_lookup"):
+            _nes, logsf_c, bin_c = htab.table_lookup(
+                table, census, nsize_dev,
+                torch.as_tensor(ch["colc"], device=dev), log_thr32,
+                S_max=S_max, R=R, C=C)
+            del census, table, _nes
+            logsf_c = logsf_c.index_select(0, rank_dev)
+            bin_c = bin_c.index_select(0, rank_dev)
+            # a chunk's leading `overlap` columns repeat the previous chunk's
+            counts.append(bin_c.sum(dim=0, dtype=torch.int32)[ch["overlap"]:])
+            if host:
+                logsf[:, start:start + width] = logsf_c.cpu().numpy()
+                nbin[:, start:start + width] = bin_c.cpu().numpy()
+            else:
+                _place_chunk(logsf, nbin, logsf_c, bin_c, start)
+            del logsf_c, bin_c
     return logsf, nbin, torch.cat(counts)
 
 
@@ -548,19 +570,3 @@ def _place_chunk(logsf, nbin, logsf_c, bin_c, start: int):
     width = logsf_c.shape[1]
     logsf[:, start:start + width].copy_(logsf_c)
     nbin[:, start:start + width].copy_(bin_c)
-
-
-def _band_table_chunk(s_ind, cols, nsize, K_dist, colc, M, log_thr64, rank,
-                      *, R: int, S_max: int, C: int, bt: int, block: int,
-                      npad: int, precision: str):
-    """One column chunk (``:609``): banded census of the chunk's columns
-    (int8 cast to f32 here), the chunk's class table, one lookup, rows
-    un-permuted by ``rank``. Returns (log sf f32, indicator int8)."""
-    counts = band_matmul(s_ind, _pad_rows_to(cols.to(torch.float32), npad),
-                         bt=bt, block=block, precision=precision)
-    table = htab.build_logsf_table(K_dist, M, log_thr64, R=R, S_max=S_max,
-                                   C=C)
-    _nes, logsf, nbin = htab.table_lookup(
-        table, counts, nsize, colc, float(np.float32(log_thr64)),
-        S_max=S_max, R=R, C=C)
-    return logsf.index_select(0, rank), nbin.index_select(0, rank)

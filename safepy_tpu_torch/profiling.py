@@ -12,8 +12,9 @@ Port of ``safepy_tpu/profiling.py:23-73`` to torch:
 - :func:`log_compile_time` times a callable's first call (on the card it
   includes the nvcc build of ``native.py`` on first use) and a steady one;
 - :func:`span` marks a phase of an analysis (the facade, the neighborhoods'
-  front and relax, the null's gather and count) while a ``torch.profiler``
-  session records, and costs one flag check otherwise.
+  front and relax, the null's gather and count, the class-table GO engine's
+  census, table and lookup) while a ``torch.profiler`` session records,
+  and costs one flag check otherwise.
 
 Spans, for an operator: ``with profiling.trace(dir):`` around analyses
 writes a Chrome trace in which each span is a ``record_function`` range on

@@ -1728,29 +1728,30 @@ class SAFE:
         scalars are kept. With ``window_band`` (the band of a run on the
         "data" mesh) the rank's window of the operands is built instead
         (``parallel.band_sharded.band_hyper_operands_sharded``). The cached
-        operands of another key are dropped before the build."""
+        operands of another key are dropped before the build. A build (not
+        one served from the cache) is the span ``facade.go_operands``."""
         key = (self._attr_serial, order.shape[0],
                hashlib.sha1(order.tobytes()).digest(), window_band)
         c = self._band_operands_cache
         if c is not None and c[0] == key:
             return c[1]
         self._band_operands_cache = None
-        if window_band is not None:
-            from safepy_tpu_torch.parallel.band_sharded import (
-                band_hyper_operands_sharded)
-            nan0, nnn, K, binary_ok, M = band_hyper_operands_sharded(
-                self.node2attribute, order, mesh=self.mesh,
-                n=order.shape[0], band=window_band, device=self.device)
-            out = (nan0 if binary_ok else None, nnn, K, binary_ok, M)
-            self._band_operands_cache = (key, out)
-            return out
-        if self._prep_chunked_selected():
-            nan0, nnn, K, binary_ok = _eb.band_hyper_operands_chunked(
-                self.node2attribute, order, device=self.device)
-        else:
-            nan0, nnn, K, binary_ok = _eb.band_hyper_operands_device(
-                self._node2attribute_device(), order)
-        M = int(nnn.sum())
+        with _prof.span("facade.go_operands"):
+            if window_band is not None:
+                from safepy_tpu_torch.parallel.band_sharded import (
+                    band_hyper_operands_sharded)
+                nan0, nnn, K, binary_ok, M = band_hyper_operands_sharded(
+                    self.node2attribute, order, mesh=self.mesh,
+                    n=order.shape[0], band=window_band, device=self.device)
+            else:
+                if self._prep_chunked_selected():
+                    ops = _eb.band_hyper_operands_chunked(
+                        self.node2attribute, order, device=self.device)
+                else:
+                    ops = _eb.band_hyper_operands_device(
+                        self._node2attribute_device(), order)
+                nan0, nnn, K, binary_ok = ops
+                M = int(nnn.sum())
         out = (nan0 if binary_ok else None, nnn, K, binary_ok, M)
         self._band_operands_cache = (key, out)
         return out
@@ -1900,13 +1901,16 @@ class SAFE:
                 done = front()
                 _hbm.record_peak("relax", self.device)
                 sel = {}
-                table_out = _eb.hypergeom_band_table(
-                    done[1], nan0, nnn, M, thr, bt=bt, rank_np=rank,
-                    precision=self.matmul_precision,
-                    logsf_out=self.logsf_store, K_np=K.cpu().numpy(),
-                    budget=hbm_plan["budget"],
-                    extra_resident_bytes=self._census_residents(done[0]),
-                    select_out=sel)
+                with _prof.span("facade.wait", site="go_K"):
+                    K_np = K.cpu().numpy()
+                with _prof.span("enrichment.go"):
+                    table_out = _eb.hypergeom_band_table(
+                        done[1], nan0, nnn, M, thr, bt=bt, rank_np=rank,
+                        precision=self.matmul_precision,
+                        logsf_out=self.logsf_store, K_np=K_np,
+                        budget=hbm_plan["budget"],
+                        extra_resident_bytes=self._census_residents(done[0]),
+                        select_out=sel)
                 self._record_census_select(sel)
                 _hbm.record_peak("census", self.device)
         attr_chunk = self._hypergeom_attr_chunk(num_nodes, n2a.shape[1])

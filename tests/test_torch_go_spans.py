@@ -1,0 +1,156 @@
+"""The spans of the band GO path (``profiling.span``) on the CPU: under
+``profiling.trace`` a band-storage GO analysis by the class table leaves
+``facade.go_operands``, ``enrichment.go`` with its ``go_census``,
+``go_table`` and ``go_lookup`` children, and two ``facade.wait`` sites,
+nested as stated; each table span's ``R``, ``S_max`` and ``C`` are its
+chunk's in the plan that ran; an analysis whose operands come from the
+cache has no operand span; without a profiler nothing is recorded; and the
+outputs are bitwise equal with spans on and off."""
+
+import collections
+import json
+
+import numpy as np
+import pytest
+import torch
+from scipy.spatial import cKDTree
+
+from safepy_tpu_torch import SAFE, profiling
+from safepy_tpu_torch.io.graph_arrays import edge_lengths
+from safepy_tpu_torch.ops import hypergeom_table as htab
+
+N_NODES, TERMS, CHUNK_COLS = 300, 40, 16
+# each GO span's parent (the front's and the facade's roots as in
+# tests/test_torch_spans.py)
+PARENTS = {"facade.load_attributes": {None},
+           "facade.run_pipeline": {None},
+           "facade.go_operands": {"facade.run_pipeline"},
+           "neighborhoods.front": {"facade.run_pipeline"},
+           "neighborhoods.relax": {"neighborhoods.front"},
+           "enrichment.go": {"facade.run_pipeline"},
+           "enrichment.go_census": {"enrichment.go"},
+           "enrichment.go_table": {"enrichment.go"},
+           "enrichment.go_lookup": {"enrichment.go"},
+           "facade.wait": {"facade.run_pipeline", "enrichment.go"}}
+WAIT_PARENT = {"go_K": "facade.run_pipeline", "go_n_max": "enrichment.go"}
+
+
+@pytest.fixture(autouse=True)
+def _fresh(monkeypatch):
+    """One torch thread, chunks of CHUNK_COLS columns (so that an analysis
+    has several), the plans that ran recorded, and an empty span buffer
+    before and after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    plans = []
+    plan = htab.plan
+
+    def recorded(K_np, n_max, M, **kw):
+        out = plan(K_np, n_max, M, **dict(kw, chunk_cols=CHUNK_COLS))
+        plans.append(out)
+        return out
+    monkeypatch.setattr(htab, "plan", recorded)
+    profiling.reset_spans()
+    yield plans
+    profiling.reset_spans()
+    torch.set_num_threads(threads)
+
+
+def _network(n=N_NODES, k=7, seed=3):
+    rng = np.random.default_rng(seed)
+    coords = rng.uniform(-1, 1, (n, 2))
+    _, nn = cKDTree(coords).query(coords, k=k)
+    edges = np.array(sorted({(min(i, int(j)), max(i, int(j)))
+                             for i in range(n) for j in nn[i, 1:]}))
+    weights = np.ones(len(edges))
+    return coords, edges, edge_lengths(coords, edges, weights), weights
+
+
+def _go(coords, seed=4):
+    """Binary terms of members near random centres, 10% NaN rows."""
+    rng = np.random.default_rng(seed)
+    n = len(coords)
+    out = np.zeros((n, TERMS))
+    for j in range(TERMS):
+        near = (np.linalg.norm(coords - rng.uniform(-0.8, 0.8, 2), axis=1)
+                < rng.uniform(0.15, 0.5))
+        out[:, j] = (near & (rng.random(n) < 0.5)) | (rng.random(n) < 0.02)
+    out[rng.random(n) < 0.1] = np.nan
+    return out
+
+
+def _session():
+    net = _network()
+    sf = SAFE(device="cpu", verbose=False)
+    sf.apsp_mode = "band"
+    sf.load_network(network_file=net)
+    return sf, _go(net[0])
+
+
+def _analysis(sf, go, load=True):
+    if load:
+        sf.load_attributes(attribute_file=go)
+    sf.run_pipeline()
+    assert sf._hypergeom_engine_used == "table-band"
+    return dict(nes=np.array(sf.nes), nes_binary=np.array(sf.nes_binary),
+                pvalues=np.array(sf.pvalues_pos),
+                enriched=np.array(
+                    sf.attributes["num_neighborhoods_enriched"]))
+
+
+def test_no_go_spans_without_a_profiler():
+    sf, go = _session()
+    _analysis(sf, go)
+    assert len(profiling.SPANS) == 0 and profiling.span_records() == []
+
+
+def test_go_spans_nest_and_carry_the_plan(_fresh, tmp_path):
+    plans = _fresh
+    sf, go = _session()
+    with profiling.trace(str(tmp_path / "tr")) as prof:
+        _analysis(sf, go)
+        _analysis(sf, go, load=False)   # operands from the cache
+    recs = profiling.span_records()
+    by_id = {r["id"]: r for r in recs}
+    for r in recs:
+        parent = by_id[r["parent"]]["name"] if r["parent"] else None
+        assert parent in PARENTS[r["name"]], (r["name"], parent)
+        if r["name"] == "facade.wait":
+            assert parent == WAIT_PARENT[r["attrs"]["site"]]
+    runs = [r for r in recs if r["name"] == "facade.run_pipeline"]
+    assert len(runs) == 2 and len(plans) == 2
+    for k, (run, plan) in enumerate(zip(runs, plans)):
+        mine = [r for r in recs if r["root"] == run["id"]]
+        chunks = plan["chunks"]
+        assert len(chunks) == -(-TERMS // CHUNK_COLS)
+        names = collections.Counter(r["name"] for r in mine)
+        assert names["enrichment.go"] == 1
+        assert names["enrichment.go_census"] == 1 + len(chunks)
+        assert names["enrichment.go_table"] == len(chunks)
+        assert names["enrichment.go_lookup"] == len(chunks)
+        assert names["facade.go_operands"] == (1 if k == 0 else 0)
+        assert sorted(r["attrs"]["site"] for r in mine
+                      if r["name"] == "facade.wait") == ["go_K", "go_n_max"]
+        tables = [r["attrs"] for r in mine
+                  if r["name"] == "enrichment.go_table"]
+        assert tables == [dict(R=ch["R"], S_max=ch["S_max"], C=ch["C"])
+                          for ch in chunks]
+        # the chunk's census, table and lookup run in that order
+        order = [r["name"] for r in sorted(mine, key=lambda r: r["start_ns"])
+                 if r["name"].startswith("enrichment.go_")]
+        assert order == (["enrichment.go_census"] + [
+            "enrichment.go_census", "enrichment.go_table",
+            "enrichment.go_lookup"] * len(chunks))
+    with open(prof.trace_path) as f:
+        traced = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert set(PARENTS) <= traced
+
+
+def test_go_spans_change_no_output(tmp_path):
+    sf, go = _session()
+    off = _analysis(sf, go)
+    with profiling.trace(str(tmp_path / "tr")):
+        on = _analysis(sf, go)
+    assert len(profiling.span_records()) > 0
+    for key in off:
+        np.testing.assert_array_equal(on[key], off[key], err_msg=key)
