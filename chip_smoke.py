@@ -23,7 +23,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``relax_band_row``, one row of 128 x 3,200 and of 128 x 640, and
    ``relax_band_rows``, a round's rows in one launch, whole and cut); each
    beside its bound; ``close_diag`` also on +inf-diagonal, padding and
-   strided tiles at block 128 and 64, beside its one-SM floor; then a
+   strided tiles at block 128 and 64, beside its one-SM floor; the class
+   table's kernel (``csrc/hypergeom_table.cu``, one launch a table)
+   ``torch.equal`` to the slot loop run on the card at the band GO chunk
+   of genome scale (M 18,440, R = S_max = C = 256) and at the dense fused
+   route's R 4,096, beside its bound (the f32 table written once); then a
    register-only probe measures the card's FP32 add + min rate, and each
    min-plus kernel's rate is printed as a share of it and of the nominal
    rate the bounds assume;
@@ -261,7 +265,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``safepy_tpu_torch.dryrun.dryrun(2, device="cuda")``, its six legs on
     two gloo ranks on the card (the ``band mesh`` lines);
 9. print a JSON line of the kernels (times, bounds, launches of every
-   path, phase 10's as ``go_binary_loop`` and ``go_binary_table``, phase
+   path: each FW kernel's and the class table's, counted at the launch and
+   reset before each path; phase 10's as ``go_binary_loop`` and ``go_binary_table``, phase
    12's as ``band_go_table`` and ``band_go_hostchunks``, phase 13's as
    ``band_bf``, ``band_bf_fallback``, ``band_packed``,
    ``band_packed_table`` and the ``euclid_band_*`` paths, phase 14's as
@@ -374,6 +379,13 @@ GO_WORDS = ("regulation", "of", "transport", "cell", "cycle", "protein",
 PRESERVATION_MARGIN = 0.05
 BLOCK = 128
 SRC = "safepy_tpu_torch/csrc/minplus.cu"
+# phase 3's class tables (csrc/hypergeom_table.cu) at the 0.05 threshold:
+# the band GO chunk of genome scale (M 18,440 annotated genes; 212 term
+# sizes among 3-300, zero-padded to C 256; R = S_max = 256) and the dense
+# fused route at Example_1's population (R 4,096, S_max 128, C 64)
+TABLE_SRC = "safepy_tpu_torch/csrc/hypergeom_table.cu"
+TABLE_LOG_THR, SEED_TABLE = float(np.log(0.05)), 5
+TABLE_CASES = {"gobp_chunk": (18440, 256, 256), "dense": (3971, 4096, 128)}
 
 
 def build_network(n=N_NODES, k=KNN, edge_budget=N_EDGES, seed=SEED_GRAPH):
@@ -978,6 +990,56 @@ def check_full_kernels(device, window=1024, npad=4096, band_tiles=6):
     return out
 
 
+def table_classes(tag):
+    """The class totals ``K_dist`` (f64, zero-padded) of a TABLE_CASES case."""
+    if tag == "dense":
+        return np.r_[np.arange(3, 120, 2), [0.0] * 5]
+    out = np.zeros(256)
+    out[:212] = np.sort(np.random.default_rng(SEED_TABLE).choice(
+        np.arange(3, 301), 212, replace=False))
+    return out
+
+
+def check_table_kernel(device, cases=TABLE_CASES):
+    """Phase 3's class table: the kernel (``build_logsf_table`` on a CUDA
+    ``K_dist``, one launch a table) ``torch.equal`` to the slot loop
+    ``htab._build_logsf_table_torch`` run on the same card, at each case;
+    per call (CUDA events) and device time, the loop's time as plain, and
+    the bound: the f32 table written once at the HBM rate."""
+    out = {}
+    for tag, (M, R, S_max) in cases.items():
+        K_dist = torch.as_tensor(table_classes(tag), device=device)
+        C = len(K_dist)
+        kw = dict(R=R, S_max=S_max, C=C)
+
+        def kernel():
+            return build_logsf_table(K_dist, M, TABLE_LOG_THR, **kw)
+
+        def plain():
+            return htab._build_logsf_table_torch(K_dist, M, TABLE_LOG_THR,
+                                                 **kw)
+        reset_launches()
+        got = kernel()
+        if device.type == "cuda" and launch_counts() != dict(
+                {name: 0 for name in K.LAUNCHES}, logsf_table=1):
+            raise AssertionError(f"table {tag}: launches {launch_counts()}")
+        want = plain()
+        if not torch.equal(got, want):
+            bad = int(((got != want) & ~(got.isnan() & want.isnan())).sum())
+            raise AssertionError(f"table {tag}: {bad} cells differ from the "
+                                 "slot loop's")
+        del got, want
+        nbytes = 4 * R * S_max * C
+        out[tag] = dict(
+            M=M, shape=[S_max, C, R], bytes=nbytes,
+            ms=time_ms(kernel, device),
+            device_ms=(device_ms(kernel, "logsf_table_kernel")
+                       if device.type == "cuda" else None),
+            plain_ms=time_ms(plain, device, inner=1, warmup=1, reps=3),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
 def directed_knn(coords, k=KNN):
     """Dense f32 matrix of the arcs i -> each of i's k nearest neighbours,
     of Euclidean length, not mirrored (duplicates min-reduced), and the
@@ -1010,10 +1072,10 @@ def run_ops_path(device, net, vals, num_permutations=N_PERM, steady=3):
     out = {}
 
     def launched(fn):
-        K.reset_launches()
+        reset_launches()
         res = fn()
         sync(device)
-        return res, dict(K.LAUNCHES)
+        return res, launch_counts()
 
     def best(fn):
         times = []
@@ -1137,13 +1199,35 @@ def run_ops_path(device, net, vals, num_permutations=N_PERM, steady=3):
     return out
 
 
-def check_launches(device, launches, **counts):
-    """On the card, raise unless each kernel launched ``counts[name]``
-    times and every other kernel not at all (on the CPU nothing launches)."""
+def reset_launches():
+    """Zero the launch counts of every hand-written kernel: the FW's
+    (``ops.apsp_cuda``) and the class table's (``ops.hypergeom_table``)."""
+    K.reset_launches()
+    htab.reset_launches()
+
+
+def launch_counts() -> dict:
+    """Every hand-written kernel's launches since :func:`reset_launches`."""
+    return dict(K.LAUNCHES, **htab.LAUNCHES)
+
+
+def check_launches(device, launches, engine=None, **counts):
+    """On the card, raise unless each FW kernel launched ``counts[name]``
+    times and every other FW kernel not at all; with the hypergeometric
+    ``engine`` that ran, also unless the class table's kernel launched
+    where the engine builds class tables (``table-*``) and only there (on
+    the CPU nothing launches)."""
+    if device.type != "cuda":
+        return
     want = {name: 0 for name in K.LAUNCHES}
     want.update(counts)
-    if device.type == "cuda" and launches != want:
-        raise AssertionError(f"kernel launches {launches}, expected {want}")
+    got = {name: launches[name] for name in want}
+    if got != want:
+        raise AssertionError(f"kernel launches {got}, expected {want}")
+    tables = launches.get("logsf_table", 0)
+    if engine is not None and (tables > 0) != engine.startswith("table"):
+        raise AssertionError(f"{tables} class-table kernel launches under "
+                             f"the {engine} engine")
 
 
 def dijkstra_indicator(coords, edges, lengths, radius):
@@ -1173,9 +1257,9 @@ def run_slice(device, net, vals, num_permutations=N_PERM, steady=3):
     n = len(coords)
     nb = -(-n // BLOCK)  # FW rounds
     sf = session("auto")
-    K.reset_launches()
+    reset_launches()
     warm_s = timed_run(sf)
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
     if sf.apsp_engine_used != "banded-window":
         raise AssertionError(f"banded plan not taken: {sf.apsp_engine_used}")
     check_launches(device, launches, close_diag=nb, relax_panel=2 * nb,
@@ -1201,9 +1285,9 @@ def run_slice(device, net, vals, num_permutations=N_PERM, steady=3):
     phases = phase_times(sf, device, num_permutations)
 
     full = session("full")
-    K.reset_launches()
+    reset_launches()
     full_s = timed_run(full)
-    dense_launches = dict(K.LAUNCHES)
+    dense_launches = launch_counts()
     if full.apsp_engine_used != "dense":
         raise AssertionError(f"dense plan not taken: {full.apsp_engine_used}")
     if not np.array_equal(full.neighborhoods, nbr):
@@ -1211,9 +1295,9 @@ def run_slice(device, net, vals, num_permutations=N_PERM, steady=3):
 
     # the band-storage engine on the same network and seed
     band = session("band")
-    K.reset_launches()
+    reset_launches()
     band_s = timed_run(band)
-    band_launches = dict(K.LAUNCHES)
+    band_launches = launch_counts()
     if band.apsp_engine_used != "band-storage":
         raise AssertionError(f"band storage not taken: {band.apsp_engine_used}")
     if device.type == "cuda" and band_launches["relax_skew_sym"] != nb:
@@ -1295,9 +1379,9 @@ def run_band_slice(device, num_permutations=N_PERM, steady=3):
         return time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats(device)
-    K.reset_launches()
+    reset_launches()
     warm_s = timed_run()
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
     if sf.apsp_engine_used != "band-storage":
         raise AssertionError(f"band storage not taken: {sf.apsp_engine_used}")
     nb = -(-n // BLOCK)
@@ -1342,13 +1426,13 @@ def run_band_slice(device, num_permutations=N_PERM, steady=3):
     plan = next(p for p in sf._bandstore_cache.values() if p is not None)
     s = bst.band_init_from_edges(plan["u"], plan["v"], plan["w"], n=n,
                                  band=plan["band"])
-    K.reset_launches()
+    reset_launches()
     sync(device)
     t0 = time.perf_counter()
     bst.apsp_band_fw(s, bt=band_m.bt, symmetric=False)
     sync(device)
     out["classic_fw_s"] = time.perf_counter() - t0
-    out["classic_launches"] = dict(K.LAUNCHES)
+    out["classic_launches"] = launch_counts()
     if (device.type == "cuda"
             and out["classic_launches"]["relax_skew"] != nb):
         raise AssertionError(f"relax_skew launches {out['classic_launches']}")
@@ -1472,9 +1556,9 @@ def _sharded_world1(device, ref, mesh, steady):
         return time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats(device)
-    K.reset_launches()
+    reset_launches()
     warm_s = timed_run()
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
     if (sf.apsp_engine_used, sf._band_relax_used) != ("band-storage", "fw"):
         raise AssertionError(f"sharded band engine not taken: "
                              f"{sf.apsp_engine_used}, {sf._band_relax_used}")
@@ -1533,16 +1617,16 @@ def _gloo_rank(rank, world, case_dir, device_type):
             node2attribute=d["vals"])
         sf = _band_session(device, ref, mesh)
         s, n, band, rows = _ghosted_init(sf, world)
-        K.reset_launches()
+        reset_launches()
         sync(device)
         t0 = time.perf_counter()
         bsh.apsp_band_fw_sharded(s, mesh=mesh, n=n, band=band)
         sync(device)
         fw_s = time.perf_counter() - t0
-        fw_launches = dict(K.LAUNCHES)
+        fw_launches = launch_counts()
         fw_band = band_digest(s[:rows])
         del s
-        K.reset_launches()
+        reset_launches()
         sync(device)
         t0 = time.perf_counter()
         sf.run_pipeline(num_permutations=int(d["num_permutations"]))
@@ -1554,7 +1638,7 @@ def _gloo_rank(rank, world, case_dir, device_type):
                  ns=sf.ns, counts_neg=sf.counts_neg,
                  counts_pos=sf.counts_pos,
                  fw_launches=json.dumps(fw_launches),
-                 run_launches=json.dumps(dict(K.LAUNCHES)))
+                 run_launches=json.dumps(launch_counts()))
     finally:
         dist.destroy_process_group()
 
@@ -1742,14 +1826,14 @@ def run_go_path(device, net, steady=3, fdr_rows=512):
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         sf = session(vals)
-        K.reset_launches()
+        reset_launches()
         warm = timed(sf)
-        launches = dict(K.LAUNCHES)
+        launches = launch_counts()
         if sf._hypergeom_engine_used != engine:
             raise AssertionError(f"matrix {name}: {sf._hypergeom_engine_used}"
                                  f" taken, {engine} expected")
-        check_launches(device, launches, close_diag=nb, relax_panel=2 * nb,
-                       relax_window_sym=nb)
+        check_launches(device, launches, engine, close_diag=nb,
+                       relax_panel=2 * nb, relax_window_sym=nb)
         walls = [timed(sf) for _ in range(steady)]
         peak = (torch.cuda.max_memory_allocated(device) / 1e9
                 if device.type == "cuda" else None)
@@ -2168,14 +2252,14 @@ def run_band_go(device, ref, attrs=GO_ATTRS, steady=3, fdr_rows=512,
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         sf = session(**settings)
-        K.reset_launches()
+        reset_launches()
         warm = timed(sf.run_pipeline)
-        launches = dict(K.LAUNCHES)
+        launches = launch_counts()
         if sf._hypergeom_engine_used != engine:
             raise AssertionError(f"{sf._hypergeom_engine_used} taken, "
                                  f"{engine} expected")
-        check_launches(device, launches, close_diag=nb, relax_panel=nb,
-                       relax_skew_sym=nb)
+        check_launches(device, launches, engine, close_diag=nb,
+                       relax_panel=nb, relax_skew_sym=nb)
         walls = [timed(sf.run_pipeline) for _ in range(steady)]
         return sf, dict(engine=engine, launches=launches, warm_s=warm,
                         steady_s=walls, steady_min_s=min(walls),
@@ -2259,12 +2343,12 @@ def run_band_go(device, ref, attrs=GO_ATTRS, steady=3, fdr_rows=512,
     log_thr = float(np.log(0.05))
 
     def table_chunk(ch):
-        return eb._band_table_chunk(
-            bm.data, nan0_d[:, ch["start"]:ch["start"] + ch["width"]],
-            nsize_d, torch.as_tensor(ch["K_dist"], device=device),
-            torch.as_tensor(ch["colc"], device=device), M, log_thr, rank_d,
-            R=ch["R"], S_max=ch["S_max"], C=ch["C"], bt=bm.bt, block=BLOCK,
-            npad=npad, precision="highest")
+        # the engine on a plan of this chunk alone: its census, table,
+        # lookup and placement, with the sizes' contraction and the
+        # outputs' allocation
+        return eb.hypergeom_band_table(
+            bm.data, nan0_d, nnn_d, M, 0.05, bt=bm.bt, rank_np=bm.rank,
+            K_np=K_np, plan=dict(plan, chunks=[ch]))
 
     out["table_chunk_s"] = [best(lambda ch=ch: table_chunk(ch))
                             for ch in (plan["chunks"][0], plan["chunks"][-1])]
@@ -2492,9 +2576,9 @@ def run_euclid_1m(device, n=EUCLID_NODES, steady=3, rows=EUCLID_ROWS,
                         **settings)
     out = dict(nodes=n, valid_rows=int(np.isfinite(vals).sum()))
     base = peak_reset(device)
-    K.reset_launches()
+    reset_launches()
     out["warm_s"] = timed_s(device, sf.run_pipeline)
-    out["launches"] = dict(K.LAUNCHES)
+    out["launches"] = launch_counts()
     out["peak_packed_gb"], out["base_gb"] = peak_gb(device), (
         None if base is None else base / 1e9)
     check_launches(device, out["launches"])  # no FW: no kernel
@@ -2565,9 +2649,9 @@ def run_euclid_1m(device, n=EUCLID_NODES, steady=3, rows=EUCLID_ROWS,
     # the same session with the int8 band: equal bytes, scores and counts
     sf.band_indicator_bits = False
     peak_reset(device)
-    K.reset_launches()
+    reset_launches()
     out["int8_run_s"] = timed_s(device, sf.run_pipeline)
-    out["int8_launches"] = dict(K.LAUNCHES)
+    out["int8_launches"] = launch_counts()
     out["peak_int8_gb"] = peak_gb(device)
     check_launches(device, out["int8_launches"])
     plain = sf._neighborhoods_dev.data
@@ -2606,11 +2690,11 @@ def run_euclid_keep(device, n=BAND_NODES, terms=EUCLID_GO_TERMS,
     perm_idx = np.stack([np.random.default_rng(SEED_NULL + i).permutation(V)
                          for i in range(N_PERM // 10)])
     peak_reset(device)
-    K.reset_launches()
+    reset_launches()
     out = dict(nodes=n)
     out["fused_s"] = timed_s(device, lambda: sf.run_pipeline(
         perm_idx=perm_idx))
-    out["launches"] = dict(K.LAUNCHES)
+    out["launches"] = launch_counts()
     out["peak_gb"] = peak_gb(device)
     check_launches(device, out["launches"])
     bm, dm = sf._neighborhoods_dev, sf._node_distances_dev
@@ -2642,11 +2726,11 @@ def run_euclid_keep(device, n=BAND_NODES, terms=EUCLID_GO_TERMS,
     sizes = np.rint(np.exp(rng.uniform(np.log(3), np.log(300), terms)))
     mat = build_go_matrix(coords, sizes, SEED_BAND_GO)
     go = euclid_session(device, coords, mat, apsp_mode="band")
-    K.reset_launches()
+    reset_launches()
     out["go_s"] = timed_s(device, lambda: (go.define_neighborhoods(),
                                            go.compute_pvalues()))
-    out["go_launches"] = dict(K.LAUNCHES)
-    check_launches(device, out["go_launches"])
+    out["go_launches"] = launch_counts()
+    check_launches(device, out["go_launches"], go._hypergeom_engine_used)
     if go._hypergeom_engine_used != "table-band-staged":
         raise AssertionError(f"engine {go._hypergeom_engine_used}")
     host, nsize, K_host, M = band_census(go, mat)
@@ -2676,10 +2760,10 @@ def run_band_bf(device, ref, steady=3):
     sf = _band_session(device, ref)
     sf.band_relax = "bf"
     peak_reset(device)
-    K.reset_launches()
+    reset_launches()
     out = dict(warm_s=timed_s(device, lambda: sf.run_pipeline(
         num_permutations=N_PERM)))
-    out["launches"] = dict(K.LAUNCHES)
+    out["launches"] = launch_counts()
     out["peak_gb"] = peak_gb(device)
     check_launches(device, out["launches"])  # BF launches no FW kernel
     if sf._band_relax_used != "bf":
@@ -2732,10 +2816,10 @@ def run_band_bf(device, ref, steady=3):
     try:
         fb = _band_session(device, ref)
         fb.band_relax = "bf"
-        K.reset_launches()
+        reset_launches()
         out["fallback_s"] = timed_s(device, lambda: fb.run_pipeline(
             num_permutations=N_PERM))
-        out["fallback_launches"] = dict(K.LAUNCHES)
+        out["fallback_launches"] = launch_counts()
     finally:
         bst.bf_max_iters = budget
     check_launches(device, out["fallback_launches"], close_diag=nb,
@@ -2760,10 +2844,10 @@ def run_band_packed(device, ref, go_ref, go_mat):
     sf.band_indicator_bits = True
     base = peak_reset(device)
     out = dict(base_gb=None if base is None else base / 1e9)
-    K.reset_launches()
+    reset_launches()
     out["quant_s"] = timed_s(device, lambda: sf.run_pipeline(
         num_permutations=N_PERM))
-    out["quant_launches"] = dict(K.LAUNCHES)
+    out["quant_launches"] = launch_counts()
     out["quant_peak_gb"] = peak_gb(device)
     check_launches(device, out["quant_launches"], close_diag=nb,
                    relax_panel=nb, relax_skew_sym=nb)
@@ -2788,12 +2872,12 @@ def run_band_packed(device, ref, go_ref, go_mat):
     go.load_attributes(attribute_file=go_mat)
     base = peak_reset(device)
     out["table_base_gb"] = None if base is None else base / 1e9
-    K.reset_launches()
+    reset_launches()
     out["table_s"] = timed_s(device, go.run_pipeline)
-    out["table_launches"] = dict(K.LAUNCHES)
+    out["table_launches"] = launch_counts()
     out["table_peak_gb"] = peak_gb(device)
-    check_launches(device, out["table_launches"], close_diag=nb,
-                   relax_panel=nb, relax_skew_sym=nb)
+    check_launches(device, out["table_launches"], go._hypergeom_engine_used,
+                   close_diag=nb, relax_panel=nb, relax_skew_sym=nb)
     if go._hypergeom_engine_used != "table-band":
         raise AssertionError(f"engine {go._hypergeom_engine_used}")
     if not (go._neighborhoods_dev.data.dtype == torch.uint8
@@ -2998,9 +3082,9 @@ def run_file_workflow(device, net, vals, ref, band_edges, tmp, steady=3):
     sf.load_attributes()
     if sf.node2attribute.dtype != np.float32:
         raise AssertionError("the attribute file did not read float32")
-    K.reset_launches()
+    reset_launches()
     out["warm_s"] = timed_s(device, sf.run_pipeline)
-    out["launches"]["file_example1"] = dict(K.LAUNCHES)
+    out["launches"]["file_example1"] = launch_counts()
     out["engine"], out["window"] = sf.apsp_engine_used, sf.window_used
     # the certified banded window, or B7's dense form where the layout
     # fails the certificate: each round one close_diag, the pivot panels
@@ -3035,9 +3119,9 @@ def run_file_workflow(device, net, vals, ref, band_edges, tmp, steady=3):
             and np.array_equal(tl, lengths)):
         raise AssertionError("the .mat twin's arrays differ from phase 4's")
     tw.load_attributes(attribute_file=vals)
-    K.reset_launches()
+    reset_launches()
     out["mat_s"] = timed_s(device, tw.run_pipeline)
-    out["launches"]["file_mat_twin"] = dict(K.LAUNCHES)
+    out["launches"]["file_mat_twin"] = launch_counts()
     if not (np.array_equal(tw.neighborhoods, ref.neighborhoods)
             and np.array_equal(tw.ns, ref.ns, equal_nan=True)
             and np.array_equal(tw.counts_neg, ref.counts_neg)
@@ -3051,7 +3135,7 @@ def run_file_workflow(device, net, vals, ref, band_edges, tmp, steady=3):
     out["go_load_s"] = time.perf_counter() - t0
     if not np.array_equal(tw.node2attribute, go_a, equal_nan=True):
         raise AssertionError("GO file values differ from phase 10's matrix A")
-    K.reset_launches()
+    reset_launches()
     out["go_pvalues_s"] = timed_s(device, tw.compute_pvalues)
     t0 = time.perf_counter()
     tw.define_top_attributes()
@@ -3070,13 +3154,13 @@ def run_file_workflow(device, net, vals, ref, band_edges, tmp, steady=3):
 
     # (a) 4: the batch CLI in-process against a facade run of the INI
     pickle_path = os.path.join(tmp, "nes.p")
-    K.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     if cli.main([paths.attribute, "--ini", paths.ini, "--output",
                  pickle_path, "--device", str(device)]) != 0:
         raise AssertionError("the CLI failed")
     out["cli_s"] = time.perf_counter() - t0
-    out["launches"]["file_cli"] = dict(K.LAUNCHES)
+    out["launches"]["file_cli"] = launch_counts()
     with open(pickle_path, "rb") as f:
         cli_nes = pickle.load(f)
     fa = SAFE(path_to_ini_file=paths.ini, verbose=False, device=device)
@@ -3317,7 +3401,7 @@ def run_checkpoints(device, sessions, tmp):
     equal (the NES of node2domain as its JSON rounds it), and
     ``define_top_attributes`` resumes on the loaded session with the
     original's result, launching no kernel."""
-    out, resume = {}, {name: 0 for name in K.LAUNCHES}
+    out, resume = {}, {name: 0 for name in launch_counts()}
     for name, (sf, band) in sessions.items():
         base = os.path.join(tmp, f"{name}_ck")
         t0 = time.perf_counter()
@@ -3325,7 +3409,7 @@ def run_checkpoints(device, sessions, tmp):
         save_s = time.perf_counter() - t0
         size = sum(os.path.getsize(base + ext)
                    for ext in (".npz", ".meta.json"))
-        K.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         back = ck.load_session(base, graph=sf.graph, verbose=False,
                                device=device.type)
@@ -3342,7 +3426,7 @@ def run_checkpoints(device, sessions, tmp):
         t0 = time.perf_counter()
         back.define_top_attributes()
         resume_s = time.perf_counter() - t0
-        for k, v in K.LAUNCHES.items():
+        for k, v in launch_counts().items():
             resume[k] += v
         if not np.array_equal(back.attributes["top"], sf.attributes["top"]):
             raise AssertionError(f"{name}: the resumed top attributes "
@@ -3417,13 +3501,13 @@ def run_profiled_stages(device, sf, log_dir):
     anchor = sf._node2attribute_device()
     nb = -(-sf._num_nodes // BLOCK)
     sf.define_neighborhoods()  # warm: the stages' first call
-    K.reset_launches()
+    reset_launches()
     with trace(log_dir) as prof:
         with timer.stage("define_neighborhoods", sync=anchor):
             sf.define_neighborhoods()
         with timer.stage("compute_pvalues", sync=anchor):
             sf.compute_pvalues(num_permutations=N_PERM)
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
     check_launches(device, launches, close_diag=nb, relax_panel=2 * nb,
                    relax_window_sym=nb)
     path = prof.trace_path
@@ -3558,9 +3642,9 @@ def run_make_go(device, sf, tmp):
     out["load_s"] = time.perf_counter() - t0
     if not np.array_equal(sf.node2attribute, matrix.values):
         raise AssertionError("the TSV loaded into the session differs")
-    K.reset_launches()
+    reset_launches()
     out["pvalues_s"] = timed_s(device, sf.compute_pvalues)
-    out["launches"] = dict(K.LAUNCHES)
+    out["launches"] = launch_counts()
     check_launches(device, out["launches"])
     out.update(engine=sf._hypergeom_engine_used,
                enriched=int(np.sum(sf.attributes["num_neighborhoods_enriched"])))
@@ -3685,11 +3769,11 @@ def run_planner(device, sf, mat):
         nb = -(-sf._neighborhoods_dev.n // BLOCK)
         for store in ("device", "f16", "host"):
             sf.logsf_store, sf.hbm_budget_bytes = store, None
-            K.reset_launches()
+            reset_launches()
             wall, peaks = _planned_run(device, sf)
-            launches = dict(K.LAUNCHES)
-            check_launches(device, launches, close_diag=nb, relax_panel=nb,
-                           relax_skew_sym=nb)
+            launches = launch_counts()
+            check_launches(device, launches, sf._hypergeom_engine_used,
+                           close_diag=nb, relax_panel=nb, relax_skew_sym=nb)
             if sf._hypergeom_engine_used != "table-band":
                 raise AssertionError(f"{store}: {sf._hypergeom_engine_used}")
             if sf._hbm_plan_last["logsf_out"] != store:
@@ -3765,7 +3849,7 @@ def run_planner(device, sf, mat):
         sf.logsf_store, sf.hbm_budget_bytes = "auto", 10 ** 8
         sync(device)
         before = torch.cuda.memory_allocated(device) if cuda else None
-        launches = dict(K.LAUNCHES)
+        launches = launch_counts()
         try:
             sf.run_pipeline()
         except ValueError as e:
@@ -3775,7 +3859,7 @@ def run_planner(device, sf, mat):
         sync(device)
         if cuda and torch.cuda.memory_allocated(device) != before:
             raise AssertionError("the refused run allocated")
-        if dict(K.LAUNCHES) != launches:
+        if launch_counts() != launches:
             raise AssertionError("the refused run launched a kernel")
         del held
         sf.logsf_store, sf.hbm_budget_bytes = "auto", None
@@ -3866,10 +3950,10 @@ def _mesh_work(device, mesh, tag, net, vals, go, steady=3):
     if tag in MESH_FW_PATHS:
         d0 = initial_distances_device(n, edges, lengths, device=device)
         fw = (apsp_sharded if tag == "data" else apsp_sharded_2d)
-        K.reset_launches()
+        reset_launches()
         dist_m = fw(d0, mesh)
         sync(device)
-        out[f"{tag}_fw_launches"] = json.dumps(dict(K.LAUNCHES))
+        out[f"{tag}_fw_launches"] = json.dumps(launch_counts())
         out[f"{tag}_fw_digest"] = band_digest(dist_m)
         del dist_m
         out[f"{tag}_fw_s"] = min(timed(lambda: fw(d0, mesh))
@@ -3879,9 +3963,9 @@ def _mesh_work(device, mesh, tag, net, vals, go, steady=3):
         sf.mesh = mesh
         sf.load_network(network_file=net)
         sf.load_attributes(attribute_file=go)
-        K.reset_launches()
+        reset_launches()
         out[f"{tag}_warm_s"] = timed(sf.run_pipeline)
-        out[f"{tag}_launches"] = json.dumps(dict(K.LAUNCHES))
+        out[f"{tag}_launches"] = json.dumps(launch_counts())
         out[f"{tag}_engine"] = (f"{sf.apsp_engine_used}/"
                                 f"{sf._hypergeom_engine_used}")
         out[f"{tag}_logsf"] = band_digest(sf._logsf_dev)
@@ -3900,10 +3984,10 @@ def _mesh_work(device, mesh, tag, net, vals, go, steady=3):
         sf.load_network(network_file=net)
         sf.load_attributes(attribute_file=vals)
         perms = 999 if tag == "perm" else N_PERM
-        K.reset_launches()
+        reset_launches()
         out[f"{tag}_warm_s"] = timed(lambda: sf.run_pipeline(
             num_permutations=perms))
-        out[f"{tag}_launches"] = json.dumps(dict(K.LAUNCHES))
+        out[f"{tag}_launches"] = json.dumps(launch_counts())
         out[f"{tag}_engine"] = sf.apsp_engine_used
         out[f"{tag}_num_permutations"] = sf.num_permutations
         out[f"{tag}_nbr"] = nbr_digest(sf._neighborhoods_dev)
@@ -4232,9 +4316,9 @@ def _mesh_band_go(device, sf, engine, steady):
     planned class table), then ``steady`` more runs. Returns the numbers
     and the digests the checks compare."""
     base = peak_reset(device)
-    K.reset_launches()
+    reset_launches()
     warm = timed_s(device, sf.run_pipeline)
-    out = dict(launches=json.dumps(dict(K.LAUNCHES)), warm_s=warm,
+    out = dict(launches=json.dumps(launch_counts()), warm_s=warm,
                engine=f"{sf._hypergeom_engine_used}/{sf._band_relax_used}")
     if sf._hypergeom_engine_used != engine or sf._band_relax_used != "fw":
         raise AssertionError(f"{out['engine']} taken, {engine} expected")
@@ -4299,13 +4383,13 @@ def _check_band_go(tag, r, go_ref, engine):
 def _mesh_quant(device, sf, perms):
     """One run of a quantitative session on the mesh: wall, launches, the
     band's digest, scores and counts."""
-    K.reset_launches()
+    reset_launches()
     wall = timed_s(device, lambda: sf.run_pipeline(num_permutations=perms))
     data = sf._neighborhoods_dev.data
     if sf.apsp_engine_used != "band-storage" or data.dtype != torch.uint8:
         raise AssertionError(f"the packed band was not taken: "
                              f"{sf.apsp_engine_used}, {data.dtype}")
-    return dict(wall_s=wall, launches=json.dumps(dict(K.LAUNCHES)),
+    return dict(wall_s=wall, launches=json.dumps(launch_counts()),
                 band=band_digest(data), ns=sf.ns, counts_neg=sf.counts_neg,
                 counts_pos=sf.counts_pos)
 
@@ -4435,7 +4519,7 @@ def run_band_mesh(device, ref, go_mat, go_ref, euclid_ref, steady=3,
         dist.destroy_process_group()
     for engine in ("table-band-sharded", "loop-band-sharded"):
         _check_band_go(f"world 1 {engine}", w1[engine], go_ref, engine)
-        check_launches(device, json.loads(w1[engine]["launches"]),
+        check_launches(device, json.loads(w1[engine]["launches"]), engine,
                        relax_band_row=nb, **fw)
     check_launches(device, json.loads(w1["packed"]["launches"]),
                    relax_band_row=nb, **fw)
@@ -4479,7 +4563,7 @@ def run_band_mesh(device, ref, go_mat, go_ref, euclid_ref, steady=3,
                             ("capped", "table-band-sharded")):
             _check_band_go(f"world 2 rank {r} {tag}", got[tag], go_ref,
                            engine)
-            check_launches(device, json.loads(got[tag]["launches"]),
+            check_launches(device, json.loads(got[tag]["launches"]), engine,
                            relax_band_row=cuts[r], **fw)
         cap = got["capped"]
         if not cap["plan_peak"] <= CAPPED_BUDGET < ASSEMBLED_WORLD2_PLAN:
@@ -4724,6 +4808,13 @@ def main():
               f"ms; bound {k['bound_ms']:.4f} ms by {k['bound_by']}: "
               f"{k['work'][0]} candidates, {k['work'][1]} bytes) "
               f"{k['shapes']}", flush=True)
+    tables = check_table_kernel(device)
+    for tag, t in tables.items():
+        print(f"kernel logsf_table {tag}: bitwise equal to plain, one launch;"
+              f" per call {t['ms']:.4f} ms, device {t['device_ms']} ms "
+              f"(plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+              f"by bytes: {t['bytes']} bytes, M {t['M']}, (S_max, C, R) "
+              f"{t['shape']})", flush=True)
     forms = window_sym_forms(device)
     print(f"window relax forms (block 128): list length -> (whole-tile "
           f"device ms, sub-tile device ms, form taken), each bitwise equal to "
@@ -5221,6 +5312,19 @@ def main():
               for name, k in kernels.items()]
     report[[r["name"] for r in report].index("relax_panel")][
         "also_replaces"] = "safepy_tpu/ops/apsp_pallas.py:128"
+    # the class table: JAX builds it with a jit'd lax.scan, not a Pallas
+    # kernel; its numbers are the band GO chunk's, each case's in shapes
+    cell = tables["gobp_chunk"]
+    report.append({
+        "name": "logsf_table", "route": "cuda", "source": TABLE_SRC,
+        "replaces": "safepy_tpu/ops/hypergeom_table.py:108",
+        "launches": bg["table"]["launches"]["logsf_table"],
+        "launches_by_path": {path: counts.get("logsf_table")
+                             for path, counts in paths.items()},
+        "max_abs_err": 0.0, "ms": cell["ms"], "plain_ms": cell["plain_ms"],
+        "bound_ms": cell["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "device_ms": cell["device_ms"],
+        "shapes": tables})
     # the sharded FW's shapes (phase 17)
     for name, rows in meshed["kernels"].items():
         report[[r["name"] for r in report].index(name)][

@@ -8,8 +8,9 @@ an unchanged one is loaded as it is.
 
 Counterpart in spirit of ``safepy_tpu/native/__init__.py``, but with no
 fallback: if ``nvcc`` is missing, the build fails or a launch is refused,
-this module raises. The plain torch versions in :mod:`ops.apsp_cuda` serve
-CPU tensors only; a CUDA tensor goes through a kernel or raises.
+this module raises. The plain torch versions in :mod:`ops.apsp_cuda` and
+:mod:`ops.hypergeom_table` serve CPU tensors only; a CUDA tensor goes through
+a kernel or raises.
 """
 
 from __future__ import annotations
@@ -23,12 +24,13 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("minplus.cu",)
+SOURCES = ("minplus.cu", "hypergeom_table.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_F, _D = ctypes.c_float, ctypes.c_double
 # C entry point -> argtypes; every pointer and the stream are c_void_p
 _SIGNATURES = {
     "safepy_relax_panel": (_P, _I64, _P, _I64, _P, _I64, _P, _I64,
@@ -45,6 +47,7 @@ _SIGNATURES = {
                                  _I, _I, _I, _P),
     "safepy_minplus_product": (_P, _I64, _P, _I64, _P, _I64, _I, _I, _I, _P),
     "safepy_addmin_probe": (_P, ctypes.c_float, _I, _I, _P),
+    "safepy_logsf_table": (_P, _P, _I, _I, _I, _D, _D, _F, _F, _P),
 }
 
 _lock = threading.Lock()

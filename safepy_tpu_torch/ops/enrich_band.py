@@ -450,9 +450,10 @@ def hypergeom_band_table(s_ind, nan0, nodes_not_nan, M,
     copied into the outputs. While a profiler records, the spans
     ``enrichment.go_census`` mark the neighborhood sizes' contraction and
     each chunk's census, ``enrichment.go_table`` each table build (attrs
-    ``R``, ``S_max``, ``C``), ``enrichment.go_lookup`` each chunk's lookup,
-    un-permute, placement and count, and a ``facade.wait`` (site
-    ``go_n_max``) the read of the largest size.
+    ``R``, ``S_max``, ``C`` and ``route``: ``cuda`` where the kernel builds
+    it, ``torch`` where the slot loop does), ``enrichment.go_lookup`` each
+    chunk's lookup, un-permute, placement and count, and a ``facade.wait``
+    (site ``go_n_max``) the read of the largest size.
 
     ``logsf_out``: where the (n, A) outputs live. ``'device'``: f32 log sf
     and int8 indicator on the device; ``'f16'``: the log sf stored f16 (the
@@ -540,7 +541,8 @@ def hypergeom_band_table(s_ind, nan0, nodes_not_nan, M,
             census = band_matmul(s_ind, _pad_rows_to(
                 nan0_dev[:, start:start + width].to(torch.float32), npad),
                 **kw)
-        with span("enrichment.go_table", R=R, S_max=S_max, C=C):
+        with span("enrichment.go_table", R=R, S_max=S_max, C=C,
+                  route=htab.route(dev)):
             table = htab.build_logsf_table(
                 torch.as_tensor(ch["K_dist"], device=dev), M, log_thr64,
                 R=R, S_max=S_max, C=C)

@@ -14,6 +14,12 @@ decision is made on the f64 value and carried by nudging the stored value
 off the f32 threshold by at most one ulp, so ``stored < thr32`` reproduces
 it and enriched counts are exact.
 
+:func:`build_logsf_table` builds a CUDA table with one launch of the
+hand-written kernel ``csrc/hypergeom_table.cu`` (built by
+:mod:`safepy_tpu_torch.native`), bitwise equal to the slot loop
+:func:`_build_logsf_table_torch` run on the card, and any other table with
+that loop; :data:`LAUNCHES` counts the kernel's launches.
+
 Only the gather form of :func:`table_lookup` is ported: JAX's slot loop
 (``_lookup_slot_loop`` :228) exists because the TPU serializes element
 gathers, and is bit-identical to the gather. The chunk planner :func:`plan`
@@ -21,6 +27,8 @@ serves the band engines (``ops/enrich_band.hypergeom_band_table``).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -32,6 +40,19 @@ _RENORM = 1e250
 _LN_RENORM = float(np.log(_RENORM))
 # stored f32 for impossible slots (k > support); no real count lands there
 _SENTINEL = float(np.float32(-1e30))
+
+# kernel launches since the last reset_launches(), as ops.apsp_cuda counts
+LAUNCHES = {"logsf_table": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["logsf_table"] = 0
+
+
+def route(device) -> str:
+    """How :func:`build_logsf_table` builds a table on ``device``: ``'cuda'``
+    (the kernel) on a CUDA device, ``'torch'`` (the slot loop) elsewhere."""
+    return "cuda" if torch.device(device).type == "cuda" else "torch"
 
 
 def log_factorial(x: torch.Tensor) -> torch.Tensor:
@@ -69,12 +90,53 @@ def table_geometry(K_values, n_max: int, M: int):
 def build_logsf_table(K_dist: torch.Tensor, M, log_thr, *, R: int,
                       S_max: int, C: int) -> torch.Tensor:
     """(S_max, C, R) f32 table of threshold-nudged log sf (``:108``) on the
-    device of ``K_dist`` (C class totals, f64).
+    device of ``K_dist`` (C class totals).
 
     Slot ``s`` holds k = S_max - 1 - s for class ``K = K_dist[c]`` and
-    neighborhood size n = row index. One downward pass over k computes every
-    class at once; T is renormalized by 1e250 against overflow.
+    neighborhood size n = row index. On a CUDA device one kernel launch
+    builds the table on the current stream, without a synchronize; elsewhere
+    :func:`_build_logsf_table_torch` does, the same function.
     """
+    build = (_build_logsf_table_cuda if route(K_dist.device) == "cuda"
+             else _build_logsf_table_torch)
+    return build(K_dist, M, log_thr, R=R, S_max=S_max, C=C)
+
+
+def _build_logsf_table_cuda(K_dist, M, log_thr, *, R: int, S_max: int,
+                            C: int) -> torch.Tensor:
+    """:func:`build_logsf_table` by the kernel: one thread a (class, size)
+    pair walks the slots in registers (``csrc/hypergeom_table.cu``). The f32
+    threshold and the largest f32 below it are computed here, as the torch
+    loop computes them on the device."""
+    from safepy_tpu_torch import native
+
+    if min(R, S_max, C) < 1 or C * R >= 2 ** 31:
+        raise ValueError(f"class table geometry out of range: R={R} "
+                         f"S_max={S_max} C={C}")
+    if K_dist.shape != (C,):
+        raise ValueError(f"K_dist must hold the C={C} class totals, got "
+                         f"shape {tuple(K_dist.shape)}")
+    K = K_dist.to(torch.float64).contiguous()
+    table = torch.empty((S_max, C, R), dtype=torch.float32,
+                        device=K_dist.device)
+    log_thr64 = float(log_thr)
+    thr32 = np.float32(log_thr64)
+    thr_lo32 = np.nextafter(thr32, np.float32(-np.inf))
+    stream = torch.cuda.current_stream(K_dist.device).cuda_stream
+    native.launch("logsf_table", ctypes.c_void_p(table.data_ptr()),
+                  ctypes.c_void_p(K.data_ptr()), R, S_max, C, float(M),
+                  log_thr64, float(thr32), float(thr_lo32),
+                  ctypes.c_void_p(stream))
+    LAUNCHES["logsf_table"] += 1
+    return table
+
+
+def _build_logsf_table_torch(K_dist: torch.Tensor, M, log_thr, *, R: int,
+                             S_max: int, C: int) -> torch.Tensor:
+    """:func:`build_logsf_table` as a loop of torch ops over the slots, on
+    any device: the CPU path, and the plain version the kernel is held to
+    on the card. One downward pass over k computes every class at once; T
+    is renormalized by 1e250 against overflow."""
     f64, f32 = torch.float64, torch.float32
     dev = K_dist.device
     K = K_dist.to(f64)[:, None]                                 # (C, 1)

@@ -3,9 +3,10 @@
 ``facade.go_operands``, ``enrichment.go`` with its ``go_census``,
 ``go_table`` and ``go_lookup`` children, and two ``facade.wait`` sites,
 nested as stated; each table span's ``R``, ``S_max`` and ``C`` are its
-chunk's in the plan that ran; an analysis whose operands come from the
-cache has no operand span; without a profiler nothing is recorded; and the
-outputs are bitwise equal with spans on and off."""
+chunk's in the plan that ran, and its ``route`` the one that built the
+table (the slot loop here, one build a chunk); an analysis whose operands
+come from the cache has no operand span; without a profiler nothing is
+recorded; and the outputs are bitwise equal with spans on and off."""
 
 import collections
 import json
@@ -133,8 +134,8 @@ def test_go_spans_nest_and_carry_the_plan(_fresh, tmp_path):
                       if r["name"] == "facade.wait") == ["go_K", "go_n_max"]
         tables = [r["attrs"] for r in mine
                   if r["name"] == "enrichment.go_table"]
-        assert tables == [dict(R=ch["R"], S_max=ch["S_max"], C=ch["C"])
-                          for ch in chunks]
+        assert tables == [dict(R=ch["R"], S_max=ch["S_max"], C=ch["C"],
+                               route="torch") for ch in chunks]
         # the chunk's census, table and lookup run in that order
         order = [r["name"] for r in sorted(mine, key=lambda r: r["start_ns"])
                  if r["name"].startswith("enrichment.go_")]
@@ -154,3 +155,20 @@ def test_go_spans_change_no_output(tmp_path):
     assert len(profiling.span_records()) > 0
     for key in off:
         np.testing.assert_array_equal(on[key], off[key], err_msg=key)
+
+
+def test_go_table_spans_name_the_route_that_built_each_table(_fresh,
+                                                             tmp_path):
+    """Every ``enrichment.go_table`` span carries ``route``, the value of
+    ``htab.route`` for the session's device; on the CPU that is the slot
+    loop, and no kernel launches (``htab.LAUNCHES``)."""
+    plans = _fresh
+    sf, go = _session()
+    htab.reset_launches()
+    with profiling.trace(str(tmp_path / "tr")):
+        _analysis(sf, go)
+    routes = [r["attrs"].get("route") for r in profiling.span_records()
+              if r["name"] == "enrichment.go_table"]
+    chunks = len(plans[0]["chunks"])
+    assert routes == [htab.route(sf.device)] * chunks == ["torch"] * chunks
+    assert htab.LAUNCHES == {"logsf_table": 0}

@@ -168,17 +168,26 @@ def _assert_table_close(got, want, log_thr):
     np.testing.assert_array_equal(got < thr32, want < thr32)
 
 
-@pytest.mark.parametrize("case", ["geometric", "renorm"])
+@pytest.mark.parametrize("case", ["geometric", "renorm", "small-M",
+                                  "beyond-slots"])
 def test_build_logsf_table_matches_jax(case):
-    """A GO-like class set, and the extreme-overlap class of
-    tests/test_hypergeom_table.py:78 whose 1/pmf(lo) overflows f64."""
+    """A GO-like class set, the extreme-overlap class of
+    tests/test_hypergeom_table.py:78 whose 1/pmf(lo) overflows f64, rows
+    past the population (n > M) with classes K = 0 and K = M, and a class
+    whose support outgrows the slots on rows past n_max."""
     log_thr = float(np.log(0.05))
     if case == "geometric":
         K_dist = np.unique(np.random.default_rng(0).integers(0, 120, 21))
         got, want = _tables(K_dist, 400, 400, log_thr)
-    else:
+    elif case == "renorm":
         got, want = _tables(np.array([2000.0]), 4000, 2000, log_thr)
         assert np.all(np.isfinite(got[::-1, 0, 2000][:2001]))
+    elif case == "small-M":
+        got, want = _tables(np.array([0.0, 1.0, 5.0, 37.0, 99.0, 100.0]),
+                            100, 200, log_thr)
+    else:
+        log_thr = float(np.log(1e-3))
+        got, want = _tables(np.array([3.0, 40.0]), 5000, 60, log_thr)
     _assert_table_close(got, want, log_thr)
 
 
