@@ -1445,7 +1445,7 @@ def run_band_slice(device, num_permutations=N_PERM, steady=3):
 def band_phase_times(sf, device, num_permutations, reps=3):
     """Min-of-reps host seconds of the band FW front (init, FW, threshold,
     stats) and of the null tail (scores, compaction, counts, un-permute) at
-    the run's own inputs, as ``SAFE._run_pipeline_bandstore`` feeds them."""
+    the run's own inputs, as ``SAFE._run_pipeline_band_null`` feeds them."""
     coords, edges, lengths, _ = sf._graph_arrays
     n = len(coords)
     nr = sf.neighborhood_radius * (coords[:, 0].max() - coords[:, 0].min())

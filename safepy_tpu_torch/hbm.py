@@ -48,10 +48,10 @@ import os
 
 import torch
 
+from safepy_tpu_torch.ops.apsp_bandstore import _GROUP_ELEMS, band_params
+
 # what a host session assumes when it plans (JAX's CPU meshes get the same)
 _DEFAULT_BUDGET = 16 * 10 ** 9
-# ops.apsp_bandstore._GROUP_ELEMS: a banded contraction's f32 group slab
-_GROUP_ELEMS = 1 << 24
 # ops.apsp_bandstore.band_threshold's packed row chunk (256 block-rows)
 _PACK_CHUNK_ROWS = 256 * 128
 # the most bytes one piece of the sharded engines' host assembly moves
@@ -129,11 +129,10 @@ def device_hbm_budget(device=None, own_bytes: int = 0) -> int:
 
 
 def band_geometry(n: int, band: int, block: int = 128):
-    """(bt, padded rows, window columns) of the skewed band store."""
-    bt = band // block + 1
-    rows = (-(-n // block) + 2 * bt) * block
-    window = (2 * bt + 1) * block
-    return bt, rows, window
+    """(bt, padded rows, window columns) of the skewed band store
+    (``ops.apsp_bandstore.band_params``)."""
+    bt, nb, window = band_params(n, band, block)
+    return bt, (nb + 2 * bt) * block, window
 
 
 def _budget(budget, device) -> int:
@@ -229,7 +228,7 @@ def prep_peak(n: int, n_attrs: int, *, chunked: bool,
 
 def relax_peak(n: int, band: int, *, packed: bool, keep_distances: bool,
                resident: int, edges: int = 0, block: int = 128) -> int:
-    """The FW front's peak (``pipeline._band_front``): ``resident`` bytes
+    """The FW front's peak (``pipeline.band_neighborhoods``): ``resident`` bytes
     held across it (annotation operands, upload) + the f32 band, relaxed in
     place, + the largest of: the initialization's edge index temporaries
     (about 160 B an edge), a round's panels, and the threshold (a bool

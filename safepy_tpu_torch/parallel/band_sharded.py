@@ -555,10 +555,11 @@ def fused_permutation_pipeline_band_sharded(
     """Row-sharded band pipeline (``:419``): init, FW, threshold, scores,
     null, every band-shaped array split over the ranks of ``axis``.
 
-    Same inputs and frames as ``pipeline.fused_permutation_pipeline_band``,
-    replicated on every rank: ``generator`` must be seeded alike on every
-    rank (or ``perm_idx`` given), so that every rank draws the same
-    permutations. Returns (dist_g or None, ind_g, obs, counts_neg,
+    Inputs and frames as the one-device band front and null
+    (``pipeline.band_neighborhoods`` of u/v/w and ``radius``, then
+    ``pipeline._band_perm_tail`` of the rest), replicated on every rank:
+    ``generator`` must be seeded alike on every rank (or ``perm_idx``
+    given), so that every rank draws the same permutations. Returns (dist_g or None, ind_g, obs, counts_neg,
     counts_pos, mean, std) on every rank, in host memory but the stats:
     the bands in the global ghost-padded permuted frame (g_pad b rows), the
     (n, A) matrices in the original node frame. ``keep_distances=False``
@@ -628,9 +629,10 @@ def fused_permutation_pipeline_band_euclid_sharded(
     safe.py:389-399), then the sharded permutation null; no graph
     algorithm, so no FW.
 
-    Inputs and outputs as
-    ``pipeline.fused_permutation_pipeline_band_euclid``, replicated on
-    every rank (the (n, 2) coordinates in the banded order); outputs as
+    Inputs as :func:`fused_permutation_pipeline_band_sharded`'s with the
+    (n, 2) coordinates in the banded order (those of
+    ``pipeline.euclidean_band_neighborhoods``) in place of the edges,
+    replicated on every rank; outputs as
     :func:`fused_permutation_pipeline_band_sharded`. ``packed`` needs
     ``keep_distances=False``."""
     if keep_distances and packed:
@@ -742,7 +744,8 @@ def fused_hypergeom_pipeline_band_sharded(
     (``ops.enrich_band.hypergeom_core_band`` on the rank's rows, in columns
     of ``attr_chunk`` when given: the tail is elementwise, so the chunking
     changes no bit), the rows assembled in host memory. Operands as
-    ``pipeline.fused_hypergeom_pipeline_band``'s, (n, A) host or device
+    ``ops.enrich_band.hypergeom_core_band``'s, NaN-zeroed (n, A) and (n,)
+    rows in the permuted frame and the totals K (A,), host or device
     arrays, replicated. Returns (dist_g or None, ind_g, log sf f32,
     indicator int8, enriched counts int32 (A,), mean, std): the bands and
     the (n, A) matrices (the original node frame) in host memory, the

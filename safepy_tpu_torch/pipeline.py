@@ -1,15 +1,15 @@
 """The fused pipelines: graph arrays in, enrichment out.
 
 Port of ``safepy_tpu/pipeline.py``: APSP -> radius threshold -> observed
-scores -> permutation null, over dense or banded-window distances
-(:func:`fused_permutation_pipeline`) or over band storage
-(:func:`fused_permutation_pipeline_band`, and for the euclidean metric
-:func:`fused_permutation_pipeline_band_euclid`); APSP -> threshold ->
-census -> hypergeometric survival for binary annotations over dense or
-banded-window distances (:func:`fused_hypergeom_pipeline`) or over band
-storage (:func:`fused_hypergeom_pipeline_band`). The JAX package compiles
-each into one program; here it is eager torch, and the tensors stay on the
-device of the inputs.
+scores -> permutation null (:func:`fused_permutation_pipeline`), and APSP
+-> threshold -> census -> hypergeometric survival for binary annotations
+(:func:`fused_hypergeom_pipeline`), over dense or banded-window distances.
+The JAX package compiles each into one program; here it is eager torch, and
+the tensors stay on the device of the inputs. Over band storage the JAX
+package's fused pipelines are, in eager torch, the band front
+(:func:`band_neighborhoods`, :func:`euclidean_band_neighborhoods`)
+followed by the tail that the staged run takes (:func:`_band_perm_tail`,
+``ops.enrich_band``), so the facade composes those.
 
 With a ``mesh`` (a DeviceMesh over ``torch.distributed``, every rank running
 the same call on its own device), the dense pipelines run the JAX package's
@@ -31,7 +31,6 @@ from safepy_tpu_torch.ops import hypergeom_table as htab
 from safepy_tpu_torch.ops.apsp_banded import apsp_banded_unpermuted
 from safepy_tpu_torch.ops.apsp_cuda import apsp_blocked_fw
 from safepy_tpu_torch.ops.enrich_band import (band_score,
-                                              hypergeom_core_band,
                                               scan_counts_band,
                                               valid_frame_map)
 from safepy_tpu_torch.ops.neighborhoods import threshold_and_stats
@@ -194,16 +193,18 @@ def fused_hypergeom_pipeline(d0, vals, lgt, M: int, radius,
 # Band-storage pipeline: O(N W) memory end to end
 # ---------------------------------------------------------------------------
 
-def _band_front(u, v, w, radius, *, n: int, band: int, block: int = 128,
-                keep_distances: bool = True, bf_slots=None,
-                bf_max_iters: int = 0, packed: bool = False):
-    """Init -> band relax -> indicator and stats (``pipeline.py:233``).
+def band_neighborhoods(u, v, w, radius, *, n: int, band: int,
+                       block: int = 128, keep_distances: bool = True,
+                       bf_slots=None, bf_max_iters: int = 0,
+                       packed: bool = False):
+    """Band-storage neighborhoods: init -> band relax -> indicator and
+    stats (``pipeline.py:233``, ``:301``).
 
     The relax is the FW unless ``bf_slots = (nbr, dlt, wgt)`` is given
     (``ops.apsp_bandstore.band_bf_slots``); then the sparse Bellman-Ford
     runs with ``bf_max_iters`` as its budget. Returns (dist_band, s_ind,
-    mean, std, bt, converged) in the permuted frame; ``converged`` is True
-    on the FW and False when BF ran out of rounds, in which case the band
+    mean, std, converged) in the permuted frame; ``converged`` is True on
+    the FW and False when BF ran out of rounds, in which case the band
     holds upper bounds and the caller must run again with the FW. The relax
     runs in place on the one f32 band. With ``keep_distances`` its entries
     beyond the radius (upper bounds, which the reference's Dijkstra cutoff
@@ -211,7 +212,7 @@ def _band_front(u, v, w, radius, *, n: int, band: int, block: int = 128,
     is dropped as soon as the indicator exists and ``dist_band`` is None.
     ``packed`` makes the indicator bit-packed uint8.
     """
-    bt = band // block + 1
+    bt = bst.band_params(n, band, block)[0]
     with span("neighborhoods.front"):
         s = bst.band_init_from_edges(u, v, w, n=n, band=band, block=block)
         converged = True
@@ -225,23 +226,10 @@ def _band_front(u, v, w, radius, *, n: int, band: int, block: int = 128,
         s_ind = bst.band_threshold(s, radius, packed=packed, block=block)
         _, mean, std = bst.band_row_stats(s_ind, n=n, bt=bt, block=block)
         if not keep_distances:
-            return None, s_ind, mean, std, bt, converged
+            return None, s_ind, mean, std, converged
         r = torch.as_tensor(radius, dtype=s.dtype, device=s.device)
         s.masked_fill_(s > r, float("inf"))
-    return s, s_ind, mean, std, bt, converged
-
-
-def band_neighborhoods(u, v, w, radius, *, n: int, band: int,
-                       block: int = 128, keep_distances: bool = True,
-                       bf_slots=None, bf_max_iters: int = 0,
-                       packed: bool = False):
-    """Band-storage neighborhoods alone (``pipeline.py:301``): (dist_band,
-    s_ind, mean, std, converged) in the permuted frame (see
-    :func:`_band_front`)."""
-    out = _band_front(u, v, w, radius, n=n, band=band, block=block,
-                      keep_distances=keep_distances, bf_slots=bf_slots,
-                      bf_max_iters=bf_max_iters, packed=packed)
-    return out[:4] + (out[5],)
+    return s, s_ind, mean, std, converged
 
 
 def euclidean_band_neighborhoods(coords_perm, radius, *, n: int, band: int,
@@ -270,8 +258,8 @@ def euclidean_band_neighborhoods(coords_perm, radius, *, n: int, band: int,
         s_ind = bst.euclidean_band_indicator(coords_perm, radius, n=n,
                                              band=band, block=block,
                                              packed=packed)
-    _, mean, std = bst.band_row_stats(s_ind, n=n, bt=band // block + 1,
-                                      block=block)
+    _, mean, std = bst.band_row_stats(
+        s_ind, n=n, bt=bst.band_params(n, band, block)[0], block=block)
     return dist_band, s_ind, mean, std
 
 
@@ -312,105 +300,3 @@ def _band_perm_tail(s_ind, vals, vals_valid, valid, starts, rank, generator,
             num_permutations=num_permutations, batch_size=batch_size,
             w_c=w_c, precision=precision, perm_idx=perm_idx)
         return obs[rank], counts_neg[rank], counts_pos[rank]
-
-
-def fused_permutation_pipeline_band(u, v, w, vals, vals_valid, valid, starts,
-                                    rank, generator, radius, *, n: int,
-                                    band: int, block: int = 128,
-                                    score_type: str = "sum",
-                                    num_permutations: int = 1000,
-                                    batch_size: int = 1000, w_c: int,
-                                    precision: str = "highest",
-                                    keep_distances: bool = True,
-                                    perm_idx=None, bf_slots=None,
-                                    bf_max_iters: int = 0,
-                                    packed: bool = False):
-    """Band-storage APSP + threshold + scores + permutation null
-    (``pipeline.py:394``).
-
-    Row inputs are in the permuted (banded-order) frame and on one device:
-    u/v/w the edge arrays, ``vals`` the (n, A) attributes with NaNs,
-    ``vals_valid`` its (V, A) valid rows, ``valid`` the (n,) bool validity,
-    ``starts``/``w_c`` from ``ops.apsp_bandstore.compaction_plan``. ``rank``
-    maps original node i to its permuted position; ``generator`` or
-    ``perm_idx`` (P, V, over the valid rows in original order) draw the
-    null. ``bf_slots``, ``bf_max_iters`` and ``packed``: see
-    :func:`_band_front`. Returns (dist_band or None, s_ind, obs, counts_neg,
-    counts_pos, mean, std, converged): the (n, A) matrices in the original
-    frame, the bands in the permuted one. When ``converged`` is False the
-    null is not computed (obs and counts are None) and the caller runs
-    again with the FW.
-    """
-    dist_band, s_ind, mean, std, bt, converged = _band_front(
-        u, v, w, radius, n=n, band=band, block=block,
-        keep_distances=keep_distances, bf_slots=bf_slots,
-        bf_max_iters=bf_max_iters, packed=packed)
-    if not converged:
-        return dist_band, s_ind, None, None, None, mean, std, False
-    obs, counts_neg, counts_pos = _band_perm_tail(
-        s_ind, vals, vals_valid, valid, starts, rank, generator, bt=bt,
-        block=block, score_type=score_type,
-        num_permutations=num_permutations, batch_size=batch_size, w_c=w_c,
-        precision=precision, perm_idx=perm_idx)
-    return dist_band, s_ind, obs, counts_neg, counts_pos, mean, std, True
-
-
-def fused_permutation_pipeline_band_euclid(
-        coords_perm, vals, vals_valid, valid, starts, rank, generator,
-        radius, *, n: int, band: int, block: int = 128,
-        score_type: str = "sum", num_permutations: int = 1000,
-        batch_size: int = 1000, w_c: int, precision: str = "highest",
-        keep_distances: bool = True, packed: bool = False, perm_idx=None):
-    """Euclidean band neighborhoods + scores + permutation null
-    (``pipeline.py:439``), the scatter/UMAP workflow at band-storage scale
-    with no graph algorithm (strict ``dist < r``, reference
-    safe.py:389-399). Inputs and outputs as
-    :func:`fused_permutation_pipeline_band`, with the (n, 2) coordinates in
-    the banded order in place of the edges, and no ``converged``; ``packed``
-    needs ``keep_distances=False``."""
-    dist_band, s_ind, mean, std = euclidean_band_neighborhoods(
-        coords_perm, radius, n=n, band=band, block=block,
-        keep_distances=keep_distances, packed=packed)
-    obs, counts_neg, counts_pos = _band_perm_tail(
-        s_ind, vals, vals_valid, valid, starts, rank, generator,
-        bt=band // block + 1, block=block, score_type=score_type,
-        num_permutations=num_permutations, batch_size=batch_size, w_c=w_c,
-        precision=precision, perm_idx=perm_idx)
-    return dist_band, s_ind, obs, counts_neg, counts_pos, mean, std
-
-
-def fused_hypergeom_pipeline_band(u, v, w, nan0, nodes_not_nan, K, lgt, M,
-                                  radius, enrichment_threshold, rank, *,
-                                  n: int, band: int, block: int = 128,
-                                  iterations: int,
-                                  keep_distances: bool = True,
-                                  precision: str = "highest",
-                                  bf_slots=None, bf_max_iters: int = 0,
-                                  packed: bool = False):
-    """Band-storage APSP + threshold + hypergeometric enrichment
-    (``pipeline.py:477``).
-
-    nan0 (n, A) NaN-zeroed annotations, nodes_not_nan (n,) and the totals K
-    (A,) are precomputed on the host, rows in the permuted frame; ``rank``
-    maps original node i to its permuted position and un-permutes the row
-    outputs inside the tail. ``bf_slots``, ``bf_max_iters`` and ``packed``:
-    see :func:`_band_front`. Returns (dist_band or None, s_ind, log sf f32,
-    indicator int8, enriched counts int32 (A,) reduced on the device, mean,
-    std, converged): the (n, A) matrices in the original frame, the bands in
-    the permuted one. The NES is derived from the log sf by the caller.
-    When ``converged`` is False the enrichment is not computed (its three
-    outputs are None) and the caller runs again with the FW.
-    """
-    dist_band, s_ind, mean, std, bt, converged = _band_front(
-        u, v, w, radius, n=n, band=band, block=block,
-        keep_distances=keep_distances, bf_slots=bf_slots,
-        bf_max_iters=bf_max_iters, packed=packed)
-    if not converged:
-        return dist_band, s_ind, None, None, None, mean, std, False
-    log_sf32, nes_binary = hypergeom_core_band(
-        s_ind, nan0, nodes_not_nan, K, lgt, M, enrichment_threshold,
-        iterations=iterations, bt=bt, block=block, precision=precision,
-        rank=rank)
-    enriched_counts = nes_binary.sum(dim=0, dtype=torch.int32)
-    return (dist_band, s_ind, log_sf32, nes_binary, enriched_counts, mean,
-            std, True)

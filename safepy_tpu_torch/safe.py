@@ -915,7 +915,8 @@ class SAFE:
         bucket = int(self.band_bt_bucket or 0)
         if bucket <= 1:
             return int(band)
-        bt = -(-(band // block + 1) // bucket) * bucket
+        bt = _bst.band_params(0, band, block)[0]  # bt does not read n
+        bt = -(-bt // bucket) * bucket
         return bt * block - 1
 
     def _band_bits_selected(self, num_nodes, band):
@@ -996,6 +997,19 @@ class SAFE:
             self._band_relax_used = "fw"
         return _pipe.band_neighborhoods(*edges, **kw)[:4]
 
+    def _euclidean_band_front(self, coords, plan, nr):
+        """``pipeline.euclidean_band_neighborhoods`` of the coordinates,
+        uploaded in the banded order of ``plan``: (dist_band or None, s_ind,
+        mean, std). Without kept distances the indicator is built directly,
+        bit-packed when ``_band_bits_selected``."""
+        n, band = self._num_nodes, plan["band"]
+        keep = bool(self.keep_node_distances)
+        return _pipe.euclidean_band_neighborhoods(
+            torch.as_tensor(coords[np.argsort(plan["rank"])],
+                            dtype=torch.float32, device=self.device),
+            np.float32(nr), n=n, band=band, keep_distances=keep,
+            packed=not keep and self._band_bits_selected(n, band))
+
     def _radius(self, coords, lengths, edge_weights):
         """(radius, edge weights) of the node distance metric: a fraction of
         the layout's x-extent for 'shortpath_weighted_layout' (over edge
@@ -1034,22 +1048,10 @@ class SAFE:
         if self.node_distance_metric == "euclidean":
             eb_plan = self._euclidean_band_plan(coords, num_nodes, nr)
             if eb_plan is not None:
-                rank, band = eb_plan["rank"], eb_plan["band"]
-                keep = bool(self.keep_node_distances)
                 # drop the previous bands before building new ones
                 self._neighborhoods_dev = self._node_distances_dev = None
-                dist_band, s_ind, mean, std = \
-                    _pipe.euclidean_band_neighborhoods(
-                        torch.as_tensor(coords[np.argsort(rank)],
-                                        dtype=torch.float32,
-                                        device=self.device),
-                        np.float32(nr), n=num_nodes, band=band,
-                        keep_distances=keep,
-                        packed=(not keep and self._band_bits_selected(
-                            num_nodes, band)))
-                self.apsp_engine_used, self.window_used = "band-storage", None
                 return self._store_band_neighborhoods(
-                    s_ind, dist_band, rank, band, mean, std)
+                    eb_plan, self._euclidean_band_front(coords, eb_plan, nr))
             dist = _nbr.euclidean_distance_matrix(torch.as_tensor(
                 coords, dtype=torch.float32, device=self.device))
             nbr, mean, std = _nbr.threshold_and_stats(dist, np.float32(nr),
@@ -1064,11 +1066,8 @@ class SAFE:
         if bs_plan is not None:
             # drop the previous bands before building new ones
             self._neighborhoods_dev = self._node_distances_dev = None
-            dist_band, s_ind, mean, std = self._band_front_dispatch(
-                bs_plan, radius, num_nodes)
-            self.apsp_engine_used, self.window_used = "band-storage", None
             return self._store_band_neighborhoods(
-                s_ind, dist_band, bs_plan["rank"], bs_plan["band"], mean, std)
+                bs_plan, self._band_front_dispatch(bs_plan, radius, num_nodes))
         d0, inv_rank, window = self._dense_front(coords, edges, weights,
                                                  num_nodes, nr)
         dist = _pipe._apsp_inline(d0, 128, mesh=self.mesh, window=window,
@@ -1099,11 +1098,13 @@ class SAFE:
         self.window_used = None
         return d0, None, None
 
-    def _store_band_neighborhoods(self, s_ind, dist_band, rank, band, mean,
-                                  std):
-        """:meth:`_store_neighborhoods` of an indicator band and a distance
-        band (or None), wrapped with their frame."""
-        n = self._num_nodes
+    def _store_band_neighborhoods(self, plan, front):
+        """:meth:`_store_neighborhoods` of a band front's (dist_band or None,
+        s_ind, mean, std), the bands wrapped with the frame of ``plan``, and
+        the engine recorded."""
+        dist_band, s_ind, mean, std = front
+        rank, band, n = plan["rank"], plan["band"], self._num_nodes
+        self.apsp_engine_used, self.window_used = "band-storage", None
         self._store_neighborhoods(
             BandedMatrix(s_ind, rank, n, band, fill=0.0),
             None if dist_band is None
@@ -1186,7 +1187,8 @@ class SAFE:
         sum on the device and its finalization on the host, in f64; unlike
         the fused path, the tail's length is bounded by the largest
         neighborhood, and FDR adjusts the linear p-values (``fdr_bh``), as
-        in JAX. Over band storage: :meth:`_hypergeom_bandstore`."""
+        in JAX. Over band storage: :meth:`_band_hypergeom` of the stored
+        band, with ``-staged`` engine names."""
         self._log_kwargs(kwargs, "Overwriting global settings:")
         self._validate()
         if self.verbose:
@@ -1194,7 +1196,10 @@ class SAFE:
                          "enrichment...")
         n2a = self.node2attribute
         if isinstance(self._neighborhoods_dev, BandedMatrix):
-            return self._hypergeom_bandstore(self._band_device(), n2a)
+            bm = self._band_device()
+            _, out = self._band_hypergeom(lambda: (None, bm.data, None, None),
+                                          bm.n, bm.band, bm.rank, staged=True)
+            return self._store_hypergeom_results(None, *out)
         if "attr" in mesh_names(self.mesh):
             # the columns sharded over the 'attr' axis, census and f64 tail
             # on each rank (safe.py:1252-1266)
@@ -1482,8 +1487,8 @@ class SAFE:
                        or not (self.mesh is None or self._data_mesh())
                        else self._euclidean_band_plan(coords, num_nodes, nr))
             if eb_plan is not None:
-                return self._run_pipeline_band_euclid(eb_plan, coords, nr,
-                                                      perm_idx)
+                return self._run_pipeline_band_null(eb_plan, nr, perm_idx,
+                                                    coords=coords)
         elif self.mesh is None or self._data_mesh():
             # band storage takes no mesh but one 'data' axis (safe.py:1712)
             bs_plan = self._band_storage_plan(coords, edges, weights,
@@ -1495,9 +1500,16 @@ class SAFE:
         if bs_plan is not None and binary:
             if self.mesh is not None:
                 return self._run_pipeline_band_hypergeom_sharded(bs_plan, nr)
-            return self._run_pipeline_band_hypergeom(bs_plan, nr)
+            self._release_device_results()
+            radius = _nbr.inclusive_radius(nr)
+            front, out = self._band_hypergeom(
+                lambda: self._band_front_dispatch(bs_plan, radius, num_nodes),
+                num_nodes, bs_plan["band"], bs_plan["rank"])
+            return self._end_band_run(bs_plan, front,
+                                      self._store_hypergeom_results, None,
+                                      *out)
         if bs_plan is not None:
-            return self._run_pipeline_bandstore(bs_plan, nr, perm_idx)
+            return self._run_pipeline_band_null(bs_plan, nr, perm_idx)
         d0, inv_rank, window = self._dense_front(coords, edges, weights,
                                                  num_nodes, nr)
         radius = _nbr.inclusive_radius(nr)
@@ -1580,59 +1592,63 @@ class SAFE:
         self._store_neighborhoods(nbr, dist, mean, std)
         self._update_binary_enrichment()
 
-    def _run_pipeline_bandstore(self, plan, nr, perm_idx):
-        """run_pipeline over the band-storage engine, quantitative branch
-        (``safe.py:2048-2145``): every matrix is O(N W); the neighborhoods
-        and distances become :class:`BandedMatrix` results. On a "data" mesh
-        the row-sharded engine runs (``safe.py:2073-2082``) and its bands,
-        assembled in host memory on every rank, lose their device-padding
-        rows (``safe.py:2122-2127``)."""
-        num_nodes = self._num_nodes
-        band, rank = plan["band"], plan["rank"]
-        packed = self._band_bits_selected(num_nodes, band)
+    def _run_pipeline_band_null(self, plan, nr, perm_idx, coords=None):
+        """run_pipeline's quantitative branch over band storage
+        (``safe.py:2048-2145``; with ``coords``, the euclidean metric's,
+        ``safe.py:1795``): the null's operands, then the band front (over
+        the edges, :meth:`_band_front_dispatch`, or straight from the
+        coordinates with no graph algorithm, :meth:`_euclidean_band_front`),
+        then the tail that :meth:`_randomization_bandstore` runs on a stored
+        band. Every matrix is O(N W); the neighborhoods and distances become
+        :class:`BandedMatrix` results. On a "data" mesh the row-sharded
+        engines run (``safe.py:2073-2082``, ``:1831-1843``)."""
+        n, band, rank = self._num_nodes, plan["band"], plan["rank"]
         self._release_device_results()
-        bt = band // 128 + 1
+        bt = _bst.band_params(n, band)[0]
         tail_args, kw = self._band_null_operands(rank, bt, perm_idx)
-        args = ((plan["u"], plan["v"], plan["w"]) + tail_args
-                + (_nbr.inclusive_radius(nr),))
-        kw.update(n=num_nodes, band=band,
-                  keep_distances=bool(self.keep_node_distances))
         if self.mesh is None:
-            bf = self._band_bf_args(plan)
-            out = _pipe.fused_permutation_pipeline_band(
-                *args, packed=packed, **kw, **bf)
-            if bf and not out[7]:
-                self._band_relax_used = "bf->fw"
-                logging.info("band BF relax hit its iteration budget; "
-                             "re-dispatching Floyd-Warshall")
-                del out
-                out = _pipe.fused_permutation_pipeline_band(
-                    *args, packed=packed, **kw)
-            else:
-                self._band_relax_used = "bf" if bf else "fw"
-            (dist_band, s_ind, obs, counts_neg, counts_pos, mean,
-             std) = out[:7]
+            front = (self._band_front_dispatch(
+                plan, _nbr.inclusive_radius(nr), n) if coords is None
+                else self._euclidean_band_front(coords, plan, nr))
+            obs, counts_neg, counts_pos = _pipe._band_perm_tail(
+                front[1], *tail_args, bt=bt, block=128, **kw)
         else:
-            from safepy_tpu_torch.parallel.band_sharded import (
-                fused_permutation_pipeline_band_sharded)
-            (dist_band, s_ind, obs, counts_neg, counts_pos, mean, std) = \
-                fused_permutation_pipeline_band_sharded(
-                    *args, mesh=self.mesh, packed=packed, **kw)
-            s_ind, dist_band = self._trim_sharded(s_ind, dist_band, bt)
-            self._band_relax_used = "fw"  # the sharded engine relaxes by FW
-        self.apsp_engine_used, self.window_used = "band-storage", None
-        self._store_null(obs, counts_neg, counts_pos)
-        self._store_band_neighborhoods(s_ind, dist_band, rank, band, mean,
-                                       std)
-        self._update_binary_enrichment()
+            from safepy_tpu_torch.parallel import band_sharded as _bsh
+            keep = bool(self.keep_node_distances)
+            packed = self._band_bits_selected(n, band)
+            kw.update(mesh=self.mesh, n=n, band=band, keep_distances=keep)
+            if coords is None:
+                self._band_relax_used = "fw"  # the sharded engine's relax
+                out = _bsh.fused_permutation_pipeline_band_sharded(
+                    plan["u"], plan["v"], plan["w"], *tail_args,
+                    _nbr.inclusive_radius(nr), packed=packed, **kw)
+            else:
+                out = _bsh.fused_permutation_pipeline_band_euclid_sharded(
+                    torch.as_tensor(coords[np.argsort(rank)],
+                                    dtype=torch.float32, device=self.device),
+                    *tail_args, np.float32(nr), packed=not keep and packed,
+                    **kw)
+            dist_band, s_ind, obs, counts_neg, counts_pos, mean, std = out
+            front = (dist_band, s_ind, mean, std)
+        self._end_band_run(plan, front, self._store_null, obs, counts_neg,
+                           counts_pos)
 
-    def _trim_sharded(self, s_ind, dist_band, bt):
-        """The bands of a sharded run without the rows that pad the ghosted
-        block-rows to a multiple of the rank count (``safe.py:2122-2127``):
-        (s_ind, dist_band or None) in the single-device frame."""
-        g_rows = (-(-self._num_nodes // 128) + 2 * bt) * 128
-        return s_ind[:g_rows], (None if dist_band is None
-                                else dist_band[:g_rows])
+    def _end_band_run(self, plan, front, store, *results):
+        """What every band ``run_pipeline`` does after its engine: on a mesh
+        the bands of ``front`` (dist_band or None, s_ind, mean, std),
+        assembled in host memory, lose the rows that pad the ghosted
+        block-rows to a multiple of the rank count (``safe.py:2122-2127``);
+        then ``store(*results)`` stores the enrichment, the bands are
+        stored in their frame and the binary enrichment is updated."""
+        dist_band, s_ind, mean, std = front
+        if self.mesh is not None:
+            bt, nb, _ = _bst.band_params(self._num_nodes, plan["band"])
+            g_rows = (nb + 2 * bt) * 128
+            s_ind = s_ind[:g_rows]
+            dist_band = None if dist_band is None else dist_band[:g_rows]
+        store(*results)
+        self._store_band_neighborhoods(plan, (dist_band, s_ind, mean, std))
+        self._update_binary_enrichment()
 
     def _band_null_operands(self, rank, bt, perm_idx):
         """The permutation null's operands over a band in the permuted frame
@@ -1657,43 +1673,6 @@ class SAFE:
                   w_c=w_c, precision=self.matmul_precision,
                   perm_idx=perm_idx)
         return args, kw
-
-    def _run_pipeline_band_euclid(self, plan, coords, nr, perm_idx):
-        """run_pipeline's quantitative branch for the euclidean metric at
-        band-storage scale (``safe.py:1795``): the band straight from the
-        coordinates, then the scores and the permutation null over it, with
-        no graph algorithm. Without kept distances the indicator is built
-        directly, bit-packed when ``_band_bits_selected``. On a "data" mesh
-        each rank builds its rows of the band (``safe.py:1831-1843``), and
-        the bands, assembled in host memory, lose their device-padding rows
-        (``safe.py:1855-1859``)."""
-        num_nodes = self._num_nodes
-        band, rank = plan["band"], plan["rank"]
-        self._release_device_results()
-        bt = band // 128 + 1
-        keep = bool(self.keep_node_distances)
-        tail_args, kw = self._band_null_operands(rank, bt, perm_idx)
-        args = ((torch.as_tensor(coords[np.argsort(rank)],
-                                 dtype=torch.float32, device=self.device),)
-                + tail_args + (np.float32(nr),))
-        kw.update(n=num_nodes, band=band, keep_distances=keep,
-                  packed=not keep and self._band_bits_selected(num_nodes,
-                                                               band))
-        if self.mesh is None:
-            (dist_band, s_ind, obs, counts_neg, counts_pos, mean, std) = \
-                _pipe.fused_permutation_pipeline_band_euclid(*args, **kw)
-        else:
-            from safepy_tpu_torch.parallel.band_sharded import (
-                fused_permutation_pipeline_band_euclid_sharded)
-            (dist_band, s_ind, obs, counts_neg, counts_pos, mean, std) = \
-                fused_permutation_pipeline_band_euclid_sharded(
-                    *args, mesh=self.mesh, **kw)
-            s_ind, dist_band = self._trim_sharded(s_ind, dist_band, bt)
-        self.apsp_engine_used, self.window_used = "band-storage", None
-        self._store_null(obs, counts_neg, counts_pos)
-        self._store_band_neighborhoods(s_ind, dist_band, rank, band, mean,
-                                       std)
-        self._update_binary_enrichment()
 
     # ------------------------------------------------- band binary enrichment
 
@@ -1866,96 +1845,78 @@ class SAFE:
         lgt = torch.as_tensor(_hyper.lgamma_table(M), device=self.device)
         return nan0, nnn, K, M, iters, lgt
 
-    def _run_pipeline_band_hypergeom(self, plan, nr):
-        """run_pipeline's binary branch over band storage, one device
-        (``safe.py:1893-2047``): the class table (``table-band``) for
-        binary annotations within its budget, else the f64 tail loop in
-        host-driven column chunks past ``_hypergeom_attr_chunk``'s budget
-        (``hostchunks-band``), else fused with the band front
-        (``loop-band``). ``hypergeom_engine='loop'`` skips the table; where
-        the table does not apply, 'table' takes the loop engines as in JAX.
-        The front takes ``band_relax`` and ``band_indicator_bits``
-        (:meth:`_band_front_dispatch`). The results stay on the device; the
-        NES derives from the log sf."""
-        num_nodes = self._num_nodes
-        band, rank = plan["band"], plan["rank"]
-        self._release_device_results()
+    def _band_hypergeom(self, band_fn, n, band, rank, staged=False):
+        """The hypergeometric test over band storage on one device
+        (``safe.py:1327-1390``, ``:1893-2047``), over the band that
+        ``band_fn()`` returns as (dist_band or None, s_ind, mean, std): a
+        ``run_pipeline``'s front, or the stored band of the staged test.
+        The class table (``table-band``) for binary annotations within its
+        budget, else the f64 tail loop in host-driven column chunks past
+        ``_hypergeom_attr_chunk``'s budget (``hostchunks-band``), else
+        whole (``loop-band``); the staged test's names end in ``-staged``.
+        ``hypergeom_engine='loop'`` skips the table; where the table does
+        not apply, 'table' takes the loop engines in a ``run_pipeline`` and
+        raises in the staged test, as in JAX. The memory plan and the
+        operand prep come before ``band_fn`` (``safe.py:1897-1904``).
+        Returns (the band, (log sf, indicator, enriched counts)), the
+        results on the device with the rows un-permuted; the NES derives
+        from the log sf."""
         order = np.argsort(rank)  # permuted position -> original node
-        bt = band // 128 + 1
         n2a = self.node2attribute
-        radius = _nbr.inclusive_radius(nr)
         thr = np.float64(self.enrichment_threshold)
-
-        def front():
-            return self._band_front_dispatch(plan, radius, num_nodes)
-
-        table_out = done = None
+        bt = _bst.band_params(n, band)[0]
+        prec = self.matmul_precision
+        front = out = None
         if self.hypergeom_engine in ("auto", "table"):
-            # the memory plan before the operand prep (safe.py:1897-1904)
-            hbm_plan = self._band_go_hbm_guard(num_nodes, band,
-                                               n2a.shape[1])
+            hbm_plan = self._band_go_hbm_guard(n, band, n2a.shape[1])
             nan0, nnn, K, binary_ok, M = \
                 self._band_hyper_operands_cached(order)
             _hbm.record_peak("prep", self.device)
             if binary_ok:
-                done = front()
+                front = band_fn()
                 _hbm.record_peak("relax", self.device)
                 sel = {}
                 with _prof.span("facade.wait", site="go_K"):
                     K_np = K.cpu().numpy()
                 with _prof.span("enrichment.go"):
-                    table_out = _eb.hypergeom_band_table(
-                        done[1], nan0, nnn, M, thr, bt=bt, rank_np=rank,
-                        precision=self.matmul_precision,
-                        logsf_out=self.logsf_store, K_np=K_np,
-                        budget=hbm_plan["budget"],
-                        extra_resident_bytes=self._census_residents(done[0]),
+                    out = _eb.hypergeom_band_table(
+                        front[1], nan0, nnn, M, thr, bt=bt, rank_np=rank,
+                        precision=prec, logsf_out=self.logsf_store,
+                        K_np=K_np, budget=hbm_plan["budget"],
+                        extra_resident_bytes=self._census_residents(
+                            front[0]),
                         select_out=sel)
                 self._record_census_select(sel)
                 _hbm.record_peak("census", self.device)
-        attr_chunk = self._hypergeom_attr_chunk(num_nodes, n2a.shape[1])
-        if table_out is not None:
-            self._hypergeom_engine_used = "table-band"
-            dist_band, s_ind, mean, std = done
-            log_sf32, nesbin8, counts = table_out
+        if out is not None:
+            engine = "table-band"
+        elif staged and self.hypergeom_engine == "table":
+            raise ValueError(
+                "hypergeom_engine='table' requires binary 0/1 annotations "
+                "with an in-budget class table")
         else:
             nan0, nnn, K, M, iters, lgt = self._band_tail_operands(n2a,
                                                                    order)
+            attr_chunk = self._hypergeom_attr_chunk(n, n2a.shape[1])
+            if front is None:
+                front = band_fn()
             if attr_chunk is not None:
-                self._hypergeom_engine_used = "hostchunks-band"
-                dist_band, s_ind, mean, std = done or front()
-                log_sf32, nesbin8, counts = _eb.hypergeom_band_hostchunks(
-                    s_ind, nan0, nnn, lgt, M, thr, bt=bt, rank_np=rank,
-                    attr_chunk=attr_chunk, precision=self.matmul_precision)
+                engine = "hostchunks-band"
+                out = _eb.hypergeom_band_hostchunks(
+                    front[1], nan0, nnn, lgt, M, thr, bt=bt, rank_np=rank,
+                    attr_chunk=attr_chunk, precision=prec)
             else:
-                self._hypergeom_engine_used = "loop-band"
+                engine = "loop-band"
                 dev = self.device
-                args = (plan["u"], plan["v"], plan["w"],
-                        torch.as_tensor(nan0, device=dev),
-                        torch.as_tensor(nnn, device=dev),
-                        torch.as_tensor(K, device=dev), lgt, M, radius, thr,
-                        plan["rank_dev"])
-                kw = dict(n=num_nodes, band=band, iterations=iters,
-                          keep_distances=bool(self.keep_node_distances),
-                          precision=self.matmul_precision,
-                          packed=self._band_bits_selected(num_nodes, band))
-                bf = self._band_bf_args(plan)
-                out = _pipe.fused_hypergeom_pipeline_band(*args, **kw, **bf)
-                if bf and not out[7]:
-                    self._band_relax_used = "bf->fw"
-                    logging.info("band BF relax hit its iteration budget; "
-                                 "re-dispatching Floyd-Warshall")
-                    del out
-                    out = _pipe.fused_hypergeom_pipeline_band(*args, **kw)
-                else:
-                    self._band_relax_used = "bf" if bf else "fw"
-                (dist_band, s_ind, log_sf32, nesbin8, counts, mean,
-                 std) = out[:7]
-        self.apsp_engine_used, self.window_used = "band-storage", None
-        self._store_hypergeom_results(None, log_sf32, nesbin8, counts)
-        self._store_band_neighborhoods(s_ind, dist_band, rank, band, mean,
-                                       std)
-        self._update_binary_enrichment()
+                log_sf32, nesbin8 = _eb.hypergeom_core_band(
+                    front[1], *(torch.as_tensor(x, device=dev)
+                                for x in (nan0, nnn, K)),
+                    lgt, M, thr, iterations=iters, bt=bt, precision=prec,
+                    rank=torch.as_tensor(rank, device=dev))
+                out = (log_sf32, nesbin8,
+                       nesbin8.sum(dim=0, dtype=torch.int32))
+        self._hypergeom_engine_used = engine + ("-staged" if staged else "")
+        return front, out
 
     def _band_go_shard_guard(self, num_nodes, band, n_attrs):
         """The per-rank memory plan of the row-sharded band GO engine
@@ -2009,7 +1970,6 @@ class SAFE:
         self._release_device_results()
         self._n2a_dev = None  # the mesh path reads the host matrix
         order = np.argsort(rank)  # permuted position -> original node
-        bt = band // 128 + 1
         n2a = self.node2attribute
         radius = _nbr.inclusive_radius(nr)
         thr = np.float64(self.enrichment_threshold)
@@ -2054,65 +2014,9 @@ class SAFE:
                     attr_chunk=self._hypergeom_attr_chunk(rows,
                                                           n2a.shape[1]),
                     **kw)
-        s_ind, dist_band = self._trim_sharded(s_ind, dist_band, bt)
-        self.apsp_engine_used, self.window_used = "band-storage", None
-        self._store_hypergeom_results(None, log_sf32.numpy(),
-                                      nesbin8.numpy(), counts)
-        self._store_band_neighborhoods(s_ind, dist_band, rank, band, mean,
-                                       std)
-        self._update_binary_enrichment()
-
-    def _hypergeom_bandstore(self, bm, n2a):
-        """The staged hypergeometric test over band-stored neighborhoods
-        (``safe.py:1327-1390``): the class table
-        (``table-band-staged``), else the tail loop in host chunks
-        (``hostchunks-band-staged``) or whole (``loop-band-staged``), the
-        rows un-permuted on the device. ``hypergeom_engine='table'`` raises
-        where the table does not apply."""
-        order = np.argsort(bm.rank)  # permuted position -> original node
-        thr = np.float64(self.enrichment_threshold)
-        kw = dict(bt=bm.bt, block=bm.block, precision=self.matmul_precision)
-        table_out = None
-        if self.hypergeom_engine in ("auto", "table"):
-            # the memory plan before the operand prep (safe.py:1339-1341)
-            hbm_plan = self._band_go_hbm_guard(bm.n, bm.band, n2a.shape[1])
-            nan0, nnn, K, binary_ok, M = \
-                self._band_hyper_operands_cached(order)
-            if binary_ok:
-                sel = {}
-                table_out = _eb.hypergeom_band_table(
-                    bm.data, nan0, nnn, M, thr, rank_np=bm.rank,
-                    logsf_out=self.logsf_store, K_np=K.cpu().numpy(),
-                    budget=hbm_plan["budget"],
-                    extra_resident_bytes=self._census_residents(),
-                    select_out=sel, **kw)
-                self._record_census_select(sel)
-        if table_out is not None:
-            self._hypergeom_engine_used = "table-band-staged"
-            return self._store_hypergeom_results(None, *table_out)
-        if self.hypergeom_engine == "table":
-            raise ValueError(
-                "hypergeom_engine='table' requires binary 0/1 annotations "
-                "with an in-budget class table")
-
-        nan0, nnn, K, M, iters, lgt = self._band_tail_operands(n2a, order)
-        attr_chunk = self._hypergeom_attr_chunk(bm.n, n2a.shape[1])
-        if attr_chunk is not None:
-            self._hypergeom_engine_used = "hostchunks-band-staged"
-            log_sf32, nes_binary8, counts = _eb.hypergeom_band_hostchunks(
-                bm.data, nan0, nnn, lgt, M, thr, rank_np=bm.rank,
-                attr_chunk=attr_chunk, **kw)
-        else:
-            self._hypergeom_engine_used = "loop-band-staged"
-            dev = self.device
-            log_sf32, nes_binary8 = _eb.hypergeom_core_band(
-                bm.data, torch.as_tensor(nan0, device=dev),
-                torch.as_tensor(nnn, device=dev),
-                torch.as_tensor(K, device=dev), lgt, M, thr,
-                iterations=iters,
-                rank=torch.as_tensor(bm.rank, device=dev), **kw)
-            counts = nes_binary8.sum(dim=0, dtype=torch.int32)
-        self._store_hypergeom_results(None, log_sf32, nes_binary8, counts)
+        self._end_band_run(plan, (dist_band, s_ind, mean, std),
+                           self._store_hypergeom_results, None,
+                           log_sf32.numpy(), nesbin8.numpy(), counts)
 
     # --------------------------------------------------------------- domains
 

@@ -1,5 +1,6 @@
-"""The band-storage slice end to end: the port's fused band pipeline and its
-facade against the JAX package's, and against the port's other engines.
+"""The band-storage slice end to end: the port's band front and null tail,
+as its facade composes them, and its facade against the JAX package's, and
+against the port's other engines.
 
 Tolerances: neighborhoods identical; distances within 1e-6 relative inside
 the radius; observed scores within 1e-5; null counts exactly equal when
@@ -83,9 +84,11 @@ def _session(net, vals, mode, **settings):
 
 
 def test_fused_band_pipeline_matches_jax_pieces():
-    """The port's fused pipeline with an injected perm_idx (original valid
-    order) against the JAX band pieces fed the same permutations, mapped
-    into the banded frame here with numpy."""
+    """The port's band front (``band_neighborhoods``) followed by its null
+    tail (``_band_perm_tail``), as a band-storage ``run_pipeline`` runs
+    them, with an injected perm_idx (original valid order) against the JAX
+    band pieces fed the same permutations, mapped into the banded frame
+    here with numpy."""
     n, block, P = 500, 64, 40
     coords, edges, lengths, _ = _arrays(n, seed=11)
     nr = 0.1 * (coords[:, 0].max() - coords[:, 0].min())
@@ -101,15 +104,17 @@ def test_fused_band_pipeline_matches_jax_pieces():
     bt = band // block + 1
     starts, w_c = bs.compaction_plan(valid_perm, n=n, bt=bt, block=block)
 
-    out = pipe.fused_permutation_pipeline_band(
+    dist_band, s_ind, mean, std, converged = pipe.band_neighborhoods(
         torch.as_tensor(pe[:, 0]), torch.as_tensor(pe[:, 1]),
-        torch.as_tensor(lengths.astype(np.float32)),
-        torch.as_tensor(vals_perm), torch.as_tensor(vals_perm[valid_perm]),
-        torch.as_tensor(valid_perm), torch.as_tensor(starts),
-        torch.as_tensor(rank), None, r, n=n, band=band, block=block,
-        num_permutations=P, batch_size=16, w_c=w_c, perm_idx=perm_idx)
-    dist_band, s_ind, obs, counts_neg, counts_pos, mean, std, converged = out
+        torch.as_tensor(lengths.astype(np.float32)), r, n=n, band=band,
+        block=block)
     assert converged
+    obs, counts_neg, counts_pos = pipe._band_perm_tail(
+        s_ind, torch.as_tensor(vals_perm),
+        torch.as_tensor(vals_perm[valid_perm]), torch.as_tensor(valid_perm),
+        torch.as_tensor(starts), torch.as_tensor(rank), None, bt=bt,
+        block=block, score_type="sum", num_permutations=P, batch_size=16,
+        w_c=w_c, precision="highest", perm_idx=perm_idx)
 
     s = jbs.band_init_from_edges(jnp.asarray(pe[:, 0], jnp.int32),
                                  jnp.asarray(pe[:, 1], jnp.int32),

@@ -118,6 +118,22 @@ def _pipe_kw(c, score_type):
                 batch_size=16, w_c=int(c["w_c"]), perm_idx=c["perm_idx"])
 
 
+def _unsharded_pipeline(c, score_type, keep_distances):
+    """The single-device band run on the sharded engine's inputs: the front
+    (``band_neighborhoods``), then the null tail (``_band_perm_tail``).
+    (dist_band or None, ind, obs, counts_neg, counts_pos, mean, std)."""
+    args, kw = _pipe_args(c), _pipe_kw(c, score_type)
+    n, band = kw.pop("n"), kw.pop("band")
+    dist_band, ind, mean, std, converged = pipe.band_neighborhoods(
+        *args[:3], args[-1], n=n, band=band, block=BLOCK,
+        keep_distances=keep_distances)
+    assert converged
+    obs, cn, cp = pipe._band_perm_tail(
+        ind, *args[3:-1], bt=bs.band_params(n, band, BLOCK)[0],
+        precision="highest", **kw)
+    return dist_band, ind, obs, cn, cp, mean, std
+
+
 # ------------------------------------------------------------ the ranks' side
 
 PIPE_RUNS = {2: [("sum", True), ("z-score", False)],
@@ -395,8 +411,7 @@ def test_sharded_pipeline_matches_unsharded(world_runs, pipe_case, world):
     ranks = world_runs(world)
     c = pipe_case
     for score_type, keep in PIPE_RUNS[world]:
-        want = pipe.fused_permutation_pipeline_band(
-            *_pipe_args(c), keep_distances=True, **_pipe_kw(c, score_type))
+        want = _unsharded_pipeline(c, score_type, keep_distances=True)
         g_rows = want[1].shape[0]
         tag = f"{score_type}-{keep}"
         for got in ranks:

@@ -1,7 +1,7 @@
 """The euclidean metric's band form in the port (``euclidean_band_distances``
 and ``euclidean_band_indicator`` in safepy_tpu_torch/ops/apsp_bandstore.py,
-``euclidean_band_neighborhoods`` and ``fused_permutation_pipeline_band_euclid``
-in safepy_tpu_torch/pipeline.py, and the facade's plan and dispatch)
+``euclidean_band_neighborhoods`` in safepy_tpu_torch/pipeline.py, and the
+facade's plan and dispatch, which follows it with the band null tail)
 against the JAX package's (apsp_bandstore.py:643-731, pipeline.py:267-297,
 439-474, safe.py:443-466, 734, 1664-1681, 1795-1870), on the same seeded
 numpy inputs.

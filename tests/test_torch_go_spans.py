@@ -136,6 +136,11 @@ def test_go_spans_nest_and_carry_the_plan(_fresh, tmp_path):
                   if r["name"] == "enrichment.go_table"]
         assert tables == [dict(R=ch["R"], S_max=ch["S_max"], C=ch["C"],
                                route="torch") for ch in chunks]
+        if k == 0:
+            # the operand prep, then the band front, then the engine
+            start = {r["name"]: r["start_ns"] for r in mine}
+            assert (start["facade.go_operands"]
+                    < start["neighborhoods.front"] < start["enrichment.go"])
         # the chunk's census, table and lookup run in that order
         order = [r["name"] for r in sorted(mine, key=lambda r: r["start_ns"])
                  if r["name"].startswith("enrichment.go_")]

@@ -119,6 +119,9 @@ def test_spans_form_the_analysis_tree(mode, tmp_path):
         assert names["enrichment.count"] == chunks
         assert names["neighborhoods.front"] == names["neighborhoods.relax"] \
             == names["enrichment.null"] == 1
+        # the front runs before the null's tail
+        start = {r["name"]: r["start_ns"] for r in mine}
+        assert start["neighborhoods.front"] < start["enrichment.null"]
         sites = {r["attrs"]["site"] for r in mine
                  if r["name"] == "facade.wait"}
         assert {"store_null.obs", "store_null.counts_neg",
