@@ -211,14 +211,16 @@ def prep_peak(n: int, n_attrs: int, *, chunked: bool,
               chunk_cols: int = 512) -> int:
     """The operand prep's peak (``enrich_band.band_hyper_operands_*``).
 
-    Full-device: the f32 upload (4 B a cell), the finite mask (1, made by
-    row chunks: ``torch.isfinite`` takes an f32 ``|x|`` and two bool
-    temporaries), the binary check's three bool temporaries (3), then the
-    f32 NaN-zeroed copy (4) with its int8 cast (1) and the gathered int8
-    operands (1): at most 10 B a cell. Chunked: the int8 buffer (1 B a
-    cell) and one f32 column chunk's upload, isfinite's temporaries, the
-    mask and copy (12 B a chunk cell), or at the end the buffer and its
-    gathered copy (2)."""
+    Full-device: the f32 upload (4 B a cell; cast on the device from f64
+    row blocks of 32 MiB, a block and its count's temporaries within the
+    small bytes), the finite mask (1, made by row chunks:
+    ``torch.isfinite`` takes an f32 ``|x|`` and two bool temporaries), the
+    binary check's three bool temporaries (3; none where the upload's count
+    decides it), then the f32 NaN-zeroed copy (4) with its int8 cast (1)
+    and the gathered int8 operands (1): at most 10 B a cell. Chunked: the
+    int8 buffer (1 B a cell) and one f32 column chunk's upload, isfinite's
+    temporaries, the mask and copy (12 B a chunk cell), or at the end the
+    buffer and its gathered copy (2)."""
     cells = n * n_attrs
     if not chunked:
         return 10 * cells + _SMALL_BYTES

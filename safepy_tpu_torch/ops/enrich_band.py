@@ -349,10 +349,12 @@ def _finite_mask(x):
     return out
 
 
-def band_hyper_operands_device(n2a_dev, order):
+def band_hyper_operands_device(n2a_dev, order, binary_ok=None):
     """(nan0 int8, nodes_not_nan f32, K f32, binary_ok) from the device
     annotation upload, rows gathered into the permuted frame by ``order``
-    (permuted position -> original row) (``:322``).
+    (permuted position -> original row) (``:322``). ``binary_ok`` may be
+    given by a caller that counted the upload's non-0/1 values
+    (:func:`upload_f32_counted`: a count of 0); else it is checked here.
 
     nan0 is stored int8: callers read it only when ``binary_ok`` (every
     finite value 0 or 1), where the cast is exact. The steps are ordered so
@@ -361,7 +363,9 @@ def band_hyper_operands_device(n2a_dev, order):
     the gather; the finite mask made by row chunks): ``hbm.prep_peak``
     counts them."""
     finite = _finite_mask(n2a_dev)
-    binary_ok = bool(((n2a_dev == 0.0) | (n2a_dev == 1.0) | ~finite).all())
+    if binary_ok is None:
+        binary_ok = bool(
+            ((n2a_dev == 0.0) | (n2a_dev == 1.0) | ~finite).all())
     nan0 = torch.where(finite, n2a_dev, 0.0)
     nnn = finite.any(dim=1).to(torch.float32)
     del finite
@@ -420,6 +424,35 @@ def count_other_values_chunked(n2a_np, chunk_cols: int = 512, *,
     for _, x in _host_chunks(n2a_np, chunk_cols, device):
         total += int((torch.isfinite(x) & (x != 0.0) & (x != 1.0)).sum())
     return total
+
+
+def upload_f32_counted(n2a_np, *, device):
+    """(the f32 (n, A) device matrix, the count of its finite values that
+    are not 0 or 1) from one f64 transfer of the host matrix, in blocks of
+    whole rows of ``_GROUP_ELEMS // 4`` values (32 MiB). A block is read
+    where it lies (copied only where it is not writable f64 with
+    non-negative strides); for a card torch's threads copy it into pinned
+    pages, whose copy to the card runs while they copy the next block (the
+    pinned allocator keeps a block's pages until its copy is done). Each
+    block is cast on the device into its rows of the f32 matrix, as numpy
+    casts (nearest even, inf past f32's range, subnormals kept), and
+    counted there (``:396``'s count, on the same f32 values); the total is
+    read once at the end."""
+    n, a = n2a_np.shape
+    out = torch.empty((n, a), dtype=torch.float32, device=device)
+    total = torch.zeros((), dtype=torch.int64, device=device)
+    step = max(1, (_GROUP_ELEMS // 4) // max(1, a))
+    for r0 in range(0, n, step):
+        rows = np.require(n2a_np[r0:r0 + step], np.float64, "W")
+        if min(rows.strides) < 0:
+            rows = np.ascontiguousarray(rows)
+        blk = torch.from_numpy(rows)
+        x = out[r0:r0 + step]
+        if x.is_cuda:
+            blk = blk.pin_memory()
+        x.copy_(blk.to(x.device, non_blocking=True))
+        total += (torch.isfinite(x) & (x != 0.0) & (x != 1.0)).sum()
+    return out, int(total)
 
 
 def _column_sums_chunked(nan0_dev, chunk_cols: int = 1024) -> np.ndarray:

@@ -564,9 +564,17 @@ class SAFE:
         validate_attributes(values, self._num_nodes, warn=self.verbose)
 
     def _node2attribute_device(self) -> torch.Tensor:
+        """The f32 attribute matrix on the device, cached until the
+        attributes change: one f64 transfer of the host matrix in row
+        blocks, cast and counted on the device
+        (``enrich_band.upload_f32_counted``), which caches the count of
+        :meth:`_num_other_values` too. The span ``facade.attr_prep`` (route
+        ``upload``)."""
         if self._n2a_dev is None:
-            self._n2a_dev = torch.as_tensor(
-                np.asarray(self.node2attribute, np.float32), device=self.device)
+            with _prof.span("facade.attr_prep", route="upload"):
+                self._n2a_dev, self._num_other_cache = \
+                    _eb.upload_f32_counted(self.node2attribute,
+                                           device=self.device)
         return self._n2a_dev
 
     def _num_other_values(self) -> int:
@@ -575,17 +583,25 @@ class SAFE:
         on its f32 upload (``:1102-1105``): 1 + 1e-9 rounds to 1 and 1e39
         overflows to inf. Where the band GO prep is chunked
         (:meth:`_prep_chunked_selected`), counted on the device from
-        column-chunked uploads (``:1096-1099``), else on the host. Cached
-        until the attributes change."""
+        column-chunked uploads (``:1096-1099``); else, without a mesh, by
+        the f32 upload that the full-device prep keeps
+        (:meth:`_node2attribute_device`); on a mesh, whose band GO path
+        reads the host matrix, on the host. Cached until the attributes
+        change; the chunked and host counts are the span
+        ``facade.attr_prep`` (route ``chunked``, ``host``)."""
         if self._num_other_cache is None:
             if self._prep_chunked_selected():
-                self._num_other_cache = _eb.count_other_values_chunked(
-                    self.node2attribute, device=self.device)
+                with _prof.span("facade.attr_prep", route="chunked"):
+                    self._num_other_cache = _eb.count_other_values_chunked(
+                        self.node2attribute, device=self.device)
+            elif self.mesh is None:
+                self._node2attribute_device()
             else:
-                with np.errstate(over="ignore"):
+                with _prof.span("facade.attr_prep", route="host"), \
+                        np.errstate(over="ignore"):
                     v = np.asarray(self.node2attribute, np.float32)
-                self._num_other_cache = int(np.count_nonzero(
-                    np.isfinite(v) & (v != 0) & (v != 1)))
+                    self._num_other_cache = int(np.count_nonzero(
+                        np.isfinite(v) & (v != 0) & (v != 1)))
         return self._num_other_cache
 
     def _binary(self) -> bool:
@@ -1728,7 +1744,8 @@ class SAFE:
                         self.node2attribute, order, device=self.device)
                 else:
                     ops = _eb.band_hyper_operands_device(
-                        self._node2attribute_device(), order)
+                        self._node2attribute_device(), order,
+                        binary_ok=self._num_other_values() == 0)
                 nan0, nnn, K, binary_ok = ops
                 M = int(nnn.sum())
         out = (nan0 if binary_ok else None, nnn, K, binary_ok, M)

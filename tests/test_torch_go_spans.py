@@ -25,6 +25,7 @@ N_NODES, TERMS, CHUNK_COLS = 300, 40, 16
 # tests/test_torch_spans.py)
 PARENTS = {"facade.load_attributes": {None},
            "facade.run_pipeline": {None},
+           "facade.attr_prep": {"facade.run_pipeline"},
            "facade.go_operands": {"facade.run_pipeline"},
            "neighborhoods.front": {"facade.run_pipeline"},
            "neighborhoods.relax": {"neighborhoods.front"},
@@ -130,6 +131,8 @@ def test_go_spans_nest_and_carry_the_plan(_fresh, tmp_path):
         assert names["enrichment.go_table"] == len(chunks)
         assert names["enrichment.go_lookup"] == len(chunks)
         assert names["facade.go_operands"] == (1 if k == 0 else 0)
+        assert [r["attrs"] for r in mine if r["name"] == "facade.attr_prep"] \
+            == ([{"route": "upload"}] if k == 0 else [])
         assert sorted(r["attrs"]["site"] for r in mine
                       if r["name"] == "facade.wait") == ["go_K", "go_n_max"]
         tables = [r["attrs"] for r in mine
@@ -137,9 +140,10 @@ def test_go_spans_nest_and_carry_the_plan(_fresh, tmp_path):
         assert tables == [dict(R=ch["R"], S_max=ch["S_max"], C=ch["C"],
                                route="torch") for ch in chunks]
         if k == 0:
-            # the operand prep, then the band front, then the engine
+            # the upload, the operand prep, then the band front, then the
+            # engine
             start = {r["name"]: r["start_ns"] for r in mine}
-            assert (start["facade.go_operands"]
+            assert (start["facade.attr_prep"] < start["facade.go_operands"]
                     < start["neighborhoods.front"] < start["enrichment.go"])
         # the chunk's census, table and lookup run in that order
         order = [r["name"] for r in sorted(mine, key=lambda r: r["start_ns"])

@@ -24,6 +24,7 @@ ENGINES = {"band": "band-storage", "auto": "banded-window"}
 # each span's parent: None for a root
 PARENTS = {"facade.load_attributes": {None},
            "facade.run_pipeline": {None},
+           "facade.attr_prep": {"facade.run_pipeline"},
            "neighborhoods.front": {"facade.run_pipeline"},
            "neighborhoods.relax": {"neighborhoods.front"},
            "enrichment.null": {"facade.run_pipeline"},
@@ -122,6 +123,10 @@ def test_spans_form_the_analysis_tree(mode, tmp_path):
         # the front runs before the null's tail
         start = {r["name"]: r["start_ns"] for r in mine}
         assert start["neighborhoods.front"] < start["enrichment.null"]
+        # the attributes' one transfer, before the front
+        assert [r["attrs"] for r in mine if r["name"] == "facade.attr_prep"] \
+            == [{"route": "upload"}]
+        assert start["facade.attr_prep"] < start["neighborhoods.front"]
         sites = {r["attrs"]["site"] for r in mine
                  if r["name"] == "facade.wait"}
         assert {"store_null.obs", "store_null.counts_neg",
