@@ -181,7 +181,7 @@ def apsp_banded_fw(dist: torch.Tensor, *, window: int, block: int = 128,
     # corner tiles with |i - j| beyond this are never read back as part of a
     # pivot panel and lie beyond the radius in the output (apsp_banded.py:237)
     band_tiles = half // block + 3
-    with span("neighborhoods.relax"):
+    with span("neighborhoods.relax", engine="window", rounds=nb):
         for kb in range(nb):
             start = kb * block
             lo = min(max(start - half, 0), npad - w)

@@ -39,8 +39,7 @@ from safepy_tpu_torch.ops.apsp_bandstore import (_GROUP_ELEMS,
                                                  band_matmul,
                                                  band_matmul_batch,
                                                  band_width)
-from safepy_tpu_torch.ops.hypergeom import (_sf_parts, finalize_logsf_device,
-                                            tail_iterations)
+from safepy_tpu_torch.ops.hypergeom import tail_device, tail_iterations
 from safepy_tpu_torch.ops.permutation import count_scan, random_permutations
 from safepy_tpu_torch.ops.score import (zscore_from_contractions,
                                         zscore_shift)
@@ -162,7 +161,7 @@ def scan_counts_band(compact, starts, vals, mask, obs, frame_map, *,
 
         return count_scan((permuted, chunk_scores), obs,
                           num_permutations=num_permutations,
-                          batch_size=batch_size)
+                          batch_size=batch_size, route="band")
 
     counts_neg = torch.zeros(obs.shape, dtype=torch.int32, device=dev)
     counts_pos = torch.zeros_like(counts_neg)
@@ -184,17 +183,6 @@ def scan_counts_band(compact, starts, vals, mask, obs, frame_map, *,
 
 def _npad(s_ind, bt: int, block: int) -> int:
     return s_ind.shape[0] - 2 * bt * block
-
-
-def _tail(counts, nsize, K, lgt, M, enrichment_threshold, iterations):
-    """(log sf f32, indicator int8) of a census block: the f64 tail loop
-    and the device finalization, as the dense fused path runs them."""
-    f64 = torch.float64
-    shape = counts.shape
-    parts = _sf_parts(counts.to(f64), M, K.to(f64)[None, :].expand(shape),
-                      nsize.to(f64)[:, None].expand(shape), lgt, iterations)
-    _nes, logsf, nbin = finalize_logsf_device(parts, enrichment_threshold)
-    return logsf, nbin
 
 
 def hypergeom_core_band(s_ind, nan0, nodes_not_nan, K, lgt, M,
@@ -235,8 +223,8 @@ def hypergeom_core_band(s_ind, nan0, nodes_not_nan, K, lgt, M,
     if attr_chunk is None or attr_chunk >= A:
         stacked = _pad_rows_to(torch.cat([nnn[:, None], nan0], dim=1), npad)
         prod = band_matmul(s_ind, stacked, **kw)
-        logsf, nbin = _tail(prod[:, 1:], prod[:, 0], K, lgt, M,
-                            enrichment_threshold, iterations)
+        _nes, logsf, nbin = tail_device(prod[:, 1:], prod[:, 0], K, lgt, M,
+                                        enrichment_threshold, iterations)
         return gather(logsf), gather(nbin)
 
     nsize = band_matmul(s_ind, _pad_rows_to(nnn[:, None], npad), **kw)[:, 0]
@@ -248,8 +236,8 @@ def hypergeom_core_band(s_ind, nan0, nodes_not_nan, K, lgt, M,
         start = min(ci * attr_chunk, A - attr_chunk)
         cols = slice(start, start + attr_chunk)
         counts = band_matmul(s_ind, nan0_r[:, cols], **kw)
-        logsf_c, bin_c = _tail(counts, nsize, K[cols], lgt, M,
-                               enrichment_threshold, iterations)
+        _nes, logsf_c, bin_c = tail_device(counts, nsize, K[cols], lgt, M,
+                                           enrichment_threshold, iterations)
         logsf_b[:, cols] = gather(logsf_c)
         bin_b[:, cols] = gather(bin_c)
     return logsf_b, bin_b

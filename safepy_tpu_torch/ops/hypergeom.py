@@ -26,6 +26,7 @@ import torch
 from scipy.special import gammaln as _host_gammaln
 
 from safepy_tpu_torch.ops._device import on_device
+from safepy_tpu_torch.profiling import annotate, span
 
 _LN10 = float(np.log(10.0))
 _F32_TINY = float(np.finfo(np.float32).tiny)
@@ -61,7 +62,9 @@ def _sf_parts(k, M, K, n, lgt, iterations: int):
     1 where ``below``, 0 where ``above``.
 
     The loop stops on JAX's global rule (``:118-120``), checked before each
-    body: ``i < iterations`` and the largest live term above 1e-18.
+    body: ``i < iterations`` and the largest live term above 1e-18 (a wait
+    for the device). The bodies run go to the ``iterations`` attr of the
+    innermost open span, the caller's ``enrichment.go_tail``.
     """
     f64 = torch.float64
     k, K, n = k.to(f64), K.to(f64), n.to(f64)
@@ -112,6 +115,7 @@ def _sf_parts(k, M, K, n, lgt, iterations: int):
         term = term * (num / torch.where(den == 0.0, 1.0, den))
         x += step
         i += 1
+    annotate(iterations=i)
     return log_pmf0, acc, use_upper, k <= lower, k > upper
 
 
@@ -125,8 +129,9 @@ def _parts(k, M, K, n, iterations):
     f64 = torch.float64
     k, K, n = torch.broadcast_tensors(k.to(f64), K.to(f64), n.to(f64))
     lgt = torch.as_tensor(lgamma_table(M), device=k.device)
-    return tuple(x.cpu().numpy()
-                 for x in _sf_parts(k, M, K, n, lgt, iterations))
+    with span("enrichment.go_tail", cells=k.numel(), bound=iterations):
+        parts = _sf_parts(k, M, K, n, lgt, iterations)
+    return tuple(x.cpu().numpy() for x in parts)
 
 
 def hypergeom_sf(k, M, K, n, *, iterations: int | None = None):
@@ -196,6 +201,23 @@ def finalize_logsf_device(parts, enrichment_threshold):
     nes_binary = (-log_sf > threshold).to(torch.int8)
     return (flush_subnormal(nes.to(f32)), flush_subnormal(log_sf.to(f32)),
             nes_binary)
+
+
+def tail_device(counts, nsize, K, lgt, M: int, enrichment_threshold,
+                iterations: int):
+    """(nes f32, log sf f32, indicator int8) of a census block on its
+    device: :func:`_sf_parts` over the (row, column) cells, ``nsize`` a
+    row's draws and ``K`` a column's successes, then
+    :func:`finalize_logsf_device`; in an ``enrichment.go_tail`` span
+    (attrs ``cells``, ``bound`` and the bodies run, ``iterations``)."""
+    f64 = torch.float64
+    shape = counts.shape
+    with span("enrichment.go_tail", cells=counts.numel(), bound=iterations):
+        parts = _sf_parts(counts.to(f64), M,
+                          K.to(f64)[None, :].expand(shape),
+                          nsize.to(f64)[:, None].expand(shape), lgt,
+                          iterations)
+        return finalize_logsf_device(parts, enrichment_threshold)
 
 
 def hypergeom_sf_and_nes(k, M, K, n, *, iterations: int | None = None):

@@ -70,13 +70,15 @@ def random_permutations(count: int, size: int,
 
 
 def count_scan(chunk, obs: torch.Tensor, *, num_permutations: int,
-               batch_size: int):
+               batch_size: int, route: str = "dense"):
     """Two-sided count accumulator over permutation chunks (``:171``).
 
     ``chunk = (permuted, chunk_scores)``: ``permuted(start, count)``
     gathers the operands of permutations ``start .. start + count`` (an
     ``enrichment.permute`` span) and ``chunk_scores(operands) -> (count, N,
     A)`` scores them (with the counting, an ``enrichment.count`` span).
+    Both spans carry the caller's ``route`` (``dense``: the (N, V)
+    contraction of :func:`scan_counts`; ``band``).
     Returns int32 (counts_neg, counts_pos).
     """
     permuted, chunk_scores = chunk
@@ -84,9 +86,9 @@ def count_scan(chunk, obs: torch.Tensor, *, num_permutations: int,
     counts_pos = torch.zeros_like(counts_neg)
     for start in range(0, num_permutations, batch_size):
         count = min(batch_size, num_permutations - start)
-        with span("enrichment.permute"):
+        with span("enrichment.permute", route=route):
             operands = permuted(start, count)
-        with span("enrichment.count"):
+        with span("enrichment.count", route=route):
             scores = chunk_scores(operands)
             del operands
             counts_neg += (scores <= obs[None]).sum(dim=0, dtype=torch.int32)

@@ -142,25 +142,28 @@ def _hypergeom_tail(nbr, vals, lgt, M: int, enrichment_threshold, *,
 def _tail_columns(nbr, nan0, nodes_not_nan, lgt, M, enrichment_threshold,
                   iterations, table_K_dist, table_colc, table_spec):
     """:func:`_hypergeom_tail` over the columns of ``nan0`` (JAX's ``tail``
-    :160)."""
-    nsize = nbr @ nodes_not_nan
-    counts = nbr @ nan0
+    :160): spans ``enrichment.go_census``, then ``enrichment.go_table`` and
+    ``enrichment.go_lookup`` (the class table) or ``enrichment.go_tail``
+    (the f64 loop: attrs ``cells``, ``bound`` and the bodies run,
+    ``iterations``)."""
+    with span("enrichment.go_census"):
+        nsize = nbr @ nodes_not_nan
+        counts = nbr @ nan0
     if table_spec is not None:
         r, s_max, c = table_spec
         log_thr64 = torch.log(torch.tensor(float(enrichment_threshold),
                                            dtype=torch.float64))
-        table = htab.build_logsf_table(table_K_dist, M, float(log_thr64),
-                                       R=r, S_max=s_max, C=c)
-        return htab.table_lookup(table, counts, nsize, table_colc,
-                                 float(log_thr64.to(torch.float32)),
-                                 S_max=s_max, R=r, C=c)
-    K = nan0.sum(dim=0)
-    f64 = torch.float64
-    shape = counts.shape
-    parts = hyper._sf_parts(counts.to(f64), M, K.to(f64)[None, :].expand(shape),
-                            nsize.to(f64)[:, None].expand(shape), lgt,
-                            iterations)
-    return hyper.finalize_logsf_device(parts, enrichment_threshold)
+        with span("enrichment.go_table", R=r, S_max=s_max, C=c,
+                  route=htab.route(table_K_dist.device)):
+            table = htab.build_logsf_table(table_K_dist, M,
+                                           float(log_thr64), R=r,
+                                           S_max=s_max, C=c)
+        with span("enrichment.go_lookup"):
+            return htab.table_lookup(table, counts, nsize, table_colc,
+                                     float(log_thr64.to(torch.float32)),
+                                     S_max=s_max, R=r, C=c)
+    return hyper.tail_device(counts, nsize, nan0.sum(dim=0), lgt, M,
+                             enrichment_threshold, iterations)
 
 
 def fused_hypergeom_pipeline(d0, vals, lgt, M: int, radius,
@@ -177,13 +180,15 @@ def fused_hypergeom_pipeline(d0, vals, lgt, M: int, radius,
     ``exp(float64(log_sf))`` on the host. The enriched counts are reduced on
     the device.
     """
-    dist = _apsp_inline(d0, block, mesh, window=window, inv_rank=inv_rank,
-                        radius=radius)
-    nbr, mean, std = threshold_and_stats(dist, radius, strict=strict)
-    nes32, log_sf32, nes_binary = _hypergeom_tail(
-        nbr, vals, lgt, M, enrichment_threshold, iterations=iterations,
-        mesh=mesh, table_K_dist=table_K_dist, table_colc=table_colc,
-        table_spec=table_spec)
+    with span("neighborhoods.front"):
+        dist = _apsp_inline(d0, block, mesh, window=window,
+                            inv_rank=inv_rank, radius=radius)
+        nbr, mean, std = threshold_and_stats(dist, radius, strict=strict)
+    with span("enrichment.go"):
+        nes32, log_sf32, nes_binary = _hypergeom_tail(
+            nbr, vals, lgt, M, enrichment_threshold, iterations=iterations,
+            mesh=mesh, table_K_dist=table_K_dist, table_colc=table_colc,
+            table_spec=table_spec)
     enriched_counts = nes_binary.sum(dim=0, dtype=torch.int32)
     return (dist, nbr, nes32, log_sf32, nes_binary, enriched_counts, mean,
             std)

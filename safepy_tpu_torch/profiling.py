@@ -12,9 +12,10 @@ Port of ``safepy_tpu/profiling.py:23-73`` to torch:
 - :func:`log_compile_time` times a callable's first call (on the card it
   includes the nvcc build of ``native.py`` on first use) and a steady one;
 - :func:`span` marks a phase of an analysis (the facade, the neighborhoods'
-  front and relax, the null's gather and count, the class-table GO engine's
-  census, table and lookup) while a ``torch.profiler`` session records,
-  and costs one flag check otherwise.
+  front and relax, the null's gather and count, the GO engines' census,
+  class table, lookup and f64 tail) while a ``torch.profiler`` session
+  records, and costs one flag check otherwise; :func:`annotate` adds attrs
+  to the innermost open span.
 
 Spans, for an operator: ``with profiling.trace(dir):`` around analyses
 writes a Chrome trace in which each span is a ``record_function`` range on
@@ -234,6 +235,14 @@ def span(name: str, **attrs):
     if not _profiler_enabled():
         return _NULL_SPAN
     return Span(name, attrs)
+
+
+def annotate(**attrs) -> None:
+    """Add ``attrs`` to this thread's innermost open span while a
+    ``torch.profiler`` session records (a count known only at the end of
+    the work a caller's span wraps); otherwise nothing."""
+    if _profiler_enabled() and _open.stack:
+        _open.stack[-1].attrs.update(attrs)
 
 
 def reset_spans() -> None:

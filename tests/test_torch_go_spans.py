@@ -1,4 +1,4 @@
-"""The spans of the band GO path (``profiling.span``) on the CPU: under
+"""The spans of the GO paths (``profiling.span``) on the CPU: under
 ``profiling.trace`` a band-storage GO analysis by the class table leaves
 ``facade.go_operands``, ``enrichment.go`` with its ``go_census``,
 ``go_table`` and ``go_lookup`` children, and two ``facade.wait`` sites,
@@ -6,7 +6,11 @@ nested as stated; each table span's ``R``, ``S_max`` and ``C`` are its
 chunk's in the plan that ran, and its ``route`` the one that built the
 table (the slot loop here, one build a chunk); an analysis whose operands
 come from the cache has no operand span; without a profiler nothing is
-recorded; and the outputs are bitwise equal with spans on and off."""
+recorded; and the outputs are bitwise equal with spans on and off. The
+dense fused GO path (the certified window) leaves its front,
+``enrichment.go``, the census and the f64 tail (``enrichment.go_tail``:
+cells, bound, the bodies run) or the class table and lookup; every tail
+loop route counts its bodies."""
 
 import collections
 import json
@@ -18,6 +22,7 @@ from scipy.spatial import cKDTree
 
 from safepy_tpu_torch import SAFE, profiling
 from safepy_tpu_torch.io.graph_arrays import edge_lengths
+from safepy_tpu_torch.ops import hypergeom as hyper
 from safepy_tpu_torch.ops import hypergeom_table as htab
 
 N_NODES, TERMS, CHUNK_COLS = 300, 40, 16
@@ -181,3 +186,100 @@ def test_go_table_spans_name_the_route_that_built_each_table(_fresh,
     chunks = len(plans[0]["chunks"])
     assert routes == [htab.route(sf.device)] * chunks == ["torch"] * chunks
     assert htab.LAUNCHES == {"logsf_table": 0}
+
+
+# the dense fused GO path's spans and their parents
+DENSE_PARENTS = {"facade.load_attributes": {None},
+                 "facade.run_pipeline": {None},
+                 "facade.attr_prep": {"facade.run_pipeline"},
+                 "neighborhoods.front": {"facade.run_pipeline"},
+                 "neighborhoods.relax": {"neighborhoods.front"},
+                 "enrichment.go": {"facade.run_pipeline"},
+                 "enrichment.go_census": {"enrichment.go"},
+                 "enrichment.go_tail": {"enrichment.go"},
+                 "enrichment.go_table": {"enrichment.go"},
+                 "enrichment.go_lookup": {"enrichment.go"}}
+DENSE_ENGINES = {"loop": "loop-dense-fused", "table": "table-dense-fused"}
+
+
+def _bound(go):
+    """The tail loop's iteration bound for ``go`` (``SAFE._fused_hypergeom``
+    's)."""
+    M = int(np.any(~np.isnan(go), axis=1).sum())
+    k_max = int(np.nanmax(np.nansum(go, axis=0)))
+    return hyper.tail_iterations(M, min(k_max, M))
+
+
+@pytest.mark.parametrize("engine", sorted(DENSE_ENGINES))
+def test_dense_go_spans_nest_and_carry_the_tail(engine, tmp_path):
+    """A dense fused GO analysis (the certified window, ``apsp_mode``
+    'auto') records its front, ``enrichment.go`` and the census, then the
+    f64 tail (cells, bound, the bodies run) or the class table and its
+    lookup; the window relax names its engine."""
+    net = _network()
+    sf = SAFE(device="cpu", verbose=False)
+    sf.hypergeom_engine = engine
+    sf.load_network(network_file=net)
+    go = _go(net[0])
+    with profiling.trace(str(tmp_path / "tr")) as prof:
+        sf.load_attributes(attribute_file=go)
+        sf.run_pipeline()
+    assert sf.apsp_engine_used == "banded-window"
+    assert sf._hypergeom_engine_used == DENSE_ENGINES[engine]
+    recs = profiling.span_records()
+    by_id = {r["id"]: r for r in recs}
+    for r in recs:
+        parent = by_id[r["parent"]]["name"] if r["parent"] else None
+        assert parent in DENSE_PARENTS[r["name"]], (r["name"], parent)
+    names = collections.Counter(r["name"] for r in recs)
+    assert names["neighborhoods.front"] == names["neighborhoods.relax"] \
+        == names["enrichment.go"] == names["enrichment.go_census"] == 1
+    attrs = {r["name"]: r["attrs"] for r in recs}
+    assert attrs["neighborhoods.relax"] == {"engine": "window",
+                                            "rounds": -(-N_NODES // 128)}
+    if engine == "loop":
+        assert "enrichment.go_table" not in names
+        tail = attrs["enrichment.go_tail"]
+        assert tail["cells"] == N_NODES * TERMS
+        assert tail["bound"] == _bound(go)
+        assert 1 <= tail["iterations"] <= tail["bound"]
+    else:
+        assert "enrichment.go_tail" not in names
+        assert names["enrichment.go_table"] == names[
+            "enrichment.go_lookup"] == 1
+        table = attrs["enrichment.go_table"]
+        assert sorted(table) == ["C", "R", "S_max", "route"]
+        assert table["route"] == "torch"
+    order = [r["name"] for r in sorted(recs, key=lambda r: r["start_ns"])
+             if r["name"].startswith(("neighborhoods.front",
+                                      "enrichment.go"))]
+    assert order[:3] == ["neighborhoods.front", "enrichment.go",
+                         "enrichment.go_census"]
+    with open(prof.trace_path) as f:
+        traced = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert set(names) <= traced
+
+
+def test_every_tail_loop_route_counts_its_iterations(tmp_path):
+    """The band loop (``loop-band``) and the host route
+    (``hypergeom_sf``) record ``enrichment.go_tail`` spans whose
+    ``iterations`` lie within their ``bound``; off, none."""
+    sf, go = _session()
+    sf.hypergeom_engine = "loop"
+    k = torch.tensor([[0.0, 2.0, 5.0], [1.0, 3.0, 9.0]])
+    with profiling.trace(str(tmp_path / "tr")):
+        sf.load_attributes(attribute_file=go)
+        sf.run_pipeline()
+        hyper.hypergeom_sf(k, 60, torch.tensor([[5.0, 9.0, 20.0]]),
+                           torch.tensor([[10.0], [30.0]]))
+    assert sf._hypergeom_engine_used == "loop-band"
+    tails = [r["attrs"] for r in profiling.span_records()
+             if r["name"] == "enrichment.go_tail"]
+    assert len(tails) >= 2 and tails[-1]["cells"] == 6
+    assert sum(t["cells"] for t in tails[:-1]) >= N_NODES * TERMS
+    for t in tails:
+        assert 1 <= t["iterations"] <= t["bound"]
+    profiling.reset_spans()
+    hyper.hypergeom_sf(k, 60, torch.tensor([[5.0, 9.0, 20.0]]),
+                       torch.tensor([[10.0], [30.0]]))
+    assert len(profiling.SPANS) == 0

@@ -3,7 +3,9 @@ without a profiler; under ``profiling.trace`` the tree of an analysis, one
 gather and one count span a permutation chunk, one root id an analysis,
 the names in the Chrome trace; outputs bitwise equal with spans on and off;
 the buffer's bound. Each analysis case runs on the band-storage engine and
-on the banded window (the dense quantitative path)."""
+on the banded window (the dense quantitative path), whose relax span names
+its engine and rounds and whose null chunks their route; ``annotate`` adds
+to the innermost open span."""
 
 import collections
 import glob
@@ -212,3 +214,41 @@ def test_a_span_closes_on_an_exception():
     recs = profiling.span_records()
     assert [r["name"] for r in recs] == ["outer", "inner", "after"]
     assert recs[2]["parent"] is None
+
+
+# the attrs of each engine's relax and null chunk spans: the window FW's
+# name their engine and rounds and the dense null's its route; the band's
+# are as before (its FW's graph mode alone)
+RELAX_ATTRS = {"auto": {"engine": "window", "rounds": -(-N_NODES // 128)},
+               "band": {"graph": "eager"}}
+CHUNK_ATTRS = {"auto": {"route": "dense"}, "band": {}}
+
+
+@pytest.mark.parametrize("mode", sorted(ENGINES))
+def test_relax_and_chunk_spans_name_their_engine(mode, tmp_path):
+    sf = _session(mode)
+    with profiling.trace(str(tmp_path / "tr")):
+        _analysis(sf, *_inputs())
+    assert sf.apsp_engine_used == ENGINES[mode]
+    recs = profiling.span_records()
+    relax = [r["attrs"] for r in recs if r["name"] == "neighborhoods.relax"]
+    assert relax == [RELAX_ATTRS[mode]]
+    chunks = [r["attrs"] for r in recs
+              if r["name"] in ("enrichment.permute", "enrichment.count")]
+    assert len(chunks) == 2 * math.ceil(N_PERM / BATCH)
+    assert all(a == CHUNK_ATTRS[mode] for a in chunks)
+
+
+def test_annotate_adds_to_the_innermost_open_span():
+    profiling.annotate(x=1)   # off: nothing, and no error
+    assert len(profiling.SPANS) == 0
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        profiling.annotate(y=0)   # no open span: nothing
+        with profiling.span("outer", a=1):
+            with profiling.span("inner"):
+                profiling.annotate(n=3)
+            profiling.annotate(m=4)
+    recs = profiling.span_records()
+    assert [(r["name"], r["attrs"]) for r in recs] == [
+        ("outer", {"a": 1, "m": 4}), ("inner", {"n": 3})]
