@@ -225,13 +225,13 @@ class Span:
         return False
 
 
-def span(name: str, **attrs):
+def span(name: str, /, **attrs):
     """A context manager marking one phase of an analysis. While a
     ``torch.profiler`` session records on this process it opens a
     ``record_function(name)`` range and appends a :class:`Span` record
-    (with ``attrs``) to ``SPANS``; it yields the record, whose ``attrs`` the
-    block may add to. Otherwise it does nothing and yields None. Spans
-    never synchronize a device."""
+    (with ``attrs``, which may hold a ``name`` of their own) to ``SPANS``;
+    it yields the record, whose ``attrs`` the block may add to. Otherwise
+    it does nothing and yields None. Spans never synchronize a device."""
     if not _profiler_enabled():
         return _NULL_SPAN
     return Span(name, attrs)

@@ -92,6 +92,7 @@ from safepy_tpu_torch import hbm as _hbm
 from safepy_tpu_torch import output as _output
 from safepy_tpu_torch import pipeline as _pipe
 from safepy_tpu_torch import profiling as _prof
+from safepy_tpu_torch import transfer as _transfer
 from safepy_tpu_torch.debug import validate_attributes
 from safepy_tpu_torch.io import attributes as _attr_io
 from safepy_tpu_torch.io import network as _net_io
@@ -567,14 +568,14 @@ class SAFE:
         """The f32 attribute matrix on the device, cached until the
         attributes change: one f64 transfer of the host matrix in row
         blocks, cast and counted on the device
-        (``enrich_band.upload_f32_counted``), which caches the count of
+        (``transfer.upload_f32_counted``), which caches the count of
         :meth:`_num_other_values` too. The span ``facade.attr_prep`` (route
         ``upload``)."""
         if self._n2a_dev is None:
             with _prof.span("facade.attr_prep", route="upload"):
                 self._n2a_dev, self._num_other_cache = \
-                    _eb.upload_f32_counted(self.node2attribute,
-                                           device=self.device)
+                    _transfer.upload_f32_counted(self.node2attribute,
+                                                 device=self.device)
         return self._n2a_dev
 
     def _num_other_values(self) -> int:
@@ -676,7 +677,8 @@ class SAFE:
                 # residency): the host view, as for a pickle
                 self._nes_np = _nes_from_logsf_host(self._logsf_dev.numpy())
             elif self._nes_device() is not None:
-                self._nes_np = self._nes_dev.cpu().numpy().astype(np.float64)
+                with _prof.span("facade.results", name="nes"):
+                    self._nes_np = _transfer.download_f64(self._nes_dev)
             elif self._nes_from_logsf and self._logsf_np is not None:
                 # the pickled log-survival: the f64 divide and f32 round of
                 # _nes_device(), on the host (safe.py:607-614)
@@ -746,10 +748,15 @@ class SAFE:
 
     @property
     def nes_binary(self):
-        if self._nes_binary_np is None and (
-                self._nes_binary_dev is not None
-                or self._nes_binary_i8_np is not None):
-            self._nes_binary_np = self._nes_binary_small().astype(float)
+        if self._nes_binary_np is None:
+            if self._nes_binary_pending is not None:
+                self._update_binary_enrichment()
+            src = (self._nes_binary_i8_np
+                   if self._nes_binary_i8_np is not None
+                   else self._nes_binary_dev)
+            if src is not None:
+                with _prof.span("facade.results", name="nes_binary"):
+                    self._nes_binary_np = _transfer.download_f64(src)
         return self._nes_binary_np
 
     @nes_binary.setter

@@ -1,5 +1,5 @@
 """The attribute matrix's preparation on the CPU: the f32 matrix that
-``enrich_band.upload_f32_counted`` makes from f64 row blocks is bitwise
+``transfer.upload_f32_counted`` makes from f64 row blocks is bitwise
 numpy's cast and its count is the host predicate's, whatever the layout
 and wherever the blocks end; the facade makes it once an attribute load
 and reuses it, and the span ``facade.attr_prep`` names the route that
@@ -10,7 +10,7 @@ import pytest
 import torch
 from scipy.spatial import cKDTree
 
-from safepy_tpu_torch import SAFE, profiling
+from safepy_tpu_torch import SAFE, profiling, transfer
 from safepy_tpu_torch.io.graph_arrays import edge_lengths
 from safepy_tpu_torch.ops import enrich_band as peb
 
@@ -51,9 +51,9 @@ def test_upload_is_the_host_cast(monkeypatch, layout):
     """Bitwise ``np.asarray(m, np.float32)``, and the count of its finite
     values that are not 0 or 1, from blocks of BLOCK_ROWS rows at N_COLS
     columns (the last block short)."""
-    monkeypatch.setattr(peb, "_GROUP_ELEMS", 4 * BLOCK_ROWS * N_COLS)
+    monkeypatch.setattr(transfer, "_BLOCK_ELEMS", BLOCK_ROWS * N_COLS)
     m = LAYOUTS[layout](_planted())
-    got, count = peb.upload_f32_counted(m, device="cpu")
+    got, count = transfer.upload_f32_counted(m, device="cpu")
     with np.errstate(over="ignore"):
         want = np.asarray(m, np.float32)
     assert got.dtype == torch.float32 and got.shape == m.shape
@@ -73,11 +73,11 @@ def test_upload_is_the_host_cast(monkeypatch, layout):
 def test_upload_counts_across_blocks(monkeypatch):
     """A value that is not 0 or 1 in each block, one in the short last
     block: every block's count reaches the total."""
-    monkeypatch.setattr(peb, "_GROUP_ELEMS", 4 * BLOCK_ROWS * N_COLS)
+    monkeypatch.setattr(transfer, "_BLOCK_ELEMS", BLOCK_ROWS * N_COLS)
     m = np.zeros((N_ROWS, N_COLS))
     m[::BLOCK_ROWS, 5] = 0.25
     m[-1, -1] = 7.0
-    got, count = peb.upload_f32_counted(m, device="cpu")
+    got, count = transfer.upload_f32_counted(m, device="cpu")
     assert count == -(-N_ROWS // BLOCK_ROWS) + 1
     np.testing.assert_array_equal(got.numpy(), m.astype(np.float32))
 
@@ -119,12 +119,12 @@ def test_one_transfer_an_attribute_load(band_go, monkeypatch):
     matrix and count."""
     sf, go = band_go
     calls = []
-    upload = peb.upload_f32_counted
+    upload = transfer.upload_f32_counted
 
     def counted(n2a_np, *, device):
         calls.append(n2a_np.shape)
         return upload(n2a_np, device=device)
-    monkeypatch.setattr(peb, "upload_f32_counted", counted)
+    monkeypatch.setattr(transfer, "upload_f32_counted", counted)
     monkeypatch.setattr(peb, "count_other_values_chunked", None)  # unused
     sf.load_attributes(attribute_file=go)
     sf.run_pipeline()

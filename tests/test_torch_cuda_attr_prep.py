@@ -1,4 +1,4 @@
-"""The attribute matrix's upload (``enrich_band.upload_f32_counted``) on the
+"""The attribute matrix's upload (``transfer.upload_f32_counted``) on the
 card against numpy's f32 cast uploaded whole. Every test needs an NVIDIA GPU
 and skips without one; like tests/test_torch_cuda.py this file imports no
 jax:
@@ -16,8 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from safepy_tpu_torch import hbm
-from safepy_tpu_torch.ops import enrich_band as peb
+from safepy_tpu_torch import hbm, transfer
 
 pytestmark = pytest.mark.cuda
 
@@ -58,7 +57,7 @@ def test_gobp_shape_is_the_host_cast_within_the_prep_peak(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    got, count = peb.upload_f32_counted(m, device=dev)
+    got, count = transfer.upload_f32_counted(m, device=dev)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     assert peak <= hbm.prep_peak(n, a, chunked=False), peak
@@ -73,7 +72,7 @@ def test_planted_values_are_the_host_cast(dev, layout):
     m = np.random.default_rng(0).choice(PLANTED, (3001, 37))
     m = {"C": m, "fortran": np.asfortranarray(m), "strided": m[:, ::2],
          "one-column": m[:, :1], "reversed": m[::-1, ::-1]}[layout]
-    got, count = peb.upload_f32_counted(m, device=dev)
+    got, count = transfer.upload_f32_counted(m, device=dev)
     want, want_count = _host_upload(m, dev)
     assert torch.equal(_bits(got), _bits(want))
     assert count == want_count

@@ -10,7 +10,8 @@ recorded; and the outputs are bitwise equal with spans on and off. The
 dense fused GO path (the certified window) leaves its front,
 ``enrichment.go``, the census and the f64 tail (``enrichment.go_tail``:
 cells, bound, the bodies run) or the class table and lookup; every tail
-loop route counts its bodies."""
+loop route counts its bodies. Reading ``sf.nes`` and ``sf.nes_binary``
+records one ``facade.results`` root each, with the result's name."""
 
 import collections
 import json
@@ -38,7 +39,8 @@ PARENTS = {"facade.load_attributes": {None},
            "enrichment.go_census": {"enrichment.go"},
            "enrichment.go_table": {"enrichment.go"},
            "enrichment.go_lookup": {"enrichment.go"},
-           "facade.wait": {"facade.run_pipeline", "enrichment.go"}}
+           "facade.wait": {"facade.run_pipeline", "enrichment.go"},
+           "facade.results": {None}}
 WAIT_PARENT = {"go_K": "facade.run_pipeline", "go_n_max": "enrichment.go"}
 
 
@@ -159,6 +161,32 @@ def test_go_spans_nest_and_carry_the_plan(_fresh, tmp_path):
     with open(prof.trace_path) as f:
         traced = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert set(PARENTS) <= traced
+
+
+@pytest.mark.parametrize("first", ["nes", "nes_binary"])
+def test_result_reads_are_spans_of_their_own(tmp_path, first):
+    """Reading ``sf.nes`` and ``sf.nes_binary`` after a GO run, either
+    first, records one ``facade.results`` root each (attr ``name``), and a
+    second read none; off the profiler nothing."""
+    order = (first, ({"nes", "nes_binary"} - {first}).pop())
+    sf, go = _session()
+    sf.load_attributes(attribute_file=go)
+    sf.run_pipeline()
+    with profiling.trace(str(tmp_path / "tr")) as prof:
+        got = {name: getattr(sf, name) for name in order}
+        assert all(getattr(sf, name) is got[name] for name in order)
+    recs = profiling.span_records()
+    assert [(r["name"], r["parent"], r["attrs"]) for r in recs] == [
+        ("facade.results", None, dict(name=name)) for name in order]
+    assert {a.nbytes for a in got.values()} == {8 * N_NODES * TERMS}
+    with open(prof.trace_path) as f:
+        traced = [e.get("name") for e in json.load(f)["traceEvents"]]
+    assert traced.count("facade.results") >= 2
+    profiling.reset_spans()
+    sf.load_attributes(attribute_file=go)
+    sf.run_pipeline()
+    _ = sf.nes, sf.nes_binary
+    assert len(profiling.SPANS) == 0
 
 
 def test_go_spans_change_no_output(tmp_path):
